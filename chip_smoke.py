@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``dplasma_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. build every hand-written kernel from the sources in this checkout
+   (one nvcc per source, all started together) and print the build time;
+2. hold each kernel against its plain PyTorch version on the card, on
+   ragged shapes and on the shapes the main path gives it, and time the
+   kernel, the plain version, the one PyTorch call that computes the same
+   function (the yardstick only; the port never calls it in place of the
+   kernel) and the bound;
+3. the main path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
+   port's driver with K1 enabled. Kernel launch counts are zeroed just
+   before and read just after; every update product of each
+   factorization must have gone through K1 (2·nt − 3 = 29 launches), the
+   -x checks must pass, and a small factorization on the card must agree
+   with a float64 Cholesky on the host;
+4. ``testing_dpotrf -N 8192 -t 1024 -x`` (native FP64, no kernel by
+   design) and ``testing_sgemm -N 8192 -K 8192 -x`` through K1.
+
+It prints the card's name and power limit, one JSON line describing
+every kernel, and as its last line ``{"ok": true, "device": {...}}``.
+A JSON record of the run also goes to ``chiprun_out/chip_smoke.json``.
+Without CUDA, or without the rest of the repository beside it, it exits
+non-zero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+FP32_FLOPS = 67e12          # CUDA-core FFMA
+TF32_FLOPS = 495e12         # tensor cores
+BF16_FLOPS = 989e12         # tensor cores
+HBM_BYTES_S = 3.35e12
+
+N_MAIN, NB_MAIN = 16384, 1024
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, reps=3):
+    """Mean device time of one call, by CUDA events over ``reps`` calls
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gemm_bound_ms(M, N, K, itemsize, has_c, peak_flops):
+    """Least time for the product: the larger of its operations over the
+    peak rate and its bytes (each input read once, the output written
+    once) over the HBM rate."""
+    flops = 2.0 * M * N * K
+    nbytes = itemsize * (M * K + K * N + M * N * (2 if has_c else 1))
+    t_ops, t_bytes = flops / peak_flops, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def main_path_products(n, nb):
+    """(M, K, N) of every K1 product of one spotrf factorization at
+    lookahead 1: the narrow product of column k (k >= 1) and the
+    aggregated far product (k >= 2)."""
+    nt = n // nb
+    shapes = []
+    for k in range(1, nt):
+        m = n - k * nb
+        shapes.append((m, nb, nb))
+        if k >= 2:
+            shapes.append((m, (k - 1) * nb, nb))
+    return shapes
+
+
+def rel_fro(torch, got, want):
+    want = want.double()
+    return float(torch.linalg.norm(got.double() - want)
+                 / torch.linalg.norm(want))
+
+
+def k1_case(torch, pk, M, K, N, dtype, beta, b_view, seed, f64=False):
+    """K1 against gemm_reference on one shape: (rel Frobenius error,
+    max abs error, kernel ms, plain ms, torch.matmul ms, rel Frobenius
+    error against a float64 product when ``f64``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+    if b_view:   # B as blas.dot(..., tb=True) hands it over: a b.T view
+        b = torch.randn(N, K, device="cuda", generator=g).to(dtype).T
+    else:
+        b = torch.randn(K, N, device="cuda", generator=g).to(dtype)
+    c = torch.randn(M, N, device="cuda", generator=g).to(dtype) \
+        if beta != 0.0 else None
+    alpha = 1.5 if beta != 0.0 else 1.0
+    got = pk.gemm(a, b, c, alpha=alpha, beta=beta)
+    want = pk.gemm_reference(a, b, c, alpha=alpha, beta=beta)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and tuple(got.shape) == (M, N),
+          f"K1 output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "K1 output not finite")
+    rel = rel_fro(torch, got, want)
+    mabs = float((got.float() - want.float()).abs().max())
+    rel64 = None
+    if f64:
+        exact = alpha * (a.double() @ b.double())
+        if c is not None:
+            exact += beta * c.double()
+        rel64 = rel_fro(torch, got, exact)
+    k_ms = time_ms(torch, lambda: pk.gemm(a, b, c, alpha=alpha, beta=beta))
+    p_ms = time_ms(torch, lambda: pk.gemm_reference(a, b, c, alpha=alpha,
+                                                    beta=beta))
+    if c is None:
+        l_ms = time_ms(torch, lambda: torch.matmul(a, b))
+    else:
+        l_ms = time_ms(torch, lambda: torch.addmm(c, a, b, beta=beta,
+                                                  alpha=alpha))
+    return rel, mabs, k_ms, p_ms, l_ms, rel64
+
+
+def phase_build(record):
+    from dplasma_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    took = _build.build_all()
+    total = time.perf_counter() - t0
+    per = json.dumps({k: round(v, 1) for k, v in took.items()})
+    log(f"[build] kernels {sorted(_build.SOURCES)} built in {total:.1f} s "
+        f"(per source: {per})")
+    for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
+    record["build_s"] = total
+
+
+def phase_k1(torch, pk, record):
+    f32, bf16 = torch.float32, torch.bfloat16
+    ragged = (1000, 777, 1030)
+    cases = [
+        ("ragged f32 beta!=0", *ragged, f32, -0.5, False),
+        ("ragged f32 beta=0", *ragged, f32, 0.0, False),
+        ("ragged bf16 beta!=0", *ragged, bf16, -0.5, False),
+        ("ragged bf16 beta=0", *ragged, bf16, 0.0, False),
+        ("ragged f32 b.T view", *ragged, f32, 0.0, True),
+        ("spotrf narrow (N-s)x1024x1024", N_MAIN - NB_MAIN, NB_MAIN,
+         NB_MAIN, f32, 0.0, True),
+        ("spotrf far (N-s)x(k*1024)x1024", N_MAIN - 8 * NB_MAIN,
+         7 * NB_MAIN, NB_MAIN, f32, 0.0, True),
+    ]
+    rows = []
+    for i, (label, M, K, N, dt, beta, view) in enumerate(cases):
+        rel, mabs, k_ms, p_ms, l_ms, rel64 = k1_case(
+            torch, pk, M, K, N, dt, beta, view, seed=100 + i, f64=True)
+        tname = str(dt).split(".")[-1]
+        peak = FP32_FLOPS if dt == f32 else BF16_FLOPS
+        b_ms, b_by = gemm_bound_ms(M, N, K, 4 if dt == f32 else 2,
+                                   beta != 0.0, peak)
+        ok = rel <= TOL[tname]
+        log(f"[k1] {label:32s} M={M:5d} K={K:5d} N={N:5d} {tname:8s} "
+            f"rel_fro={rel:.3e} (tol {TOL[tname]:.0e}; vs f64 "
+            f"{rel64:.3e}) "
+            f"kernel {k_ms:9.3f} ms  plain {p_ms:9.3f} ms  "
+            f"torch {l_ms:9.3f} ms  bound {b_ms:8.3f} ms ({b_by})")
+        rows.append({"case": label, "M": M, "K": K, "N": N, "dtype": tname,
+                     "beta": beta, "b_view": view, "rel_fro": rel,
+                     "rel_fro_vs_f64": rel64,
+                     "max_abs_err": mabs, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        check(ok, f"K1 disagrees with gemm_reference on {label}: "
+                  f"rel_fro {rel:.3e} > {TOL[tname]:.0e}")
+    record["k1_cases"] = rows
+
+    # every product of one main-path factorization, timed in turn
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bound_3xtf32_ms": 0.0, "max_abs_err": 0.0, "rel_fro": 0.0}
+    shapes = main_path_products(N_MAIN, NB_MAIN)
+    for i, (M, K, N) in enumerate(shapes):
+        rel, mabs, k_ms, p_ms, l_ms, _ = k1_case(torch, pk, M, K, N, f32,
+                                                 0.0, True, seed=200 + i)
+        check(rel <= TOL["float32"],
+              f"K1 disagrees on main-path shape {(M, K, N)}: {rel:.3e}")
+        b_ms, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["library_ms"] += l_ms
+        tot["bound_ms"] += b_ms
+        tot["bound_3xtf32_ms"] += 1e3 * 3 * 2.0 * M * N * K / TF32_FLOPS
+        tot["max_abs_err"] = max(tot["max_abs_err"], mabs)
+        tot["rel_fro"] = max(tot["rel_fro"], rel)
+    gflop = sum(2.0 * M * N * K for M, K, N in shapes) / 1e9
+    log(f"[k1] one spotrf's {len(shapes)} products ({gflop:.0f} GFLOP): "
+        f"kernel {tot['ms']:.3f} ms ({gflop / tot['ms']:.1f} TFLOP/s)  "
+        f"plain {tot['plain_ms']:.3f} ms  torch {tot['library_ms']:.3f} ms  "
+        f"bound {tot['bound_ms']:.3f} ms (FP32 FFMA peak)  "
+        f"3xTF32 bound {tot['bound_3xtf32_ms']:.3f} ms  "
+        f"max rel_fro {tot['rel_fro']:.3e}")
+    record["k1_main_path"] = dict(tot, products=len(shapes), gflop=gflop)
+    return tot, len(shapes)
+
+
+def phase_spotrf(torch, pk, record):
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+
+    pk.enable(True)
+    nt = N_MAIN // NB_MAIN
+    want_per_run = 2 * nt - 3
+    common.RUNS.clear()
+    pk.reset_counts()
+    t0 = time.perf_counter()
+    rc = main(["testing_spotrf", "-N", str(N_MAIN), "-t", str(NB_MAIN),
+               "-x", "-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routed = pk.LAUNCHES, pk.ROUTED
+    check(rc == 0, f"testing_spotrf exited {rc}")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    checks = {c["check"]: c for c in run["checks"]}
+    log(f"[spotrf] N={N_MAIN} nb={NB_MAIN} input "
+        f"{N_MAIN * N_MAIN * 4 / 2**30:.2f} GiB: best {op['best_s']:.5f} s "
+        f"{op['gflops']:.1f} GFLOP/s (warm-up {op['warmup_s']:.3f} s, "
+        f"driver wall {wall:.1f} s); K1 launches per factorization "
+        f"{op['k1_launches']} (want {want_per_run}), in the whole run "
+        f"{launches} (routed {routed}); POTRF residual "
+        f"{checks['POTRF']['residual']:.3e}, POTRS residual "
+        f"{checks['POTRS |b-Ax|']['residual']:.3e}")
+    check(all(n == want_per_run for n in op["k1_launches"]),
+          f"K1 launches per factorization {op['k1_launches']} != "
+          f"{want_per_run}")
+    check(checks["POTRF"]["ok"] and checks["POTRF"]["residual"] < 60,
+          "check_potrf failed")
+    check(checks["POTRS |b-Ax|"]["ok"], "POTRS check failed")
+    record["spotrf"] = {"N": N_MAIN, "nb": NB_MAIN, "best_s": op["best_s"],
+                        "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+                        "k1_launches_per_factorization": op["k1_launches"],
+                        "k1_launches_run": launches, "checks": run["checks"]}
+
+    # a small input on the card against a float64 Cholesky on the host
+    A = generators.plghe(2048.0, 2048, 256, seed=7)
+    L = potrf_mod.potrf(A, "L").to_dense()
+    L64 = torch.linalg.cholesky(A.to_dense().double().cpu())
+    err = float((L.double().cpu() - L64).abs().max() / L64.abs().max())
+    log(f"[spotrf] N=2048 nb=256 factor vs float64 host Cholesky: "
+        f"max rel err {err:.3e} (tol 1e-4)")
+    check(bool(torch.isfinite(L).all()) and err <= 1e-4,
+          f"small factorization disagrees with float64: {err:.3e}")
+    record["spotrf_small_rel_err"] = err
+    return launches
+
+
+def phase_more_drivers(torch, pk, record):
+    from dplasma_tpu_torch.drivers import common, main
+    pk.enable(True)
+    out = {}
+    for argv, want_k1 in (
+            (["testing_dpotrf", "-N", "8192", "-t", "1024", "-x"], False),
+            (["testing_sgemm", "-N", "8192", "-K", "8192", "-x"], True)):
+        before = pk.LAUNCHES
+        rc = main(argv)
+        torch.cuda.synchronize()
+        n = pk.LAUNCHES - before
+        run = common.RUNS[-1]
+        op = run["ops"][0]
+        log(f"[{argv[0]}] {' '.join(argv[1:])}: best {op['best_s']:.5f} s "
+            f"{op['gflops']:.1f} GFLOP/s, K1 launches {n}, checks "
+            + ", ".join(f"{c['check']}={c['residual']:.3e}"
+                        for c in run["checks"]))
+        check(rc == 0, f"{argv[0]} exited {rc}")
+        check((n >= 1) if want_k1 else (n == 0),
+              f"{argv[0]}: K1 launches {n}")
+        out[argv[0]] = {"argv": argv[1:], "best_s": op["best_s"],
+                        "gflops": op["gflops"], "k1_launches": n,
+                        "checks": run["checks"]}
+    record["drivers"] = out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from dplasma_tpu_torch.kernels import pallas_kernels as pk
+
+    record = {"device": torch.cuda.get_device_name(0)}
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {record['device']}")
+    phase_build(record)
+    tot, nprod = phase_k1(torch, pk, record)
+    launches = phase_spotrf(torch, pk, record)
+    phase_more_drivers(torch, pk, record)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    record["nvidia_smi"] = smi
+    kernels = {"kernels": [{
+        "name": "k1_gemm", "route": "cuda",
+        "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
+        "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
+        "launches": launches, "max_abs_err": tot["max_abs_err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": "operations",
+        "library_ms": tot["library_ms"]}]}
+    record.update(kernels)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump(record, f, indent=1)
+    log(f"[note] kernel ms/plain_ms/bound_ms/library_ms are sums over the "
+        f"{nprod} K1 products of one spotrf factorization (N={N_MAIN}, "
+        f"nb={NB_MAIN}); launches counts the whole main-path driver run")
+    log(smi)
+    log(json.dumps(kernels))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,212 @@
+"""Tile-matrix descriptors and storage.
+
+Ports ``dplasma_tpu/descriptors.py``. A :class:`TileMatrix` is ONE
+padded 2-D ``torch.Tensor`` carrying a static :class:`TileDesc`; tiles
+are slices (views) of it.
+
+Padding semantics are the reference's: ``data`` has shape
+(MT*mb, NT*nb); the region beyond (M, N) is owned by the framework.
+Generators write zeros there, and factorizations that need a
+nonsingular padded diagonal install an identity pad via
+:meth:`TileMatrix.pad_diag`. Residual checks slice back to (M, N).
+
+State crosses between the two packages through
+:meth:`TileMatrix.from_reference` / :meth:`TileMatrix.to_reference`:
+a numpy array of the padded storage plus a plain dict with the fields
+of the reference's ``TileDesc`` (``dataclasses.asdict`` of it), so both
+packages can factor the very same padded array.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dplasma_tpu_torch import resolve_device
+
+
+def _ceildiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """Block-cyclic distribution descriptor: process grid P×Q,
+    supertile factors kp/kq, grid offsets ip/jq (ref
+    tests/testing_zpotrf.c:100-103). Recorded only: the port runs on
+    one device until the distribution slice."""
+
+    P: int = 1
+    Q: int = 1
+    kp: int = 1
+    kq: int = 1
+    ip: int = 0
+    jq: int = 0
+
+    def __post_init__(self):
+        if self.P < 1 or self.Q < 1 or self.kp < 1 or self.kq < 1:
+            raise ValueError(f"invalid distribution {self}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TileDesc:
+    """Static shape/tiling metadata for a tile matrix."""
+
+    M: int
+    N: int
+    mb: int
+    nb: int
+    dist: Dist = Dist()
+
+    def __post_init__(self):
+        if self.M < 0 or self.N < 0 or self.mb < 1 or self.nb < 1:
+            raise ValueError(f"invalid descriptor {self}")
+
+    @property
+    def MT(self) -> int:
+        return max(1, _ceildiv(self.M, self.mb))
+
+    @property
+    def NT(self) -> int:
+        return max(1, _ceildiv(self.N, self.nb))
+
+    @property
+    def Mp(self) -> int:
+        """Padded row count."""
+        return self.MT * self.mb
+
+    @property
+    def Np(self) -> int:
+        """Padded column count."""
+        return self.NT * self.nb
+
+    @property
+    def KT(self) -> int:
+        """Number of diagonal tiles."""
+        return min(self.MT, self.NT)
+
+    def to_dict(self) -> dict:
+        """The reference ``TileDesc``'s fields as a plain dict."""
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "TileDesc":
+        dist = d.get("dist") or {}
+        if isinstance(dist, dict):
+            dist = Dist(**dist)
+        return TileDesc(int(d["M"]), int(d["N"]), int(d["mb"]),
+                        int(d["nb"]), dist)
+
+
+@dataclasses.dataclass
+class TileMatrix:
+    """A tiled matrix: padded 2-D storage of shape ``(desc.Mp, desc.Np)``;
+    entries beyond ``(M, N)`` are padding (see module docstring)."""
+
+    data: torch.Tensor
+    desc: TileDesc
+
+    # -- construction -------------------------------------------------
+    @staticmethod
+    def zeros(M: int, N: int, mb: int, nb: int, dtype=torch.float32,
+              dist: Dist = Dist(), device=None) -> "TileMatrix":
+        d = TileDesc(M, N, mb, nb, dist)
+        return TileMatrix(torch.zeros((d.Mp, d.Np), dtype=dtype,
+                                      device=resolve_device(device)), d)
+
+    @staticmethod
+    def from_dense(a: torch.Tensor, mb: int, nb: int,
+                   dist: Dist = Dist()) -> "TileMatrix":
+        M, N = a.shape
+        d = TileDesc(M, N, mb, nb, dist)
+        if (d.Mp, d.Np) == (M, N):
+            return TileMatrix(a.clone(), d)
+        data = torch.zeros((d.Mp, d.Np), dtype=a.dtype, device=a.device)
+        data[:M, :N] = a
+        return TileMatrix(data, d)
+
+    @staticmethod
+    def from_reference(data: np.ndarray, desc: dict,
+                       device=None) -> "TileMatrix":
+        """The padded storage and descriptor of a reference
+        ``TileMatrix`` (``np.asarray(A.data)``,
+        ``dataclasses.asdict(A.desc)``) as a port TileMatrix on
+        ``device``."""
+        d = TileDesc.from_dict(desc)
+        t = torch.from_numpy(np.array(data, copy=True)).to(
+            resolve_device(device))
+        if tuple(t.shape) != (d.Mp, d.Np):
+            raise ValueError(f"storage {tuple(t.shape)} does not match "
+                             f"descriptor ({d.Mp}, {d.Np})")
+        return TileMatrix(t, d)
+
+    def to_reference(self) -> tuple:
+        """``(padded storage as numpy, descriptor dict)`` — the inverse
+        of :meth:`from_reference`."""
+        return self.data.detach().cpu().numpy(), self.desc.to_dict()
+
+    def like(self, data: torch.Tensor) -> "TileMatrix":
+        assert data.shape == self.data.shape, (data.shape, self.data.shape)
+        return TileMatrix(data, self.desc)
+
+    # -- basic properties ---------------------------------------------
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def shape(self):
+        return (self.desc.M, self.desc.N)
+
+    # -- views ---------------------------------------------------------
+    def to_dense(self) -> torch.Tensor:
+        return self.data[: self.desc.M, : self.desc.N]
+
+    def tile(self, i: int, j: int) -> torch.Tensor:
+        """Tile (i, j) as an (mb, nb) view."""
+        mb, nb = self.desc.mb, self.desc.nb
+        return self.data[i * mb:(i + 1) * mb, j * nb:(j + 1) * nb]
+
+    # -- padding management -------------------------------------------
+    def zero_pad(self) -> "TileMatrix":
+        """Force the padding region to zero (a copy when there is
+        padding; ``self`` when there is none)."""
+        M, N = self.desc.M, self.desc.N
+        Mp, Np = self.desc.Mp, self.desc.Np
+        if Mp == M and Np == N:
+            return self
+        data = self.data.clone()
+        data[M:, :] = 0
+        data[:M, N:] = 0
+        return self.like(data)
+
+    def pad_diag(self, value=1.0) -> "TileMatrix":
+        """Set the padded diagonal to ``value`` (and pad off-diag to
+        zero), so chol/LU/trsm of blkdiag(A, value*I) leave the (M, N)
+        region exact."""
+        d = self.desc
+        K = min(d.M, d.N)
+        Kp = min(d.Mp, d.Np)
+        out = self.zero_pad()
+        if Kp == K:
+            return out
+        idx = torch.arange(K, Kp, device=self.device)
+        out.data[idx, idx] = value
+        return out
+
+    def subtile_view(self, i: int, j: int, mb2: int, nb2: int) \
+            -> "TileMatrix":
+        """Tile (i, j) as its own TileMatrix with finer mb2×nb2 tiling
+        (the ``subtile_desc_create`` analogue backing -z/--HNB)."""
+        return TileMatrix.from_dense(self.tile(i, j), mb2, nb2)
+
+    def __repr__(self):
+        d = self.desc
+        return (f"TileMatrix({d.M}x{d.N}, tiles {d.mb}x{d.nb} "
+                f"[{d.MT}x{d.NT}], dist P={d.dist.P} Q={d.dist.Q}, "
+                f"{self.data.dtype}, {self.data.device})")

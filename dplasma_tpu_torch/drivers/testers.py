@@ -1,0 +1,63 @@
+"""The testing_* driver bodies of this slice: ``potrf`` and ``gemm``.
+
+Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214): seeded
+generation → timed run with the GFLOPS print → optional ``-x`` residual
+verification against the regenerated input.
+"""
+from __future__ import annotations
+
+import torch
+
+from dplasma_tpu_torch.drivers.common import Driver
+from dplasma_tpu_torch.ops import blas3, checks, generators
+from dplasma_tpu_torch.ops import potrf as potrf_mod
+from dplasma_tpu_torch.utils import flops as lawn41
+
+
+def _gen(drv: Driver, M, N, seed_off=0, kind="rnt"):
+    ip = drv.ip
+    dt = ip.prec_dtype
+    if kind == "he":
+        return generators.plghe(float(N), N, ip.NB, seed=ip.seed + seed_off,
+                                dtype=dt, device=drv.device)
+    return generators.plrnt(M, N, ip.MB, ip.NB, seed=ip.seed + seed_off,
+                            dtype=dt, device=drv.device)
+
+
+def gemm(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.K)
+    B = _gen(drv, ip.K, ip.N, 1)
+    C = _gen(drv, ip.M, ip.N, 2)
+    alpha, beta = (0.51, -0.42)
+    out, _ = drv.progress(
+        lambda a, b, c: blas3.gemm(alpha, a, b, beta, c), (A, B, C),
+        lawn41.gemm(ip.M, ip.N, ip.K, ip.prec_dtype.is_complex))
+    if ip.check:
+        ref = alpha * (A.to_dense() @ B.to_dense()) + beta * C.to_dense()
+        got = out.to_dense()
+        eps = checks._eps(ref.dtype)
+        r = float(torch.max(torch.abs(ref - got))
+                  / (torch.max(torch.abs(ref)) + 1.0))
+        return drv.report_check("GEMM", r, r < 60 * eps * ip.K)
+    return 0
+
+
+def potrf(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    hnb = max(ip.HNB, 0)  # -z/--HNB: recursive diagonal-tile variant
+    L, _ = drv.progress(lambda a: potrf_mod.potrf_rec(a, "L", hnb), (A0,),
+                        lawn41.potrf(ip.N, ip.prec_dtype.is_complex))
+    ret = 0
+    if ip.check:
+        r, ok = checks.check_potrf(A0, L, "L")
+        ret |= drv.report_check("POTRF", r, ok)
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = potrf_mod.potrs(L, B, "L")
+        r, ok = checks.check_axmb(A0, B, X, uplo="L")
+        ret |= drv.report_check("POTRS |b-Ax|", r, ok)
+    return ret
+
+
+DRIVERS = {"gemm": gemm, "potrf": potrf}

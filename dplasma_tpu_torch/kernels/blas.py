@@ -1,0 +1,185 @@
+"""Tile-level compute kernels (the CORE_z* substrate) on tensors.
+
+Ports ``dplasma_tpu/kernels/blas.py``. Products go to the hand-written
+K1 kernel (``kernels.pallas_kernels``) when it is enabled and the
+operands are eligible, else to ``torch.matmul``; the small dense tile
+factorizations and solves go to ``torch.linalg`` (cuSOLVER/cuBLAS on
+the card), as the reference leaves them to ``lax.linalg``.
+
+f32 products are full f32: the package turns TF32 off where it
+initialises (the reference's ``Precision.HIGHEST``, blas.py:27).
+
+The f64-equivalent limb route (MCA ``dd_gemm``) is active only under
+``dd_gemm=always`` — ``auto`` picks it on a TPU alone, and no backend of
+the port is one. That route is not ported yet (ROADMAP queue 1 item 6),
+so it raises rather than silently taking the native FP64 route.
+"""
+from __future__ import annotations
+
+import torch
+
+from dplasma_tpu_torch.kernels import pallas_kernels as _pk
+from dplasma_tpu_torch.utils import config as _cfg
+
+
+def _dd_active(dtype) -> bool:
+    """Should f64/c128 matmuls take the Ozaki limb GEMM? Only under MCA
+    ``dd_gemm=always`` (``auto`` means a TPU, which the port never
+    runs on)."""
+    if dtype not in (torch.float64, torch.complex128):
+        return False
+    return (_cfg.mca_get("dd_gemm") or "auto").lower() == "always"
+
+
+def _dd_unported(what: str):
+    return NotImplementedError(
+        f"{what} under dd_gemm=always needs the f64-equivalent limb "
+        "route (kernels/dd.py and kernel K2), which is not ported yet "
+        "(ROADMAP queue 1 item 6); use dd_gemm=auto for native FP64")
+
+
+def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
+        conj_b: bool = False):
+    """op(a) @ op(b): ``ta``/``tb`` transpose, ``conj_*`` conjugate.
+
+    Transposes are views; K1 reads them through its strides."""
+    res_dtype = torch.promote_types(a.dtype, b.dtype)
+    a = a.to(res_dtype)
+    b = b.to(res_dtype)
+    if conj_a:
+        a = a.conj()
+    if conj_b:
+        b = b.conj()
+    if ta:
+        a = a.T
+    if tb:
+        b = b.T
+    if _dd_active(res_dtype):
+        raise _dd_unported("dot")
+    if _pk.eligible(a, b):
+        return _pk.matmul(a, b).to(res_dtype)
+    return torch.matmul(a, b).to(res_dtype)
+
+
+def gemm(alpha, a, b, beta, c, ta=False, tb=False, conj_a=False,
+         conj_b=False):
+    """C = alpha op(A) op(B) + beta C (CORE_zgemm semantics). Goes to
+    the fused K1 kernel (one read of C) when enabled and eligible; else
+    matmul + axpy."""
+    if (not (conj_a or conj_b) and isinstance(alpha, (int, float))
+            and isinstance(beta, (int, float))):
+        aa = a.T if ta else a
+        bb = b.T if tb else b
+        if _pk.eligible(aa, bb, c):
+            return _pk.gemm(aa, bb, c, alpha=float(alpha),
+                            beta=float(beta))
+    return alpha * dot(a, b, ta, tb, conj_a, conj_b) + beta * c
+
+
+def tri(x, lower: bool = True, unit: bool = False):
+    """The named triangle (optionally with unit diagonal), non-square
+    safe."""
+    t = torch.tril(x) if lower else torch.triu(x)
+    if unit:
+        t = t.clone()
+        t.diagonal().fill_(1)
+    return t
+
+
+def _nan_unless(ok, x):
+    """``x`` where the factorization succeeded, NaN where not — the INFO
+    contract of ops/potrf (no host sync: a device-side select)."""
+    return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def potrf(a, lower: bool = True):
+    """Cholesky of one tile (CORE_zpotrf). Reads only the ``lower``/upper
+    triangle of ``a``; returns the factor with the opposite triangle
+    zeroed; when the tile is not positive definite its triangle is all
+    NaN (as ``lax.linalg.cholesky`` gives)."""
+    if _dd_active(a.dtype):
+        raise _dd_unported("potrf")
+    if lower:
+        f, info = torch.linalg.cholesky_ex(torch.tril(a))
+        return torch.tril(_nan_unless(info == 0, f))
+    f, info = torch.linalg.cholesky_ex(torch.triu(a), upper=True)
+    return torch.triu(_nan_unless(info == 0, f))
+
+
+def _inv_trsm_active() -> bool:
+    """MCA ``trsm_inv=always``: solve as (triangular inverse) x matmul."""
+    return (_cfg.mca_get("trsm_inv") or "auto").lower() == "always"
+
+
+def _op_tri(a, lower: bool, trans: str):
+    """op(A) and the triangle it is stored in after the op."""
+    if trans == "T":
+        return a.T, not lower
+    if trans == "C":
+        return a.mH, not lower
+    return a, lower
+
+
+def trsm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
+    """Triangular solve: op(A) X = alpha B (side=L) or X op(A) = alpha B
+    (side=R). CORE_ztrsm semantics; reads only the named triangle."""
+    if _dd_active(torch.promote_types(a.dtype, b.dtype)):
+        raise _dd_unported("trsm")
+    op_a, op_lower = _op_tri(a, lower, trans)
+    if _inv_trsm_active():
+        n = a.shape[0]
+        eye = torch.eye(n, dtype=a.dtype, device=a.device)
+        inv_op = torch.linalg.solve_triangular(
+            op_a, eye, upper=not op_lower, left=True, unitriangular=unit)
+        if side == "L":
+            return dot(inv_op, alpha * b)
+        return dot(alpha * b, inv_op)
+    return torch.linalg.solve_triangular(
+        op_a, alpha * b, upper=not op_lower, left=(side == "L"),
+        unitriangular=unit)
+
+
+def trmm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
+    """Triangular matrix multiply B = alpha op(A) B (or B op(A))."""
+    t = tri(a, lower=lower, unit=unit)
+    if trans == "T":
+        t = t.T
+    elif trans == "C":
+        t = t.mH
+    if side == "L":
+        return alpha * dot(t, b)
+    return alpha * dot(b, t)
+
+
+def syrk(alpha, a, beta, c, *, lower=True, trans="N"):
+    """C = alpha A A^T + beta C on the full tile (callers keep only the
+    relevant triangle)."""
+    upd = dot(a, a, tb=True) if trans == "N" else dot(a, a, ta=True)
+    return alpha * upd + beta * c
+
+
+def herk(alpha, a, beta, c, *, lower=True, trans="N"):
+    """C = alpha A A^H + beta C (Hermitian rank-k)."""
+    if trans == "N":
+        upd = dot(a, a, tb=True, conj_b=True)
+    else:
+        upd = dot(a, a, ta=True, conj_a=True)
+    return alpha * upd + beta * c
+
+
+def lauum(a, lower: bool = True):
+    """Tile LAUUM: L^H L (lower) or U U^H (upper) of a triangular tile."""
+    if lower:
+        t = torch.tril(a)
+        return dot(t, t, ta=True, conj_a=True)
+    t = torch.triu(a)
+    return dot(t, t, tb=True, conj_b=True)
+
+
+def trtri(a, *, lower=True, unit=False):
+    """Tile triangular inverse via a solve against the identity."""
+    if _dd_active(a.dtype):
+        raise _dd_unported("trtri")
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    return torch.linalg.solve_triangular(a, eye, upper=not lower,
+                                         left=True, unitriangular=unit)

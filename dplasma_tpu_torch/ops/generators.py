@@ -1,0 +1,118 @@
+"""Seeded matrix generators: ``plrnt`` (random) and ``plghe`` (Hermitian,
+diagonally bumped → SPD).
+
+Ports ``dplasma_tpu/ops/generators.py`` bit for bit: every element is
+an avalanche hash of (seed, global row, global col), so the values do
+not depend on tiling, device or package.
+
+torch's ``uint32`` lacks most arithmetic, so the hash runs in ``int64``
+holding values in [0, 2^32). A 32×32-bit product would overflow int64;
+:func:`_mul32` multiplies by the constant's 16-bit halves instead,
+which gives the wrapped uint32 product exactly. The hash then converts
+to the real dtype through float64 (exact below 2^53), whose rounding to
+float32 is round-to-nearest-even — what XLA's uint32 → float32
+conversion does.
+
+Complex dtypes wait for the complex slice of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from dplasma_tpu_torch import resolve_device
+from dplasma_tpu_torch.descriptors import Dist, TileDesc, TileMatrix
+
+_MASK = 0xFFFFFFFF
+_C1 = 0x7feb352d
+_C2 = 0x846ca68b
+_R1 = 0x85ebca6b
+_R2 = 0xc2b2ae35
+_GOLDEN = 0x9e3779b9
+
+# elements hashed per chunk of rows: bounds the int64 temporaries
+_CHUNK_ELEMS = 1 << 24
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32), without int64 overflow."""
+    lo = x * (c & 0xFFFF)                       # < 2^48
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16       # < 2^32
+    return (lo + hi) & _MASK
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32-style avalanche mix on uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, _C2)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _uniform_rows(seed: int, r0: int, r1: int, ncols: int, dtype,
+                  device) -> torch.Tensor:
+    """U(-0.5, 0.5) at global elements [r0, r1) × [0, ncols)."""
+    h0 = _mix(torch.tensor((seed & _MASK) ^ _GOLDEN, device=device))
+    i = torch.arange(r0, r1, dtype=torch.int64, device=device)
+    j = torch.arange(ncols, dtype=torch.int64, device=device)
+    hi = _mix(h0 ^ _mul32(i, _R1))              # per row
+    h = _mix(hi[:, None] ^ _mul32(j, _R2)[None, :])
+    u = h.to(torch.float64).to(dtype) * (2.0 ** -32)
+    return 0.5 - u
+
+
+def _hash_grid(seed: int, desc: TileDesc, dtype, device) -> torch.Tensor:
+    """The uniform value at every (row, col) of the padded grid."""
+    if dtype.is_complex:
+        raise NotImplementedError(
+            "complex generators wait for the complex slice of the port "
+            "(ROADMAP queue 1)")
+    out = torch.empty((desc.Mp, desc.Np), dtype=dtype, device=device)
+    step = max(1, _CHUNK_ELEMS // max(desc.Np, 1))
+    for r0 in range(0, desc.Mp, step):
+        r1 = min(r0 + step, desc.Mp)
+        out[r0:r1] = _uniform_rows(seed, r0, r1, desc.Np, dtype, device)
+    return out
+
+
+def _mask_mn(desc: TileDesc, x: torch.Tensor) -> torch.Tensor:
+    x[desc.M:, :] = 0
+    x[:, desc.N:] = 0
+    return x
+
+
+def _bump_diag(x: torch.Tensor, bump) -> None:
+    d = x.diagonal()
+    d += torch.tensor(bump, dtype=x.dtype, device=x.device)
+
+
+def plrnt(M: int, N: int, mb: int, nb: int, seed: int = 3872,
+          dtype=torch.float32, diagdom: bool = False,
+          dist: Dist = Dist(), device=None) -> TileMatrix:
+    """Random matrix (dplasma_zplrnt). ``diagdom`` adds max(M,N) to the
+    diagonal."""
+    dev = resolve_device(device)
+    desc = TileDesc(M, N, mb, nb, dist)
+    v = _hash_grid(seed, desc, dtype, dev)
+    if diagdom:
+        _bump_diag(v, max(M, N))
+    return TileMatrix(_mask_mn(desc, v), desc)
+
+
+def plghe(bump: float, N: int, nb: int, seed: int = 3872,
+          dtype=torch.float32, mb: int | None = None,
+          dist: Dist = Dist(), device=None) -> TileMatrix:
+    """Symmetric matrix + ``bump`` on the diagonal (dplasma_zplghe for
+    real dtypes). ``bump >= N`` yields a positive-definite matrix."""
+    dev = resolve_device(device)
+    mb = mb or nb
+    desc = TileDesc(N, N, mb, nb, dist)
+    g = _hash_grid(seed, desc, dtype, dev)
+    # element (r, c) takes the hash of the unordered pair (max, min):
+    # the lower triangle of g as it is, the upper mirrored from it
+    v = torch.tril(g)
+    v += torch.triu(g.T, 1)
+    del g
+    _bump_diag(v, bump)
+    return TileMatrix(_mask_mn(desc, v), desc)

@@ -1,0 +1,138 @@
+"""Cholesky factorization: POTRF / POTRS / POSV.
+
+Ports ``dplasma_tpu/ops/potrf.py`` (:44-184, :352-365): the LEFT-looking
+block-column sweep. Step k gathers the update of column k from the
+finished panels — the ``la`` freshest as individual narrow products
+(lookahead), every older one folded into ONE aggregated product over
+the concatenated panels (``far_flush``) — then factors the diagonal
+tile and solves the panel. Every update product goes through
+``quant.update_dot`` → ``kernels.blas.dot``, which sends it to the K1
+kernel when that is enabled and eligible. With lookahead 1 and
+nt = N/nb block columns that is one product for column 1 and two for
+each later column: 2·nt − 3 products per factorization.
+
+Lookahead only regroups products, so every lookahead agrees with the
+reference within rounding. Only the ``uplo`` triangle of the input is
+read; the opposite triangle of the result is zero. INFO (non-SPD input)
+surfaces as NaNs in the factor.
+
+``dag``, the lowmem tier and trtri/lauum/potri/poinv wait for later
+slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.ops import blas3
+from dplasma_tpu_torch.ops._sweep import sweep_params
+
+
+def potrf(A: TileMatrix, uplo: str = "L", *, diag_kernel=None,
+          lookahead=None) -> TileMatrix:
+    """Tile Cholesky: A = L L^H (uplo=L) or A = U^H U (uplo=U).
+
+    ``diag_kernel`` replaces the diagonal-tile factorizer
+    (kernels.blas.potrf) — the recursive-variant hook. ``lookahead``
+    (default MCA ``sweep.lookahead``) is how many of the freshest
+    panels update column k individually; 0 is the per-panel
+    baseline."""
+    la, _ = sweep_params(lookahead)
+    dk = diag_kernel if diag_kernel is not None else k.potrf
+    if A.desc.mb != A.desc.nb or A.desc.M != A.desc.N:
+        raise ValueError(f"potrf needs a square matrix of square tiles, "
+                         f"got {A.desc}")
+    if k._dd_active(A.dtype):
+        raise k._dd_unported("potrf")
+    nt = A.desc.KT
+    mb = A.desc.mb
+    lower = uplo.upper() == "L"
+    X = A.pad_diag().data
+    Mp = X.shape[0]
+
+    # cols[j]: finished block column j (lower: rows j*mb.., width mb;
+    # upper: the mirrored row block), diagonal tile at the top/left.
+    cols = []
+    for kk in range(nt):
+        s = kk * mb
+        fresh_from = max(kk - la, 0) if la > 0 else 0
+        if lower:
+            col = X[s:, s:s + mb]
+            if fresh_from > 0:
+                W = torch.cat([cols[j][s - j * mb:]
+                               for j in range(fresh_from)], dim=1)
+                B = torch.cat([cols[j][s - j * mb:s - j * mb + mb]
+                               for j in range(fresh_from)], dim=1)
+                col = col - _quant.update_dot(W, B, tb=True, conj_b=True)
+            for j in range(fresh_from, kk):
+                Lj = cols[j]
+                off = s - j * mb
+                col = col - _quant.update_dot(
+                    Lj[off:, :], Lj[off:off + mb, :], tb=True, conj_b=True)
+            lkk = dk(col[:mb], lower=True)
+            if s + mb < Mp:
+                pan = k.trsm(lkk, col[mb:], side="R", lower=True,
+                             trans="C")
+                cols.append(torch.cat([lkk, pan], dim=0))
+            else:
+                cols.append(lkk)
+        else:
+            row = X[s:s + mb, s:]
+            if fresh_from > 0:
+                W = torch.cat([cols[j][:, s - j * mb:]
+                               for j in range(fresh_from)], dim=0)
+                B = torch.cat([cols[j][:, s - j * mb:s - j * mb + mb]
+                               for j in range(fresh_from)], dim=0)
+                row = row - _quant.update_dot(B, W, ta=True, conj_a=True)
+            for j in range(fresh_from, kk):
+                Uj = cols[j]
+                off = s - j * mb
+                row = row - _quant.update_dot(
+                    Uj[:, off:off + mb], Uj[:, off:], ta=True, conj_a=True)
+            ukk = dk(row[:, :mb], lower=False)
+            if s + mb < Mp:
+                pan = k.trsm(ukk, row[:, mb:], side="L", lower=False,
+                             trans="C")
+                cols.append(torch.cat([ukk, pan], dim=1))
+            else:
+                cols.append(ukk)
+    full = torch.zeros_like(X)
+    for j, c in enumerate(cols):
+        if lower:
+            full[j * mb:, j * mb:(j + 1) * mb] = c
+        else:
+            full[j * mb:(j + 1) * mb, j * mb:] = c
+    return TileMatrix(full, A.desc)
+
+
+def potrf_rec(A: TileMatrix, uplo: str = "L",
+              hnb: int = 0) -> TileMatrix:
+    """Recursive-variant Cholesky (dplasma_zpotrf_rec, -z/--HNB): the
+    diagonal-tile factorization is itself a nested sweep over ``hnb``
+    subtiles; ``hnb`` of 0 or >= the tile size is plain :func:`potrf`."""
+    if hnb <= 0 or hnb >= A.desc.mb:
+        return potrf(A, uplo)
+
+    def nested(a, lower=True):
+        sub = TileMatrix.from_dense(a, hnb, hnb)
+        return potrf(sub, "L" if lower else "U").to_dense()
+
+    return potrf(A, uplo, diag_kernel=nested)
+
+
+def potrs(A: TileMatrix, B: TileMatrix, uplo: str = "L") -> TileMatrix:
+    """Solve A X = B given the Cholesky factor (dplasma_zpotrs: two
+    blocked TRSM sweeps)."""
+    if uplo.upper() == "L":
+        y = blas3.trsm(1.0, A, B, side="L", uplo="L", trans="N")
+        return blas3.trsm(1.0, A, y, side="L", uplo="L", trans="C")
+    y = blas3.trsm(1.0, A, B, side="L", uplo="U", trans="C")
+    return blas3.trsm(1.0, A, y, side="L", uplo="U", trans="N")
+
+
+def posv(A: TileMatrix, B: TileMatrix, uplo: str = "L"):
+    """Factor + solve (dplasma_zposv). Returns (factor, X)."""
+    L = potrf(A, uplo)
+    return L, potrs(L, B, uplo)

@@ -1,0 +1,84 @@
+"""Port parity: ``dplasma_tpu_torch.descriptors`` against the JAX
+descriptors, and the state hand-over between the two packages."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dplasma_tpu import descriptors as ref
+from dplasma_tpu.ops import generators as ref_gen
+from dplasma_tpu_torch import descriptors as port
+
+SHAPES = [(37, 37, 8, 8), (96, 40, 32, 16), (1, 5, 4, 4), (0, 3, 2, 2),
+          (100, 100, 16, 16)]
+
+
+@pytest.mark.parametrize("M,N,mb,nb", SHAPES)
+def test_tiledesc_fields(M, N, mb, nb):
+    a = ref.TileDesc(M, N, mb, nb)
+    b = port.TileDesc(M, N, mb, nb)
+    for f in ("M", "N", "mb", "nb", "MT", "NT", "Mp", "Np", "KT"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert dataclasses.asdict(a) == b.to_dict()
+
+
+def test_invalid_descriptors_raise():
+    with pytest.raises(ValueError):
+        port.TileDesc(4, 4, 0, 4)
+    with pytest.raises(ValueError):
+        port.Dist(P=0)
+
+
+@pytest.mark.parametrize("M,N,mb,nb", [(37, 37, 8, 8), (30, 21, 8, 16),
+                                       (32, 32, 8, 8)])
+def test_pad_diag_and_to_dense(M, N, mb, nb, rng):
+    x = rng.standard_normal((M, N))
+    a = ref.TileMatrix.from_dense(jnp.asarray(x), mb, nb)
+    b = port.TileMatrix.from_dense(torch.from_numpy(x), mb, nb)
+    np.testing.assert_array_equal(np.asarray(a.data), b.data.numpy())
+    np.testing.assert_array_equal(np.asarray(a.pad_diag().data),
+                                  b.pad_diag().data.numpy())
+    np.testing.assert_array_equal(np.asarray(a.pad_diag(2.5).data),
+                                  b.pad_diag(2.5).data.numpy())
+    np.testing.assert_array_equal(np.asarray(a.to_dense()),
+                                  b.to_dense().numpy())
+    np.testing.assert_array_equal(np.asarray(a.tile(1, 1)),
+                                  b.tile(1, 1).numpy())
+
+
+def test_zero_pad_clears_garbage_and_leaves_input(rng):
+    b = port.TileMatrix.from_dense(torch.ones(5, 6), 4, 4)
+    b.data[5:, :] = 7.0
+    z = b.zero_pad()
+    assert torch.all(z.data[5:, :] == 0) and torch.all(z.data[:, 6:] == 0)
+    assert torch.all(b.data[5:, :] == 7.0)
+
+
+def test_reference_round_trip():
+    A = ref_gen.plghe(37.0, 37, 8, seed=11, dtype=jnp.float64)
+    data, desc = np.asarray(A.data), dataclasses.asdict(A.desc)
+    T = port.TileMatrix.from_reference(data, desc, device="cpu")
+    assert T.desc == port.TileDesc(37, 37, 8, 8)
+    back, back_desc = T.to_reference()
+    np.testing.assert_array_equal(back, data)
+    assert back_desc == desc
+    with pytest.raises(ValueError):
+        port.TileMatrix.from_reference(data[:8], desc, device="cpu")
+
+
+def test_subtile_view():
+    x = torch.arange(64.0).reshape(8, 8)
+    b = port.TileMatrix.from_dense(x, 4, 4)
+    sub = b.subtile_view(1, 0, 2, 2)
+    assert sub.desc == port.TileDesc(4, 4, 2, 2)
+    assert torch.equal(sub.to_dense(), x[4:, :4])
+
+
+def test_zeros_and_device_rule(monkeypatch):
+    z = port.TileMatrix.zeros(5, 7, 4, 4, device="cpu")
+    assert tuple(z.data.shape) == (8, 8) and z.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.TileMatrix.zeros(5, 7, 4, 4)

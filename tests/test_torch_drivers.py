@@ -1,0 +1,81 @@
+"""The port's drivers on the CPU: the slice end to end (generate → factor
+→ -x checks → the reference's perf line), and the CLI parse."""
+import pytest
+import torch
+
+from dplasma_tpu.drivers import common as ref_common
+from dplasma_tpu_torch.drivers import common, main
+from dplasma_tpu_torch.kernels import pallas_kernels as pk
+
+
+@pytest.mark.parametrize("argv", [
+    ["testing_spotrf", "-N", "96", "-t", "32", "-x"],
+    ["testing_dpotrf", "-N", "100", "-t", "16", "-x", "--nruns", "2"],
+    ["testing_dpotrf", "-N", "64", "-t", "32", "-z", "8", "-x"],
+    ["testing_sgemm", "-N", "96", "-M", "80", "-K", "64", "-t", "32", "-x"],
+    ["testing_dgemm", "-N", "50", "-K", "70", "-t", "16", "-x",
+     "--nowarmup"],
+])
+def test_driver_runs_and_checks(argv, capsys):
+    common.RUNS.clear()
+    assert main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[****] TIME(s)" in out
+    assert "FAILED" not in out
+    run = common.RUNS[-1]
+    assert run["device"] == "cpu" and run["checks"]
+    assert all(c["ok"] for c in run["checks"])
+    assert run["ops"][0]["gflops"] > 0
+
+
+def test_spotrf_driver_counts_k1_launch_routes(capsys):
+    """With K1 on, the timed spotrf run routes its 2·3 − 3 update
+    products; on the CPU none of them is a CUDA launch."""
+    pk.enable(True)
+    try:
+        common.RUNS.clear()
+        routed = pk.ROUTED
+        assert main(["testing_spotrf", "-N", "768", "-t", "256", "-x",
+                     "--nowarmup", "--device", "cpu", "-v"]) == 0
+    finally:
+        pk.enable(False)
+    # factorization 3, check_potrf 1, the two potrs sweeps 2 each
+    assert pk.ROUTED - routed == 3 + 1 + 4
+    assert common.RUNS[-1]["ops"][0]["k1_launches"] == [0]
+    assert "K1 launches per run" in capsys.readouterr().out
+
+
+def test_parse_matches_reference_defaults():
+    argv = ["-N", "1000", "-x", "--nruns", "3", "--seed=7", "-v"]
+    ip = common.parse_arguments(argv)
+    rp = ref_common.parse_arguments(argv)
+    for f in ("N", "M", "K", "MB", "NB", "HNB", "HMB", "check", "nruns",
+              "seed", "loud"):
+        assert getattr(ip, f) == getattr(rp, f), f
+    assert common.default_tile(5000) == ref_common.default_tile(5000)
+    assert common.parse_arguments(["-N", "8", "-t", "4", "-T", "2",
+                                   "--device", "cpu"]).NB == 2
+
+
+def test_bad_invocations(capsys):
+    with pytest.raises(SystemExit) as e:
+        common.parse_arguments(["-N", "8", "--qr_a", "2"])
+    assert e.value.code == 2
+    assert main(["testing_sgeqrf", "-N", "8"]) == 2
+    assert main(["testing_spotrf", "--device", "cpu"]) == 2
+    with pytest.raises(SystemExit, match="one device"):
+        main(["testing_spotrf", "-N", "8", "-p", "2", "--device", "cpu"])
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["testing_spotrf", "-N", "32", "-t", "16"])
+
+
+def test_lookahead_flag_is_scoped():
+    from dplasma_tpu_torch.utils import config as cfg
+    before = cfg.mca_snapshot()
+    assert main(["testing_dpotrf", "-N", "40", "-t", "8", "-x",
+                 "--lookahead", "2", "--device", "cpu"]) == 0
+    assert cfg.mca_snapshot() == before
