@@ -11,15 +11,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ragged shapes and on the shapes the main path gives it, and time the
    kernel, the plain version, the one PyTorch call that computes the same
    function (the yardstick only; the port never calls it in place of the
-   kernel) and the bound;
-3. the main path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
+   kernel: K1's is ``torch.matmul``, K3's ``torch.linalg.lu_factor_ex``
+   on cuSOLVER) and the bound;
+3. the Cholesky path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
    port's driver with K1 enabled. Kernel launch counts are zeroed just
    before and read just after; every update product of each
    factorization must have gone through K1 (2·nt − 3 = 29 launches), the
    -x checks must pass, and a small factorization on the card must agree
    with a float64 Cholesky on the host;
-4. ``testing_dpotrf -N 8192 -t 1024 -x`` (native FP64, no kernel by
-   design) and ``testing_sgemm -N 8192 -K 8192 -x`` through K1.
+4. the LU path: ``testing_sgetrf -N 8192 -t 256 -x`` with K1 enabled and
+   ``panel.kernel=pallas``, counts zeroed just before and read just
+   after: every panel of each factorization through K3 (KT = 32) and
+   every Schur product through K1 (2·KT − 3 = 61); the -x check must
+   pass and a smaller factorization must reproduce its input
+   (``a[perm] = L U``); then one factorization under ``torch.profiler``,
+   its device time by kernel and the device's idle share;
+5. ``testing_sgesv -N 8192 -t 256 -x`` (K3 and K1 on),
+   ``testing_dgetrf -N 8192 -t 256 -x`` (default ``panel.kernel=auto``:
+   cuSOLVER in FP64, no kernel by design), ``testing_dpotrf -N 8192 -t
+   1024 -x`` (native FP64, no kernel by design) and ``testing_sgemm -N
+   8192 -K 8192 -x`` through K1.
 
 It prints the card's name and power limit, one JSON line describing
 every kernel, and as its last line ``{"ok": true, "device": {...}}``.
@@ -44,7 +55,9 @@ BF16_FLOPS = 989e12         # tensor cores
 HBM_BYTES_S = 3.35e12
 
 N_MAIN, NB_MAIN = 16384, 1024
+N_LU, NB_LU = 8192, 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+K3_TOL = 1e-4       # max|Δ|/max|packed|; the perm must be bitwise equal
 
 
 class SmokeFailure(Exception):
@@ -98,6 +111,22 @@ def main_path_products(n, nb):
         if k >= 2:
             shapes.append((m, (k - 1) * nb, nb))
     return shapes
+
+
+def lu_bound_ms(M, nb):
+    """Least time for one LU panel: the larger of its LAWN-41 operations
+    over the FP32 peak and its bytes (the panel read once, the packed
+    factor and the int64 perm written once) over the HBM rate."""
+    from dplasma_tpu_torch.utils import flops
+    t_ops = flops.getrf(M, nb) / FP32_FLOPS
+    t_bytes = (2 * M * nb * 4 + M * 8) / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def main_path_panels(n, nb):
+    """Heights of the KT panels of one sgetrf_1d factorization."""
+    return [n - k * nb for k in range(n // nb)]
 
 
 def rel_fro(torch, got, want):
@@ -225,6 +254,98 @@ def phase_k1(torch, pk, record):
     return tot, len(shapes)
 
 
+def cusolver_lu(torch, a):
+    """``torch.linalg.lu_factor_ex`` on cuSOLVER, asked for by name:
+    torch's default backend takes MAGMA for tall panels, ~10x slower."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.lu_factor_ex(a)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def k3_case(torch, plu, a):
+    """K3 against lu_panel_reference on one panel: (perm equal, max abs
+    error, max abs error / max|packed|, kernel ms, plain ms, cuSOLVER
+    getrf ms)."""
+    packed, perm = plu.lu_panel(a)
+    want, wperm = plu.lu_panel_reference(a)
+    torch.cuda.synchronize()
+    check(packed.dtype == torch.float32 and packed.shape == a.shape
+          and perm.shape == (a.shape[0],),
+          f"K3 output {packed.dtype} {tuple(packed.shape)} "
+          f"{tuple(perm.shape)}")
+    check(bool(torch.isfinite(packed).all()), "K3 output not finite")
+    perm_eq = bool(torch.equal(perm, wperm))
+    mabs = float((packed - want).abs().max())
+    rel = mabs / max(float(want.abs().max()), 1e-30)
+    k_ms = time_ms(torch, lambda: plu.lu_panel(a))
+    p_ms = time_ms(torch, lambda: plu.lu_panel_reference(a))
+    l_ms = time_ms(torch, lambda: cusolver_lu(torch, a))
+    return perm_eq, mabs, rel, k_ms, p_ms, l_ms
+
+
+def phase_k3(torch, plu, record):
+    g = torch.Generator(device="cuda").manual_seed(300)
+    tie = torch.randint(-2, 3, (2048, 64), device="cuda", generator=g)
+    tie = tie.float()
+    tie[:, 5] = 0.0          # a zero column: its L must come out 0
+    named = [("sgetrf top panel", (N_LU, NB_LU)),
+             ("sgetrf middle panel", (N_LU // 2, NB_LU)),
+             ("sgetrf last panel", (NB_LU, NB_LU)),
+             ("ragged", (1000, 64)), ("tall narrow", (262144, 8)),
+             ("ties + zero column", tie)]
+    rows = []
+    for label, what in named:
+        a = what if torch.is_tensor(what) else torch.randn(
+            *what, device="cuda", generator=g)
+        M, nb = a.shape
+        perm_eq, mabs, rel, k_ms, p_ms, l_ms = k3_case(torch, plu, a)
+        b_ms, b_by = lu_bound_ms(M, nb)
+        log(f"[k3] {label:20s} M={M:6d} nb={nb:3d} perm "
+            f"{'equal' if perm_eq else 'DIFFERS'} max_abs_err={mabs:.3e} "
+            f"rel={rel:.3e} (tol {K3_TOL:.0e})  kernel {k_ms:8.3f} ms  "
+            f"plain {p_ms:8.3f} ms  cuSOLVER getrf {l_ms:8.3f} ms  "
+            f"bound {b_ms:7.4f} ms ({b_by})")
+        rows.append({"case": label, "M": M, "nb": nb, "perm_equal": perm_eq,
+                     "max_abs_err": mabs, "rel_err": rel, "ms": k_ms,
+                     "plain_ms": p_ms, "library_ms": l_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        check(perm_eq, f"K3 perm differs from lu_panel_reference on {label}")
+        check(rel <= K3_TOL, f"K3 disagrees with lu_panel_reference on "
+                             f"{label}: {rel:.3e} > {K3_TOL:.0e}")
+        if what is tie:
+            check(bool((plu.lu_panel(tie)[0][6:, 5] == 0).all()),
+                  "K3: the zero column's L is not 0")
+    record["k3_cases"] = rows
+
+    # every panel of one main-path factorization, timed in turn
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "rel_err": 0.0}
+    heights = main_path_panels(N_LU, NB_LU)
+    for M in heights:
+        a = torch.randn(M, NB_LU, device="cuda", generator=g)
+        perm_eq, mabs, rel, k_ms, p_ms, l_ms = k3_case(torch, plu, a)
+        check(perm_eq and rel <= K3_TOL,
+              f"K3 disagrees on main-path panel {M}x{NB_LU}: perm "
+              f"{perm_eq}, rel {rel:.3e}")
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["library_ms"] += l_ms
+        tot["bound_ms"] += lu_bound_ms(M, NB_LU)[0]
+        tot["max_abs_err"] = max(tot["max_abs_err"], mabs)
+        tot["rel_err"] = max(tot["rel_err"], rel)
+    tot["max_abs_err"] = max([tot["max_abs_err"]]
+                             + [r["max_abs_err"] for r in rows])
+    log(f"[k3] one sgetrf's {len(heights)} panels ({N_LU}..{NB_LU} x "
+        f"{NB_LU}): kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f} "
+        f"ms  cuSOLVER getrf {tot['library_ms']:.3f} ms  bound "
+        f"{tot['bound_ms']:.3f} ms  max abs err {tot['max_abs_err']:.3e}")
+    record["k3_main_path"] = dict(tot, panels=len(heights))
+    return tot, len(heights)
+
+
 def phase_spotrf(torch, pk, record):
     from dplasma_tpu_torch.drivers import common, main
     from dplasma_tpu_torch.ops import generators
@@ -277,28 +398,172 @@ def phase_spotrf(torch, pk, record):
     return launches
 
 
-def phase_more_drivers(torch, pk, record):
+def phase_sgetrf(torch, pk, plu, record):
     from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import generators, lu
+    from dplasma_tpu_torch.utils import config as cfg
+
     pk.enable(True)
-    out = {}
-    for argv, want_k1 in (
-            (["testing_dpotrf", "-N", "8192", "-t", "1024", "-x"], False),
-            (["testing_sgemm", "-N", "8192", "-K", "8192", "-x"], True)):
-        before = pk.LAUNCHES
-        rc = main(argv)
+    kt = N_LU // NB_LU
+    want_k3, want_k1 = kt, 2 * kt - 3
+    common.RUNS.clear()
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        pk.reset_counts()
+        plu.reset_counts()
+        t0 = time.perf_counter()
+        rc = main(["testing_sgetrf", "-N", str(N_LU), "-t", str(NB_LU),
+                   "-x", "-v"])
         torch.cuda.synchronize()
-        n = pk.LAUNCHES - before
+        wall = time.perf_counter() - t0
+        k1_run, k3_run = pk.LAUNCHES, plu.LAUNCHES
+    check(rc == 0, f"testing_sgetrf exited {rc}")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    chk = {c["check"]: c for c in run["checks"]}["GETRF |b-Ax|"]
+    log(f"[sgetrf] N={N_LU} nb={NB_LU} panel.kernel=pallas K1 on, input "
+        f"{N_LU * N_LU * 4 / 2**20:.0f} MiB: best {op['best_s']:.5f} s "
+        f"{op['gflops']:.1f} GFLOP/s (warm-up {op['warmup_s']:.3f} s, "
+        f"driver wall {wall:.1f} s); per factorization K3 launches "
+        f"{op['k3_launches']} (want {want_k3}), K1 launches "
+        f"{op['k1_launches']} (want {want_k1}); whole run K3 {k3_run}, K1 "
+        f"{k1_run}; GETRF |b-Ax| residual {chk['residual']:.3e}")
+    check(all(n == want_k3 for n in op["k3_launches"]),
+          f"K3 launches per factorization {op['k3_launches']} != {want_k3}")
+    check(all(n == want_k1 for n in op["k1_launches"]),
+          f"K1 launches per factorization {op['k1_launches']} != {want_k1}")
+    check(chk["ok"], "GETRF |b-Ax| check failed")
+    record["sgetrf"] = {"N": N_LU, "nb": NB_LU, "best_s": op["best_s"],
+                        "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+                        "k3_launches_per_factorization": op["k3_launches"],
+                        "k1_launches_per_factorization": op["k1_launches"],
+                        "k3_launches_run": k3_run, "k1_launches_run": k1_run,
+                        "checks": run["checks"]}
+
+    # a smaller factorization on the card reproduces its input
+    A = generators.plrnt(2048, 2048, 256, 256, seed=7)
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        LU, perm = lu.getrf_1d(A)
+    a, f = A.to_dense().double(), LU.to_dense().double()
+    L = torch.tril(f, -1) + torch.eye(2048, device="cuda",
+                                      dtype=torch.float64)
+    err = float((a[perm] - L @ torch.triu(f)).abs().max() / a.abs().max())
+    log(f"[sgetrf] N=2048 nb=256 backward error max|A[perm] - LU|/max|A| "
+        f"= {err:.3e} (tol 1e-4)")
+    check(bool(torch.isfinite(f).all()) and err <= 1e-4,
+          f"small factorization does not reproduce its input: {err:.3e}")
+    check(sorted(perm.tolist()) == list(range(2048)), "perm is no "
+          "permutation")
+    record["sgetrf_small_backward_err"] = err
+    return k1_run, k3_run
+
+
+def _device_ms(ev) -> float:
+    us = getattr(ev, "device_time_total", None)
+    if us is None:
+        us = getattr(ev, "cuda_time_total", 0.0)
+    return (us or 0.0) / 1e3
+
+
+# kernel-name pieces -> the category the breakdown reports them under
+_CATEGORIES = (("K3 (k3_lu_panel)", ("k3_lu_panel",)),
+               ("K1 (k1_gemm)", ("k1_gemm",)),
+               ("trsm (cuBLAS)", ("trsm",)),
+               ("gathers (index, gather)", ("index", "gather", "Gather")),
+               ("cat", ("CatArray",)),
+               ("copies", ("copy", "Copy", "transpose")))
+
+
+def phase_sgetrf_profile(torch, pk, record):
+    """One factorization of the main path under torch.profiler: device
+    time by kernel, by category and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dplasma_tpu_torch.ops import generators, lu
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    A = generators.plrnt(N_LU, N_LU, NB_LU, NB_LU, seed=3872)
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        lu.getrf_1d(A)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lu.getrf_1d(A)
+            end.record()
+            torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = {}
+    for ev in prof.events():
+        ms = _device_ms(ev)
+        if ms and ev.device_type == cuda:
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
+    busy = sum(by_kernel.values())
+    cats = {}
+    for name, ms in by_kernel.items():
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    if not by_kernel:
+        log("[sgetrf profile] the profiler recorded no device time: "
+            "breakdown not measured")
+        record["sgetrf_profile"] = {"wall_ms": wall, "busy_ms": None}
+        return
+    idle = 1.0 - busy / wall
+    log(f"[sgetrf profile] one factorization N={N_LU} nb={NB_LU}: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{100 * idle:.1f}%")
+    for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"[sgetrf profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {cat}")
+    log("[sgetrf profile] top device ops:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[sgetrf profile]   {ms:9.3f} ms  {name[:96]}")
+    record["sgetrf_profile"] = {
+        "wall_ms": wall, "busy_ms": busy, "idle_share": idle,
+        "categories_ms": cats,
+        "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1])[:20])}
+
+
+def phase_more_drivers(torch, pk, plu, record):
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.utils import config as cfg
+    pk.enable(True)
+    kt = N_LU // NB_LU
+    out = {}
+    # argv, MCA, K1 launches per factorization ok?, K3 ... ok?
+    for argv, mca, k1_ok, k3_ok in (
+            (["testing_sgesv", "-N", str(N_LU), "-t", str(NB_LU), "-x"],
+             {"panel.kernel": "pallas"}, lambda n: n >= 2 * kt - 3,
+             lambda n: n == kt),
+            (["testing_dgetrf", "-N", str(N_LU), "-t", str(NB_LU), "-x"],
+             {}, lambda n: n == 0, lambda n: n == 0),
+            (["testing_dpotrf", "-N", "8192", "-t", "1024", "-x"], {},
+             lambda n: n == 0, lambda n: n == 0),
+            (["testing_sgemm", "-N", "8192", "-K", "8192", "-x"], {},
+             lambda n: n >= 1, lambda n: n == 0)):
+        with cfg.override_scope(mca):
+            rc = main(argv)
+        torch.cuda.synchronize()
         run = common.RUNS[-1]
         op = run["ops"][0]
-        log(f"[{argv[0]}] {' '.join(argv[1:])}: best {op['best_s']:.5f} s "
-            f"{op['gflops']:.1f} GFLOP/s, K1 launches {n}, checks "
+        log(f"[{argv[0]}] {' '.join(argv[1:])} {mca or ''}: best "
+            f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s, launches per "
+            f"run K1 {op['k1_launches']} K3 {op['k3_launches']}, checks "
             + ", ".join(f"{c['check']}={c['residual']:.3e}"
                         for c in run["checks"]))
         check(rc == 0, f"{argv[0]} exited {rc}")
-        check((n >= 1) if want_k1 else (n == 0),
-              f"{argv[0]}: K1 launches {n}")
-        out[argv[0]] = {"argv": argv[1:], "best_s": op["best_s"],
-                        "gflops": op["gflops"], "k1_launches": n,
+        check(all(map(k1_ok, op["k1_launches"])),
+              f"{argv[0]}: K1 launches {op['k1_launches']}")
+        check(all(map(k3_ok, op["k3_launches"])),
+              f"{argv[0]}: K3 launches {op['k3_launches']}")
+        out[argv[0]] = {"argv": argv[1:], "mca": mca,
+                        "best_s": op["best_s"], "gflops": op["gflops"],
+                        "k1_launches": op["k1_launches"],
+                        "k3_launches": op["k3_launches"],
                         "checks": run["checks"]}
     record["drivers"] = out
 
@@ -310,36 +575,55 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
+    from dplasma_tpu_torch.kernels import pallas_lu as plu
 
     record = {"device": torch.cuda.get_device_name(0)}
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {record['device']}")
     phase_build(record)
-    tot, nprod = phase_k1(torch, pk, record)
-    launches = phase_spotrf(torch, pk, record)
-    phase_more_drivers(torch, pk, record)
+    k1tot, nprod = phase_k1(torch, pk, record)
+    k3tot, npan = phase_k3(torch, plu, record)
+    k1_spotrf = phase_spotrf(torch, pk, record)
+    k1_sgetrf, k3_sgetrf = phase_sgetrf(torch, pk, plu, record)
+    phase_sgetrf_profile(torch, pk, record)
+    phase_more_drivers(torch, pk, plu, record)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     record["nvidia_smi"] = smi
-    kernels = {"kernels": [{
-        "name": "k1_gemm", "route": "cuda",
-        "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
-        "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
-        "launches": launches, "max_abs_err": tot["max_abs_err"],
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"], "bound_by": "operations",
-        "library_ms": tot["library_ms"]}]}
+    kernels = {"kernels": [
+        {"name": "k1_gemm", "route": "cuda",
+         "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
+         "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
+         "launches": k1_spotrf + k1_sgetrf,
+         "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf},
+         "max_abs_err": k1tot["max_abs_err"],
+         "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
+         "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
+         "library_ms": k1tot["library_ms"]},
+        {"name": "k3_lu_panel", "route": "cuda",
+         "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
+         "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
+         "launches": k3_sgetrf,
+         "launches_by_path": {"sgetrf": k3_sgetrf},
+         "max_abs_err": k3tot["max_abs_err"],
+         "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
+         "bound_ms": k3tot["bound_ms"],
+         "bound_by": lu_bound_ms(N_LU, NB_LU)[1],
+         "library_ms": k3tot["library_ms"]}]}
     record.update(kernels)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[note] kernel ms/plain_ms/bound_ms/library_ms are sums over the "
+    log(f"[note] K1 ms/plain_ms/bound_ms/library_ms are sums over the "
         f"{nprod} K1 products of one spotrf factorization (N={N_MAIN}, "
-        f"nb={NB_MAIN}); launches counts the whole main-path driver run")
+        f"nb={NB_MAIN}); K3's over the {npan} panels of one sgetrf "
+        f"factorization (N={N_LU}, nb={NB_LU}; library = "
+        f"torch.linalg.lu_factor_ex on cuSOLVER); launches count each "
+        f"main-path driver run (warm-up, timed run, -x check)")
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

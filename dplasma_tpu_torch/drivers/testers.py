@@ -1,6 +1,8 @@
-"""The testing_* driver bodies of this slice: ``potrf`` and ``gemm``.
+"""The testing_* driver bodies of the ported slices: ``potrf``, ``gemm``,
+``getrf`` (= ``getrf_1d``) and ``gesv``.
 
-Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214): seeded
+Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214, :454-455,
+:510-529, :577-589): seeded
 generation → timed run with the GFLOPS print → optional ``-x`` residual
 verification against the regenerated input.
 """
@@ -9,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
-from dplasma_tpu_torch.ops import blas3, checks, generators
+from dplasma_tpu_torch.ops import blas3, checks, generators, lu
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
@@ -60,4 +62,34 @@ def potrf(drv: Driver):
     return ret
 
 
-DRIVERS = {"gemm": gemm, "potrf": potrf}
+def getrf_1d(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    hnb = max(ip.HNB, 0)  # -z/--HNB: recursive-panel variant
+    (LU, perm), _ = drv.progress(
+        lambda a: lu.getrf_rec(a, hnb), (A0,),
+        lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = lu.getrs("N", LU, perm, B)
+        r, ok = checks.check_axmb(A0, B, X)
+        return drv.report_check("GETRF |b-Ax|", r, ok)
+    return 0
+
+
+def gesv(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    B = _gen(drv, ip.N, ip.K, 1)
+    cplx = ip.prec_dtype.is_complex
+    (_, _, X), _ = drv.progress(
+        lu.gesv_1d, (A0, B),
+        lawn41.getrf(ip.N, ip.N, cplx) + lawn41.getrs(ip.N, ip.K, cplx))
+    if ip.check:
+        r, ok = checks.check_axmb(A0, B, X)
+        return drv.report_check("GESV |b-Ax|", r, ok)
+    return 0
+
+
+DRIVERS = {"gemm": gemm, "potrf": potrf, "getrf": getrf_1d,
+           "getrf_1d": getrf_1d, "gesv": gesv}

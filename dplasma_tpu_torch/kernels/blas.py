@@ -167,6 +167,34 @@ def herk(alpha, a, beta, c, *, lower=True, trans="N"):
     return alpha * upd + beta * c
 
 
+def getrf_nopiv(a):
+    """LU without pivoting of one tile (CORE_zgetrf_nopiv): packed L\\U
+    (unit L implicit), one rank-1 step per column."""
+    m = a.clone()
+    for kk in range(min(a.shape)):
+        lcol = m[kk + 1:, kk] * (1.0 / m[kk, kk])
+        m[kk + 1:, kk + 1:] -= torch.outer(lcol, m[kk, kk + 1:])
+        m[kk + 1:, kk] = lcol
+    return m
+
+
+def getrf_nopiv_blocked(a, base: int = 32):
+    """Blocked-recursive LU without pivoting of a square tile: the
+    :func:`getrf_nopiv` contract, with the sequential rank-1 loop only
+    inside ``base``-sized diagonal blocks and every off-diagonal step a
+    trsm or a product."""
+    n = a.shape[0]
+    if n <= base:
+        return getrf_nopiv(a)
+    n1 = n // 2
+    p11 = getrf_nopiv_blocked(a[:n1, :n1], base)
+    u12 = trsm(p11, a[:n1, n1:], side="L", lower=True, unit=True)
+    l21 = trsm(p11, a[n1:, :n1], side="R", lower=False)
+    p22 = getrf_nopiv_blocked(a[n1:, n1:] - dot(l21, u12), base)
+    return torch.cat([torch.cat([p11, u12], dim=1),
+                      torch.cat([l21, p22], dim=1)], dim=0)
+
+
 def lauum(a, lower: bool = True):
     """Tile LAUUM: L^H L (lower) or U U^H (upper) of a triangular tile."""
     if lower:

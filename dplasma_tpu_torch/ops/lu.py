@@ -1,0 +1,328 @@
+"""LU factorization: partial pivoting (getrf_1d), no pivoting, solvers.
+
+Ports ``dplasma_tpu/ops/lu.py`` (:51-151, :168-333, :365-389,
+:432-525). Pivoting is a global row permutation vector with the
+semantics ``A[perm] = L U`` (int64, on the factor's device), not
+LAPACK's swap-format IPIV: :func:`laswp` applies it as one gather, and
+:func:`perm_to_ipiv` / :func:`ipiv_to_perm` convert to and from the
+reference's format on the host.
+
+``getrf_1d`` is a right-looking shrinking-window sweep over nb-wide
+panels (``ops._sweep.pipelined_sweep``, lookahead from MCA
+``sweep.lookahead``) with deferred pivot bookkeeping: each panel's
+permutation is applied to the trailing window only, and the packed
+factor is stitched at the end from the row ids. Every panel goes to
+:func:`_base_lu`, which picks the panel kernel (MCA ``panel.kernel``):
+K3 (``kernels/pallas_lu``) under ``pallas``, the recursive panel under
+``rec``, cuSOLVER's getrf under ``chain`` (CALU tournament pivoting for
+panels taller than ``lu.panel_chunk``). Every Schur update product goes
+through ``quant.update_dot``, hence to K1 when it is enabled and
+eligible. With lookahead 1 and KT panels, that is one narrow product per
+step while a lookahead column remains and one far product while far
+columns remain: 2·KT − 3 products per square factorization. The pivot
+bookkeeping never leaves the device.
+
+The f64-equivalent (dd) route — the eager ``jit_steps`` sweep and the
+dd panel refinement — is not ported yet (ROADMAP queue 1 item 6): under
+``dd_gemm=always`` the f64 entry points raise. ``getrf_ptgpanel``,
+incpiv, qrf, the lowmem tier and ``dag`` wait for later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import pallas_lu
+from dplasma_tpu_torch.kernels import panels as _panels
+from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.ops import _sweep, blas3
+from dplasma_tpu_torch.utils import config as _cfg
+
+# -- pivot bookkeeping -------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x)
+
+
+def perm_to_ipiv(perm):
+    """Convert a permutation vector (A[perm] = LU) to LAPACK-style
+    sequential swap indices (0-based): swapping rows i and ipiv[i] for
+    i = 0..n-1 reproduces the permutation. Host numpy."""
+    target = _host(perm)
+    n = target.shape[0]
+    cur = np.arange(n)            # cur[i] = original row now at slot i
+    where = np.arange(n)          # where[r] = slot currently holding r
+    ipiv = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        j = int(where[target[i]])
+        ipiv[i] = j
+        ri, rj = cur[i], cur[j]
+        cur[i], cur[j] = rj, ri
+        where[ri], where[rj] = j, i
+    return torch.from_numpy(ipiv)
+
+
+def ipiv_to_perm(ipiv):
+    """Inverse of :func:`perm_to_ipiv`."""
+    iv = _host(ipiv)
+    n = iv.shape[0]
+    perm = np.arange(n)
+    for i in range(n):
+        j = int(iv[i])
+        if j != i:
+            perm[i], perm[j] = perm[j], perm[i]
+    return torch.from_numpy(perm)
+
+
+def _swaps_to_perm(swaps, m: int):
+    """The permutation of a swap sequence (0-based, ``swaps[..., i] >=
+    i``) over ``m`` rows, on the device and without a loop over the
+    swaps: each swap is a transposition array, and the arrays are
+    composed pairwise, log2(k) batched gathers in all. Leading batch
+    dims are kept."""
+    *batch, kk = swaps.shape
+    dev = swaps.device
+    ident = torch.arange(m, device=dev)
+    t = ident.expand(*batch, kk, m).clone()
+    j = torch.arange(kk, device=dev).expand(*batch, kk)[..., None]
+    t.scatter_(-1, j, swaps[..., None])          # t[i][i] = swaps[i]
+    t.scatter_(-1, swaps[..., None], j)          # t[i][swaps[i]] = i
+    while t.shape[-2] > 1:
+        if t.shape[-2] % 2:
+            t = torch.cat([t, ident.expand(*batch, 1, m)], dim=-2)
+        # (f o g)[x] = f[g[x]]: swap 2i is applied before swap 2i+1
+        t = torch.gather(t[..., 0::2, :], -1, t[..., 1::2, :])
+    return t[..., 0, :]
+
+
+def laswp(A: TileMatrix, perm, inverse: bool = False) -> TileMatrix:
+    """Apply a global row permutation (dplasma_zlaswp analog): one
+    gather instead of sequential row swaps."""
+    if inverse:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        perm = inv
+    return A.like(A.data[perm, :])
+
+
+# -- no-pivoting LU ----------------------------------------------------
+
+def _lu_apply_block(pan, blk, bw: int, perm=None):
+    """Apply one factored LU panel to a column block: optional pivot
+    gather, U solve of the top bw rows, rank-bw Schur update below
+    (through ``quant.update_dot``, hence K1 when eligible)."""
+    if perm is not None:
+        blk = blk[perm]
+    u = k.trsm(pan[:bw], blk[:bw], side="L", lower=True, unit=True)
+    below = blk[bw:]
+    if below.shape[0]:
+        below = below - _quant.update_dot(pan[bw:], u)
+    return u, below
+
+
+def getrf_nopiv(A: TileMatrix, lookahead=None) -> TileMatrix:
+    """Blocked right-looking LU without pivoting
+    (dplasma_zgetrf_nopiv). Returns packed L\\U (unit L implicit).
+    Lookahead-pipelined (:func:`~dplasma_tpu_torch.ops._sweep.
+    pipelined_sweep`); ``lookahead=0`` is the serialized op order."""
+    if A.desc.mb != A.desc.nb:
+        raise ValueError(f"getrf needs square tiles, got {A.desc}")
+    la, _ = _sweep.sweep_params(lookahead)
+    nb = A.desc.nb
+    pkind = _panels.panel_kernel("nopiv")
+
+    def panel(col):
+        if pkind == "rec":
+            pan = _panels.lu_panel_rec_nopiv(col)
+            return pan, pan
+        d = k.getrf_nopiv(col[:nb])
+        if col.shape[0] > nb:
+            d = torch.cat([d, k.trsm(d, col[nb:], side="R", lower=False)],
+                          dim=0)
+        return d, d
+
+    packs, urows = _sweep.pipelined_sweep(
+        A.pad_diag().data, nb, A.desc.KT, A.desc.NT, panel,
+        lambda pan, blk: _lu_apply_block(pan, blk, nb), lookahead=la)
+    return TileMatrix(_sweep.assemble_sweep(packs, urows, A.desc.KT,
+                                            A.desc.NT, nb), A.desc)
+
+
+# -- partial pivoting --------------------------------------------------
+
+def _lu_chain(panel):
+    """cuSOLVER's (LAPACK's on the CPU) pivoted LU of one panel, its
+    1-based pivots turned into a perm on the device. cuSOLVER is asked
+    for by name: torch's default choice for a tall panel takes MAGMA,
+    ~10x slower at 8192x256 on an H100 (PERF.md)."""
+    if panel.device.type == "cuda":
+        prev = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            lu, piv, _ = torch.linalg.lu_factor_ex(panel)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(prev)
+    else:
+        lu, piv, _ = torch.linalg.lu_factor_ex(panel)
+    return lu, _swaps_to_perm(piv.long() - 1, panel.shape[-2])
+
+
+def _base_lu(panel, chunk: int | None = None, kind: str | None = None):
+    """Pivoted LU of one narrow tall sub-panel by the panel kernel
+    ``kind`` (default: MCA ``panel.kernel``). ``pallas`` takes K3 where
+    its gate holds, else ``rec``; ``chain`` takes the vendor LU, and for
+    panels taller than ``lu.panel_chunk`` CALU tournament pivoting
+    (Grigori/Demmel): row chunks elect ib candidate pivot rows each
+    (one batched LU), a second-level LU of the stacked candidates picks
+    the winners, and the other rows are solved against the winners' U.
+    Returns (packed m x ib L\\U with unit L, perm) with ``panel[perm] =
+    L U``."""
+    m, ib = panel.shape
+    if kind is None:
+        kind = _panels.panel_kernel("lu")
+    if kind == "pallas":
+        if pallas_lu.eligible(panel):
+            return pallas_lu.lu_panel(panel)
+        kind = "rec"
+    if kind == "rec":
+        return _panels.lu_panel_rec(panel)
+    if ((_cfg.mca_get("lu.pallas_panel") or "off").lower() == "on"
+            and pallas_lu.eligible(panel)):
+        return pallas_lu.lu_panel(panel)
+    if chunk is None:
+        chunk = _cfg.mca_get_int("lu.panel_chunk", 8192)
+    # a chunk below 2*ib could not shrink the candidate recursion
+    chunk = max(chunk, 2 * ib)
+    if m <= chunk:
+        return _lu_chain(panel)
+    C = -(-m // chunk)
+    pad = C * chunk - m
+    dev = panel.device
+    chunks = torch.cat([panel, panel.new_zeros((pad, ib))]).reshape(
+        C, chunk, ib)
+    _, cperm = _lu_chain(chunks)
+    cand_pos = cperm[:, :ib]                                # (C, ib)
+    cands = torch.gather(chunks, 1, cand_pos[:, :, None].expand(-1, -1, ib))
+    cand_glob = cand_pos + (torch.arange(C, device=dev) * chunk)[:, None]
+    lu2, perm2 = _base_lu(cands.reshape(C * ib, ib), chunk, kind)
+    win_rows = cand_glob.reshape(-1)[perm2[:ib]]            # (ib,)
+    # winners first in elimination order, the rest in original order
+    key = ib + torch.arange(m + pad, device=dev)
+    key[win_rows] = torch.arange(ib, device=dev)
+    perm = torch.argsort(key[:m])
+    top = lu2[:ib]
+    l21 = k.trsm(torch.triu(top), panel[perm[ib:]], side="R", lower=False)
+    return torch.cat([top, l21], dim=0), perm
+
+
+def _lu_finish(packs, urows, step_ids, ids, Mp, KT, NT, bw):
+    """Deferred-pivot stitching: the final row order and each step's
+    reorder of its panel rows into it, then the assembly."""
+    final_ids = torch.cat([si[:bw] for si in step_ids] + [ids])
+
+    def reorder(kk):
+        sids = step_ids[kk]
+        wpos = torch.zeros(Mp, dtype=torch.int64, device=sids.device)
+        wpos[sids] = torch.arange(sids.shape[0], device=sids.device)
+        return wpos[final_ids[(kk + 1) * bw:]]
+
+    full = _sweep.assemble_sweep(packs, urows, KT, NT, bw, reorder=reorder)
+    return full, final_ids
+
+
+def _lu_sweep(X, bw: int, panel_fn, lookahead=None):
+    """Pivoted shrinking-window LU sweep at block width ``bw`` with
+    deferred pivot bookkeeping: each block's permutation is applied to
+    the trailing window only (one gather), never to finished left
+    columns. Returns (packed L\\U, perm) with ``X[perm] = L U``. Used at
+    two levels: the nb-wide matrix sweep and the ib-wide in-panel
+    sweep."""
+    la, _ = _sweep.sweep_params(lookahead)
+    Mp, Np = X.shape
+    KT = min(Mp, Np) // bw
+    NT = -(-Np // bw)
+    ids_cell = [torch.arange(Mp, device=X.device)]
+    step_ids = []
+
+    def panel(col):
+        pan, perm = panel_fn(col)
+        idsp = ids_cell[0][perm]
+        step_ids.append(idsp)
+        ids_cell[0] = idsp[bw:]
+        return pan, (pan, perm)
+
+    packs, urows = _sweep.pipelined_sweep(
+        X, bw, KT, NT, panel,
+        lambda st, blk: _lu_apply_block(st[0], blk, bw, perm=st[1]),
+        lookahead=la)
+    return _lu_finish(packs, urows, step_ids, ids_cell[0], Mp, KT, NT, bw)
+
+
+def _panel_lu(panel, ib: int | None = None, kind: str | None = None):
+    """Pivoted LU of one nb-wide tall panel: a nested ib-wide
+    shrinking-window sweep (full-height pivot search per sub-panel)
+    whose base case is :func:`_base_lu`; ``ib`` from MCA
+    ``lu.panel_ib`` (0: the whole panel is one base case)."""
+    if k._dd_active(panel.dtype):
+        raise k._dd_unported("the LU panel")
+    m, nb = panel.shape
+    if ib is None:
+        ib = _cfg.mca_get_int("lu.panel_ib", 0)
+    if ib <= 0 or nb <= ib or nb % ib or m % ib:
+        return _base_lu(panel, kind=kind)
+    # the in-panel sweep stays serialized: the matrix sweep owns the
+    # pipeline
+    return _lu_sweep(panel, ib, lambda sub: _base_lu(sub, kind=kind),
+                     lookahead=0)
+
+
+def _getrf(A: TileMatrix, panel_fn):
+    if A.desc.mb != A.desc.nb:
+        raise ValueError(f"getrf needs square tiles, got {A.desc}")
+    if k._dd_active(A.dtype):
+        raise k._dd_unported("getrf")
+    full, final_ids = _lu_sweep(A.pad_diag().data, A.desc.nb, panel_fn)
+    return TileMatrix(full, A.desc), final_ids
+
+
+def getrf_1d(A: TileMatrix):
+    """Partial-pivoting blocked LU (dplasma_zgetrf_1d). Returns
+    (packed L\\U, perm) with ``A[perm] = L U``; the perm spans the
+    padded frame (``A.pad_diag()`` rows)."""
+    return _getrf(A, _panel_lu)
+
+
+def getrf_rec(A: TileMatrix, hnb: int = 0):
+    """Recursive-panel LU (the -z/--HNB variant): each nb-wide panel
+    factors as an hnb-wide nested sweep; ``hnb`` of 0 or >= nb is plain
+    :func:`getrf_1d`."""
+    if hnb <= 0 or hnb >= A.desc.nb:
+        return getrf_1d(A)
+    return _getrf(A, lambda panel: _panel_lu(panel, ib=hnb))
+
+
+def trsmpl_ptgpanel(LU: TileMatrix, perm, B: TileMatrix) -> TileMatrix:
+    """Apply pivots + L^{-1} to B (dplasma_ztrsmpl_ptgpanel)."""
+    Bp = laswp(B.zero_pad(), perm)
+    return blas3.trsm(1.0, LU, Bp, side="L", uplo="L", trans="N", diag="U")
+
+
+def getrs(trans: str, LU: TileMatrix, perm, B: TileMatrix) -> TileMatrix:
+    """Solve op(A) X = B from a pivoted factorization (dplasma_zgetrs)."""
+    trans = trans.upper()
+    if trans == "N":
+        Y = trsmpl_ptgpanel(LU, perm, B)
+        return blas3.trsm(1.0, LU, Y, side="L", uplo="U", trans="N")
+    # op(A) = A^T/A^H: U^x L^x P x = b
+    Y = blas3.trsm(1.0, LU, B, side="L", uplo="U", trans=trans)
+    Z = blas3.trsm(1.0, LU, Y, side="L", uplo="L", trans=trans, diag="U")
+    return laswp(Z, perm, inverse=True)
+
+
+def gesv_1d(A: TileMatrix, B: TileMatrix):
+    """Factor + solve (dplasma_zgesv_1d). Returns (LU, perm, X)."""
+    LU, perm = getrf_1d(A)
+    return LU, perm, getrs("N", LU, perm, B)

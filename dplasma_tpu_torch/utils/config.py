@@ -233,3 +233,18 @@ mca_register("quant.updates", "off",
 mca_register("quant.guard", "probe",
              "per-update ABFT ones-probe divergence guard on quantized "
              "updates: probe | off")
+mca_register("lu.pallas_panel", "off",
+             "on = factor f32 LU panels of the chain route with the "
+             "blocked LU panel kernel (K3) instead of the vendor LU")
+mca_register("lu.panel_ib", "0",
+             "Sub-panel width for a nested in-panel LU sweep "
+             "(0 = disabled; each nb-wide panel then factors as one "
+             "base-case LU).")
+mca_register("lu.panel_chunk", "8192",
+             "Row-chunk height for the CALU tournament-pivoting LU "
+             "panel; panels taller than this elect pivot candidates "
+             "per chunk.")
+mca_register("lu.agg_depth", "4",
+             "Fused far-flush depth of the eager dd LU sweep (the dd "
+             "route is not ported yet; registered so a reference "
+             "snapshot replays).")

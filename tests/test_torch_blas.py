@@ -147,3 +147,20 @@ def test_blocked_gemm():
     want = ref_blas3.gemm(0.51, A, B, -0.42, C)
     got = blas3.gemm(0.51, TA, TB, -0.42, TC)
     assert _rel(want.data, got.data) <= TOL
+
+
+@pytest.mark.parametrize("base", [None, 8])
+def test_tile_getrf_nopiv(tiles, base):
+    """Unpivoted tile LU on a diagonally dominant tile, plain and
+    blocked-recursive, against the reference's."""
+    a, _, _ = tiles
+    ja, ta = jnp.asarray(a), torch.from_numpy(a)
+    if base is None:
+        want, got = ref_k.getrf_nopiv(ja), k.getrf_nopiv(ta)
+    else:
+        want = ref_k.getrf_nopiv_blocked(ja, base)
+        got = k.getrf_nopiv_blocked(ta, base)
+    assert _rel(want, got) <= TOL
+    n = a.shape[0]
+    L = torch.tril(got, -1) + torch.eye(n, dtype=got.dtype)
+    assert torch.allclose(L @ torch.triu(got), ta, rtol=0, atol=1e-12)

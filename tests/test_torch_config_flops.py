@@ -5,14 +5,19 @@ import itertools
 
 import pytest
 
+import dplasma_tpu.kernels.panels  # noqa: F401  (registers panel.*)
 import dplasma_tpu.kernels.quant  # noqa: F401  (registers quant.*)
+import dplasma_tpu_torch.kernels.panels  # noqa: F401  (registers panel.*)
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu.utils import flops as ref_flops
 from dplasma_tpu_torch.utils import config as cfg
 from dplasma_tpu_torch.utils import flops as port_flops
 
 SLICE_KNOBS = ["sweep.lookahead", "qr.agg_depth", "trsm_inv", "dd_gemm",
-               "quant.updates", "quant.tile", "quant.guard"]
+               "quant.updates", "quant.tile", "quant.guard",
+               "lu.pallas_panel", "lu.panel_ib", "lu.panel_chunk",
+               "lu.agg_depth", "panel.kernel", "panel.tree_leaf",
+               "panel.rec_base"]
 
 
 @pytest.fixture

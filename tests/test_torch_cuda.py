@@ -1,18 +1,21 @@
 """The port's hand-written kernels on the card (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these tests skip where there is no
-GPU; on a machine with one they build K1 from ``kernels/csrc`` and hold
-it against its plain PyTorch version:
+GPU; on a machine with one they build K1 and K3 from ``kernels/csrc``
+and hold each against its plain PyTorch version:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: relative Frobenius error <= 1e-5 for f32 (summation order
-only) and <= 1e-2 for bf16 output.
+Tolerances: K1, relative Frobenius error <= 1e-5 for f32 (summation
+order only) and <= 1e-2 for bf16 output. K3, the permutation bitwise
+equal and max|Δ|/max|packed| <= 1e-4 (the kernel rounds each step as
+the plain version does, so it is expected to agree exactly).
 """
 import pytest
 import torch
 
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
+from dplasma_tpu_torch.kernels import pallas_lu as plu
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +80,56 @@ def test_spotrf_on_card_routes_every_update(card, k1_on):
     A_cpu = generators.plghe(2048.0, 2048, 256, seed=3, device="cpu")
     L_cpu = potrf.potrf(A_cpu, "L", lookahead=1)
     assert torch.allclose(L.data.cpu(), L_cpu.data, rtol=0, atol=1e-4)
+
+
+def _k3_check(a):
+    launches = plu.LAUNCHES
+    packed, perm = plu.lu_panel(a)
+    torch.cuda.synchronize()
+    assert plu.LAUNCHES == launches + 1
+    want, wperm = plu.lu_panel_reference(a)
+    assert packed.shape == a.shape and packed.dtype == torch.float32
+    assert torch.isfinite(packed).all()
+    assert torch.equal(perm, wperm)
+    err = (packed - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-4
+    return packed, perm
+
+
+@pytest.mark.parametrize("M,nb", [(1000, 64), (4096, 256), (8192, 256),
+                                  (256, 256), (262144, 8), (5000, 24)])
+def test_k3_matches_plain_version(card, M, nb):
+    g = torch.Generator(device=card).manual_seed(M + nb)
+    a = torch.randn(M, nb, device=card, generator=g)
+    packed, perm = _k3_check(a)
+    L = torch.tril(packed, -1) + torch.eye(M, nb, device=card)
+    assert torch.allclose(a[perm], L @ torch.triu(packed[:nb]), atol=1e-4)
+
+
+def test_k3_ties_signed_zeros_and_zero_column(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    a = torch.randint(-2, 3, (2048, 64), device=card, generator=g).float()
+    a[:, 5] = 0.0
+    a[a == 0] = -0.0
+    packed, _ = _k3_check(a)
+    assert (packed[6:, 5] == 0).all()
+
+
+def test_k3_takes_strided_panels(card):
+    g = torch.Generator(device=card).manual_seed(4)
+    big = torch.randn(3000, 512, device=card, generator=g)
+    _k3_check(big[100:2100, 256:320])
+
+
+def test_sgetrf_on_card_routes_every_panel_and_product(card, k1_on):
+    from dplasma_tpu_torch.ops import checks, generators, lu
+    from dplasma_tpu_torch.utils import config as cfg
+    A = generators.plrnt(2048, 2048, 256, 256, seed=3)
+    k1, k3 = pk.LAUNCHES, plu.LAUNCHES
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        LU, perm = lu.getrf_1d(A)
+    torch.cuda.synchronize()
+    assert (pk.LAUNCHES - k1, plu.LAUNCHES - k3) == (2 * 8 - 3, 8)
+    B = generators.plrnt(2048, 1, 256, 256, seed=4)
+    r, ok = checks.check_axmb(A, B, lu.getrs("N", LU, perm, B))
+    assert ok, r

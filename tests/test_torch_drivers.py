@@ -6,6 +6,8 @@ import torch
 from dplasma_tpu.drivers import common as ref_common
 from dplasma_tpu_torch.drivers import common, main
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
+from dplasma_tpu_torch.kernels import pallas_lu as plu
+from dplasma_tpu_torch.utils import config as cfg
 
 
 @pytest.mark.parametrize("argv", [
@@ -15,6 +17,11 @@ from dplasma_tpu_torch.kernels import pallas_kernels as pk
     ["testing_sgemm", "-N", "96", "-M", "80", "-K", "64", "-t", "32", "-x"],
     ["testing_dgemm", "-N", "50", "-K", "70", "-t", "16", "-x",
      "--nowarmup"],
+    ["testing_sgetrf", "-N", "96", "-t", "32", "-x"],
+    ["testing_dgetrf", "-N", "90", "-t", "32", "-z", "8", "-x"],
+    ["testing_dgetrf_1d", "-N", "64", "-t", "16", "-x", "--lookahead", "0"],
+    ["testing_sgesv", "-N", "96", "-t", "32", "-x"],
+    ["testing_dgesv", "-N", "90", "-t", "32", "-K", "3", "-x"],
 ])
 def test_driver_runs_and_checks(argv, capsys):
     common.RUNS.clear()
@@ -45,6 +52,23 @@ def test_spotrf_driver_counts_k1_launch_routes(capsys):
     assert "K1 launches per run" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("prog", ["testing_sgetrf", "testing_sgesv"])
+def test_lu_drivers_count_k3_routes(prog, capsys):
+    """With panel.kernel=pallas every panel of each factorization takes
+    the K3 route (3 at N=96, nb=32: warm-up and timed run); on the CPU
+    none of them is a CUDA launch."""
+    common.RUNS.clear()
+    routed = plu.ROUTED
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        assert main([prog, "-N", "96", "-t", "32", "-x", "-v",
+                     "--device", "cpu"]) == 0
+    assert plu.ROUTED - routed == 2 * 3
+    op = common.RUNS[-1]["ops"][0]
+    assert op["k3_launches"] == [0] and op["k1_launches"] == [0]
+    out = capsys.readouterr().out
+    assert "K3 launches per run" in out and "panel.kernel=pallas" in out
+
+
 def test_parse_matches_reference_defaults():
     argv = ["-N", "1000", "-x", "--nruns", "3", "--seed=7", "-v"]
     ip = common.parse_arguments(argv)
@@ -52,6 +76,10 @@ def test_parse_matches_reference_defaults():
     for f in ("N", "M", "K", "MB", "NB", "HNB", "HMB", "check", "nruns",
               "seed", "loud"):
         assert getattr(ip, f) == getattr(rp, f), f
+    # -K / --NRHS: the right-hand sides of the solvers
+    for argv in (["-N", "64", "-K", "5"], ["-N", "64", "--NRHS=5"]):
+        assert common.parse_arguments(argv).K == \
+            ref_common.parse_arguments(argv).K == 5
     assert common.default_tile(5000) == ref_common.default_tile(5000)
     assert common.parse_arguments(["-N", "8", "-t", "4", "-T", "2",
                                    "--device", "cpu"]).NB == 2
