@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel, the plain version, the one PyTorch call that computes the same
    function (the yardstick only; the port never calls it in place of the
    kernel: K1's is ``torch.matmul``, K3's ``torch.linalg.lu_factor_ex``
-   on cuSOLVER) and the bound;
+   on cuSOLVER, K4's ``torch.geqrf`` on cuSOLVER) and the bound; K4 is
+   also held to the reference's QR checks on each panel;
 3. the Cholesky path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
    port's driver with K1 enabled. Kernel launch counts are zeroed just
    before and read just after; every update product of each
@@ -30,7 +31,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``testing_dgetrf -N 8192 -t 256 -x`` (default ``panel.kernel=auto``:
    cuSOLVER in FP64, no kernel by design), ``testing_dpotrf -N 8192 -t
    1024 -x`` (native FP64, no kernel by design) and ``testing_sgemm -N
-   8192 -K 8192 -x`` through K1.
+   8192 -K 8192 -x`` through K1;
+6. the QR path: ``testing_sgeqrf -N 8192 -t 256 -x`` with K1 enabled
+   and ``panel.kernel=pallas``, counts zeroed just before and read just
+   after: every panel of each factorization through K4 (KT = 32) and
+   the K1 products ``ops/qr.py`` counts (11.5·KT − 24 = 344); the -x
+   checks (|A-QR|, |I-Q'Q|) must pass and a smaller factorization must
+   agree with a float64 QR on the host; then one factorization under
+   ``torch.profiler``;
+7. ``testing_sgels -N 8192 -t 256 -K 16 -x`` (K4 and K1 on),
+   ``testing_sgeqrf -N 8192 -t 1024 -x`` (the reference ladder's size,
+   default ``panel.kernel=auto``: cuSOLVER panels, no K4 by design) and
+   ``testing_dgeqrf -N 8192 -t 256 -x`` (FP64, no kernel by design).
 
 It prints the card's name and power limit, one JSON line describing
 every kernel, and as its last line ``{"ok": true, "device": {...}}``.
@@ -56,8 +68,12 @@ HBM_BYTES_S = 3.35e12
 
 N_MAIN, NB_MAIN = 16384, 1024
 N_LU, NB_LU = 8192, 256
+N_QR, NB_QR = 8192, 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 K3_TOL = 1e-4       # max|Δ|/max|packed|; the perm must be bitwise equal
+# K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
+# (the two sum in other orders); each panel's Q must pass the QR checks
+K4_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -127,6 +143,24 @@ def lu_bound_ms(M, nb):
 def main_path_panels(n, nb):
     """Heights of the KT panels of one sgetrf_1d factorization."""
     return [n - k * nb for k in range(n // nb)]
+
+
+def qr_bound_ms(M, nb):
+    """Least time for one QR panel: the larger of its LAWN-41 operations
+    over the FP32 peak and its bytes (the panel read once, the packed
+    factor and the nb taus written once) over the HBM rate."""
+    from dplasma_tpu_torch.utils import flops
+    t_ops = flops.geqrf(M, nb) / FP32_FLOPS
+    t_bytes = (2 * M * nb * 4 + nb * 4) / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def qr_k1_products(kt):
+    """K1 products of one square geqrf at lookahead 1 and qr.agg_depth 4
+    with every dimension >= 256, for kt a multiple of 4 (the count that
+    the ops/qr.py docstring derives)."""
+    return int(11.5 * kt - 24)
 
 
 def rel_fro(torch, got, want):
@@ -254,13 +288,13 @@ def phase_k1(torch, pk, record):
     return tot, len(shapes)
 
 
-def cusolver_lu(torch, a):
-    """``torch.linalg.lu_factor_ex`` on cuSOLVER, asked for by name:
-    torch's default backend takes MAGMA for tall panels, ~10x slower."""
+def with_cusolver(torch, fn, *args):
+    """``fn(*args)`` with torch's linalg backend set to cuSOLVER by name
+    (its default takes MAGMA for a tall ``lu_factor_ex``, ~10x slower)."""
     prev = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
     try:
-        return torch.linalg.lu_factor_ex(a)
+        return fn(*args)
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
 
@@ -282,7 +316,8 @@ def k3_case(torch, plu, a):
     rel = mabs / max(float(want.abs().max()), 1e-30)
     k_ms = time_ms(torch, lambda: plu.lu_panel(a))
     p_ms = time_ms(torch, lambda: plu.lu_panel_reference(a))
-    l_ms = time_ms(torch, lambda: cusolver_lu(torch, a))
+    l_ms = time_ms(torch, lambda: with_cusolver(
+        torch, torch.linalg.lu_factor_ex, a))
     return perm_eq, mabs, rel, k_ms, p_ms, l_ms
 
 
@@ -343,6 +378,126 @@ def phase_k3(torch, plu, record):
         f"ms  cuSOLVER getrf {tot['library_ms']:.3f} ms  bound "
         f"{tot['bound_ms']:.3f} ms  max abs err {tot['max_abs_err']:.3e}")
     record["k3_main_path"] = dict(tot, panels=len(heights))
+    return tot, len(heights)
+
+
+def k4_case(torch, pqr, a):
+    """K4 against geqrt_panel_reference on one panel: dict of the max
+    abs error, the error relative to max|packed|, the tau error, the
+    QR checks of the Q rebuilt from K4's output, and the times of the
+    kernel, the plain version and cuSOLVER's geqrf."""
+    from dplasma_tpu_torch.descriptors import TileMatrix
+    from dplasma_tpu_torch.ops import checks
+    packed, taus = pqr.geqrt_panel_packed(a)
+    want, wtau = pqr.geqrt_panel_reference(a)
+    torch.cuda.synchronize()
+    M, nb = a.shape
+    check(packed.dtype == torch.float32 and packed.shape == a.shape
+          and taus.shape == (nb,),
+          f"K4 output {packed.dtype} {tuple(packed.shape)} "
+          f"{tuple(taus.shape)}")
+    check(bool(torch.isfinite(packed).all() and torch.isfinite(taus).all()),
+          "K4 output not finite")
+    mabs = float((packed - want).abs().max())
+    rel = mabs / max(float(want.abs().max()), 1e-30)
+    dtau = float((taus - wtau).abs().max())
+    # Q's first nb columns from the compact-WY form: Q = I - V T V^T
+    _, v, T = pqr.geqrt_panel(a)
+    q = torch.eye(M, nb, device=a.device) - v @ (T @ v[:nb].T)
+    qr_res = checks.check_qr(TileMatrix.from_dense(a, nb, nb), q,
+                             torch.triu(packed[:nb]))[0]
+    orth_res = checks.check_orthogonality(q)[0]
+    return {"max_abs_err": mabs, "rel_err": rel, "tau_err": dtau,
+            "qr_residual": qr_res, "orth_residual": orth_res,
+            "ms": time_ms(torch, lambda: pqr.geqrt_panel_packed(a)),
+            "plain_ms": time_ms(torch,
+                                lambda: pqr.geqrt_panel_reference(a)),
+            "library_ms": time_ms(torch, lambda: with_cusolver(
+                torch, torch.geqrf, a))}
+
+
+def _k4_ok(r):
+    return (r["rel_err"] <= K4_TOL and r["tau_err"] <= K4_TOL
+            and r["qr_residual"] < 60 and r["orth_residual"] < 60)
+
+
+def phase_k4(torch, pqr, record):
+    g = torch.Generator(device="cuda").manual_seed(400)
+    zero = torch.randn(2048, 64, device="cuda", generator=g)
+    zero[:, 5] = 0.0         # a zero column: tau 0, its v 0
+    strided = torch.randn(512, 3000, device="cuda", generator=g)[64:128].T
+    named = [("ragged", (1000, 64)), ("middle panel", (4096, NB_QR)),
+             ("sgeqrf top panel", (N_QR, NB_QR)),
+             ("square (tau = 2)", (NB_QR, NB_QR)),
+             ("tall narrow", (262144, 8)), ("zero column", zero),
+             ("strided (a.T view)", strided)]
+    rows = []
+    for label, what in named:
+        a = what if torch.is_tensor(what) else torch.randn(
+            *what, device="cuda", generator=g)
+        M, nb = a.shape
+        r = k4_case(torch, pqr, a)
+        b_ms, b_by = qr_bound_ms(M, nb)
+        log(f"[k4] {label:20s} M={M:6d} nb={nb:3d} rel={r['rel_err']:.3e} "
+            f"tau={r['tau_err']:.3e} (tol {K4_TOL:.0e}) |A-QR| "
+            f"{r['qr_residual']:.2f} |I-Q'Q| {r['orth_residual']:.2f}  "
+            f"kernel {r['ms']:8.3f} ms  plain {r['plain_ms']:8.3f} ms  "
+            f"cuSOLVER geqrf {r['library_ms']:8.3f} ms  bound "
+            f"{b_ms:7.4f} ms ({b_by})")
+        rows.append(dict(r, case=label, M=M, nb=nb, bound_ms=b_ms,
+                         bound_by=b_by))
+        check(_k4_ok(r), f"K4 disagrees with geqrt_panel_reference on "
+                         f"{label}: {r}")
+        if label.startswith("square"):
+            taus = pqr.geqrt_panel_packed(a)[1]
+            check(float(taus[-1]) == 2.0, "K4: the square panel's last "
+                  f"tau is {float(taus[-1])}, not 2")
+        if what is zero:
+            packed, taus = pqr.geqrt_panel_packed(zero)
+            check(float(taus[5]) == 0.0 and bool((packed[6:, 5] == 0).all()),
+                  "K4: the zero column's tau or v is not 0")
+    record["k4_cases"] = rows
+
+    # torch's default linalg backend against cuSOLVER asked for by name,
+    # for the two vendor QRs the port calls (geqrf_packed, the TSQR leaves)
+    top = torch.randn(N_QR, NB_QR, device="cuda", generator=g)
+    leaves = torch.randn(16, 2 * NB_QR, NB_QR, device="cuda", generator=g)
+    backends = {
+        "geqrf 8192x256 default": time_ms(torch, lambda: torch.geqrf(top)),
+        "geqrf 8192x256 cusolver": time_ms(torch, lambda: with_cusolver(
+            torch, torch.geqrf, top)),
+        "qr 16x512x256 default": time_ms(
+            torch, lambda: torch.linalg.qr(leaves)),
+        "qr 16x512x256 cusolver": time_ms(torch, lambda: with_cusolver(
+            torch, torch.linalg.qr, leaves))}
+    log("[k4] linalg backends: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in backends.items()))
+    record["linalg_backends_ms"] = backends
+
+    # every panel of one main-path factorization, timed in turn
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "rel_err": 0.0, "tau_err": 0.0,
+           "qr_residual": 0.0, "orth_residual": 0.0}
+    heights = main_path_panels(N_QR, NB_QR)
+    for M in heights:
+        a = torch.randn(M, NB_QR, device="cuda", generator=g)
+        r = k4_case(torch, pqr, a)
+        check(_k4_ok(r), f"K4 disagrees on main-path panel {M}x{NB_QR}: {r}")
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += r[key]
+        tot["bound_ms"] += qr_bound_ms(M, NB_QR)[0]
+        for key in ("max_abs_err", "rel_err", "tau_err", "qr_residual",
+                    "orth_residual"):
+            tot[key] = max(tot[key], r[key])
+    tot["max_abs_err"] = max([tot["max_abs_err"]]
+                             + [r["max_abs_err"] for r in rows])
+    log(f"[k4] one sgeqrf's {len(heights)} panels ({N_QR}..{NB_QR} x "
+        f"{NB_QR}): kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f} "
+        f"ms  cuSOLVER geqrf {tot['library_ms']:.3f} ms  bound "
+        f"{tot['bound_ms']:.3f} ms  max abs err {tot['max_abs_err']:.3e}  "
+        f"max |A-QR| {tot['qr_residual']:.2f} |I-Q'Q| "
+        f"{tot['orth_residual']:.2f}")
+    record["k4_main_path"] = dict(tot, panels=len(heights))
     return tot, len(heights)
 
 
@@ -466,34 +621,32 @@ def _device_ms(ev) -> float:
 
 # kernel-name pieces -> the category the breakdown reports them under
 _CATEGORIES = (("K3 (k3_lu_panel)", ("k3_lu_panel",)),
+               ("K4 (k4_geqrt_panel)", ("k4_geqrt_panel",)),
                ("K1 (k1_gemm)", ("k1_gemm",)),
                ("trsm (cuBLAS)", ("trsm",)),
+               ("cuBLAS/cuSOLVER other", ("gemm", "gemv", "geqrf",
+                                           "larf", "cublas", "cusolver")),
                ("gathers (index, gather)", ("index", "gather", "Gather")),
                ("cat", ("CatArray",)),
                ("copies", ("copy", "Copy", "transpose")))
 
 
-def phase_sgetrf_profile(torch, pk, record):
-    """One factorization of the main path under torch.profiler: device
-    time by kernel, by category and the device's idle share."""
+def _profile(torch, record, key, label, run):
+    """One call of ``run`` (one factorization) under torch.profiler,
+    after one warm call: device time by kernel, by category and the
+    device's idle share, logged and kept in ``record[key]``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dplasma_tpu_torch.ops import generators, lu
-    from dplasma_tpu_torch.utils import config as cfg
-
-    pk.enable(True)
-    A = generators.plrnt(N_LU, N_LU, NB_LU, NB_LU, seed=3872)
-    with cfg.override_scope({"panel.kernel": "pallas"}):
-        lu.getrf_1d(A)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            lu.getrf_1d(A)
-            end.record()
-            torch.cuda.synchronize()
     wall = start.elapsed_time(end)
     cuda = torch.autograd.DeviceType.CUDA
     by_kernel = {}
@@ -507,44 +660,145 @@ def phase_sgetrf_profile(torch, pk, record):
         cat = next((c for c, keys in _CATEGORIES
                     if any(k in name for k in keys)), "other")
         cats[cat] = cats.get(cat, 0.0) + ms
+    tag = f"[{key}]"
     if not by_kernel:
-        log("[sgetrf profile] the profiler recorded no device time: "
-            "breakdown not measured")
-        record["sgetrf_profile"] = {"wall_ms": wall, "busy_ms": None}
+        log(f"{tag} the profiler recorded no device time: breakdown not "
+            "measured")
+        record[key] = {"wall_ms": wall, "busy_ms": None}
         return
     idle = 1.0 - busy / wall
-    log(f"[sgetrf profile] one factorization N={N_LU} nb={NB_LU}: wall "
-        f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
-        f"{100 * idle:.1f}%")
+    log(f"{tag} one factorization {label}: wall {wall:.3f} ms, device "
+        f"busy {busy:.3f} ms, idle share {100 * idle:.1f}%")
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
-        log(f"[sgetrf profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {cat}")
-    log("[sgetrf profile] top device ops:")
+        log(f"{tag}   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {cat}")
+    log(f"{tag} top device ops:")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[sgetrf profile]   {ms:9.3f} ms  {name[:96]}")
-    record["sgetrf_profile"] = {
+        log(f"{tag}   {ms:9.3f} ms  {name[:96]}")
+    record[key] = {
         "wall_ms": wall, "busy_ms": busy, "idle_share": idle,
         "categories_ms": cats,
         "top_kernels_ms": dict(sorted(by_kernel.items(),
                                       key=lambda kv: -kv[1])[:20])}
 
 
-def phase_more_drivers(torch, pk, plu, record):
+def phase_sgetrf_profile(torch, pk, record):
+    """One factorization of the LU path under torch.profiler."""
+    from dplasma_tpu_torch.ops import generators, lu
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    A = generators.plrnt(N_LU, N_LU, NB_LU, NB_LU, seed=3872)
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        _profile(torch, record, "sgetrf_profile", f"N={N_LU} nb={NB_LU}",
+                 lambda: lu.getrf_1d(A))
+
+
+def phase_sgeqrf(torch, pk, plu, pqr, record):
+    """The QR path through the driver, with every kernel count zeroed
+    just before and read just after."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import generators, qr
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    kt = N_QR // NB_QR
+    want_k4, want_k1 = kt, qr_k1_products(kt)
+    common.RUNS.clear()
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        pk.reset_counts()
+        plu.reset_counts()
+        pqr.reset_counts()
+        t0 = time.perf_counter()
+        rc = main(["testing_sgeqrf", "-N", str(N_QR), "-t", str(NB_QR),
+                   "-x", "-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1_run, k3_run, k4_run = pk.LAUNCHES, plu.LAUNCHES, pqr.LAUNCHES
+    check(rc == 0, f"testing_sgeqrf exited {rc}")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    chk = {c["check"]: c["residual"] for c in run["checks"]}
+    log(f"[sgeqrf] N={N_QR} nb={NB_QR} panel.kernel=pallas K1 on, input "
+        f"{N_QR * N_QR * 4 / 2**20:.0f} MiB: best {op['best_s']:.5f} s "
+        f"{op['gflops']:.1f} GFLOP/s (warm-up {op['warmup_s']:.3f} s, "
+        f"driver wall {wall:.1f} s); per factorization K4 launches "
+        f"{op['k4_launches']} (want {want_k4}), K1 launches "
+        f"{op['k1_launches']} (want {want_k1}); whole run K4 {k4_run}, K1 "
+        f"{k1_run}, K3 {k3_run}; residuals " + ", ".join(
+            f"{name} {res:.3e}" for name, res in chk.items()))
+    check(all(n == want_k4 for n in op["k4_launches"]),
+          f"K4 launches per factorization {op['k4_launches']} != {want_k4}")
+    check(all(n == want_k1 for n in op["k1_launches"]),
+          f"K1 launches per factorization {op['k1_launches']} != {want_k1}")
+    check(k3_run == 0, f"the QR path launched K3 {k3_run} times")
+    check(all(c["ok"] and c["residual"] < 60 for c in run["checks"])
+          and len(run["checks"]) == 2, f"sgeqrf -x checks: {run['checks']}")
+    record["sgeqrf"] = {"N": N_QR, "nb": NB_QR, "best_s": op["best_s"],
+                        "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+                        "k4_launches_per_factorization": op["k4_launches"],
+                        "k1_launches_per_factorization": op["k1_launches"],
+                        "k4_launches_run": k4_run, "k1_launches_run": k1_run,
+                        "checks": run["checks"]}
+
+    # a smaller factorization on the card against a float64 QR on the
+    # host: |R| (the signs of R's rows may differ) and ||A - QR||
+    A = generators.plrnt(2048, 2048, 256, 256, seed=7)
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        Af, Tf = qr.geqrf(A)
+        Q = qr.ungqr(Af, Tf).to_dense().double().cpu()
+    a64 = A.to_dense().double().cpu()
+    R = torch.triu(Af.to_dense()).double().cpu()
+    R64 = torch.linalg.qr(a64, mode="r")[1]
+    r_err = float((R.abs() - R64.abs()).abs().max() / R64.abs().max())
+    bwd = float((a64 - Q @ R).abs().max() / a64.abs().max())
+    log(f"[sgeqrf] N=2048 nb=256 against a float64 host QR: max||R|-|R64||"
+        f"/max|R64| = {r_err:.3e}, max|A - QR|/max|A| = {bwd:.3e} "
+        f"(tol 1e-4 each)")
+    check(bool(torch.isfinite(R).all()) and r_err <= 1e-4 and bwd <= 1e-4,
+          f"small QR disagrees with float64: |R| {r_err:.3e}, A-QR {bwd:.3e}")
+    record["sgeqrf_small"] = {"r_abs_rel_err": r_err, "backward_err": bwd}
+    return k1_run, k4_run
+
+
+def phase_sgeqrf_profile(torch, pk, record):
+    """One factorization of the QR path under torch.profiler."""
+    from dplasma_tpu_torch.ops import generators, qr
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    A = generators.plrnt(N_QR, N_QR, NB_QR, NB_QR, seed=3872)
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        _profile(torch, record, "sgeqrf_profile", f"N={N_QR} nb={NB_QR}",
+                 lambda: qr.geqrf(A))
+
+
+def phase_more_drivers(torch, pk, record):
     from dplasma_tpu_torch.drivers import common, main
     from dplasma_tpu_torch.utils import config as cfg
     pk.enable(True)
     kt = N_LU // NB_LU
+    kq = N_QR // NB_QR
     out = {}
-    # argv, MCA, K1 launches per factorization ok?, K3 ... ok?
-    for argv, mca, k1_ok, k3_ok in (
+    n_qr = (str(N_QR), "-t")
+    # argv, MCA, and whether the K1, K3 and K4 launches of each timed
+    # run are right
+    for argv, mca, k1_ok, k3_ok, k4_ok in (
             (["testing_sgesv", "-N", str(N_LU), "-t", str(NB_LU), "-x"],
              {"panel.kernel": "pallas"}, lambda n: n >= 2 * kt - 3,
-             lambda n: n == kt),
+             lambda n: n == kt, lambda n: n == 0),
             (["testing_dgetrf", "-N", str(N_LU), "-t", str(NB_LU), "-x"],
-             {}, lambda n: n == 0, lambda n: n == 0),
+             {}, lambda n: n == 0, lambda n: n == 0, lambda n: n == 0),
             (["testing_dpotrf", "-N", "8192", "-t", "1024", "-x"], {},
-             lambda n: n == 0, lambda n: n == 0),
+             lambda n: n == 0, lambda n: n == 0, lambda n: n == 0),
             (["testing_sgemm", "-N", "8192", "-K", "8192", "-x"], {},
-             lambda n: n >= 1, lambda n: n == 0)):
+             lambda n: n >= 1, lambda n: n == 0, lambda n: n == 0),
+            (["testing_sgels", "-N", *n_qr, str(NB_QR), "-K", "16", "-x"],
+             {"panel.kernel": "pallas"}, lambda n: n >= qr_k1_products(kq),
+             lambda n: n == 0, lambda n: n == kq),
+            (["testing_sgeqrf", "-N", *n_qr, "1024", "-x"], {},
+             lambda n: n >= 1, lambda n: n == 0, lambda n: n == 0),
+            (["testing_dgeqrf", "-N", *n_qr, str(NB_QR), "-x"], {},
+             lambda n: n == 0, lambda n: n == 0, lambda n: n == 0)):
         with cfg.override_scope(mca):
             rc = main(argv)
         torch.cuda.synchronize()
@@ -552,19 +806,22 @@ def phase_more_drivers(torch, pk, plu, record):
         op = run["ops"][0]
         log(f"[{argv[0]}] {' '.join(argv[1:])} {mca or ''}: best "
             f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s, launches per "
-            f"run K1 {op['k1_launches']} K3 {op['k3_launches']}, checks "
+            f"run K1 {op['k1_launches']} K3 {op['k3_launches']} K4 "
+            f"{op['k4_launches']}, checks "
             + ", ".join(f"{c['check']}={c['residual']:.3e}"
                         for c in run["checks"]))
         check(rc == 0, f"{argv[0]} exited {rc}")
-        check(all(map(k1_ok, op["k1_launches"])),
-              f"{argv[0]}: K1 launches {op['k1_launches']}")
-        check(all(map(k3_ok, op["k3_launches"])),
-              f"{argv[0]}: K3 launches {op['k3_launches']}")
-        out[argv[0]] = {"argv": argv[1:], "mca": mca,
-                        "best_s": op["best_s"], "gflops": op["gflops"],
-                        "k1_launches": op["k1_launches"],
-                        "k3_launches": op["k3_launches"],
-                        "checks": run["checks"]}
+        check(run["checks"] and all(c["ok"] for c in run["checks"]),
+              f"{argv[0]}: checks {run['checks']}")
+        for lab, ok in (("k1", k1_ok), ("k3", k3_ok), ("k4", k4_ok)):
+            check(all(map(ok, op[f"{lab}_launches"])),
+                  f"{argv[0]}: {lab.upper()} launches "
+                  f"{op[f'{lab}_launches']}")
+        out[argv[0] + " " + " ".join(argv[1:])] = {
+            "argv": argv[1:], "mca": mca, "best_s": op["best_s"],
+            "gflops": op["gflops"], "k1_launches": op["k1_launches"],
+            "k3_launches": op["k3_launches"],
+            "k4_launches": op["k4_launches"], "checks": run["checks"]}
     record["drivers"] = out
 
 
@@ -576,17 +833,22 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
     from dplasma_tpu_torch.kernels import pallas_lu as plu
+    from dplasma_tpu_torch.kernels import pallas_qr as pqr
 
+    t_start = time.perf_counter()
     record = {"device": torch.cuda.get_device_name(0)}
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {record['device']}")
     phase_build(record)
     k1tot, nprod = phase_k1(torch, pk, record)
     k3tot, npan = phase_k3(torch, plu, record)
+    k4tot, nqpan = phase_k4(torch, pqr, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
     k1_sgetrf, k3_sgetrf = phase_sgetrf(torch, pk, plu, record)
     phase_sgetrf_profile(torch, pk, record)
-    phase_more_drivers(torch, pk, plu, record)
+    k1_sgeqrf, k4_sgeqrf = phase_sgeqrf(torch, pk, plu, pqr, record)
+    phase_sgeqrf_profile(torch, pk, record)
+    phase_more_drivers(torch, pk, record)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -597,8 +859,9 @@ def main() -> int:
         {"name": "k1_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
-         "launches": k1_spotrf + k1_sgetrf,
-         "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf},
+         "launches": k1_spotrf + k1_sgetrf + k1_sgeqrf,
+         "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
+                              "sgeqrf": k1_sgeqrf},
          "max_abs_err": k1tot["max_abs_err"],
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
@@ -612,8 +875,19 @@ def main() -> int:
          "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
          "bound_ms": k3tot["bound_ms"],
          "bound_by": lu_bound_ms(N_LU, NB_LU)[1],
-         "library_ms": k3tot["library_ms"]}]}
+         "library_ms": k3tot["library_ms"]},
+        {"name": "k4_geqrt_panel", "route": "cuda",
+         "source": "dplasma_tpu_torch/kernels/csrc/geqrt_panel.cu",
+         "replaces": "dplasma_tpu/kernels/pallas_qr.py:123",
+         "launches": k4_sgeqrf,
+         "launches_by_path": {"sgeqrf": k4_sgeqrf},
+         "max_abs_err": k4tot["max_abs_err"],
+         "ms": k4tot["ms"], "plain_ms": k4tot["plain_ms"],
+         "bound_ms": k4tot["bound_ms"],
+         "bound_by": qr_bound_ms(N_QR, NB_QR)[1],
+         "library_ms": k4tot["library_ms"]}]}
     record.update(kernels)
+    record["wall_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
@@ -622,8 +896,11 @@ def main() -> int:
         f"{nprod} K1 products of one spotrf factorization (N={N_MAIN}, "
         f"nb={NB_MAIN}); K3's over the {npan} panels of one sgetrf "
         f"factorization (N={N_LU}, nb={NB_LU}; library = "
-        f"torch.linalg.lu_factor_ex on cuSOLVER); launches count each "
+        f"torch.linalg.lu_factor_ex on cuSOLVER); K4's over the {nqpan} "
+        f"panels of one sgeqrf factorization (N={N_QR}, nb={NB_QR}; "
+        f"library = torch.geqrf on cuSOLVER); launches count each "
         f"main-path driver run (warm-up, timed run, -x check)")
+    log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

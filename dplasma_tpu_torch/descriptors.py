@@ -86,6 +86,17 @@ class TileDesc:
         """Number of diagonal tiles."""
         return min(self.MT, self.NT)
 
+    def with_shape(self, M: int, N: int) -> "TileDesc":
+        """The same tiling and grid for an M×N matrix."""
+        return dataclasses.replace(self, M=M, N=N)
+
+    def transposed(self) -> "TileDesc":
+        """The descriptor of the transpose: shapes, tile sizes and the
+        process grid swapped (descriptors.py:93-99 of the reference)."""
+        d = self.dist
+        dist_t = Dist(d.Q, d.P, d.kq, d.kp, d.jq, d.ip)
+        return TileDesc(self.N, self.M, self.nb, self.mb, dist_t)
+
     def to_dict(self) -> dict:
         """The reference ``TileDesc``'s fields as a plain dict."""
         return dataclasses.asdict(self)

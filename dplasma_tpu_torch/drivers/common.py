@@ -1,5 +1,6 @@
 """Shared driver harness — the part of ``dplasma_tpu/drivers/common.py``
-that the ``potrf``, ``gemm``, ``getrf`` and ``gesv`` drivers need.
+that the ``potrf``, ``gemm``, ``getrf``, ``gesv`` and QR-family drivers
+need.
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
 ``-N -M -K -t -T -x -v --nruns -z/--HNB --seed -p -q -g``, plus
@@ -12,8 +13,9 @@ on the card (a host clock on the CPU), and prints the reference's
 unchanged. The port has no trace/compile step, so ENQ and DEST are 0.
 
 Every driver run is recorded in :data:`RUNS` (newest last): per op the
-run times, GFLOP/s and the K1 and K3 launches of each timed run; per
-``-x`` check its residual and verdict.
+run times, GFLOP/s and the launches of each hand-written kernel
+(:data:`KERNELS`) in each timed run; per ``-x`` check its residual and
+verdict.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from dplasma_tpu_torch import resolve_device
 from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.kernels import pallas_lu as _plu
+from dplasma_tpu_torch.kernels import pallas_qr as _pqr
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -35,6 +38,10 @@ PRECISIONS = {"s": torch.float32, "d": torch.float64,
 
 #: one record per driver run in this process, newest last
 RUNS: list = []
+
+#: (label, wrapper module with a ``LAUNCHES`` counter) of every
+#: hand-written kernel; op records carry ``<label>_launches``
+KERNELS = (("k1", _pk), ("k3", _plu), ("k4", _pqr))
 
 
 @dataclass
@@ -220,7 +227,8 @@ class Driver:
                      if self.device.type == "cuda" else "cpu")
             print(f"#+ device: {self.device} ({where}) K1 enabled="
                   f"{_pk.enabled()} LU panel.kernel="
-                  f"{_panels.panel_kernel('lu')}")
+                  f"{_panels.panel_kernel('lu')} QR panel.kernel="
+                  f"{_panels.panel_kernel('qr')}")
 
     def close(self):
         for frame in reversed(self._frames):
@@ -232,8 +240,9 @@ class Driver:
             torch.cuda.synchronize(self.device)
 
     def _timed(self, fn: Callable, args: tuple):
-        """One run of ``fn``: (output, seconds, (K1, K3) launches)."""
-        launches = (_pk.LAUNCHES, _plu.LAUNCHES)
+        """One run of ``fn``: (output, seconds, {label: launches} of
+        every kernel in :data:`KERNELS`)."""
+        before = {lab: mod.LAUNCHES for lab, mod in KERNELS}
         if self.device.type == "cuda":
             self.sync()
             start = torch.cuda.Event(enable_timing=True)
@@ -247,8 +256,8 @@ class Driver:
             t0 = time.perf_counter()
             out = fn(*args)
             secs = time.perf_counter() - t0
-        return out, secs, (_pk.LAUNCHES - launches[0],
-                           _plu.LAUNCHES - launches[1])
+        return out, secs, {lab: mod.LAUNCHES - before[lab]
+                           for lab, mod in KERNELS}
 
     def progress(self, fn: Callable, args: tuple, flops: float,
                  label: Optional[str] = None):
@@ -258,24 +267,26 @@ class Driver:
         warm = None
         if ip.warmup:
             _, warm, _ = self._timed(fn, args)
-        times, k1, k3 = [], [], []
+        times = []
+        launches = {lab: [] for lab, _ in KERNELS}
         out = None
         for _ in range(max(ip.nruns, 1)):
-            out, secs, (n1, n3) = self._timed(fn, args)
+            out, secs, n = self._timed(fn, args)
             times.append(secs)
-            k1.append(n1)
-            k3.append(n3)
+            for lab in launches:
+                launches[lab].append(n[lab])
         best = min(times)
         gflops = (flops / 1e9) / best
         enq = dest = 0.0
         total = enq + best + dest
         self.record["ops"].append({
             "op": name, "flops": flops, "warmup_s": warm, "runs_s": times,
-            "best_s": best, "gflops": gflops, "k1_launches": k1,
-            "k3_launches": k3})
+            "best_s": best, "gflops": gflops,
+            **{f"{lab}_launches": n for lab, n in launches.items()}})
         if ip.loud >= 2:
-            print(f"#+ kernels[{name}]: K1 launches per run = {k1}, K3 "
-                  f"launches per run = {k3}")
+            print(f"#+ kernels[{name}]: " + ", ".join(
+                f"{lab.upper()} launches per run = {n}"
+                for lab, n in launches.items()))
         print("[****] TIME(s) %12.5f : %s\tPxQxg= %3d %-3d %d NB= %4d "
               "N= %7d : %14f gflops - ENQ&PROG&DEST %12.5f : %14f gflops"
               " - ENQ %12.5f - DEST %12.5f"

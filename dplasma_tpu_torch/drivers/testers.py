@@ -1,8 +1,9 @@
 """The testing_* driver bodies of the ported slices: ``potrf``, ``gemm``,
-``getrf`` (= ``getrf_1d``) and ``gesv``.
+``getrf`` (= ``getrf_1d``), ``gesv``, and the QR family ``geqrf``,
+``gelqf``, ``ungqr``, ``unglq``, ``unmqr``, ``unmlq`` and ``gels``.
 
-Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214, :454-455,
-:510-529, :577-589): seeded
+Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214, :290-381,
+:454-455, :510-529, :577-589): seeded
 generation → timed run with the GFLOPS print → optional ``-x`` residual
 verification against the regenerated input.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
-from dplasma_tpu_torch.ops import blas3, checks, generators, lu
+from dplasma_tpu_torch.ops import blas3, checks, generators, lu, qr
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
@@ -91,5 +92,98 @@ def gesv(drv: Driver):
     return 0
 
 
+# ------------------------------------------------------------------ QR
+
+def geqrf(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    hnb = max(ip.HNB, 0)  # -z/--HNB: recursive-panel variant
+    (Af, Tf), _ = drv.progress(
+        lambda a: qr.geqrf_rec(a, hnb), (A0,),
+        lawn41.geqrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        Q = qr.ungqr(Af, Tf).to_dense()
+        R = torch.triu(Af.to_dense()[:min(ip.M, ip.N), :])
+        ret = 0
+        r, ok = checks.check_qr(A0, Q, R)
+        ret |= drv.report_check("|A-QR|", r, ok)
+        r, ok = checks.check_orthogonality(Q)
+        ret |= drv.report_check("|I-Q'Q|", r, ok)
+        return ret
+    return 0
+
+
+def gelqf(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    (Af, Tf), _ = drv.progress(
+        qr.gelqf, (A0,), lawn41.gelqf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        Q = qr.unglq(Af, Tf).to_dense()
+        L = torch.tril(Af.to_dense()[:, :min(ip.M, ip.N)])
+        ref = A0.to_dense()
+        eps = checks._eps(ref.dtype)
+        r = float(torch.max(torch.abs(ref - L @ Q))
+                  / (torch.max(torch.abs(ref)) + 1.0))
+        return drv.report_check("|A-LQ|", r, r < 60 * eps * max(ip.M, ip.N))
+    return 0
+
+
+def ungqr(drv: Driver):
+    ip = drv.ip
+    Af, Tf = qr.geqrf(_gen(drv, ip.M, ip.N))
+    out, _ = drv.progress(qr.ungqr, (Af, Tf),
+                          lawn41.ungqr(ip.M, ip.N, ip.N,
+                                       ip.prec_dtype.is_complex))
+    if ip.check:
+        r, ok = checks.check_orthogonality(out.to_dense())
+        return drv.report_check("|I-Q'Q|", r, ok)
+    return 0
+
+
+def unglq(drv: Driver):
+    ip = drv.ip
+    Af, Tf = qr.gelqf(_gen(drv, ip.M, ip.N))
+    drv.progress(qr.unglq, (Af, Tf),
+                 lawn41.ungqr(ip.N, ip.M, ip.M, ip.prec_dtype.is_complex))
+    return 0
+
+
+def unmqr(drv: Driver):
+    ip = drv.ip
+    Af, Tf = qr.geqrf(_gen(drv, ip.M, ip.M))
+    C = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(lambda a, t, c: qr.unmqr("L", "N", a, t, c), (Af, Tf, C),
+                 lawn41.unmqr("L", ip.M, ip.N, ip.M,
+                              ip.prec_dtype.is_complex))
+    return 0
+
+
+def unmlq(drv: Driver):
+    ip = drv.ip
+    Af, Tf = qr.gelqf(_gen(drv, ip.M, ip.M))
+    C = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(lambda a, t, c: qr.unmlq("L", "N", a, t, c), (Af, Tf, C),
+                 lawn41.unmqr("L", ip.M, ip.N, ip.M,
+                              ip.prec_dtype.is_complex))
+    return 0
+
+
+def gels(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    B = _gen(drv, max(ip.M, ip.N), ip.K, 1)
+    cplx = ip.prec_dtype.is_complex
+    out, _ = drv.progress(qr.gels, (A0, B),
+                          lawn41.geqrf(ip.M, ip.N, cplx)
+                          + lawn41.unmqr("L", ip.M, ip.K, ip.N, cplx))
+    if ip.check:
+        r, ok = checks.check_gels(A0, B, out.to_dense())
+        return drv.report_check("GELS normal eq", r, ok)
+    return 0
+
+
 DRIVERS = {"gemm": gemm, "potrf": potrf, "getrf": getrf_1d,
-           "getrf_1d": getrf_1d, "gesv": gesv}
+           "getrf_1d": getrf_1d, "gesv": gesv,
+           "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
+           "unmqr": unmqr, "unmlq": unmlq, "gels": gels}

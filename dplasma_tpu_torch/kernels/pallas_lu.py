@@ -15,8 +15,9 @@ spreads each panel over many SMs.
 
 The route and its gate are the reference's: ``ops.lu._base_lu`` sends a
 panel here under MCA ``panel.kernel=pallas`` (or ``lu.pallas_panel=on``
-on the chain route) when :func:`eligible` holds: f32, ``nb % 8 == 0``
-and ``M·nb·4 <= 8 MiB``, so both packages route the same panels. On a
+on the chain route) when :func:`eligible` holds: f32 and the fused-panel
+shape gate of ``kernels/pallas_qr.py`` (``nb % 8 == 0``, ``M·nb·4 <=
+8 MiB``), so both packages route the same panels. On a
 CUDA tensor the wrapper launches the kernel or raises; only a CPU
 tensor takes :func:`lu_panel_reference`, the plain PyTorch version the
 tests and the on-card comparison use. ``ROUTED`` counts calls on any
@@ -29,12 +30,10 @@ import ctypes
 import torch
 
 from dplasma_tpu_torch.kernels import panels as _panels
-
-#: column register-block width (pallas_qr.py:43)
-JB = 8
-#: whole-panel residency budget of the fused panel kernels
-#: (pallas_qr.py:150); kept as the routing gate
-VMEM_PANEL_BYTES = 8 * 2 ** 20
+# the fused-panel gate has one home, K4's module, as in the reference
+# (dplasma_tpu/kernels/pallas_lu.py:134-139)
+from dplasma_tpu_torch.kernels.pallas_qr import (  # noqa: F401
+    JB, VMEM_PANEL_BYTES, eligible_shape)
 
 #: calls that took the K3 route, on any device
 ROUTED = 0
@@ -48,13 +47,6 @@ def reset_counts() -> None:
     global ROUTED, LAUNCHES
     ROUTED = 0
     LAUNCHES = 0
-
-
-def eligible_shape(m: int, nb: int, itemsize: int = 4) -> bool:
-    """The fused-panel shape gate (pallas_qr.py:153-159): f32-width
-    items, JB-aligned width, whole panel within the residency budget."""
-    return (itemsize == 4 and nb % JB == 0
-            and m * nb * itemsize <= VMEM_PANEL_BYTES)
 
 
 def eligible(a) -> bool:

@@ -1,7 +1,8 @@
 """Norm-based residual verification (the ``-x`` self-checks).
 
-Ports ``check_potrf`` and ``check_axmb`` of ``dplasma_tpu/ops/checks.py``
-(:16-68): regenerate from the seed, compute an analytic residual, pass
+Ports ``check_potrf``, ``check_axmb``, ``check_gels``, ``check_qr`` and
+``check_orthogonality`` of ``dplasma_tpu/ops/checks.py`` (:16-68,
+:94-138): regenerate from the seed, compute an analytic residual, pass
 iff residual < 60 after scaling by eps·N (ref src/dplasma_zcheck.c,
 tests/testing_zpotrf.c:86-121). No golden files.
 """
@@ -63,3 +64,38 @@ def check_axmb(A0: TileMatrix, b: TileMatrix, x: TileMatrix,
            * _eps(A0.dtype) * N)
     val = float(num / torch.clamp(den, min=_tiny(A0.dtype)))
     return val, val < THRESHOLD
+
+
+def check_gels(A0: TileMatrix, b: TileMatrix, xd):
+    """Least-squares optimality ``||A^H (A x - b)|| / (||A||_F^2 ||x||_F
+    eps max(M,N))`` — the gels testers' normal-equations gate. ``xd`` is
+    the dense N-row solution; rows of ``b`` beyond A's M are ignored."""
+    Ad = A0.to_dense()
+    M, N = A0.desc.M, A0.desc.N
+    res = blas.dot(Ad, xd[:N]) - b.to_dense()[:M]
+    res = blas.dot(Ad, res, ta=True, conj_a=True)
+    nrm = torch.linalg.norm(Ad) ** 2 * torch.linalg.norm(xd[:N])
+    den = nrm * _eps(A0.dtype) * max(M, N)
+    val = float(torch.linalg.norm(res)
+                / torch.clamp(den, min=_tiny(A0.dtype)))
+    return val, val < THRESHOLD
+
+
+def check_qr(A0: TileMatrix, Q, R):
+    """||A - Q R|| / (||A|| max(M,N) eps)."""
+    a = A0.to_dense()
+    rec = blas.dot(Q, R)
+    den = torch.clamp(torch.max(torch.abs(a)), min=1.0) \
+        * _eps(A0.dtype) * max(A0.desc.M, A0.desc.N)
+    r = float(torch.max(torch.abs(a - rec))
+              / torch.clamp(den, min=_tiny(A0.dtype)))
+    return r, r < THRESHOLD
+
+
+def check_orthogonality(Q):
+    """||I - Q^H Q|| / (N eps)."""
+    n = Q.shape[1]
+    g = blas.dot(Q, Q, ta=True, conj_a=True)
+    eye = torch.eye(n, dtype=Q.dtype, device=Q.device)
+    r = float(torch.max(torch.abs(g - eye)) / (_eps(Q.dtype) * n))
+    return r, r < THRESHOLD

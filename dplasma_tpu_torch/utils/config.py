@@ -214,8 +214,16 @@ mca_register("sweep.lookahead", "1",
              "ahead of the one aggregated far product. 0 = the "
              "serialized baseline. CLI --lookahead overrides.")
 mca_register("qr.agg_depth", "4",
-             "Update aggregation depth of the pipelined QR sweep "
-             "(read by sweep_params; the QR sweep is not ported yet).")
+             "Update aggregation depth of the pipelined QR sweep: the "
+             "far trailing update is held back for this many panels and "
+             "applied as one compact-WY product (1 = per-step updates).")
+mca_register("qr_panel", "auto",
+             "Panel QR algorithm for the flat geqrf sweep: auto/lapack "
+             "(the vendor QR, cuSOLVER on the card), cholqr "
+             "(CholeskyQR2 + Householder reconstruction, all "
+             "matmul-shaped work; requires numerically full-rank "
+             "panels). Applies only to ops.qr.geqrf, whose edge tiles "
+             "are identity-padded to keep panels full rank.")
 mca_register("trsm_inv", "auto",
              "Run triangular solves as explicit triangle inverse + "
              "matmul: auto/never (native solve), always (inverse form).")

@@ -17,7 +17,7 @@ SLICE_KNOBS = ["sweep.lookahead", "qr.agg_depth", "trsm_inv", "dd_gemm",
                "quant.updates", "quant.tile", "quant.guard",
                "lu.pallas_panel", "lu.panel_ib", "lu.panel_chunk",
                "lu.agg_depth", "panel.kernel", "panel.tree_leaf",
-               "panel.rec_base"]
+               "panel.rec_base", "qr_panel"]
 
 
 @pytest.fixture

@@ -82,3 +82,14 @@ def test_zeros_and_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.TileMatrix.zeros(5, 7, 4, 4)
+
+
+@pytest.mark.parametrize("M,N,mb,nb", SHAPES)
+def test_transposed_and_with_shape_match_reference(M, N, mb, nb):
+    dist = dict(P=2, Q=3, kp=1, kq=2, ip=1, jq=0)
+    a = ref.TileDesc(M, N, mb, nb, ref.Dist(**dist))
+    b = port.TileDesc(M, N, mb, nb, port.Dist(**dist))
+    assert dataclasses.asdict(a.transposed()) == b.transposed().to_dict()
+    assert b.transposed().transposed() == b
+    assert dataclasses.asdict(a.with_shape(N + 1, M)) == \
+        b.with_shape(N + 1, M).to_dict()

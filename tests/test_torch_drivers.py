@@ -7,6 +7,7 @@ from dplasma_tpu.drivers import common as ref_common
 from dplasma_tpu_torch.drivers import common, main
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
+from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.utils import config as cfg
 
 
@@ -22,6 +23,13 @@ from dplasma_tpu_torch.utils import config as cfg
     ["testing_dgetrf_1d", "-N", "64", "-t", "16", "-x", "--lookahead", "0"],
     ["testing_sgesv", "-N", "96", "-t", "32", "-x"],
     ["testing_dgesv", "-N", "90", "-t", "32", "-K", "3", "-x"],
+    ["testing_sgeqrf", "-N", "96", "-t", "32", "-x"],
+    ["testing_dgeqrf", "-N", "100", "-M", "130", "-t", "32", "-x"],
+    ["testing_dgeqrf", "-N", "96", "-t", "32", "-z", "8", "-x"],
+    ["testing_sgels", "-N", "96", "-t", "32", "-K", "4", "-x"],
+    ["testing_dgels", "-N", "70", "-M", "100", "-t", "32", "-K", "3", "-x"],
+    ["testing_sgelqf", "-N", "100", "-M", "70", "-t", "32", "-x"],
+    ["testing_dungqr", "-N", "64", "-M", "90", "-t", "32", "-x"],
 ])
 def test_driver_runs_and_checks(argv, capsys):
     common.RUNS.clear()
@@ -69,6 +77,46 @@ def test_lu_drivers_count_k3_routes(prog, capsys):
     assert "K3 launches per run" in out and "panel.kernel=pallas" in out
 
 
+@pytest.mark.parametrize("argv", [
+    ["testing_dunglq", "-N", "90", "-M", "64", "-t", "32"],
+    ["testing_dunmqr", "-N", "5", "-M", "64", "-t", "32"],
+    ["testing_sunmlq", "-N", "5", "-M", "64", "-t", "32"],
+])
+def test_qr_appliers_run(argv, capsys):
+    """The drivers without a -x check time their op and print the
+    reference's perf line."""
+    common.RUNS.clear()
+    assert main(argv + ["--device", "cpu"]) == 0
+    assert "[****] TIME(s)" in capsys.readouterr().out
+    assert common.RUNS[-1]["ops"][0]["gflops"] > 0
+
+
+def test_geqrf_driver_counts_k4_routes(capsys):
+    """With panel.kernel=pallas every panel of each factorization takes
+    the K4 route (3 at N=96, nb=32: warm-up and timed run); on the CPU
+    none of them is a CUDA launch. The banner names the QR route."""
+    common.RUNS.clear()
+    routed = pqr.ROUTED
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        assert main(["testing_sgeqrf", "-N", "96", "-t", "32", "-x", "-v",
+                     "--device", "cpu"]) == 0
+    assert pqr.ROUTED - routed == 2 * 3
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    assert op["k4_launches"] == [0] and op["k3_launches"] == [0] \
+        and op["k1_launches"] == [0]
+    assert all(c["ok"] for c in run["checks"])
+    out = capsys.readouterr().out
+    assert "K4 launches per run" in out and "QR panel.kernel=pallas" in out
+
+
+def test_every_kernel_wrapper_is_counted():
+    """The driver reads the launch counter of every kernel wrapper."""
+    assert [lab for lab, _ in common.KERNELS] == ["k1", "k3", "k4"]
+    assert [mod for _, mod in common.KERNELS] == [pk, plu, pqr]
+    assert all(hasattr(mod, "LAUNCHES") for _, mod in common.KERNELS)
+
+
 def test_parse_matches_reference_defaults():
     argv = ["-N", "1000", "-x", "--nruns", "3", "--seed=7", "-v"]
     ip = common.parse_arguments(argv)
@@ -89,7 +137,7 @@ def test_bad_invocations(capsys):
     with pytest.raises(SystemExit) as e:
         common.parse_arguments(["-N", "8", "--qr_a", "2"])
     assert e.value.code == 2
-    assert main(["testing_sgeqrf", "-N", "8"]) == 2
+    assert main(["testing_sheev", "-N", "8"]) == 2
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
     with pytest.raises(SystemExit, match="one device"):
         main(["testing_spotrf", "-N", "8", "-p", "2", "--device", "cpu"])

@@ -39,6 +39,10 @@ def _forbidden(name: str) -> bool:
 def test_sweep_finds_the_package():
     assert len(FILES) > 15
     assert all(p.exists() for p in FILES)
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    for mod in ("kernels/householder.py", "kernels/pallas_qr.py",
+                "kernels/panels.py", "ops/qr.py", "ops/checks.py"):
+        assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

@@ -1,0 +1,161 @@
+"""Port parity: K4's wrapper and plain version
+(``dplasma_tpu_torch/kernels/pallas_qr.py``) against the JAX package.
+
+The reference K4 runs as the JAX package's own tests run it on the CPU:
+its jitted ``_geqrt_call(a, True)`` in interpret mode (the public
+``geqrt_panel`` needs ``x64_scope`` patched to a null context under
+this jax). The CUDA kernel itself is held against
+``geqrt_panel_reference`` on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+
+Gates: the packed panel within 1e-5 of max|packed| and the taus within
+1e-5 (f32; the two sum in different orders), and every sign equal —
+including the reference's rule that a column with nothing below its
+diagonal reflects with tau = 2 (LAPACK's larfg would give 0).
+"""
+import contextlib
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dplasma_tpu.kernels import householder as ref_hh
+from dplasma_tpu.kernels import pallas_qr as ref_pqr
+from dplasma_tpu_torch.kernels import pallas_lu as plu
+from dplasma_tpu_torch.kernels import pallas_qr as pqr
+
+TOL = 1e-5
+
+
+def _ref_k4(a):
+    packed, taus = ref_pqr._geqrt_call(jnp.asarray(a), True)
+    return np.asarray(packed), np.asarray(taus)
+
+
+def _panel(kind):
+    rng = np.random.default_rng(7)
+    if kind == "tall":
+        return rng.standard_normal((96, 32)).astype(np.float32)
+    if kind == "ragged":
+        return rng.standard_normal((77, 24)).astype(np.float32)
+    if kind == "square":
+        return rng.standard_normal((32, 32)).astype(np.float32)
+    a = rng.standard_normal((40, 16)).astype(np.float32)
+    a[:, 3] = 0.0                       # zero column: tau 0, v 0
+    return a
+
+
+@pytest.mark.parametrize("kind", ["tall", "ragged", "square", "zero_column"])
+def test_k4_plain_version_matches_reference_kernel(kind):
+    a = _panel(kind)
+    want, wtau = _ref_k4(a)
+    got, gtau = pqr.geqrt_panel_reference(torch.from_numpy(a))
+    assert got.dtype == torch.float32 and gtau.shape == (a.shape[1],)
+    scale = np.abs(want).max()
+    assert np.abs(want - got.numpy()).max() / scale <= TOL
+    assert np.abs(wtau - gtau.numpy()).max() <= TOL
+    big = np.abs(want) > 1e-3 * scale
+    np.testing.assert_array_equal(np.sign(want[big]),
+                                  np.sign(got.numpy()[big]))
+    if kind == "square":
+        # the last column has nothing below its diagonal: tau = 2 and
+        # R[-1, -1] flips sign, on both sides
+        assert float(gtau[-1]) == 2.0 == float(wtau[-1])
+        lapack = ref_hh.geqrf_packed(jnp.asarray(a))[1]
+        assert float(lapack[-1]) == 0.0
+    if kind == "zero_column":
+        assert float(gtau[3]) == 0.0 == float(wtau[3])
+        assert (got[4:, 3] == 0).all() and torch.isfinite(got).all()
+
+
+def test_k4_tall_panel_agrees_with_lapack(rng):
+    """On a tall panel the reference's rule and LAPACK's coincide."""
+    a = rng.standard_normal((80, 16)).astype(np.float32)
+    got, gtau = pqr.geqrt_panel_reference(torch.from_numpy(a))
+    want, wtau = ref_hh.geqrf_packed(jnp.asarray(a))
+    assert np.abs(np.asarray(want) - got.numpy()).max() <= 1e-5 * \
+        np.abs(np.asarray(want)).max()
+    assert np.abs(np.asarray(wtau) - gtau.numpy()).max() <= 1e-5
+
+
+def test_geqrt_panel_contract_matches_reference(monkeypatch):
+    """(packed, V, T) of the port's wrapper against the reference's
+    public ``geqrt_panel`` (interpret mode)."""
+    monkeypatch.setattr(ref_pqr, "x64_scope",
+                        lambda e: contextlib.nullcontext())
+    a = _panel("tall")
+    want = ref_pqr.geqrt_panel(jnp.asarray(a))
+    got = pqr.geqrt_panel(torch.from_numpy(a))
+    for w, g in zip(want, got):
+        w = np.asarray(w, np.float64)
+        assert np.linalg.norm(w - g.numpy()) / np.linalg.norm(w) <= TOL
+    # Q = I - V T V^T is orthogonal and Q [R; 0] = a
+    packed, v, T = got
+    q = torch.eye(96) - v @ T @ v.T
+    assert torch.allclose(q.T @ q, torch.eye(96), atol=1e-5)
+    r = torch.triu(packed[:32])
+    assert torch.allclose(q[:, :32] @ r, torch.from_numpy(a), atol=1e-4)
+
+
+_GRID = [(40, 16), (40, 12), (8192, 256), (8193, 256), (262144, 8),
+         (262145, 8), (1024, 2048), (7, 8)]
+_DT = [(jnp.float32, torch.float32), (jnp.float64, torch.float64),
+       (jnp.bfloat16, torch.bfloat16)]
+
+
+def test_k4_eligible_matches_reference():
+    for (M, nb), (jdt, tdt) in itertools.product(_GRID, _DT):
+        ja = jax.ShapeDtypeStruct((M, nb), jdt)
+        ta = torch.empty((M, nb), dtype=tdt, device="meta")
+        assert pqr.eligible(ta) == ref_pqr.eligible(ja), (M, nb, jdt)
+    assert not pqr.eligible(torch.empty(64, device="meta"))
+    for m, nb, item in itertools.product([8, 1000, 8192, 65536],
+                                         [8, 12, 256, 1024], [2, 4, 8]):
+        assert pqr.eligible_shape(m, nb, item) == \
+            ref_pqr.eligible_shape(m, nb, item)
+    assert (pqr.JB, pqr.VMEM_PANEL_BYTES) == (ref_pqr.JB,
+                                              ref_pqr.VMEM_PANEL_BYTES)
+
+
+def test_gate_has_one_home():
+    """K3 routes by K4's module's gate, as the reference's pallas_lu
+    imports it from pallas_qr."""
+    assert plu.eligible_shape is pqr.eligible_shape
+    assert (plu.JB, plu.VMEM_PANEL_BYTES) == (pqr.JB, pqr.VMEM_PANEL_BYTES)
+
+
+def test_k4_wrapper_on_cpu_routes_to_plain_version(rng):
+    a = torch.from_numpy(rng.standard_normal((100, 24)).astype(np.float32))
+    routed, launches = pqr.ROUTED, pqr.LAUNCHES
+    packed, taus = pqr.geqrt_panel_packed(a.T.contiguous().T)  # strided
+    want, wtau = pqr.geqrt_panel_reference(a)
+    assert torch.equal(packed, want) and torch.equal(taus, wtau)
+    pqr.geqrt_panel(a)
+    assert pqr.ROUTED == routed + 2
+    assert pqr.LAUNCHES == launches       # no CUDA launch on the CPU
+
+
+@pytest.mark.parametrize("shape,dtype,err", [
+    ((64,), torch.float32, ValueError),
+    ((64, 12), torch.float32, ValueError),     # nb not a multiple of 8
+    ((8, 16), torch.float32, ValueError),      # M < nb
+    ((64, 16), torch.float64, TypeError),
+])
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(shape, dtype,
+                                                          err):
+    with pytest.raises(err):
+        pqr.geqrt_panel(torch.zeros(shape, dtype=dtype))
+
+
+def test_k4_wrapper_rejects_other_devices():
+    with pytest.raises(ValueError, match="cuda"):
+        pqr.geqrt_panel(torch.zeros((64, 16), device="meta"))
+
+
+def test_reset_counts():
+    pqr.geqrt_panel(torch.ones((16, 8)))
+    pqr.reset_counts()
+    assert (pqr.ROUTED, pqr.LAUNCHES) == (0, 0)

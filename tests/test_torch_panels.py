@@ -1,6 +1,6 @@
-"""Port parity: the LU panel kernels — K3's wrapper and plain version
-(``kernels/pallas_lu.py``) and the LU half of ``kernels/panels.py`` —
-against the JAX package.
+"""Port parity: the panel kernels — K3's wrapper and plain version
+(``kernels/pallas_lu.py``), the LU half of ``kernels/panels.py`` and its
+QR half (the TSQR tree panel, ``qr_panel``) — against the JAX package.
 
 The reference K3 runs as the JAX package's own tests run it on the CPU:
 its jitted ``_panel_call(a, True)`` in interpret mode. The CUDA kernel
@@ -10,7 +10,9 @@ itself is held against ``lu_panel_reference`` on the card
 Tolerances: the permutation must be bitwise equal; the packed factor
 within 1e-5 of max|packed| (f32; the two differ in rounding only: the
 reference's rank-JB update is one 8-term product, the port's eight
-rank-1 steps) or 1e-12 (f64).
+rank-1 steps) or 1e-12 (f64). The QR half: relative Frobenius error
+<= 1e-5 (f32) or 1e-12 (f64); both packages call LAPACK's QR on the
+CPU, so they differ in summation order only.
 """
 import itertools
 
@@ -26,6 +28,7 @@ from dplasma_tpu.kernels import panels as ref_panels
 from dplasma_tpu.ops import lu as ref_lu
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.kernels import pallas_lu as plu
+from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.kernels import panels
 from dplasma_tpu_torch.ops import lu as port_lu
 from dplasma_tpu_torch.utils import config as cfg
@@ -186,3 +189,76 @@ def test_swaps_to_perm_matches_sequential_swaps(rng, batch):
         for i, p in enumerate(swaps[idx]):
             want[[i, p]] = want[[p, i]]
         np.testing.assert_array_equal(got[idx], want)
+
+
+# ---------------------------------------------------------------------
+# QR half: the TSQR tree panel and the route selection
+# ---------------------------------------------------------------------
+
+_FRO = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+def _fro(want, got):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got.numpy() if torch.is_tensor(got) else got,
+                     np.float64)
+    return np.linalg.norm(want - got) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("m,n,leaf", [(40, 8, None), (100, 8, None),
+                                      (96, 16, 24), (16, 16, None),
+                                      (70, 12, 12)])
+def test_tsqr_matches_reference(rng, dt, m, n, leaf):
+    """Leaf counts 3 and 5 pad to 4 and 8 zero-padded blocks; m <= leaf
+    is one plain QR."""
+    a = rng.standard_normal((m, n)).astype(dt)
+    wq, wr = jax.jit(lambda x: ref_panels.tsqr(x, leaf))(jnp.asarray(a))
+    gq, gr = panels.tsqr(torch.from_numpy(a), leaf)
+    assert gq.shape == (m, n) and gr.shape == (n, n)
+    assert _fro(wq, gq) <= _FRO[dt] and _fro(wr, gr) <= _FRO[dt]
+    assert torch.allclose(gq @ gr, torch.from_numpy(a),
+                          atol=1e3 * float(np.finfo(dt).eps))
+    none, r_only = panels.tsqr(torch.from_numpy(a), leaf, need_q=False)
+    assert none is None and _fro(wr, r_only) <= _FRO[dt]
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_geqrt_tree_matches_reference(rng, dt):
+    a = rng.standard_normal((100, 16)).astype(dt)
+    want = jax.jit(ref_panels.geqrt_tree)(jnp.asarray(a))
+    got = panels.geqrt_tree(torch.from_numpy(a))
+    for w, g in zip(want, got):
+        assert _fro(w, g) <= _FRO[dt]
+
+
+@pytest.mark.parametrize("leaf", ["1", "2", "4", "0"])
+def test_tree_leaf_height_matches_reference(leaf):
+    with cfg.override_scope({"panel.tree_leaf": leaf}), \
+            ref_cfg.override_scope({"panel.tree_leaf": leaf}):
+        for nb in (8, 32):
+            assert panels.tree_leaf_height(nb) == \
+                ref_panels.tree_leaf_height(nb)
+
+
+@pytest.mark.parametrize("kind", ["chain", "tree", "pallas"])
+@pytest.mark.parametrize("shape", [(64, 16), (64, 12)])
+def test_qr_panel_routes_like_reference(rng, kind, shape):
+    """``pallas`` takes K4 where its gate holds (nb % 8 == 0) and the
+    tree elsewhere; ``chain`` is the vendor panel."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    routed = pqr.ROUTED
+    got = panels.qr_panel(torch.from_numpy(a), kind)
+    to_k4 = kind == "pallas" and shape[1] % 8 == 0
+    assert pqr.ROUTED - routed == (1 if to_k4 else 0)
+    if to_k4:
+        want = pqr.geqrt_panel(torch.from_numpy(a))
+    else:
+        want = jax.jit(lambda x: ref_panels.qr_panel(
+            x, "tree" if kind == "pallas" else kind))(jnp.asarray(a))
+    for w, g in zip(want, got):
+        assert _fro(w, g) <= 1e-5
+    with cfg.override_scope({"panel.kernel": kind}):
+        again = panels.qr_panel(torch.from_numpy(a))
+    for w, g in zip(got, again):
+        assert torch.equal(w, g)
