@@ -42,7 +42,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. ``testing_sgels -N 8192 -t 256 -K 16 -x`` (K4 and K1 on),
    ``testing_sgeqrf -N 8192 -t 1024 -x`` (the reference ladder's size,
    default ``panel.kernel=auto``: cuSOLVER panels, no K4 by design) and
-   ``testing_dgeqrf -N 8192 -t 256 -x`` (FP64, no kernel by design).
+   ``testing_dgeqrf -N 8192 -t 256 -x`` (FP64, no kernel by design);
+8. the f64-equivalent limb route (MCA ``dd_gemm=always``):
+   ``testing_dpotrf -N 8192 -t 512 -x`` (the reference ladder's
+   ``dpotrf_f64equiv`` size), then one direct ``ops.potrf.potrf`` call
+   with the counts zeroed just before and read just after: every limb
+   product through K2 (5·nt − 3 = 77) and no K1; a smaller
+   factorization on the card against a float64 host Cholesky (numpy);
+   one factorization under ``torch.profiler``; then
+   ``testing_dgemm -N 8192 -K 8192 -x`` (one K2 launch per product)
+   and ``testing_dposv -N 8192 -t 512 -x`` on the dd route and natively.
+
+Phase 2 also holds K2 (the dd route's recombine epilogue) against its
+plain version, bitwise, on ragged shapes, a strided base, extreme levels
+and every shape that one dpotrf factorization and one dgemm product give
+it, and times ``torch._int_mm`` (the dd route's int8 products) in its
+four operand layouts.
 
 It prints the card's name and power limit, one JSON line describing
 every kernel, and as its last line ``{"ok": true, "device": {...}}``.
@@ -70,6 +85,8 @@ N_MAIN, NB_MAIN = 16384, 1024
 N_LU, NB_LU = 8192, 256
 N_QR, NB_QR = 8192, 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+N_DD, NB_DD = 8192, 512   # bench.py's dpotrf_f64equiv size (:18, :499)
+DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
 K3_TOL = 1e-4       # max|Δ|/max|packed|; the perm must be bitwise equal
 # K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
 # (the two sum in other orders); each panel's Q must pass the QR checks
@@ -154,6 +171,35 @@ def qr_bound_ms(M, nb):
     t_bytes = (2 * M * nb * 4 + nb * 4) / HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def dd_k2_shapes(n, nb):
+    """(nl, M, N, base) of every K2 launch of one ``potrf_f64_blocked``
+    factorization, in order. Column k (s = k·nb): the trailing product
+    (k >= 1; its base a view of A), the diagonal tile's two refinement
+    residuals (bits 32 then 53: nl 5 then 8; base the scaled tile) and,
+    but for the last column, the panel's two (n − s − nb rows; base the
+    slab below the tile, a view of A at k = 0): 5·nt − 3 in all."""
+    nt = n // nb
+    shapes = []
+    for k in range(nt):
+        m = n - k * nb
+        if k:
+            shapes.append((8, m, nb, "view"))
+        shapes += [(5, nb, nb, "dense"), (8, nb, nb, "dense")]
+        if k < nt - 1:
+            kind = "view" if k == 0 else "dense"
+            shapes += [(5, m - nb, nb, kind), (8, m - nb, nb, kind)]
+    return shapes
+
+
+def k2_bound_ms(nl, M, N, has_base):
+    """Least time for one recombine: its bytes (the int32 levels, sa, sb
+    and the base read once, the f64 output written once) over the HBM
+    rate. Its ~2·nl + 2 f64 operations per element are far below the f64
+    peak, so bytes bound it."""
+    nbytes = (4 * nl + 8 + (8 if has_base else 0)) * M * N + 8 * (M + N)
+    return 1e3 * nbytes / HBM_BYTES_S
 
 
 def qr_k1_products(kt):
@@ -501,6 +547,127 @@ def phase_k4(torch, pqr, record):
     return tot, len(heights)
 
 
+def k2_case(torch, pdd, lv, base, sa, sb):
+    """K2 against recombine_base_reference on one input: (bitwise equal,
+    max abs error, kernel ms, plain ms)."""
+    got = pdd.recombine_base(lv, base, sa, sb, 7)
+    want = pdd.recombine_base_reference(lv, base, sa, sb, 7)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float64 and got.shape == want.shape,
+          f"K2 output {got.dtype} {tuple(got.shape)}")
+    same = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
+    mabs = float((got - want).abs().max())
+    return (same, mabs, time_ms(torch, lambda: pdd.recombine_base(
+        lv, base, sa, sb, 7)), time_ms(torch, lambda: (
+            pdd.recombine_base_reference(lv, base, sa, sb, 7))))
+
+
+def k2_inputs(torch, g, nl, M, N, extreme=False):
+    lim = 2 ** 31 - 1 if extreme else 2 ** 30
+    lv = torch.randint(-lim, lim + 1, (nl, M, N), device="cuda",
+                       generator=g, dtype=torch.int32)
+    if extreme:
+        lv[:, : M // 2] = lim
+        lv[:, M // 2:] = -lim
+    pow2 = torch.randint(-3, 4, (M + N,), device="cuda", generator=g)
+    sc = torch.pow(2.0, pow2.double())
+    return lv, sc[:M, None].contiguous(), sc[None, M:].contiguous()
+
+
+def phase_k2(torch, pdd, record):
+    g = torch.Generator(device="cuda").manual_seed(500)
+    big = torch.randn(N_DD, N_DD, device="cuda", generator=g,
+                      dtype=torch.float64)
+
+    def dense(M, N):
+        return torch.randn(M, N, device="cuda", generator=g,
+                           dtype=torch.float64)
+
+    named = [("ragged nl=8", 8, 1000, 300, "dense", False),
+             ("ragged nl=5", 5, 1000, 300, "dense", False),
+             ("no base, -sa (gemm_f64 form)", 8, 1000, 300, None, False),
+             ("strided base (a.T view)", 8, 640, 384, "tview", False),
+             ("levels at +-(2^31 - 1)", 8, 512, 512, "dense", True),
+             ("dgemm product 8192^2", 8, N_DD, N_DD, None, False)]
+    rows = []
+    for label, nl, M, N, kind, extreme in named:
+        lv, sa, sb = k2_inputs(torch, g, nl, M, N, extreme)
+        base = (None if kind is None else dense(M, N) if kind == "dense"
+                else big[1000:1000 + N, 512:512 + M].T)
+        if base is None:
+            sa = -sa
+        same, mabs, k_ms, p_ms = k2_case(torch, pdd, lv, base, sa, sb)
+        b_ms = k2_bound_ms(nl, M, N, base is not None)
+        log(f"[k2] {label:30s} nl={nl} M={M:5d} N={N:5d} "
+            f"{'bitwise equal' if same else 'DIFFERS'} (max abs err "
+            f"{mabs:.3e})  kernel {k_ms:8.4f} ms  plain {p_ms:8.4f} ms  "
+            f"bound {b_ms:8.4f} ms (bytes)")
+        rows.append({"case": label, "nl": nl, "M": M, "N": N,
+                     "base": kind, "bitwise": same, "max_abs_err": mabs,
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": "bytes", "library_ms": None})
+        check(same, f"K2 is not bitwise equal to its plain version on "
+                    f"{label}: max abs err {mabs:.3e}")
+        del lv, base
+    record["k2_cases"] = rows
+
+    # every launch of one dpotrf factorization (N_DD, NB_DD), in turn
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    shapes = dd_k2_shapes(N_DD, NB_DD)
+    for i, (nl, M, N, kind) in enumerate(shapes):
+        lv, sa, sb = k2_inputs(torch, g, nl, M, N)
+        s = N_DD - M if kind == "view" else 0
+        base = big[s:, s:s + N] if kind == "view" else dense(M, N)
+        same, mabs, k_ms, p_ms = k2_case(torch, pdd, lv, base, sa, sb)
+        check(same, f"K2 differs on dpotrf launch {i} {(nl, M, N, kind)}: "
+                    f"max abs err {mabs:.3e}")
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["bound_ms"] += k2_bound_ms(nl, M, N, True)
+        tot["max_abs_err"] = max(tot["max_abs_err"], mabs)
+    tot["max_abs_err"] = max([tot["max_abs_err"]]
+                             + [r["max_abs_err"] for r in rows])
+    gemm = rows[-1]
+    log(f"[k2] one dpotrf's {len(shapes)} launches (N={N_DD} nb={NB_DD}): "
+        f"kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f} ms  bound "
+        f"{tot['bound_ms']:.3f} ms (bytes), all bitwise equal; one dgemm "
+        f"product: kernel {gemm['ms']:.3f} ms  plain {gemm['plain_ms']:.3f}"
+        f" ms  bound {gemm['bound_ms']:.3f} ms")
+    record["k2_main_path"] = dict(tot, launches=len(shapes), dgemm=gemm)
+    del big
+    return tot, len(shapes)
+
+
+def phase_int_mm_layouts(torch, record):
+    """``torch._int_mm`` (the dd route's exact int8 products) in its four
+    operand layouts: A row- or column-major times B row- or
+    column-major; the dd route hands it A row-major and B column-major
+    (both K-contiguous)."""
+    g = torch.Generator(device="cuda").manual_seed(600)
+    out = {}
+    for M, K, N in ((N_DD, N_DD, N_DD), (N_DD - NB_DD, 4096, 4096)):
+        a_r = torch.randint(-127, 128, (M, K), device="cuda", generator=g,
+                            dtype=torch.int8)
+        b_c = torch.randint(-127, 128, (N, K), device="cuda", generator=g,
+                            dtype=torch.int8).T
+        forms = {"A row, B col": (a_r, b_c),
+                 "A row, B row": (a_r, b_c.contiguous()),
+                 "A col, B col": (a_r.T.contiguous().T, b_c),
+                 "A col, B row": (a_r.T.contiguous().T, b_c.contiguous())}
+        want = torch._int_mm(a_r, b_c)
+        row = {}
+        for name, (a, b) in forms.items():
+            check(torch.equal(torch._int_mm(a, b), want),
+                  f"_int_mm {name} differs")
+            ms = time_ms(torch, lambda: torch._int_mm(a, b))
+            row[name] = {"ms": ms, "tops": 2.0 * M * N * K / ms / 1e9}
+        log(f"[int8] torch._int_mm M={M} K={K} N={N}: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms ({v['tops']:.0f} TOP/s)"
+            for k, v in row.items()))
+        out[f"{M}x{K}x{N}"] = row
+    record["int_mm_layouts"] = out
+
+
 def phase_spotrf(torch, pk, record):
     from dplasma_tpu_torch.drivers import common, main
     from dplasma_tpu_torch.ops import generators
@@ -620,15 +787,18 @@ def _device_ms(ev) -> float:
 
 
 # kernel-name pieces -> the category the breakdown reports them under
-_CATEGORIES = (("K3 (k3_lu_panel)", ("k3_lu_panel",)),
+_CATEGORIES = (("K2 (k2_recombine)", ("k2_recombine",)),
+               ("K3 (k3_lu_panel)", ("k3_lu_panel",)),
                ("K4 (k4_geqrt_panel)", ("k4_geqrt_panel",)),
                ("K1 (k1_gemm)", ("k1_gemm",)),
+               ("int8 products (torch._int_mm)", ("gemm_s8", "imma")),
                ("trsm (cuBLAS)", ("trsm",)),
                ("cuBLAS/cuSOLVER other", ("gemm", "gemv", "geqrf",
                                            "larf", "cublas", "cusolver")),
                ("gathers (index, gather)", ("index", "gather", "Gather")),
                ("cat", ("CatArray",)),
-               ("copies", ("copy", "Copy", "transpose")))
+               ("copies", ("copy", "Copy", "transpose")),
+               ("elementwise (dd digit splits, ...)", ("elementwise",)))
 
 
 def _profile(torch, record, key, label, run):
@@ -825,12 +995,143 @@ def phase_more_drivers(torch, pk, record):
     record["drivers"] = out
 
 
+def phase_dpotrf_dd(torch, pk, pdd, record):
+    """The dd Cholesky path: the driver, then one direct call with every
+    kernel count zeroed just before and read just after."""
+    import numpy as np
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)      # K1 on: the dd route must still launch none
+    want_k2 = len(dd_k2_shapes(N_DD, NB_DD))
+    dd = {"dd_gemm": "always"}
+    common.RUNS.clear()
+    with cfg.override_scope(dd):
+        t0 = time.perf_counter()
+        rc = main(["testing_dpotrf", "-N", str(N_DD), "-t", str(NB_DD),
+                   "-x", "-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"testing_dpotrf (dd) exited {rc}")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    chk = {c["check"]: c["residual"] for c in run["checks"]}
+    log(f"[dpotrf-dd] N={N_DD} nb={NB_DD} dd_gemm=always: best "
+        f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s (warm-up "
+        f"{op['warmup_s']:.3f} s, driver wall {wall:.1f} s); per "
+        f"factorization K2 launches {op['k2_launches']} (want {want_k2}), "
+        f"K1 {op['k1_launches']}; residuals " + ", ".join(
+            f"{name} {res:.3e}" for name, res in chk.items()))
+    check(all(n == want_k2 for n in op["k2_launches"]),
+          f"K2 launches per factorization {op['k2_launches']} != {want_k2}")
+    check(all(n == 0 for n in op["k1_launches"]), "the dd route ran K1")
+    check(len(run["checks"]) == 2 and all(c["ok"] and c["residual"] < 60
+                                          for c in run["checks"]),
+          f"dpotrf (dd) -x checks: {run['checks']}")
+
+    A = generators.plghe(float(N_DD), N_DD, NB_DD, seed=3872,
+                         dtype=torch.float64)
+    with cfg.override_scope(dd):
+        torch.cuda.synchronize()
+        pk.reset_counts()
+        pdd.reset_counts()
+        L = potrf_mod.potrf(A, "L")
+        torch.cuda.synchronize()
+        k1, k2 = pk.LAUNCHES, pdd.LAUNCHES
+    log(f"[dpotrf-dd] one ops.potrf.potrf call, counts zeroed just before: "
+        f"K2 {k2} (want {want_k2}), K1 {k1}")
+    check(k2 == want_k2 and k1 == 0,
+          f"dd potrf launched K2 {k2} (want {want_k2}) and K1 {k1} times")
+    check(bool(torch.isfinite(L.to_dense()).all()), "dd factor not finite")
+    record["dpotrf_dd"] = {
+        "N": N_DD, "nb": NB_DD, "best_s": op["best_s"],
+        "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+        "k2_launches_per_factorization": op["k2_launches"],
+        "k2_launches_direct_call": k2, "k1_launches_direct_call": k1,
+        "checks": run["checks"]}
+    del L
+
+    # a small factorization on the card against numpy's float64 Cholesky
+    A = generators.plghe(1024.0, 1024, 256, seed=7, dtype=torch.float64)
+    with cfg.override_scope(dd):
+        L = potrf_mod.potrf(A, "L").to_dense().cpu().numpy()
+    L64 = np.linalg.cholesky(A.to_dense().cpu().numpy())
+    err = float(np.abs(L - L64).max() / np.abs(L64).max())
+    log(f"[dpotrf-dd] N=1024 nb=256 factor vs numpy float64 Cholesky: "
+        f"max|dL|/max|L| = {err:.3e} (tol {DD_TOL:.0e})")
+    check(np.isfinite(L).all() and err <= DD_TOL,
+          f"dd factorization disagrees with float64: {err:.3e}")
+    record["dpotrf_dd_small_rel_err"] = err
+    return k2
+
+
+def phase_dpotrf_dd_profile(torch, record):
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+    from dplasma_tpu_torch.utils import config as cfg
+    A = generators.plghe(float(N_DD), N_DD, NB_DD, seed=3872,
+                         dtype=torch.float64)
+    with cfg.override_scope({"dd_gemm": "always"}):
+        _profile(torch, record, "dpotrf_dd_profile",
+                 f"N={N_DD} nb={NB_DD} dd", lambda: potrf_mod.potrf(A, "L"))
+
+
+def phase_dd_drivers(torch, pk, pdd, record):
+    """dgemm on the dd route, and dposv on the dd route and natively."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.utils import config as cfg
+    pk.enable(True)
+    n, t = str(N_DD), str(NB_DD)
+    out = {}
+    k2_dgemm = 0
+    # argv, MCA, and whether the K2 launches of each timed run are right
+    for argv, mca, k2_ok in (
+            (["testing_dgemm", "-N", n, "-K", n, "-x"],
+             {"dd_gemm": "always"}, lambda c: c == 1),
+            (["testing_dposv", "-N", n, "-t", t, "-x"],
+             {"dd_gemm": "always"},
+             lambda c: c >= len(dd_k2_shapes(N_DD, NB_DD))),
+            (["testing_dposv", "-N", n, "-t", t, "-x"], {},
+             lambda c: c == 0)):
+        with cfg.override_scope(mca):
+            pdd.reset_counts()
+            rc = main(argv + ["-v"])
+            torch.cuda.synchronize()
+            pdd_launches = pdd.LAUNCHES
+        run = common.RUNS[-1]
+        op = run["ops"][0]
+        launches = op["k2_launches"]
+        log(f"[{argv[0]}] {' '.join(argv[1:])} {mca or 'native'}: best "
+            f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s, K2 launches "
+            f"per run {launches} (driver run {pdd_launches}), K1 "
+            f"{op['k1_launches']}, checks " + ", ".join(
+                f"{c['check']}={c['residual']:.3e}" for c in run["checks"]))
+        check(rc == 0, f"{argv[0]} exited {rc}")
+        check(run["checks"] and all(c["ok"] for c in run["checks"]),
+              f"{argv[0]}: checks {run['checks']}")
+        check(all(map(k2_ok, launches)), f"{argv[0]}: K2 launches "
+                                         f"{launches}")
+        check(all(n == 0 for n in op["k1_launches"]),
+              f"{argv[0]}: K1 launches {op['k1_launches']}")
+        if argv[0] == "testing_dgemm":
+            k2_dgemm = pdd_launches
+        out[f"{argv[0]} {' '.join(argv[1:])} {mca or 'native'}"] = {
+            "argv": argv[1:], "mca": mca, "best_s": op["best_s"],
+            "gflops": op["gflops"], "k2_launches": launches,
+            "k2_launches_run": pdd_launches, "checks": run["checks"]}
+    record["dd_drivers"] = out
+    return k2_dgemm
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from dplasma_tpu_torch.kernels import pallas_dd as pdd
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
     from dplasma_tpu_torch.kernels import pallas_lu as plu
     from dplasma_tpu_torch.kernels import pallas_qr as pqr
@@ -843,12 +1144,17 @@ def main() -> int:
     k1tot, nprod = phase_k1(torch, pk, record)
     k3tot, npan = phase_k3(torch, plu, record)
     k4tot, nqpan = phase_k4(torch, pqr, record)
+    k2tot, nk2 = phase_k2(torch, pdd, record)
+    phase_int_mm_layouts(torch, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
     k1_sgetrf, k3_sgetrf = phase_sgetrf(torch, pk, plu, record)
     phase_sgetrf_profile(torch, pk, record)
     k1_sgeqrf, k4_sgeqrf = phase_sgeqrf(torch, pk, plu, pqr, record)
     phase_sgeqrf_profile(torch, pk, record)
     phase_more_drivers(torch, pk, record)
+    k2_dpotrf = phase_dpotrf_dd(torch, pk, pdd, record)
+    phase_dpotrf_dd_profile(torch, record)
+    k2_dgemm = phase_dd_drivers(torch, pk, pdd, record)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -866,6 +1172,16 @@ def main() -> int:
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"]},
+        {"name": "k2_recombine", "route": "cuda",
+         "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
+         "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
+         "launches": k2_dpotrf + k2_dgemm,
+         "launches_by_path": {"dpotrf_dd": k2_dpotrf,
+                              "dgemm_dd": k2_dgemm},
+         "max_abs_err": k2tot["max_abs_err"],
+         "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
+         "bound_ms": k2tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
@@ -898,8 +1214,11 @@ def main() -> int:
         f"factorization (N={N_LU}, nb={NB_LU}; library = "
         f"torch.linalg.lu_factor_ex on cuSOLVER); K4's over the {nqpan} "
         f"panels of one sgeqrf factorization (N={N_QR}, nb={NB_QR}; "
-        f"library = torch.geqrf on cuSOLVER); launches count each "
-        f"main-path driver run (warm-up, timed run, -x check)")
+        f"library = torch.geqrf on cuSOLVER); K2's over the {nk2} "
+        f"launches of one dd dpotrf factorization (N={N_DD}, nb={NB_DD}; "
+        f"no single PyTorch call computes it: library null); launches "
+        f"count each main-path driver run (warm-up, timed run, -x check), "
+        f"K2's the direct dpotrf call and the dgemm driver run")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

@@ -1,6 +1,6 @@
 """Shared driver harness — the part of ``dplasma_tpu/drivers/common.py``
-that the ``potrf``, ``gemm``, ``getrf``, ``gesv`` and QR-family drivers
-need.
+that the ``potrf``, ``potrs``, ``posv``, ``gemm``, ``getrf``, ``gesv``
+and QR-family drivers need.
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
 ``-N -M -K -t -T -x -v --nruns -z/--HNB --seed -p -q -g``, plus
@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from dplasma_tpu_torch import resolve_device
+from dplasma_tpu_torch.kernels import pallas_dd as _pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.kernels import pallas_lu as _plu
 from dplasma_tpu_torch.kernels import pallas_qr as _pqr
@@ -41,7 +42,7 @@ RUNS: list = []
 
 #: (label, wrapper module with a ``LAUNCHES`` counter) of every
 #: hand-written kernel; op records carry ``<label>_launches``
-KERNELS = (("k1", _pk), ("k3", _plu), ("k4", _pqr))
+KERNELS = (("k1", _pk), ("k2", _pdd), ("k3", _plu), ("k4", _pqr))
 
 
 @dataclass
@@ -91,6 +92,9 @@ Optional arguments:
  --device          : cuda (default) or cpu
  -v --verbose[=n]  : verbosity ladder
  -h --help         : this message
+MCA knobs come from the environment, DPLASMA_MCA_<NAME> (dots as
+underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision potrf,
+potrs, posv and gemm drivers on the f64-equivalent limb route.
 """
 
 
@@ -226,7 +230,8 @@ class Driver:
             where = (torch.cuda.get_device_name(self.device)
                      if self.device.type == "cuda" else "cpu")
             print(f"#+ device: {self.device} ({where}) K1 enabled="
-                  f"{_pk.enabled()} LU panel.kernel="
+                  f"{_pk.enabled()} dd_gemm={_cfg.mca_get('dd_gemm')} "
+                  f"LU panel.kernel="
                   f"{_panels.panel_kernel('lu')} QR panel.kernel="
                   f"{_panels.panel_kernel('qr')}")
 

@@ -1,8 +1,10 @@
-"""The testing_* driver bodies of the ported slices: ``potrf``, ``gemm``,
-``getrf`` (= ``getrf_1d``), ``gesv``, and the QR family ``geqrf``,
-``gelqf``, ``ungqr``, ``unglq``, ``unmqr``, ``unmlq`` and ``gels``.
+"""The testing_* driver bodies of the ported slices: ``potrf``,
+``potrs``, ``posv``, ``gemm``, ``getrf`` (= ``getrf_1d``), ``gesv``, and
+the QR family ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``,
+``unmlq`` and ``gels``. Under MCA ``dd_gemm=always`` the d-precision
+Cholesky and GEMM drivers take the f64-equivalent limb route.
 
-Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-214, :290-381,
+Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-246, :290-381,
 :454-455, :510-529, :577-589): seeded
 generation → timed run with the GFLOPS print → optional ``-x`` residual
 verification against the regenerated input.
@@ -61,6 +63,34 @@ def potrf(drv: Driver):
         r, ok = checks.check_axmb(A0, B, X, uplo="L")
         ret |= drv.report_check("POTRS |b-Ax|", r, ok)
     return ret
+
+
+def potrs(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    L = potrf_mod.potrf(A0, "L")
+    B = _gen(drv, ip.N, ip.K, 1)
+    X, _ = drv.progress(lambda l, b: potrf_mod.potrs(l, b, "L"), (L, B),
+                        lawn41.potrs(ip.N, ip.K, ip.prec_dtype.is_complex))
+    if ip.check:
+        r, ok = checks.check_axmb(A0, B, X, uplo="L")
+        return drv.report_check("POTRS |b-Ax|", r, ok)
+    return 0
+
+
+def posv(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    B = _gen(drv, ip.N, ip.K, 1)
+    cplx = ip.prec_dtype.is_complex
+    out, _ = drv.progress(
+        lambda a, b: potrf_mod.posv(a, b, "L"), (A0, B),
+        lawn41.potrf(ip.N, cplx) + lawn41.potrs(ip.N, ip.K, cplx))
+    if ip.check:
+        _, X = out
+        r, ok = checks.check_axmb(A0, B, X, uplo="L")
+        return drv.report_check("POSV |b-Ax|", r, ok)
+    return 0
 
 
 def getrf_1d(drv: Driver):
@@ -183,7 +213,8 @@ def gels(drv: Driver):
     return 0
 
 
-DRIVERS = {"gemm": gemm, "potrf": potrf, "getrf": getrf_1d,
+DRIVERS = {"gemm": gemm, "potrf": potrf, "potrs": potrs, "posv": posv,
+           "getrf": getrf_1d,
            "getrf_1d": getrf_1d, "gesv": gesv,
            "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
            "unmqr": unmqr, "unmlq": unmlq, "gels": gels}

@@ -11,13 +11,18 @@ initialises (the reference's ``Precision.HIGHEST``, blas.py:27).
 
 The f64-equivalent limb route (MCA ``dd_gemm``) is active only under
 ``dd_gemm=always`` — ``auto`` picks it on a TPU alone, and no backend of
-the port is one. That route is not ported yet (ROADMAP queue 1 item 6),
-so it raises rather than silently taking the native FP64 route.
+the port is one. There, as in the reference, ``dot`` (and ``gemm``
+through it) goes to ``dd.mm``, ``potrf`` to ``dd.potrf_f64``, ``trsm``
+to ``dd.trsm_f64`` and ``trtri`` to ``dd.trtri_f64``: exact int8 limb
+products closed by kernel K2. The dd LU and QR panels are not ported
+yet (ROADMAP queue 1 item 6); their entry points raise
+(:func:`_dd_unported`) rather than silently taking native FP64.
 """
 from __future__ import annotations
 
 import torch
 
+from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -31,11 +36,11 @@ def _dd_active(dtype) -> bool:
     return (_cfg.mca_get("dd_gemm") or "auto").lower() == "always"
 
 
-def _dd_unported(what: str):
+def _dd_unported(what: str, missing: str):
     return NotImplementedError(
-        f"{what} under dd_gemm=always needs the f64-equivalent limb "
-        "route (kernels/dd.py and kernel K2), which is not ported yet "
-        "(ROADMAP queue 1 item 6); use dd_gemm=auto for native FP64")
+        f"{what} under dd_gemm=always needs {missing}, which is not "
+        "ported yet (ROADMAP queue 1 item 6); use dd_gemm=auto for "
+        "native FP64")
 
 
 def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
@@ -55,7 +60,7 @@ def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
     if tb:
         b = b.T
     if _dd_active(res_dtype):
-        raise _dd_unported("dot")
+        return _dd.mm(a, b)
     if _pk.eligible(a, b):
         return _pk.matmul(a, b).to(res_dtype)
     return torch.matmul(a, b).to(res_dtype)
@@ -98,7 +103,7 @@ def potrf(a, lower: bool = True):
     zeroed; when the tile is not positive definite its triangle is all
     NaN (as ``lax.linalg.cholesky`` gives)."""
     if _dd_active(a.dtype):
-        raise _dd_unported("potrf")
+        return _dd.potrf_f64(a, lower=lower)
     if lower:
         f, info = torch.linalg.cholesky_ex(torch.tril(a))
         return torch.tril(_nan_unless(info == 0, f))
@@ -124,7 +129,8 @@ def trsm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
     """Triangular solve: op(A) X = alpha B (side=L) or X op(A) = alpha B
     (side=R). CORE_ztrsm semantics; reads only the named triangle."""
     if _dd_active(torch.promote_types(a.dtype, b.dtype)):
-        raise _dd_unported("trsm")
+        return _dd.trsm_f64(a, b, side=side, lower=lower, trans=trans,
+                            unit=unit, alpha=alpha)
     op_a, op_lower = _op_tri(a, lower, trans)
     if _inv_trsm_active():
         n = a.shape[0]
@@ -207,7 +213,7 @@ def lauum(a, lower: bool = True):
 def trtri(a, *, lower=True, unit=False):
     """Tile triangular inverse via a solve against the identity."""
     if _dd_active(a.dtype):
-        raise _dd_unported("trtri")
+        return _dd.trtri_f64(a, lower=lower, unit=unit)
     eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
     return torch.linalg.solve_triangular(a, eye, upper=not lower,
                                          left=True, unitriangular=unit)

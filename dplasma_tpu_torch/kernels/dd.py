@@ -1,0 +1,500 @@
+"""FP64-equivalent products and Cholesky from exact int8 limb splitting.
+
+Ports the Cholesky/GEMM part of ``dplasma_tpu/kernels/dd.py`` (:1-331,
+:333-454, :456-541, :591-701, :782-889). Each f64 operand is scaled
+(per A-row / per B-column, by a power of two read from the exponent
+field) and split EXACTLY into ``nl`` limbs of ``w = 7`` bits stored as
+int8 digits. Limb-pair products accumulate exactly in int32
+(``torch._int_mm``; chunk bound ``nl·kc·127² < 2^31``), and only the
+``nl`` level sums touch f64, in the epilogue ``base − (sa·sb)·Σ_l
+levels[l]·2^(−w(l+2))`` that kernel K2 (``kernels/pallas_dd.py``,
+``csrc/recombine.cu``) computes on the card.
+
+Everything here is the reference's true-f64 branch (Hopper and the CPU
+have f64 ALUs); the float-float digit split ``_split_fixed_ff`` waits
+for a later slice. Differences from the reference, none of which
+changes a number:
+
+* ``_limb_levels`` returns one (nl, M, N) tensor (int32 unchunked, f64
+  chunked), accumulated in place, so K2 reads it without a stack copy;
+  the right limbs are concatenated once, K-contiguous.
+* The blocked Cholesky keeps its limb cache row-major,
+  ``W[l, row, col]``, so both operands of the trailing product are
+  K-contiguous (the reference stores the transpose, the layout the
+  TPU's MXU prefers), and works on the live rows of each block column
+  (the reference's fixed (N, nb) slab and rolled scales exist for
+  XLA's compile cache).
+* ``_pin_cat_axis`` has no counterpart: it only matters under a device
+  mesh, which waits for the distribution slice.
+* Complex ``mm`` raises, as complex does everywhere in the port.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dplasma_tpu_torch.kernels import pallas_dd as _pdd
+
+# Digit width for int8 limbs: |d| <= 2^7 - 1 = 127.
+W8 = 7
+
+_F64 = torch.float64
+_F32 = torch.float32
+
+
+def _plan(K: int, bits: int):
+    """Limb width/count and chunk depth for a K-deep product: nl covers
+    the requested mantissa; kc bounds the per-chunk depth so the worst
+    level sum (nl pair products of kc-deep 7-bit digit dots) stays exact
+    in int32: nl·kc·(2^w − 1)² < 2^31."""
+    w = W8
+    nl = math.ceil((bits + 1) / w)
+    kc = (2 ** 31 - 1) // (nl * (2 ** w - 1) ** 2)
+    return w, nl, min(K, kc)
+
+
+# The chunk depth at 53 bits for deep K (tests poke it).
+KC = _plan(2 ** 20, 53)[2]
+
+
+def _pow2_scale_bits(m):
+    """2^(floor(log2 m) + 2), read from the f64 exponent field (so
+    |x| <= scale/2 for |x| <= m), the exponent clamped inside the normal
+    range: 0 and subnormals give 2^-1020, Inf and NaN 2^1023."""
+    b = torch.as_tensor(m).to(_F64).view(torch.int64)
+    e = ((b >> 52) & 0x7FF).clamp(1, 0x7FC) + 2
+    return (e << 52).view(_F64)
+
+
+def _split_fixed(x, scale, w: int, nl: int):
+    """Exact limb split with a caller-supplied power-of-two scale
+    (requires |x| <= scale/2): x == scale · Σ_l limbs[l]·2^(−w(l+1)) up
+    to the dropped tail. Digits are read straight from the f64 bit
+    pattern (shifted mantissa windows); the arithmetic ``>>`` on int64 is
+    harmless because the exponent is masked and the sign read from bit
+    63, and the shift counts are clipped to [0, 63] as in the
+    reference."""
+    p = x.to(_F64).view(torch.int64)
+    e_x = (p >> 52) & 0x7FF
+    mant = torch.where(e_x > 0, (p & ((1 << 52) - 1)) | (1 << 52),
+                       torch.zeros((), dtype=torch.int64, device=p.device))
+    sgn = 1 - 2 * ((p >> 63) & 1)
+    e_s = (torch.as_tensor(scale).to(_F64).view(torch.int64) >> 52) & 0x7FF
+    t0 = 52 - (e_x - e_s)           # bit offset of limb l's LSB: t0 - w(l+1)
+    mask = 2 ** w - 1
+    limbs = []
+    for l in range(nl):
+        t = t0 - w * (l + 1)
+        d = ((mant >> t.clamp(0, 63)) << (-t).clamp(0, 63)) & mask
+        limbs.append((sgn * d).to(torch.int8))
+    return limbs
+
+
+def _split_int(x, w: int, nl: int, axis: int):
+    """Row- (axis 0) or column- (axis 1) scaled limb split. Returns
+    (limbs, scale, m): ``m`` is the row/column max the scale derives
+    from, which callers reuse for NaN/Inf detection."""
+    m = torch.amax(torch.abs(x), dim=1 - axis, keepdim=True)
+    scale = _pow2_scale_bits(m)
+    return _split_fixed(x, scale, w, nl), scale, m
+
+
+def _level_recombine(levels, w: int):
+    """Σ_l levels[l]·2^(−w(l+2)) in f64, in order of l."""
+    acc = None
+    for l, lvl in enumerate(levels):
+        term = lvl.to(_F64) * (2.0 ** (-w * (l + 2)))
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _imm(a, b):
+    """Exact int8 (M, K) @ (K, N) -> int32 by ``torch._int_mm``. On the
+    card it takes M > 16 and K, N multiples of 8, and its int8 product
+    runs ~7x faster with both operands K-contiguous (A row-major, B
+    column-major; any leading dimension) than in the other three layouts
+    (chip_smoke.py, PERF.md). Other operands are copied once into that
+    form, zero-padded: zeros add nothing to an integer sum."""
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b)
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+
+    def k_major(x, rows):          # x (rows, Kp) with K contiguous
+        return x.shape == (rows, Kp) and x.stride(1) == 1
+
+    if not k_major(a, Mp):
+        ap = torch.zeros((Mp, Kp), dtype=torch.int8, device=a.device)
+        ap[:M, :K] = a
+        a = ap
+    bt = b.T
+    if not k_major(bt, Np):
+        bp = torch.zeros((Np, Kp), dtype=torch.int8, device=b.device)
+        bp[:N, :K] = bt
+        bt = bp
+    out = torch._int_mm(a, bt.T)
+    return out if (Mp, Np) == (M, N) else out[:M, :N]
+
+
+def _limb_levels(al, bl, K: int, w: int, nl: int, kc: int,
+                 lhs_t: bool = False):
+    """Exact level sums of the limb-pair products: level l is
+    Σ_{i+j=l} al[i] @ bl[j]. ``al``: nl int8 (M, K) arrays, or (K, M)
+    when ``lhs_t``; ``bl``: nl int8 (K, N). One product per left limb
+    against the concatenation of the right limbs it pairs with
+    (j < nl − i), as in the reference. Returns an (nl, M, N) tensor:
+    int32 when unchunked (K <= kc), else the exact f64 sum of the
+    per-chunk int32 sums."""
+    lhs = [x.T for x in al] if lhs_t else list(al)
+    M = lhs[0].shape[0]
+    P = bl[0].shape[1]
+    dev = lhs[0].device
+    # the right limbs concatenated ONCE, stored (nl·P, K) so that every
+    # prefix (the rhs of left limb i) is K-contiguous
+    bt = torch.empty((nl * P, K), dtype=torch.int8, device=dev)
+    for j in range(nl):
+        bt[j * P:(j + 1) * P].copy_(bl[j].T)
+    lv = torch.zeros((nl, M, P), dtype=torch.int32, device=dev)
+    nchunks = math.ceil(K / kc)
+    tot = None
+    for c in range(nchunks):
+        k0, k1 = c * kc, min(K, (c + 1) * kc)
+        if c:
+            lv.zero_()
+        for i in range(nl):
+            nj = nl - i
+            p = _imm(lhs[i][:, k0:k1], bt[:nj * P, k0:k1].T)
+            lv[i:].add_(p.view(M, nj, P).transpose(0, 1))
+            del p       # one (M, nj·P) int32 product alive at a time
+        if nchunks > 1:
+            tot = lv.to(_F64) if tot is None else tot.add_(lv)
+    return lv if nchunks == 1 else tot
+
+
+def _recombine_scale_base(levels, base, sa, sb, w: int):
+    """``base − (sa·sb)·Σ_l levels[l]·2^(−w(l+2))`` — the epilogue that
+    closes every exact limb product: K2 where :func:`pallas_dd.eligible`
+    holds (unchunked int32 levels), else the exact plain recombine."""
+    if _pdd.eligible(levels):
+        return _pdd.recombine_base(levels, base, sa, sb, w)
+    prod = _level_recombine(levels, w) * (sa * sb)
+    return -prod if base is None else base - prod
+
+
+def gemm_residual(base, a, b, bits: int = 53):
+    """``base − a @ b`` at f64-equivalent accuracy, the subtraction fused
+    into the recombine epilogue (the residual of every dd refinement
+    step). Real f64 only."""
+    a = a.to(_F64)
+    b = b.to(_F64)
+    K = a.shape[1]
+    w, nl, kc = _plan(K, bits)
+    al, sa, _ = _split_int(a, w, nl, axis=0)
+    bl, sb, _ = _split_int(b, w, nl, axis=1)
+    levels = _limb_levels(al, bl, K, w, nl, kc)
+    return _recombine_scale_base(levels, base.to(_F64), sa, sb, w)
+
+
+def gemm_f64(a, b, bits: int = 53, _nonfinite_mask: bool = True):
+    """C = A @ B at f64-equivalent accuracy from exact int8 products.
+
+    ``bits`` is the target mantissa (53 = full f64; 32 ~ double-single at
+    5 limbs instead of 8). Any NaN or Inf entry of an operand poisons its
+    whole result row/column with NaN (the digit cast cannot represent
+    them); internal refinement callers skip the mask."""
+    a = a.to(_F64)
+    b = b.to(_F64)
+    K = a.shape[1]
+    w, nl, kc = _plan(K, bits)
+    al, sa, ma = _split_int(a, w, nl, axis=0)   # row-scaled
+    bl, sb, mb = _split_int(b, w, nl, axis=1)   # col-scaled
+    levels = _limb_levels(al, bl, K, w, nl, kc)
+    del al, bl
+    out = _recombine_scale_base(levels, None, -sa, sb, w)
+    if not _nonfinite_mask:
+        return out
+    bad = ~torch.isfinite(ma) | ~torch.isfinite(mb)
+    return torch.where(bad, torch.full((), float("nan"), dtype=_F64,
+                                       device=out.device), out)
+
+
+def gemm_dd(alpha, a, b, beta, c, bits: int = 53):
+    """alpha·A@B + beta·C in f64-equivalent precision."""
+    out = gemm_f64(a, b, bits=bits)
+    return alpha * out + beta * c.to(_F64)
+
+
+def mm(a, b, bits: int = 53):
+    """Exact f64 matmul via :func:`gemm_f64`. Complex (the reference's
+    two 2K-deep real products) is not ported yet."""
+    _real_only("products", a, b)
+    return gemm_f64(a, b, bits=bits)
+
+
+# ---------------------------------------------------------------------
+# Tile factorizations at f64-equivalent accuracy: an f32 seed, then
+# refinement whose only exact work is limb products.
+# ---------------------------------------------------------------------
+
+
+def _wdtype(x):
+    return torch.complex128 if x.is_complex() else _F64
+
+
+def _ct(x):
+    return x.mH if x.is_complex() else x.T
+
+
+def _take_triangle(T, lower: bool, unit: bool):
+    """The named triangle (optionally with a unit diagonal): the opposite
+    triangle may hold scratch and must not leak into the products."""
+    t = torch.tril(T) if lower else torch.triu(T)
+    if unit:
+        t = t.clone()
+        t.diagonal().fill_(1)
+    return t
+
+
+def _inv32(t, lower: bool):
+    """The f32 seed inverse of the named triangle of ``t`` (f32)."""
+    eye = torch.eye(t.shape[0], dtype=_F32, device=t.device)
+    return torch.linalg.solve_triangular(t, eye, upper=not lower, left=True)
+
+
+def _real_only(what: str, *xs):
+    if any(x.is_complex() for x in xs):
+        raise NotImplementedError(
+            f"complex dd {what} is not ported yet (ROADMAP queue 1 item "
+            "6); use dd_gemm=auto for native complex128")
+
+
+def _chol32(a):
+    """f32 Cholesky of the lower triangle; all-NaN when it fails (as
+    ``lax.linalg.cholesky`` gives)."""
+    f, info = torch.linalg.cholesky_ex(a)
+    return torch.where(info == 0, f, torch.full_like(f, float("nan")))
+
+
+def trtri_f64(T, lower: bool = True, unit: bool = False, iters: int = 2):
+    """Inverse of a triangular tile at f64-equivalent accuracy: an f32
+    solve seeds X; Newton steps X <- X(2I − TX), every product exact.
+    Reads only the named triangle. Real f64 only."""
+    _real_only("trtri", T)
+    T = _take_triangle(T.to(_wdtype(T)), lower, unit)
+    n = T.shape[0]
+    if not unit:
+        # power-of-two row prescale keeps the f32 seed in range
+        s = 0.25 * _pow2_scale_bits(
+            torch.amax(torch.abs(T), dim=1, keepdim=True))
+        T = T / s
+    X = _inv32(T.to(_F32), lower).to(_F64)
+    eye2 = 2.0 * torch.eye(n, dtype=_F64, device=T.device)
+    tri = torch.tril if lower else torch.triu
+    for _ in range(iters):
+        R = mm(T, X)
+        X = tri(mm(X, eye2 - R))
+    if not unit:
+        X = X / s[:, 0][None, :]
+    return X
+
+
+def trsm_f64(T, B, *, side="L", lower=True, trans="N", unit=False,
+             alpha=1.0, iters=2):
+    """Triangular solve at f64-equivalent accuracy: an f32-inverse seed,
+    then iterative refinement on exact residuals (the first at
+    ``bits=32``). Power-of-two prescales on both operands keep the f32
+    seed in range. Reads only the named triangle of T. Real f64 only."""
+    _real_only("trsm", T, B)
+    T = T.to(_wdtype(T))
+    B = B.to(_F64)
+    Tm = _take_triangle(T, lower, unit)
+    if trans in ("T", "C"):
+        Tm = Tm.T
+    n = Tm.shape[0]
+    m_ = torch.amax(torch.abs(Tm), dim=1, keepdim=True)
+    one = torch.ones((), dtype=_F64, device=T.device)
+    s = 0.25 * _pow2_scale_bits(torch.where(m_ > 0, m_, one))
+    Ts = Tm / s
+    lo_eff = lower != (trans in ("T", "C"))
+    Xi = _inv32(Ts.to(_F32), lo_eff)
+
+    if side == "L":
+        Bs = B / s
+        mB = torch.amax(torch.abs(Bs), dim=0, keepdim=True)
+        c = _pow2_scale_bits(torch.where(mB > 0, mB, one))
+        Bs = Bs / c
+        X = torch.matmul(Xi, Bs.to(_F32)).to(_F64)
+        for it in range(iters):
+            bits = 32 if it == 0 and iters > 1 else 53
+            E = gemm_residual(Bs, Ts, X, bits=bits)
+            X = X + torch.matmul(Xi, E.to(_F32)).to(_F64)
+        X = X * c
+    else:
+        mB = torch.amax(torch.abs(B), dim=1, keepdim=True)
+        c = _pow2_scale_bits(torch.where(mB > 0, mB, one))
+        Bc = B / c
+        X = torch.matmul(Bc.to(_F32), Xi).to(_F64)
+        for it in range(iters):
+            bits = 32 if it == 0 and iters > 1 else 53
+            E = gemm_residual(Bc, X, Ts, bits=bits)
+            X = X + torch.matmul(E.to(_F32), Xi).to(_F64)
+        X = (X * c) / s[:, 0][None, :]
+    return alpha * X
+
+
+def potrf_f64(A, lower: bool = True, refine: int = 3):
+    """Cholesky of one tile at f64-equivalent accuracy: an f32 seed, then
+    ``refine`` first-order corrections L <- L(I + Φ(L^-1 E L^-T)) on the
+    exact residual E = A − L Lᵀ. Reads only the named triangle; NaN
+    when the seed fails (not positive definite). Real f64 only."""
+    _real_only("potrf", A)
+    A = A.to(_wdtype(A))
+    if not lower:
+        return _ct(potrf_f64(_ct(A), lower=True, refine=refine))
+    Afull = torch.tril(A) + _ct(torch.tril(A, -1))
+    L = _chol32(Afull.to(_F32)).to(_F64)
+    X = trtri_f64(L, lower=True)
+    for _ in range(refine):
+        E = Afull - mm(L, _ct(L))
+        M = mm(mm(X, E), _ct(X))
+        phi = torch.tril(M, -1) + 0.5 * torch.diag(torch.diag(M))
+        L = torch.tril(L + mm(L, phi))
+    return L
+
+
+# ---------------------------------------------------------------------
+# Blocked FP64-equivalent Cholesky with limb-cached panels: the N^3/3
+# bulk rides limbs split once per finished block column; diagonal tiles
+# and panels are f32 seeds refined on exact residuals.
+# ---------------------------------------------------------------------
+
+
+def _row_norm_scales(diag):
+    """A-priori power-of-two scales for the rows of the Cholesky factor:
+    row i of L has 2-norm sqrt(A_ii), so 2^(ceil(log2 sqrt(A_ii)) + 1)
+    bounds each of its entries; one scale per row lets the finished
+    limbs of every block column share one cache."""
+    tiny = torch.finfo(_F64).tiny
+    return _pow2_scale_bits(torch.sqrt(torch.clamp(diag, min=tiny)))
+
+
+def _pair_dot_base(al, bl, base, sa, sb, K: int, w: int, nl: int,
+                   kc: int):
+    """``base − (sa·sb)·pair-dot`` with the epilogue fused (the trailing
+    update of the blocked sweep). ``al`` (K, M) and ``bl`` (K, N)."""
+    levels = _limb_levels(al, bl, K, w, nl, kc, lhs_t=True)
+    return _recombine_scale_base(levels, base, sa, sb, w)
+
+
+def _pair_dot(al, bl, K: int, w: int, nl: int, kc: int):
+    """Unscaled limb product Σ_l 2^(−w(l+2)) Σ_{i+j=l} al[i]ᵀ @ bl[j],
+    ``al`` (K, M) and ``bl`` (K, N)."""
+    return _level_recombine(
+        _limb_levels(al, bl, K, w, nl, kc, lhs_t=True), w)
+
+
+def _potrf_tile_ir(Akk, refine: int = 3, newton: int = 2,
+                   need_inverse: bool = True, refine_bits=(32, 53, 53)):
+    """Diagonal-tile Cholesky (+ inverse) at f64 accuracy: an f32 seed,
+    ``refine`` corrections on the exact residual E = A − L Lᵀ (the first
+    at ``bits=32``, the ``refine_bits`` ladder), each applied with f32
+    products by one f32 inverse; then, if asked, ``newton`` Newton steps
+    for X ≈ L^-1 with exact residual and apply. A symmetric power-of-two
+    prescale keeps the f32 seed in range. Returns (L, X or None)."""
+    n = Akk.shape[0]
+    dev = Akk.device
+    Af = torch.tril(Akk) + torch.tril(Akk, -1).T
+    dg = torch.diagonal(Af)
+    one = torch.ones((), dtype=_F64, device=dev)
+    d = 0.25 * _pow2_scale_bits(torch.sqrt(torch.where(dg > 0, dg, one)))
+    Af = Af / (d[:, None] * d[None, :])
+    L = _chol32(Af.to(_F32))
+    X32 = _inv32(torch.tril(L), True)
+    L = torch.tril(L).to(_F64)
+    for r in range(refine):
+        bits = refine_bits[min(r, len(refine_bits) - 1)]
+        E = gemm_residual(Af, L, L.T, bits=bits)
+        L32 = torch.tril(L).to(_F32)
+        Y = torch.matmul(X32, E.to(_F32))
+        M = torch.matmul(Y, X32.T)
+        phi = torch.tril(M, -1) + 0.5 * torch.diag(torch.diag(M))
+        L = torch.tril(L + torch.matmul(L32, phi).to(_F64))
+    if not need_inverse:
+        return L * d[:, None], None
+    eye = torch.eye(n, dtype=_F64, device=dev)
+    X = _inv32(L.to(_F32), True).to(_F64)
+    for _ in range(newton):
+        R = eye - gemm_f64(L, X)
+        X = torch.tril(X + gemm_f64(X, R))
+    return L * d[:, None], X / d[None, :]
+
+
+def _panel_trsm_ir(Lkk, slab, iters: int = 2):
+    """Panel solve pan @ Lkkᵀ = slab at f64-equivalent accuracy:
+    multiply by the f32 inverse Lkk^-T, then ``iters`` refinement steps
+    on exact residuals (the first at ``bits=32``)."""
+    L32 = torch.tril(Lkk).to(_F32)
+    Xt = _inv32(L32, True).T
+    pan = torch.matmul(slab.to(_F32), Xt).to(_F64)
+    for it in range(iters):
+        bits = 32 if it == 0 and iters > 1 else 53
+        E = gemm_residual(slab, pan, Lkk.T, bits=bits)
+        pan = pan + torch.matmul(E.to(_F32), Xt).to(_F64)
+    return pan
+
+
+def potrf_f64_blocked(A, nb: int = 512, lower: bool = True,
+                      refine: int = 2):
+    """Blocked left-looking Cholesky at f64-equivalent accuracy.
+
+    Step k updates block column k with ONE limb product against the
+    cached limbs of every finished column (the N³/3 bulk), factors the
+    diagonal tile by f32 + refinement, and solves the panel by
+    multiply-by-inverse + refinement; the finished column is split once
+    (shared a-priori row scales, :func:`_row_norm_scales`) into the
+    cache. With nt = N/nb, one factorization runs 5·nt − 3 limb products
+    (for nt >= 2): the trailing product of each column k >= 1, two
+    refinement residuals of each diagonal tile and two of each panel.
+
+    Reads only the ``lower``/upper triangle; square A with N divisible
+    by nb (ops-level callers pad). Real f64 only."""
+    A = A.to(_F64)
+    if not lower:
+        # A = UᵀU with U = Lᵀ: factor the transpose (its lower triangle
+        # is our stored upper) and return Lᵀ
+        return potrf_f64_blocked(A.T, nb=nb, lower=True, refine=refine).T
+    N = A.shape[0]
+    if A.shape[1] != N or N % nb:
+        raise ValueError(f"potrf_f64_blocked needs a square A with N % nb "
+                         f"== 0, got {tuple(A.shape)} nb={nb}")
+    nt = N // nb
+    if nt <= 1:
+        return _potrf_tile_ir(A, refine=refine, need_inverse=False)[0]
+    w, nl, _ = _plan(N, 53)
+    scale = _row_norm_scales(torch.diagonal(A))[:, None]
+    # limb cache W[l, row, col] of the finished columns: rows s.. of
+    # column block k live at W[:, s:, s:s+nb]
+    W = torch.zeros((nl, N, N - nb), dtype=torch.int8, device=A.device)
+    out = torch.zeros((N, N), dtype=_F64, device=A.device)
+    for k in range(nt):
+        s = k * nb
+        slab = A[s:, s:s + nb]
+        if k:
+            _, _, kc = _plan(s, 53)
+            slab = _pair_dot_base(
+                [W[i, s:, :s].T for i in range(nl)],
+                [W[i, s:s + nb, :s].T for i in range(nl)], slab,
+                scale[s:], scale[s:s + nb].T, K=s, w=w, nl=nl, kc=kc)
+        Lkk, _ = _potrf_tile_ir(slab[:nb], refine=refine,
+                                need_inverse=False)
+        out[s:s + nb, s:s + nb] = Lkk
+        if s + nb < N:
+            pan = _panel_trsm_ir(Lkk, slab[nb:])
+            out[s + nb:, s:s + nb] = pan
+            if k + 1 < nt:
+                limbs = _split_fixed(out[s:, s:s + nb], scale[s:], w, nl)
+                for i in range(nl):
+                    W[i, s:, s:s + nb] = limbs[i]
+    return out

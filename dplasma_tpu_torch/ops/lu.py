@@ -22,8 +22,9 @@ step while a lookahead column remains and one far product while far
 columns remain: 2·KT − 3 products per square factorization. The pivot
 bookkeeping never leaves the device.
 
-The f64-equivalent (dd) route — the eager ``jit_steps`` sweep and the
-dd panel refinement — is not ported yet (ROADMAP queue 1 item 6): under
+The f64-equivalent (dd) LU route — ``lu_ir``, the dd panel
+``_panel_lu_dd`` and the eager ``jit_steps`` sweep with
+``lu.agg_depth`` — is not ported yet (ROADMAP queue 1 item 6): under
 ``dd_gemm=always`` the f64 entry points raise. ``getrf_ptgpanel``,
 incpiv, qrf, the lowmem tier and ``dag`` wait for later slices.
 """
@@ -261,13 +262,18 @@ def _lu_sweep(X, bw: int, panel_fn, lookahead=None):
     return _lu_finish(packs, urows, step_ids, ids_cell[0], Mp, KT, NT, bw)
 
 
+#: what the dd LU route still needs
+_DD_MISSING = ("the dd LU panels (lu_ir, _panel_lu_dd and the eager "
+               "jit_steps sweep)")
+
+
 def _panel_lu(panel, ib: int | None = None, kind: str | None = None):
     """Pivoted LU of one nb-wide tall panel: a nested ib-wide
     shrinking-window sweep (full-height pivot search per sub-panel)
     whose base case is :func:`_base_lu`; ``ib`` from MCA
     ``lu.panel_ib`` (0: the whole panel is one base case)."""
     if k._dd_active(panel.dtype):
-        raise k._dd_unported("the LU panel")
+        raise k._dd_unported("the LU panel", _DD_MISSING)
     m, nb = panel.shape
     if ib is None:
         ib = _cfg.mca_get_int("lu.panel_ib", 0)
@@ -283,7 +289,7 @@ def _getrf(A: TileMatrix, panel_fn):
     if A.desc.mb != A.desc.nb:
         raise ValueError(f"getrf needs square tiles, got {A.desc}")
     if k._dd_active(A.dtype):
-        raise k._dd_unported("getrf")
+        raise k._dd_unported("getrf", _DD_MISSING)
     full, final_ids = _lu_sweep(A.pad_diag().data, A.desc.nb, panel_fn)
     return TileMatrix(full, A.desc), final_ids
 

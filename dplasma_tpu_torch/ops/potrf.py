@@ -11,6 +11,12 @@ kernel when that is enabled and eligible. With lookahead 1 and
 nt = N/nb block columns that is one product for column 1 and two for
 each later column: 2·nt − 3 products per factorization.
 
+Under MCA ``dd_gemm=always`` a real f64 factorization (with the default
+diagonal kernel) is instead ``kernels.dd.potrf_f64_blocked`` on the
+padded data, as in the reference: 5·nt − 3 exact limb products, each
+closed by kernel K2; ``potrs``/``posv`` then solve through
+``blas3.trsm`` → ``dd.trsm_f64``.
+
 Lookahead only regroups products, so every lookahead agrees with the
 reference within rounding. Only the ``uplo`` triangle of the input is
 read; the opposite triangle of the result is zero. INFO (non-SPD input)
@@ -25,6 +31,7 @@ import torch
 
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import blas3
 from dplasma_tpu_torch.ops._sweep import sweep_params
@@ -44,12 +51,16 @@ def potrf(A: TileMatrix, uplo: str = "L", *, diag_kernel=None,
     if A.desc.mb != A.desc.nb or A.desc.M != A.desc.N:
         raise ValueError(f"potrf needs a square matrix of square tiles, "
                          f"got {A.desc}")
-    if k._dd_active(A.dtype):
-        raise k._dd_unported("potrf")
     nt = A.desc.KT
     mb = A.desc.mb
     lower = uplo.upper() == "L"
     X = A.pad_diag().data
+    if (diag_kernel is None and A.dtype == torch.float64
+            and k._dd_active(A.dtype)):
+        # the f64-equivalent route: the limb-cached blocked factorization
+        # replaces the whole sweep (dplasma_tpu/ops/potrf.py:71-79)
+        return TileMatrix(_dd.potrf_f64_blocked(X, nb=mb, lower=lower),
+                          A.desc)
     Mp = X.shape[0]
 
     # cols[j]: finished block column j (lower: rows j*mb.., width mb;

@@ -33,7 +33,8 @@ Count per square factorization with KT panels, lookahead 1 and
 For KT a multiple of 4 that is KT + 3·(KT − 1 + 1.5·KT − 3) +
 12·(KT − 4)/4 = 11.5·KT − 24 products: 344 at N = 8192, nb = 256.
 
-The f64-equivalent (dd) route and its eager callbacks are not ported
+The f64-equivalent (dd) QR route — ``geqrt_f64``, ``_tsqrhr_f64``,
+``geqrt_f64_tree`` and the dd branch of ``geqrf`` — is not ported yet
 (ROADMAP queue 1 item 6): under ``dd_gemm=always`` the f64 entry points
 raise. ``geqrf_lowmem`` and ``dag`` wait for later slices; the phase
 spans and the 2-D sharding constraint have no counterpart yet.
@@ -123,7 +124,8 @@ def geqrf(A: TileMatrix, *, panel_kernel=None, lookahead=None,
     panel engine."""
     _check_square_tiles(A, "geqrf")
     if k._dd_active(A.dtype):
-        raise k._dd_unported("geqrf")
+        raise k._dd_unported("geqrf", "the dd QR panels (geqrt_f64, "
+                             "_tsqrhr_f64, geqrt_f64_tree)")
     la, agg = _sweep.sweep_params(lookahead, agg_depth)
     nb = A.desc.nb
     KT = A.desc.KT

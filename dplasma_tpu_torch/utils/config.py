@@ -228,9 +228,16 @@ mca_register("trsm_inv", "auto",
              "Run triangular solves as explicit triangle inverse + "
              "matmul: auto/never (native solve), always (inverse form).")
 mca_register("dd_gemm", "auto",
-             "FP64-equivalent limb GEMM for f64/c128 matmuls: auto "
-             "(native FP64 on the GPU), always (the limb route — not "
-             "ported yet, raises), never.")
+             "FP64-equivalent limb GEMM for f64 matmuls: auto (native "
+             "FP64 on the GPU), always (the exact int8 limb route, each "
+             "product closed by kernel K2: the tile dot/gemm, potrf, "
+             "trsm and trtri, so ops.potrf/potrs/posv and blas3.gemm/"
+             "trsm; the f64 LU and QR entry points raise until their dd "
+             "panels are ported), never.")
+mca_register("dd_epilogue", "auto",
+             "Recombine epilogue of the dd limb route: auto (unchunked "
+             "products through kernel K2), off (the plain PyTorch "
+             "recombine).")
 mca_register("quant.tile", "128",
              "block size of the per-tile scale grid for int8 quantized "
              "updates")

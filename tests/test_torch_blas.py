@@ -12,8 +12,11 @@ import torch
 from dplasma_tpu.kernels import blas as ref_k
 from dplasma_tpu.ops import blas3 as ref_blas3
 from dplasma_tpu.ops import generators as ref_gen
+from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import dd
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import quant
 from dplasma_tpu_torch.ops import blas3
 from dplasma_tpu_torch.utils import config as cfg
@@ -95,17 +98,69 @@ def test_tile_potrf_not_spd_gives_nan_triangle(tiles, lower):
 
 
 def test_dd_route_raises_rather_than_going_native(tiles):
+    """Under dd_gemm=always the f64 tile kernels take the limb route
+    (every product closed by K2's route), never native FP64; f32 and
+    dd_gemm=never stay native. Only the dd LU/QR entry points still
+    raise (tests/test_torch_lu.py, test_torch_qr.py)."""
     a, b, _ = tiles
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     with cfg.override_scope({"dd_gemm": "always"}):
         for fn in (lambda: k.dot(ta, tb), lambda: k.potrf(ta @ ta.T),
                    lambda: k.trsm(ta, tb), lambda: k.trtri(ta)):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                fn()
+            routed = pdd.ROUTED
+            assert torch.isfinite(fn()).all()
+            assert pdd.ROUTED > routed
+        assert torch.equal(k.dot(ta, tb), dd.mm(ta, tb))
         # f32 never takes the limb route
+        routed = pdd.ROUTED
         k.dot(ta.float(), tb.float())
+        assert pdd.ROUTED == routed
     with cfg.override_scope({"dd_gemm": "never"}):
         k.dot(ta, tb)
+        assert pdd.ROUTED == routed
+
+
+@pytest.fixture
+def dd_always():
+    ref_cfg.mca_set("dd_gemm", "always")
+    try:
+        with cfg.override_scope({"dd_gemm": "always"}):
+            yield
+    finally:
+        ref_cfg.mca_unset("dd_gemm")
+
+
+def test_dd_dot_and_gemm_match_reference_bitwise(tiles, dd_always):
+    """The limb products are exact integer work: bitwise."""
+    a, b, c = tiles
+    ja, jb, jc = jnp.asarray(a), jnp.asarray(b), jnp.asarray(c)
+    ta, tb, tc = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)
+    for want, got in (
+            (ref_k.dot(ja, jb), k.dot(ta, tb)),
+            (ref_k.dot(jb, ja, ta=True), k.dot(tb, ta, ta=True)),
+            (ref_k.dot(jc, jc, tb=True), k.dot(tc, tc, tb=True)),
+            (ref_k.gemm(0.5, ja, jb, -2.0, jb), k.gemm(0.5, ta, tb, -2.0, tb))):
+        np.testing.assert_array_equal(np.asarray(want).view(np.int64),
+                                      got.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_dd_tile_kernels_match_reference(tiles, dd_always, lower):
+    """potrf, trsm and trtri refine f32 seeds: within 1e-12."""
+    a, b, _ = tiles
+    spd = a @ a.T
+    ja, jb, ta, tb = (jnp.asarray(a), jnp.asarray(b), torch.from_numpy(a),
+                      torch.from_numpy(b))
+    assert _rel(ref_k.potrf(jnp.asarray(spd), lower=lower),
+                k.potrf(torch.from_numpy(spd), lower=lower)) <= TOL
+    assert _rel(ref_k.trtri(ja, lower=lower), k.trtri(ta, lower=lower)) \
+        <= TOL
+    for side, trans in (("L", "N"), ("R", "T")):
+        rhs = (jb, tb) if side == "L" else (jb.T, tb.T)
+        assert _rel(ref_k.trsm(ja, rhs[0], side=side, lower=lower,
+                               trans=trans, alpha=2.0),
+                    k.trsm(ta, rhs[1], side=side, lower=lower, trans=trans,
+                           alpha=2.0)) <= TOL
 
 
 def test_update_dot_falls_through_and_int8_raises(tiles):

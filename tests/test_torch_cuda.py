@@ -1,7 +1,7 @@
 """The port's hand-written kernels on the card (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these tests skip where there is no
-GPU; on a machine with one they build K1, K3 and K4 from
+GPU; on a machine with one they build K1, K2, K3 and K4 from
 ``kernels/csrc`` and hold each against its plain PyTorch version:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -12,11 +12,16 @@ equal and max|Δ|/max|packed| <= 1e-4 (the kernel rounds each step as
 the plain version does, so it is expected to agree exactly). K4,
 max|Δpacked|/max|packed| <= 1e-4 and max|Δtau| <= 1e-4 (it sums in
 another order than the plain version), and the Q rebuilt from its
-output passes the reference's QR checks (< 60).
+output passes the reference's QR checks (< 60). K2, bitwise equal to
+its plain version (every operation in its chain is exact but the last
+rounding, which both make the same); the dd products it closes are
+therefore bitwise equal on the card and on the CPU.
 """
 import pytest
 import torch
 
+from dplasma_tpu_torch.kernels import dd
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
@@ -209,3 +214,95 @@ def test_sgeqrf_on_card_routes_every_panel_and_product(card, k1_on):
     assert ok, r
     r, ok = checks.check_orthogonality(Q)
     assert ok, r
+
+
+def _k2_inputs(card, nl, M, N, seed, lo=-2 ** 30, hi=2 ** 30):
+    g = torch.Generator(device=card).manual_seed(seed)
+    lv = torch.randint(lo, hi, (nl, M, N), device=card, generator=g,
+                       dtype=torch.int32)
+    sa = 2.0 ** torch.randint(-3, 4, (M, 1), device=card, generator=g)
+    sb = 2.0 ** torch.randint(-3, 4, (1, N), device=card, generator=g)
+    base = torch.randn(M, N, device=card, generator=g,
+                       dtype=torch.float64) * 8.0
+    return lv, base, sa.double(), sb.double()
+
+
+def _k2_check(lv, base, sa, sb, w=7):
+    launches = pdd.LAUNCHES
+    got = pdd.recombine_base(lv, base, sa, sb, w)
+    torch.cuda.synchronize()
+    assert pdd.LAUNCHES == launches + 1
+    want = pdd.recombine_base_reference(lv, base, sa, sb, w)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("nl,M,N", [(8, 1000, 300), (5, 1000, 300),
+                                    (8, 7680, 512), (5, 512, 512),
+                                    (8, 1, 1), (3, 17, 9)])
+def test_k2_matches_plain_version_bitwise(card, nl, M, N):
+    lv, base, sa, sb = _k2_inputs(card, nl, M, N, seed=nl + M)
+    _k2_check(lv, base, sa, sb)
+    _k2_check(lv, None, -sa, sb)          # the gemm_f64 form
+
+
+def test_k2_strided_base_and_extreme_levels(card):
+    lv, _, sa, sb = _k2_inputs(card, 8, 640, 128, seed=9,
+                               lo=-(2 ** 31 - 1), hi=2 ** 31)
+    lv[:, :4] = 2 ** 31 - 1
+    lv[:, 4:8] = -(2 ** 31 - 1)
+    A = torch.randn(2048, 2048, device=card, dtype=torch.float64)
+    _k2_check(lv, A[1000:1640, 512:640], sa, sb)      # a view of A
+    _k2_check(lv, A[512:640, 1000:1640].T, sa, sb)    # a transposed view
+
+
+def test_k2_only_cpu_takes_the_plain_version(card):
+    lv, base, sa, sb = _k2_inputs(card, 8, 64, 64, seed=2)
+    routed, launches = pdd.ROUTED, pdd.LAUNCHES
+    pdd.recombine_base(lv.cpu(), base.cpu(), sa.cpu(), sb.cpu(), 7)
+    assert (pdd.ROUTED, pdd.LAUNCHES) == (routed + 1, launches)
+    with pytest.raises(ValueError, match="different devices"):
+        pdd.recombine_base(lv, base.cpu(), sa, sb, 7)
+
+
+@pytest.mark.parametrize("M,K,N,view", [(300, 200, 100, False),
+                                        (5, 13, 3, False),
+                                        (520, 1024, 512, True)])
+def test_int8_products_and_dd_gemm_match_the_cpu_bitwise(card, M, K, N,
+                                                         view):
+    """``_imm`` (``torch._int_mm`` with the card's shape and layout rules
+    met by copies) and the whole dd product are exact, so the card and
+    the CPU give the same bits."""
+    rng = torch.Generator().manual_seed(M)
+    a = torch.randint(-127, 128, (K, M) if view else (M, K), generator=rng,
+                      dtype=torch.int8)
+    a = a.T if view else a
+    b = torch.randint(-127, 128, (K, N), generator=rng, dtype=torch.int8)
+    assert torch.equal(dd._imm(a.to(card), b.to(card)).cpu(),
+                       dd._imm(a, b))
+    x = torch.randn(M, K, generator=rng, dtype=torch.float64)
+    y = torch.randn(K, N, generator=rng, dtype=torch.float64)
+    launches = pdd.LAUNCHES
+    got = dd.gemm_f64(x.to(card), y.to(card))
+    torch.cuda.synchronize()
+    assert pdd.LAUNCHES == launches + 1
+    assert torch.equal(got.cpu().view(torch.int64),
+                       dd.gemm_f64(x, y).view(torch.int64))
+
+
+def test_dpotrf_dd_on_card_routes_every_product(card):
+    """N=2048, nb=512 under dd_gemm=always: 5·4 − 3 = 17 K2 launches and
+    no K1; the factor agrees with a float64 host Cholesky."""
+    from dplasma_tpu_torch.ops import checks, generators, potrf
+    from dplasma_tpu_torch.utils import config as cfg
+    A = generators.plghe(2048.0, 2048, 512, seed=3, dtype=torch.float64)
+    k1, k2 = pk.LAUNCHES, pdd.LAUNCHES
+    with cfg.override_scope({"dd_gemm": "always"}):
+        L = potrf.potrf(A, "L")
+    torch.cuda.synchronize()
+    assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 17)
+    r, ok = checks.check_potrf(A, L, "L")
+    assert ok, r
+    L64 = torch.linalg.cholesky(A.to_dense().cpu())
+    err = (L.to_dense().cpu() - L64).abs().max() / L64.abs().max()
+    assert float(err) <= 1e-11

@@ -5,6 +5,7 @@ import torch
 
 from dplasma_tpu.drivers import common as ref_common
 from dplasma_tpu_torch.drivers import common, main
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
@@ -30,6 +31,8 @@ from dplasma_tpu_torch.utils import config as cfg
     ["testing_dgels", "-N", "70", "-M", "100", "-t", "32", "-K", "3", "-x"],
     ["testing_sgelqf", "-N", "100", "-M", "70", "-t", "32", "-x"],
     ["testing_dungqr", "-N", "64", "-M", "90", "-t", "32", "-x"],
+    ["testing_dposv", "-N", "100", "-t", "16", "-K", "3", "-x"],
+    ["testing_dpotrs", "-N", "90", "-t", "32", "-x"],
 ])
 def test_driver_runs_and_checks(argv, capsys):
     common.RUNS.clear()
@@ -110,10 +113,43 @@ def test_geqrf_driver_counts_k4_routes(capsys):
     assert "K4 launches per run" in out and "QR panel.kernel=pallas" in out
 
 
+@pytest.mark.parametrize("argv,k2_per_run", [
+    (["testing_dpotrf", "-N", "192", "-t", "64", "-x"], 12),
+    (["testing_dposv", "-N", "192", "-t", "64", "-K", "3", "-x"], None),
+    (["testing_dgemm", "-N", "96", "-K", "64", "-t", "32", "-x"], 1),
+])
+def test_dd_drivers_route_k2_on_the_cpu(argv, k2_per_run, capsys):
+    """dd_gemm=always end to end on the CPU: the checks pass and every
+    limb product takes K2's route (5·3 − 3 = 12 per dpotrf at N=192,
+    nb=64; one per dgemm), none of them a CUDA launch."""
+    common.RUNS.clear()
+    with cfg.override_scope({"dd_gemm": "always"}):
+        routed = pdd.ROUTED
+        assert main(argv + ["--device", "cpu", "--nowarmup", "-v"]) == 0
+        routed = pdd.ROUTED - routed
+    run = common.RUNS[-1]
+    assert run["checks"] and all(c["ok"] for c in run["checks"])
+    op = run["ops"][0]
+    assert op["k2_launches"] == [0] and op["k1_launches"] == [0]
+    assert routed >= (k2_per_run or 12)
+    if k2_per_run == 1:
+        assert routed == 1
+    out = capsys.readouterr().out
+    assert "K2 launches per run = [0]" in out and "FAILED" not in out
+
+
+def test_dd_lu_and_qr_drivers_name_what_is_missing(capsys):
+    with cfg.override_scope({"dd_gemm": "always"}):
+        for prog, what in (("testing_dgetrf", "dd LU panels"),
+                           ("testing_dgeqrf", "dd QR panels")):
+            with pytest.raises(NotImplementedError, match=what):
+                main([prog, "-N", "64", "-t", "32", "--device", "cpu"])
+
+
 def test_every_kernel_wrapper_is_counted():
     """The driver reads the launch counter of every kernel wrapper."""
-    assert [lab for lab, _ in common.KERNELS] == ["k1", "k3", "k4"]
-    assert [mod for _, mod in common.KERNELS] == [pk, plu, pqr]
+    assert [lab for lab, _ in common.KERNELS] == ["k1", "k2", "k3", "k4"]
+    assert [mod for _, mod in common.KERNELS] == [pk, pdd, plu, pqr]
     assert all(hasattr(mod, "LAUNCHES") for _, mod in common.KERNELS)
 
 

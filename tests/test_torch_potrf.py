@@ -18,10 +18,13 @@ from dplasma_tpu.kernels import pallas_kernels as ref_pk
 from dplasma_tpu.ops import checks as ref_checks
 from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu.ops import potrf as ref_potrf
+from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.ops import checks, generators
 from dplasma_tpu_torch.ops import potrf as port_potrf
+from dplasma_tpu_torch.utils import config as cfg
 
 DTYPES = {"s": (jnp.float32, 1e-4), "d": (jnp.float64, 1e-12)}
 
@@ -127,3 +130,38 @@ def test_potrf_with_k1_matches_reference():
     assert _rel(want.data, got.data) <= 1e-4
     r, ok = checks.check_potrf(T, got, "L")
     assert ok, r
+
+
+@pytest.fixture
+def dd_always():
+    ref_cfg.mca_set("dd_gemm", "always")
+    try:
+        with cfg.override_scope({"dd_gemm": "always"}):
+            yield
+    finally:
+        ref_cfg.mca_unset("dd_gemm")
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_dd_potrf_posv_match_reference(uplo, dd_always):
+    """dd_gemm=always: both packages run the limb-cached blocked
+    factorization (N=192, nb=64: 5·3 − 3 = 12 limb products, each
+    through K2's route) and solve through the dd trsm; within 1e-12."""
+    N, nb, nrhs = 192, 64, 3
+    A, T = _pair(N, nb, jnp.float64, seed=51)
+    routed = pdd.ROUTED
+    got = port_potrf.potrf(T, uplo)
+    assert pdd.ROUTED - routed == 12
+    want = ref_potrf.potrf(A, uplo)
+    assert _rel(want.data, got.data) <= 1e-12
+    r, ok = checks.check_potrf(T, got, uplo)
+    assert ok, r
+    B = generators.plrnt(N, nrhs, nb, nb, seed=2354, dtype=torch.float64,
+                         device="cpu")
+    L, X = port_potrf.posv(T, B, uplo)
+    assert torch.equal(L.data, got.data)
+    assert torch.equal(port_potrf.potrs(L, B, uplo).data, X.data)
+    r, ok = checks.check_axmb(T, B, X, uplo=uplo)
+    assert ok, r
+    ref_B = ref_gen.plrnt(N, nrhs, nb, nb, seed=2354, dtype=jnp.float64)
+    assert _rel(ref_potrf.potrs(want, ref_B, uplo).data, X.data) <= 1e-12
