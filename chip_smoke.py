@@ -51,10 +51,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    factorization on the card against a float64 host Cholesky (numpy);
    one factorization under ``torch.profiler``; then
    ``testing_dgemm -N 8192 -K 8192 -x`` (one K2 launch per product)
-   and ``testing_dposv -N 8192 -t 512 -x`` on the dd route and natively.
+   and ``testing_dposv -N 8192 -t 512 -x`` on the dd route and natively;
+9. the distributed LU on a 2×2 virtual mesh:
+   ``testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2 -x`` with K1
+   enabled, counts zeroed just before and read just after: every panel
+   broadcast along 'q' (KT·P = 32) and every winner-row shift along 'p'
+   (KT·Q·(P−1) = 32) of each factorization through K5, 64 launches; the
+   -x check must pass; one direct ``getrf_cyclic`` call on the ring
+   route must be ``torch.equal`` (factor and perm) to the same call under
+   ``ring.enable=off``; then one factorization under ``torch.profiler``;
+10. the distributed Cholesky: ``potrf_cyclic`` at N=16384, nb=1024 on
+   2×2 (the spotrf ladder's size) with K1 on its trailing products: 32
+   K5 broadcasts per factorization, ``check_potrf`` on ``to_tile()``,
+   the ring route ``torch.equal`` to the psum route, and its time beside
+   spotrf's on one card.
 
-Phase 2 also holds K2 (the dd route's recombine epilogue) against its
-plain version, bitwise, on ragged shapes, a strided base, extreme levels
+Phase 2 also holds K5 (the ring transfers) against its plain versions,
+bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
+bf16, a strided column-slice panel, the factorizations' own shapes, and
+1000 back-to-back launches of each entry point on one flag buffer, each
+checked; it times them against their bytes bound ((n+1)·S for a
+broadcast of S bytes, 2·n·S for a shift), one PyTorch call that computes
+the same transfer, the same moves by ``Tensor.copy_`` and the
+masked-psum path. It holds K1 against its plain version on every
+distinct product shape of phases 9 and 10 too (their slab-wide trailing
+and lookahead products, with B strided as the bodies hand it over). Phase 2 also holds K2 (the dd route's recombine epilogue) against
+its plain version, bitwise, on ragged shapes, a strided base, extreme levels
 and every shape that one dpotrf factorization and one dgemm product give
 it, and times ``torch._int_mm`` (the dd route's int8 products) in its
 four operand layouts.
@@ -86,6 +108,9 @@ N_LU, NB_LU = 8192, 256
 N_QR, NB_QR = 8192, 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 N_DD, NB_DD = 8192, 512   # bench.py's dpotrf_f64equiv size (:18, :499)
+GRID = (2, 2)             # the distributed paths' P x Q virtual mesh
+N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
+N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
 DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
 K3_TOL = 1e-4       # max|Δ|/max|packed|; the perm must be bitwise equal
 # K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
@@ -144,6 +169,28 @@ def main_path_products(n, nb):
         if k >= 2:
             shapes.append((m, (k - 1) * nb, nb))
     return shapes
+
+
+def cyclic_k1_products():
+    """{path: [(label, M, K, N, b_view, count)]}: every K1 product of one
+    factorization on the 2x2 grid at lookahead 1. Each rank's product is
+    its whole slab (the reference's masked bodies), so per step and rank
+    there is one trailing product and, but for the last step, one
+    narrow lookahead product: 2·KT − 1 per rank, 124 on 2x2 at KT = 16.
+    getrf_cyclic: l21 (mloc, nb) @ u12 (nb, nloc), and the lookahead's
+    u12[:, c1], a column slice; potrf_cyclic: Lbelow (mloc, nb) @ W.T
+    and @ Lk1.T, b.T views (``blas.dot(..., tb=True)``)."""
+    P, Q = GRID
+    out = {}
+    for path, n, nb, view in (("sgetrf_ptgpanel", N_GT, NB_GT, False),
+                              ("potrf_cyclic", N_PC, NB_PC, True)):
+        kt = n // nb
+        mloc, nloc = -(-kt // P) * nb, -(-kt // Q) * nb
+        out[path] = [
+            ("trailing", mloc, nb, nloc, view, kt * P * Q),
+            ("lookahead", mloc, nb, nb, "cols" if view is False else view,
+             (kt - 1) * P * Q)]
+    return out
 
 
 def lu_bound_ms(M, nb):
@@ -218,10 +265,15 @@ def rel_fro(torch, got, want):
 def k1_case(torch, pk, M, K, N, dtype, beta, b_view, seed, f64=False):
     """K1 against gemm_reference on one shape: (rel Frobenius error,
     max abs error, kernel ms, plain ms, torch.matmul ms, rel Frobenius
-    error against a float64 product when ``f64``)."""
+    error against a float64 product when ``f64``). ``b_view``: False a
+    contiguous B, True a b.T view, ``"cols"`` a column slice of an
+    8·N-wide matrix (the getrf_cyclic lookahead's ``u12[:, c1]``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.randn(M, K, device="cuda", generator=g).to(dtype)
-    if b_view:   # B as blas.dot(..., tb=True) hands it over: a b.T view
+    if b_view == "cols":
+        b = torch.randn(K, 8 * N, device="cuda",
+                        generator=g).to(dtype)[:, N:2 * N]
+    elif b_view:   # B as blas.dot(..., tb=True) hands it over: a b.T view
         b = torch.randn(N, K, device="cuda", generator=g).to(dtype).T
     else:
         b = torch.randn(K, N, device="cuda", generator=g).to(dtype)
@@ -331,7 +383,39 @@ def phase_k1(torch, pk, record):
         f"3xTF32 bound {tot['bound_3xtf32_ms']:.3f} ms  "
         f"max rel_fro {tot['rel_fro']:.3e}")
     record["k1_main_path"] = dict(tot, products=len(shapes), gflop=gflop)
-    return tot, len(shapes)
+
+    # every distinct product of one getrf_cyclic and one potrf_cyclic
+    # factorization on the 2x2 grid, times its count
+    cyc = {}
+    for j, (path, prods) in enumerate(cyclic_k1_products().items()):
+        t = {"products": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bound_ms": 0.0, "max_abs_err": 0.0, "rel_fro": 0.0}
+        for i, (label, M, K, N, view, cnt) in enumerate(prods):
+            rel, mabs, k_ms, p_ms, l_ms, _ = k1_case(
+                torch, pk, M, K, N, f32, 0.0, view, seed=300 + 10 * j + i)
+            b_ms, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
+            log(f"[k1] {path} {label:9s} M={M:5d} K={K:5d} N={N:5d} "
+                f"b={'contiguous' if view is False else view} x{cnt}: "
+                f"rel_fro={rel:.3e} (tol {TOL['float32']:.0e}) kernel "
+                f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  torch {l_ms:8.3f} "
+                f"ms  bound {b_ms:7.3f} ms")
+            check(rel <= TOL["float32"],
+                  f"K1 disagrees with gemm_reference on {path}'s {label} "
+                  f"product {(M, K, N)}: rel_fro {rel:.3e}")
+            t["products"] += cnt
+            t["ms"] += cnt * k_ms
+            t["plain_ms"] += cnt * p_ms
+            t["library_ms"] += cnt * l_ms
+            t["bound_ms"] += cnt * b_ms
+            t["max_abs_err"] = max(t["max_abs_err"], mabs)
+            t["rel_fro"] = max(t["rel_fro"], rel)
+        log(f"[k1] one {path}'s {t['products']} products: kernel "
+            f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  torch "
+            f"{t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms  "
+            f"max rel_fro {t['rel_fro']:.3e}")
+        cyc[path] = t
+    record["k1_cyclic_paths"] = cyc
+    return tot, len(shapes), cyc
 
 
 def with_cusolver(torch, fn, *args):
@@ -786,12 +870,19 @@ def _device_ms(ev) -> float:
     return (us or 0.0) / 1e3
 
 
+# name pieces of the hand-written kernels, each kept apart in a profile
+PORT_KERNELS = ("k1_gemm", "k2_recombine", "k3_lu_panel", "k4_geqrt_panel",
+                "k5_ring")
+
 # kernel-name pieces -> the category the breakdown reports them under
-_CATEGORIES = (("K2 (k2_recombine)", ("k2_recombine",)),
+_CATEGORIES = (("K5 (k5_ring)", ("k5_ring",)),
+               ("K2 (k2_recombine)", ("k2_recombine",)),
                ("K3 (k3_lu_panel)", ("k3_lu_panel",)),
                ("K4 (k4_geqrt_panel)", ("k4_geqrt_panel",)),
                ("K1 (k1_gemm)", ("k1_gemm",)),
                ("int8 products (torch._int_mm)", ("gemm_s8", "imma")),
+               ("cuSOLVER getrf (panel LUs)", ("getrf_pivot", "ipiv_",
+                                               "create_pivot")),
                ("trsm (cuBLAS)", ("trsm",)),
                ("cuBLAS/cuSOLVER other", ("gemm", "gemv", "geqrf",
                                            "larf", "cublas", "cusolver")),
@@ -847,6 +938,8 @@ def _profile(torch, record, key, label, run):
     record[key] = {
         "wall_ms": wall, "busy_ms": busy, "idle_share": idle,
         "categories_ms": cats,
+        "port_kernels_ms": {n: ms for n, ms in by_kernel.items()
+                            if any(k in n for k in PORT_KERNELS)},
         "top_kernels_ms": dict(sorted(by_kernel.items(),
                                       key=lambda kv: -kv[1])[:20])}
 
@@ -1125,6 +1218,323 @@ def phase_dd_drivers(torch, pk, pdd, record):
     return k2_dgemm
 
 
+def ring_counts():
+    """(bcast, shift) launches of K5 per factorization on a P×Q grid:
+    one broadcast per process row and step (the lookahead carry issues
+    the next panel's early, still once per step), and for the LU P−1
+    winner-row shifts per process column and step."""
+    P, Q = GRID
+    kt_gt, kt_pc = N_GT // NB_GT, N_PC // NB_PC
+    return {"getrf": (kt_gt * P, kt_gt * Q * (P - 1)),
+            "potrf": (kt_pc * P, 0)}
+
+
+def k5_bound_ms(kind, n, nbytes):
+    """Least time for one ring transfer of S = ``nbytes`` along n ranks,
+    the bytes the function must move over the HBM rate: a broadcast
+    reads the root's block once and writes n blocks, (n+1)·S; a shift
+    reads and writes every rank's block, 2·n·S."""
+    return 1e3 * (n + 1 if kind == "bcast" else 2 * n) * nbytes \
+        / HBM_BYTES_S
+
+
+def k5_case(torch, pring, kind, xs, root=0, chunks=1):
+    """One K5 launch against its plain version: (bitwise equal, max abs
+    error)."""
+    if kind == "bcast":
+        got = pring.ring_bcast(xs, root=root, chunks=chunks)
+        want = pring.ring_bcast_reference(xs, root, chunks)
+    else:
+        got = pring.ring_shift(xs)
+        want = pring.ring_shift_reference(xs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    mabs = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+    return same, mabs
+
+
+def k5_times(torch, pring, kind, xs, root=0, chunks=1):
+    """Device ms of one transfer by K5, by its plain version, by one
+    PyTorch call that computes it (``library_ms``: the root's block
+    expanded to n and made contiguous; the rotated list stacked), by the
+    same moves with ``Tensor.copy_`` into preallocated blocks, and by
+    the masked-psum path the factorizations take under
+    ``ring.enable=off``."""
+    from dplasma_tpu_torch.parallel import cyclic
+    n = len(xs)
+    outs = [torch.empty_like(xs[0], memory_format=torch.contiguous_format)
+            for _ in range(n)]
+    if kind == "bcast":
+        def copies():
+            outs[root].copy_(xs[root])
+            for d in range(1, n):
+                r = (root + d) % n
+                outs[r].copy_(outs[(r - 1) % n])
+        k = lambda: pring.ring_bcast(xs, root=root, chunks=chunks)  # noqa
+        p = lambda: pring.ring_bcast_reference(xs, root, chunks)  # noqa
+        ps = lambda: cyclic._bcast_q(xs, root, False)  # noqa: E731
+        lib = lambda: xs[root].unsqueeze(0).expand(  # noqa: E731
+            n, -1, -1).contiguous()
+    else:
+        def copies():
+            for r in range(n):
+                outs[(r + 1) % n].copy_(xs[r])
+        k = lambda: pring.ring_shift(xs)  # noqa: E731
+        p = lambda: pring.ring_shift_reference(xs)  # noqa: E731
+        ps = lambda: cyclic._psum(xs)  # noqa: E731
+        rot = [xs[(r - 1) % n] for r in range(n)]
+        lib = lambda: torch.stack(rot)  # noqa: E731
+    return {"ms": time_ms(torch, k, reps=20),
+            "plain_ms": time_ms(torch, p, reps=20),
+            "library_ms": time_ms(torch, lib, reps=20),
+            "copy_ms": time_ms(torch, copies, reps=20),
+            "psum_ms": time_ms(torch, ps, reps=20)}
+
+
+def phase_k5(torch, pring, record):
+    g = torch.Generator(device="cuda").manual_seed(700)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # every ring size, root and chunk count, f32 and bf16, ragged
+    for dt in (f32, bf16):
+        for n in (2, 3, 4):
+            xs = [torch.randn(1000, 300, device="cuda", generator=g).to(dt)
+                  for _ in range(n)]
+            for chunks in (1, 4):
+                for root in range(n):
+                    same, mabs = k5_case(torch, pring, "bcast", xs, root,
+                                         chunks)
+                    check(same, f"K5 ring_bcast differs from its plain "
+                                f"version: n={n} root={root} chunks="
+                                f"{chunks} {dt}")
+            same, _ = k5_case(torch, pring, "shift", xs)
+            check(same, f"K5 ring_shift differs: n={n} {dt}")
+            rows.append({"case": f"1000x300 n={n} every root, chunks 1 "
+                                 f"and 4, shift", "dtype": str(dt),
+                         "bitwise": True})
+    log(f"[k5] 1000x300 f32 and bf16, n in (2, 3, 4), every root, chunks "
+        f"1 and 4, and the shift: bitwise equal to the plain versions")
+
+    # the main paths' shapes (2x2 grid: n = 2 along each axis), a
+    # strided column slice of a slab as the factorizations hand it
+    P, Q = GRID
+    slab_gt = torch.randn(N_GT // P, N_GT // Q, device="cuda", generator=g)
+    slab_pc = torch.randn(N_PC // P, N_PC // Q, device="cuda", generator=g)
+    panel_gt = [slab_gt[:, NB_GT:2 * NB_GT]] + [
+        torch.empty(N_GT // P, NB_GT, device="cuda") for _ in range(Q - 1)]
+    panel_pc = [slab_pc[:, NB_PC:2 * NB_PC]] + [
+        torch.empty(N_PC // P, NB_PC, device="cuda") for _ in range(Q - 1)]
+    wrows = [torch.randn(NB_GT, N_GT // Q, device="cuda", generator=g)
+             for _ in range(P)]
+    counts = ring_counts()
+    chunks = pring._resolve_chunks(N_GT // P, None)
+    shapes = {
+        "bcast_getrf": ("bcast", panel_gt, counts["getrf"][0], chunks),
+        "shift_getrf": ("shift", wrows, counts["getrf"][1], 1),
+        "bcast_potrf": ("bcast", panel_pc, counts["potrf"][0],
+                        pring._resolve_chunks(N_PC // P, None)),
+    }
+    out = {}
+    for name, (kind, xs, per_fact, c) in shapes.items():
+        same, mabs = k5_case(torch, pring, kind, xs, 0, c)
+        r, cols = xs[0].shape
+        check(same, f"K5 {name} ({r}x{cols}, n={len(xs)}) differs from "
+                    f"its plain version")
+        t = k5_times(torch, pring, kind, xs, 0, c)
+        nbytes = r * cols * xs[0].element_size()
+        b_ms = k5_bound_ms(kind, len(xs), nbytes)
+        log(f"[k5] {name:12s} {r}x{cols} f32 n={len(xs)} chunks={c} "
+            f"{'strided ' if not xs[0].is_contiguous() else ''}bitwise "
+            f"equal: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"library {t['library_ms']:.4f} ms  copy_ {t['copy_ms']:.4f} ms"
+            f"  psum path {t['psum_ms']:.4f} ms  bound {b_ms:.4f} ms "
+            f"(bytes, {'(n+1)' if kind == 'bcast' else '2*n'}*S); "
+            f"x{per_fact} per factorization")
+        out[name] = dict(t, rows=r, cols=cols, n=len(xs), chunks=c,
+                         bytes=nbytes, bound_ms=b_ms, bound_by="bytes",
+                         max_abs_err=mabs, launches_per_factorization=per_fact)
+
+    # 1000 back-to-back launches of each entry point on one flag buffer
+    # (flags are never reset: a stale flag shows from the second launch)
+    want = panel_gt[0].contiguous()
+    for i in range(1000):
+        root = i % Q
+        xs = [want if q == root else panel_gt[1] for q in range(Q)]
+        got = pring.ring_bcast(xs, root=root, chunks=chunks)
+        check(all(torch.equal(o, want) for o in got),
+              f"K5 ring_bcast launch {i} of 1000 differs")
+    cur = wrows
+    for i in range(1000):
+        nxt = pring.ring_shift(cur)
+        check(all(torch.equal(nxt[(r + 1) % P], cur[r]) for r in range(P)),
+              f"K5 ring_shift launch {i} of 1000 differs")
+        cur = nxt
+    log("[k5] 1000 back-to-back ring_bcast launches (alternating roots) "
+        "and 1000 ring_shift launches on one flag buffer each, every one "
+        "bitwise right")
+    record["k5_cases"] = rows
+    record["k5_main_path"] = out
+    # per entry point and path: one factorization's launches of its one
+    # shape, each timed once, times the count
+    tot = {"bcast": {}, "shift": {}}
+    for kind, path, name in (("bcast", "sgetrf_ptgpanel", "bcast_getrf"),
+                             ("shift", "sgetrf_ptgpanel", "shift_getrf"),
+                             ("bcast", "potrf_cyclic", "bcast_potrf")):
+        t = out[name]
+        k = t["launches_per_factorization"]
+        tot[kind][path] = {key: t[key] * k for key in (
+            "ms", "plain_ms", "library_ms", "copy_ms", "psum_ms",
+            "bound_ms")}
+        tot[kind][path].update(max_abs_err=t["max_abs_err"],
+                               launches_per_factorization=k)
+        v = tot[kind][path]
+        log(f"[k5] one {path} factorization's {k} {kind}s: kernel "
+            f"{v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  library "
+            f"{v['library_ms']:.3f} ms  copy_ {v['copy_ms']:.3f} ms  psum "
+            f"{v['psum_ms']:.3f} ms  bound {v['bound_ms']:.3f} ms")
+    record["k5_by_path"] = tot
+    return tot
+
+
+def phase_getrf_ptgpanel(torch, pk, pring, record):
+    """The distributed LU through the driver on a 2x2 virtual mesh, with
+    every kernel count zeroed just before and read just after."""
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import generators, lu
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    P, Q = GRID
+    want_b, want_s = ring_counts()["getrf"]
+    common.RUNS.clear()
+    pk.reset_counts()
+    pring.reset_counts()
+    t0 = time.perf_counter()
+    rc = main(["testing_sgetrf_ptgpanel", "-N", str(N_GT), "-t", str(NB_GT),
+               "-p", str(P), "-q", str(Q), "-x", "-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_run, k5_run = pk.LAUNCHES, pring.LAUNCHES
+    b_run, s_run = pring.BCAST_LAUNCHES, pring.SHIFT_LAUNCHES
+    check(rc == 0, f"testing_sgetrf_ptgpanel exited {rc}")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    chk = {c["check"]: c for c in run["checks"]}["GETRF_PTGPANEL |b-Ax|"]
+    log(f"[getrf_ptgpanel] N={N_GT} nb={NB_GT} grid {P}x{Q} K1 on, input "
+        f"{N_GT * N_GT * 4 / 2**20:.0f} MiB: best {op['best_s']:.5f} s "
+        f"{op['gflops']:.1f} GFLOP/s (warm-up {op['warmup_s']:.3f} s, "
+        f"driver wall {wall:.1f} s); per factorization K5 launches "
+        f"{op['k5_launches']} (want {want_b + want_s}), K1 "
+        f"{op['k1_launches']}; whole run K5 {k5_run} ({b_run} bcast, "
+        f"{s_run} shift), K1 {k1_run}; GETRF_PTGPANEL |b-Ax| residual "
+        f"{chk['residual']:.3e}")
+    check(all(n == want_b + want_s for n in op["k5_launches"]),
+          f"K5 launches per factorization {op['k5_launches']} != "
+          f"{want_b + want_s}")
+    nfact = len(op["k5_launches"]) + int(op["warmup_s"] is not None)
+    check((b_run, s_run) == (nfact * want_b, nfact * want_s),
+          f"K5 bcast/shift launches {b_run}/{s_run} over {nfact} "
+          f"factorizations, want {want_b}/{want_s} each")
+    check(chk["ok"], "GETRF_PTGPANEL |b-Ax| check failed")
+    want_k1 = sum(c for *_, c in cyclic_k1_products()["sgetrf_ptgpanel"])
+    check(all(n == want_k1 for n in op["k1_launches"]),
+          f"K1 launches per factorization {op['k1_launches']} != {want_k1}")
+    record["getrf_ptgpanel"] = {
+        "N": N_GT, "nb": NB_GT, "grid": [P, Q], "best_s": op["best_s"],
+        "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+        "k5_launches_per_factorization": op["k5_launches"],
+        "k1_launches_per_factorization": op["k1_launches"],
+        "k5_launches_run": k5_run, "k5_bcast_run": b_run,
+        "k5_shift_run": s_run, "k1_launches_run": k1_run,
+        "checks": run["checks"]}
+
+    # one direct call on the ring route against ring.enable=off
+    A = generators.plrnt(N_GT, N_GT, NB_GT, NB_GT, seed=3872)
+    with mesh.use_grid(mesh.make_mesh(P, Q)):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=P, Q=Q))
+        check(cyclic._cyclic_ring(C.desc, C.dtype, mesh.active(),
+                                  need_row=True),
+              "ring.enable=auto does not resolve to the ring on this card")
+        F1, p1 = cyclic.getrf_cyclic(C)
+        with cfg.override_scope({"ring.enable": "off"}):
+            before = pring.LAUNCHES
+            F0, p0 = cyclic.getrf_cyclic(C)
+            check(pring.LAUNCHES == before, "ring.enable=off launched K5")
+        torch.cuda.synchronize()
+        same = torch.equal(p0, p1) and all(
+            torch.equal(a, b) for r0, r1 in zip(F0.data, F1.data)
+            for a, b in zip(r0, r1))
+        log(f"[getrf_ptgpanel] direct getrf_cyclic: ring route "
+            f"{'torch.equal' if same else 'DIFFERS FROM'} the psum route "
+            f"(factor and perm)")
+        check(same, "getrf_cyclic: the ring route differs from the psum "
+                    "route")
+        del F0, F1, C
+        _profile(torch, record, "getrf_ptgpanel_profile",
+                 f"N={N_GT} nb={NB_GT} grid {P}x{Q}",
+                 lambda: lu.getrf_ptgpanel(A))
+    return k5_run, b_run, s_run, k1_run
+
+
+def phase_potrf_cyclic(torch, pk, pring, record):
+    """The distributed Cholesky by a direct call, with every kernel count
+    zeroed just before and read just after one timed factorization."""
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.ops import checks, generators
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    P, Q = GRID
+    want_b, _ = ring_counts()["potrf"]
+    A = generators.plghe(float(N_PC), N_PC, NB_PC, seed=3872)
+    with mesh.use_grid(mesh.make_mesh(P, Q)):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=P, Q=Q))
+        cyclic.potrf_cyclic(C)            # warm-up
+        torch.cuda.synchronize()
+        pk.reset_counts()
+        pring.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        L = cyclic.potrf_cyclic(C)
+        end.record()
+        torch.cuda.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+        k5, b, s, k1 = (pring.LAUNCHES, pring.BCAST_LAUNCHES,
+                        pring.SHIFT_LAUNCHES, pk.LAUNCHES)
+        res, ok = checks.check_potrf(A, L.to_tile(), "L")
+        with cfg.override_scope({"ring.enable": "off"}):
+            L0 = cyclic.potrf_cyclic(C)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for r0, r1 in zip(L0.data, L.data)
+                   for a, b_ in zip(r0, r1))
+    from dplasma_tpu_torch.utils import flops
+    gflops = flops.potrf(N_PC, False) / 1e9 / secs
+    spotrf = record.get("spotrf", {}).get("best_s")
+    log(f"[potrf_cyclic] N={N_PC} nb={NB_PC} grid {P}x{Q} K1 on: "
+        f"{secs:.5f} s {gflops:.1f} GFLOP/s (LAWN-41; one card, spotrf "
+        f"on the same card {spotrf if spotrf is None else f'{spotrf:.5f}'}"
+        f" s); K5 launches {k5} ({b} bcast, want {want_b}; {s} shift), K1 "
+        f"{k1}; POTRF residual {float(res):.3e}; ring route "
+        f"{'torch.equal' if same else 'DIFFERS FROM'} the psum route")
+    check(b == want_b and s == 0 and k5 == want_b,
+          f"potrf_cyclic launched K5 {b} bcast / {s} shift, want {want_b}")
+    want_k1 = sum(c for *_, c in cyclic_k1_products()["potrf_cyclic"])
+    check(k1 == want_k1, f"potrf_cyclic launched K1 {k1} times, want "
+                         f"{want_k1}")
+    check(bool(ok) and float(res) < 60, f"check_potrf failed: {float(res)}")
+    check(same, "potrf_cyclic: the ring route differs from the psum route")
+    record["potrf_cyclic"] = {
+        "N": N_PC, "nb": NB_PC, "grid": [P, Q], "s": secs, "gflops": gflops,
+        "spotrf_best_s": spotrf, "k5_launches": k5, "k1_launches": k1,
+        "potrf_residual": float(res), "ring_equals_psum": same}
+    return b, k1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1135,17 +1545,19 @@ def main() -> int:
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
     from dplasma_tpu_torch.kernels import pallas_lu as plu
     from dplasma_tpu_torch.kernels import pallas_qr as pqr
+    from dplasma_tpu_torch.kernels import pallas_ring as pring
 
     t_start = time.perf_counter()
     record = {"device": torch.cuda.get_device_name(0)}
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {record['device']}")
     phase_build(record)
-    k1tot, nprod = phase_k1(torch, pk, record)
+    k1tot, nprod, k1cyc = phase_k1(torch, pk, record)
     k3tot, npan = phase_k3(torch, plu, record)
     k4tot, nqpan = phase_k4(torch, pqr, record)
     k2tot, nk2 = phase_k2(torch, pdd, record)
     phase_int_mm_layouts(torch, record)
+    k5tot = phase_k5(torch, pring, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
     k1_sgetrf, k3_sgetrf = phase_sgetrf(torch, pk, plu, record)
     phase_sgetrf_profile(torch, pk, record)
@@ -1155,6 +1567,35 @@ def main() -> int:
     k2_dpotrf = phase_dpotrf_dd(torch, pk, pdd, record)
     phase_dpotrf_dd_profile(torch, record)
     k2_dgemm = phase_dd_drivers(torch, pk, pdd, record)
+    _, k5b_gt, k5s_gt, k1_gt = phase_getrf_ptgpanel(torch, pk, pring,
+                                                    record)
+    k5b_pc, k1_pc = phase_potrf_cyclic(torch, pk, pring, record)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    k1_by_path = {"spotrf": dict({k: k1tot[k] for k in keys},
+                                 products=nprod)}
+    k1_by_path.update({path: dict({k: t[k] for k in keys},
+                                  products=t["products"])
+                       for path, t in k1cyc.items()})
+    k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
+                             "potrf_cyclic": k5b_pc},
+                   "shift": {"sgetrf_ptgpanel": k5s_gt}}
+
+    def k5_entry(kind, line):
+        paths = k5tot[kind]
+        by_path = {path: dict({k: t[k] for k in keys},
+                              launches=k5_launches[kind][path],
+                              launches_per_factorization=t[
+                                  "launches_per_factorization"])
+                   for path, t in paths.items()}
+        return {"name": f"k5_ring_{kind}", "route": "cuda",
+                "source": "dplasma_tpu_torch/kernels/csrc/ring.cu",
+                "replaces": f"dplasma_tpu/kernels/pallas_ring.py:{line}",
+                "launches": sum(k5_launches[kind].values()),
+                "launches_by_path": k5_launches[kind],
+                "max_abs_err": max(t["max_abs_err"]
+                                   for t in paths.values()),
+                **{k: sum(t[k] for t in paths.values()) for k in keys},
+                "bound_by": "bytes", "by_path": by_path}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1165,13 +1606,15 @@ def main() -> int:
         {"name": "k1_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
-         "launches": k1_spotrf + k1_sgetrf + k1_sgeqrf,
+         "launches": k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc,
          "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
-                              "sgeqrf": k1_sgeqrf},
-         "max_abs_err": k1tot["max_abs_err"],
+                              "sgeqrf": k1_sgeqrf, "sgetrf_ptgpanel": k1_gt,
+                              "potrf_cyclic": k1_pc},
+         "max_abs_err": max([k1tot["max_abs_err"]]
+                            + [t["max_abs_err"] for t in k1cyc.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
-         "library_ms": k1tot["library_ms"]},
+         "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
         {"name": "k2_recombine", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
@@ -1201,7 +1644,8 @@ def main() -> int:
          "ms": k4tot["ms"], "plain_ms": k4tot["plain_ms"],
          "bound_ms": k4tot["bound_ms"],
          "bound_by": qr_bound_ms(N_QR, NB_QR)[1],
-         "library_ms": k4tot["library_ms"]}]}
+         "library_ms": k4tot["library_ms"]},
+        k5_entry("bcast", 321), k5_entry("shift", 357)]}
     record.update(kernels)
     record["wall_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -1218,7 +1662,18 @@ def main() -> int:
         f"launches of one dd dpotrf factorization (N={N_DD}, nb={NB_DD}; "
         f"no single PyTorch call computes it: library null); launches "
         f"count each main-path driver run (warm-up, timed run, -x check), "
-        f"K2's the direct dpotrf call and the dgemm driver run")
+        f"K2's the direct dpotrf call and the dgemm driver run; by_path "
+        f"gives K1's sums over one factorization of spotrf, "
+        f"sgetrf_ptgpanel (N={N_GT}, nb={NB_GT}) and potrf_cyclic "
+        f"(N={N_PC}, nb={NB_PC}), grid {GRID[0]}x{GRID[1]}, whose "
+        f"launches are the driver run (warm-up, timed run, -x check) and "
+        f"one timed potrf_cyclic call; K5's ms/plain_ms/bound_ms/"
+        f"library_ms sum one factorization of each path that launches it "
+        f"(by_path: each launch of one shape, timed once, times the "
+        f"count; library = the root's block expanded and made contiguous "
+        f"for a broadcast, the rotated blocks stacked for a shift), "
+        f"launches the sgetrf_ptgpanel driver run (warm-up and timed run) "
+        f"and the timed potrf_cyclic call")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

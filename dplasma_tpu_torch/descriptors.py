@@ -34,8 +34,8 @@ def _ceildiv(a: int, b: int) -> int:
 class Dist:
     """Block-cyclic distribution descriptor: process grid P×Q,
     supertile factors kp/kq, grid offsets ip/jq (ref
-    tests/testing_zpotrf.c:100-103). Recorded only: the port runs on
-    one device until the distribution slice."""
+    tests/testing_zpotrf.c:100-103). ``parallel.cyclic`` lays a matrix
+    out in block-cyclic slabs by it; the tile ops ignore it."""
 
     P: int = 1
     Q: int = 1

@@ -11,6 +11,9 @@ times, each timed with CUDA events and a ``torch.cuda.synchronize()``
 on the card (a host clock on the CPU), and prints the reference's
 ``[****] TIME(s)`` line (common.py:1541-1545) so log parsers work
 unchanged. The port has no trace/compile step, so ENQ and DEST are 0.
+``-p P -q Q`` with P·Q > 1 activates a P×Q virtual mesh on the run's
+device (``parallel.mesh``) for the run: the distributed drivers
+(``getrf_ptgpanel``) run on it, the others ignore it.
 
 Every driver run is recorded in :data:`RUNS` (newest last): per op the
 run times, GFLOP/s and the launches of each hand-written kernel
@@ -31,7 +34,9 @@ from dplasma_tpu_torch.kernels import pallas_dd as _pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.kernels import pallas_lu as _plu
 from dplasma_tpu_torch.kernels import pallas_qr as _pqr
+from dplasma_tpu_torch.kernels import pallas_ring as _pring
 from dplasma_tpu_torch.kernels import panels as _panels
+from dplasma_tpu_torch.parallel import mesh as _pmesh
 from dplasma_tpu_torch.utils import config as _cfg
 
 PRECISIONS = {"s": torch.float32, "d": torch.float64,
@@ -42,7 +47,8 @@ RUNS: list = []
 
 #: (label, wrapper module with a ``LAUNCHES`` counter) of every
 #: hand-written kernel; op records carry ``<label>_launches``
-KERNELS = (("k1", _pk), ("k2", _pdd), ("k3", _plu), ("k4", _pqr))
+KERNELS = (("k1", _pk), ("k2", _pdd), ("k3", _plu), ("k4", _pqr),
+           ("k5", _pring))
 
 
 @dataclass
@@ -82,7 +88,7 @@ Optional arguments:
  -T --NB           : columns in a tile (default: MB)
  -z --HNB --HMB    : inner NB/MB for recursive algorithms
  -x --check        : verify the results
- -p -q             : device grid (only 1x1 until the distribution slice)
+ -p -q             : process grid P x Q (a virtual mesh on the device)
  -g --gpus         : accepted and recorded
  --lookahead       : pipelined-sweep lookahead (default: MCA
                      sweep.lookahead, 1)
@@ -212,17 +218,22 @@ class Driver:
         self.ip = ip
         self.name = name
         self.check_failures = 0
-        if ip.P * ip.Q > 1:
-            raise SystemExit(
-                f"grid {ip.P}x{ip.Q}: the port runs on one device until "
-                "the distribution slice (ROADMAP queue 1 item 11)")
+        if ip.P < 1 or ip.Q < 1:
+            raise SystemExit(f"invalid grid {ip.P}x{ip.Q}")
         self.device = resolve_device(ip.device)
+        self.mesh = (_pmesh.make_mesh(ip.P, ip.Q, self.device)
+                     if ip.P * ip.Q > 1 else None)
         self.record = {"driver": name, "prec": ip.prec, "N": ip.N,
                        "M": ip.M, "K": ip.K, "NB": ip.NB,
+                       "grid": [ip.P, ip.Q],
                        "device": str(self.device), "ops": [],
                        "checks": []}
         RUNS.append(self.record)
         self._frames = []
+        self._grid = None
+        if self.mesh is not None:
+            self._grid = _pmesh.use_grid(self.mesh)
+            self._grid.__enter__()
         if ip.lookahead >= 0:
             self._frames.append(_cfg.push_overrides(
                 {"sweep.lookahead": ip.lookahead}, label="--lookahead"))
@@ -234,11 +245,21 @@ class Driver:
                   f"LU panel.kernel="
                   f"{_panels.panel_kernel('lu')} QR panel.kernel="
                   f"{_panels.panel_kernel('qr')}")
+            if self.mesh is not None:
+                dt = ip.prec_dtype
+                print(f"#+ grid: {ip.P}x{ip.Q} on {self.device} "
+                      f"ring.enable={_cfg.mca_get('ring.enable')} -> "
+                      f"q ring {_pring.ring_active(ip.Q, dt, self.mesh, 'q')}"
+                      f", p ring {_pring.ring_active(ip.P, dt, self.mesh, 'p')}"
+                      f" ({dt})")
 
     def close(self):
         for frame in reversed(self._frames):
             _cfg.pop_overrides(frame)
         self._frames = []
+        if self._grid is not None:
+            self._grid.__exit__(None, None, None)
+            self._grid = None
 
     def sync(self):
         if self.device.type == "cuda":

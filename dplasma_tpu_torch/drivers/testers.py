@@ -1,11 +1,12 @@
 """The testing_* driver bodies of the ported slices: ``potrf``,
-``potrs``, ``posv``, ``gemm``, ``getrf`` (= ``getrf_1d``), ``gesv``, and
+``potrs``, ``posv``, ``gemm``, ``getrf`` (= ``getrf_1d``), ``gesv``,
+``getrf_ptgpanel`` (the distributed panel under ``-p P -q Q``), and
 the QR family ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``,
 ``unmlq`` and ``gels``. Under MCA ``dd_gemm=always`` the d-precision
 Cholesky and GEMM drivers take the f64-equivalent limb route.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-246, :290-381,
-:454-455, :510-529, :577-589): seeded
+:454-455, :510-545, :577-589): seeded
 generation → timed run with the GFLOPS print → optional ``-x`` residual
 verification against the regenerated input.
 """
@@ -105,6 +106,21 @@ def getrf_1d(drv: Driver):
         X = lu.getrs("N", LU, perm, B)
         r, ok = checks.check_axmb(A0, B, X)
         return drv.report_check("GETRF |b-Ax|", r, ok)
+    return 0
+
+
+def getrf_ptgpanel(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    (LU, perm), _ = drv.progress(
+        lu.getrf_ptgpanel, (A0,),
+        lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = lu.trsmpl_ptgpanel(LU, perm, B)
+        X = blas3.trsm(1.0, LU, X, side="L", uplo="U")
+        r, ok = checks.check_axmb(A0, B, X)
+        return drv.report_check("GETRF_PTGPANEL |b-Ax|", r, ok)
     return 0
 
 
@@ -215,6 +231,7 @@ def gels(drv: Driver):
 
 DRIVERS = {"gemm": gemm, "potrf": potrf, "potrs": potrs, "posv": posv,
            "getrf": getrf_1d,
-           "getrf_1d": getrf_1d, "gesv": gesv,
+           "getrf_1d": getrf_1d, "getrf_ptgpanel": getrf_ptgpanel,
+           "gesv": gesv,
            "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
            "unmqr": unmqr, "unmlq": unmlq, "gels": gels}

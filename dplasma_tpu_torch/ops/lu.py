@@ -25,20 +25,24 @@ bookkeeping never leaves the device.
 The f64-equivalent (dd) LU route — ``lu_ir``, the dd panel
 ``_panel_lu_dd`` and the eager ``jit_steps`` sweep with
 ``lu.agg_depth`` — is not ported yet (ROADMAP queue 1 item 6): under
-``dd_gemm=always`` the f64 entry points raise. ``getrf_ptgpanel``,
-incpiv, qrf, the lowmem tier and ``dag`` wait for later slices.
+``dd_gemm=always`` the f64 entry points raise. :func:`getrf_ptgpanel`
+runs the distributed panel of ``parallel/cyclic.py`` under an active
+P×Q grid. Incpiv, qrf, the lowmem tier and ``dag`` wait for later
+slices.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import _sweep, blas3
+from dplasma_tpu_torch.parallel import cyclic
+from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config as _cfg
 
 # -- pivot bookkeeping -------------------------------------------------
@@ -308,6 +312,29 @@ def getrf_rec(A: TileMatrix, hnb: int = 0):
     if hnb <= 0 or hnb >= A.desc.nb:
         return getrf_1d(A)
     return _getrf(A, lambda panel: _panel_lu(panel, ib=hnb))
+
+
+def getrf_ptgpanel(A: TileMatrix):
+    """Distributed-parallel-panel LU (dplasma_zgetrf_ptgpanel,
+    src/zgetrf_ptgpanel.jdf). Under an active mesh with P·Q > 1 and
+    square tiles this runs the distributed panel of
+    :func:`dplasma_tpu_torch.parallel.cyclic.getrf_cyclic` (per-row-rank
+    candidate election, an all_gather playoff, the winner-row exchange
+    along 'p'); everything else goes to :func:`getrf_1d`. The same
+    (LU, perm) contract either way."""
+    m = pmesh.active()
+    if m is not None and A.desc.mb == A.desc.nb:
+        P = m.shape[pmesh.ROW_AXIS]
+        Q = m.shape[pmesh.COL_AXIS]
+        if P * Q > 1:
+            d = A.desc.dist
+            if (d.P, d.Q) != (P, Q):  # grid comes from the mesh; keep
+                d = Dist(P=P, Q=Q)    # dist's kp/kq only when it fits
+            C = cyclic.CyclicMatrix.from_tile(A, d)
+            F, perm = cyclic.getrf_cyclic(C)
+            full = F.to_tile().data[perm]
+            return TileMatrix(full, A.desc), perm
+    return getrf_1d(A)
 
 
 def trsmpl_ptgpanel(LU: TileMatrix, perm, B: TileMatrix) -> TileMatrix:

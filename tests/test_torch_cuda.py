@@ -15,7 +15,10 @@ another order than the plain version), and the Q rebuilt from its
 output passes the reference's QR checks (< 60). K2, bitwise equal to
 its plain version (every operation in its chain is exact but the last
 rounding, which both make the same); the dd products it closes are
-therefore bitwise equal on the card and on the CPU.
+therefore bitwise equal on the card and on the CPU. K5, bitwise equal to
+its plain version (it moves bytes), also over many launches on one flag
+buffer (flags are never reset), and the cyclic factorizations' ring
+route ``torch.equal`` to their psum route.
 """
 import pytest
 import torch
@@ -25,6 +28,7 @@ from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
+from dplasma_tpu_torch.kernels import pallas_ring as pring
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +310,75 @@ def test_dpotrf_dd_on_card_routes_every_product(card):
     L64 = torch.linalg.cholesky(A.to_dense().cpu())
     err = (L.to_dense().cpu() - L64).abs().max() / L64.abs().max()
     assert float(err) <= 1e-11
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_k5_bcast_matches_plain_version_bitwise(card, dtype, n, chunks):
+    g = torch.Generator(device=card).manual_seed(50 + n)
+    for root in range(n):
+        xs = [torch.randn(1000, 300, device=card, generator=g).to(dtype)
+              for _ in range(n)]
+        launches = pring.LAUNCHES
+        got = pring.ring_bcast(xs, root=root, chunks=chunks)
+        torch.cuda.synchronize()
+        assert pring.LAUNCHES == launches + 1
+        want = pring.ring_bcast_reference(xs, root, chunks)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k5_bcast_strided_panel_and_many_launches(card):
+    """A column slice of a row-major slab (row stride 4096), and 300
+    launches on one flag buffer, each checked."""
+    g = torch.Generator(device=card).manual_seed(60)
+    slab = torch.randn(4096, 4096, device=card, generator=g)
+    xs = [slab[:, 512:1024], torch.empty(4096, 512, device=card)]
+    want = slab[:, 512:1024].contiguous()
+    for i in range(300):
+        got = pring.ring_bcast(xs, root=0, chunks=4)
+        assert all(torch.equal(o, want) for o in got), i
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_k5_shift_matches_plain_version_bitwise(card, n):
+    g = torch.Generator(device=card).manual_seed(70 + n)
+    xs = [torch.randn(512, 4096, device=card, generator=g)
+          for _ in range(n)]
+    for _ in range(20):
+        got = pring.ring_shift(xs)
+        want = pring.ring_shift_reference(xs)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        xs = got
+
+
+@pytest.mark.parametrize("op", ["potrf", "getrf"])
+def test_cyclic_ring_route_equals_psum_route_on_card(card, op):
+    """2x2 grid on the card, f32: ring.enable=on launches K5 (KT per
+    process row for the broadcasts, KT·Q·(P−1) LU shifts) and gives
+    torch.equal factors (and perm) to ring.enable=off."""
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+    N, nb = 1024, 128
+    A = (generators.plghe(float(N), N, nb, seed=9) if op == "potrf"
+         else generators.plrnt(N, N, nb, nb, seed=9))
+    res, launches = {}, {}
+    with mesh.use_grid(mesh.make_mesh(2, 2)):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=2, Q=2))
+        for mode in ("off", "on"):
+            with cfg.override_scope({"ring.enable": mode}):
+                before = pring.LAUNCHES
+                res[mode] = (cyclic.potrf_cyclic(C), None) \
+                    if op == "potrf" else cyclic.getrf_cyclic(C)
+                torch.cuda.synchronize()
+                launches[mode] = pring.LAUNCHES - before
+    KT = N // nb
+    assert launches["off"] == 0
+    assert launches["on"] == 2 * KT + (KT * 2 * 1 if op == "getrf" else 0)
+    (F0, p0), (F1, p1) = res["off"], res["on"]
+    for r0, r1 in zip(F0.data, F1.data):
+        assert all(torch.equal(a, b) for a, b in zip(r0, r1))
+    if op == "getrf":
+        assert torch.equal(p0, p1)

@@ -9,6 +9,8 @@ from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
+from dplasma_tpu_torch.kernels import pallas_ring as pring
+from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config as cfg
 
 
@@ -33,6 +35,10 @@ from dplasma_tpu_torch.utils import config as cfg
     ["testing_dungqr", "-N", "64", "-M", "90", "-t", "32", "-x"],
     ["testing_dposv", "-N", "100", "-t", "16", "-K", "3", "-x"],
     ["testing_dpotrs", "-N", "90", "-t", "32", "-x"],
+    ["testing_dgetrf_ptgpanel", "-N", "90", "-t", "16", "-x"],
+    ["testing_dgetrf_ptgpanel", "-N", "100", "-t", "16", "-p", "2", "-q",
+     "4", "-x", "--lookahead", "0"],
+    ["testing_spotrf", "-N", "96", "-t", "32", "-p", "2", "-q", "2", "-x"],
 ])
 def test_driver_runs_and_checks(argv, capsys):
     common.RUNS.clear()
@@ -146,10 +152,41 @@ def test_dd_lu_and_qr_drivers_name_what_is_missing(capsys):
                 main([prog, "-N", "64", "-t", "32", "--device", "cpu"])
 
 
+@pytest.mark.parametrize("prog", ["testing_sgetrf_ptgpanel",
+                                  "testing_dgetrf_ptgpanel"])
+def test_getrf_ptgpanel_grid_routes_k5(prog, capsys):
+    """-p 2 -q 2 runs the distributed panel on a 2x2 virtual mesh. Under
+    ring.enable=on the f32 run walks the ring route (the plain versions
+    on the CPU): per factorization KT = 7 broadcasts along 'q' per
+    process row (14) and KT·Q·(P−1) = 14 winner-row shifts,
+    twice (warm-up and timed run); none is a CUDA launch. f64 has no
+    ring kernel: the psum path, nothing routed."""
+    common.RUNS.clear()
+    routed = pring.ROUTED
+    with cfg.override_scope({"ring.enable": "on"}):
+        assert main([prog, "-N", "200", "-t", "32", "-p", "2", "-q", "2",
+                     "-x", "-v", "--device", "cpu"]) == 0
+    routed = pring.ROUTED - routed
+    run = common.RUNS[-1]
+    assert run["grid"] == [2, 2]
+    assert run["checks"] and all(c["ok"] for c in run["checks"])
+    assert run["ops"][0]["k5_launches"] == [0]
+    out = capsys.readouterr().out
+    assert "#+ grid: 2x2" in out and "ring.enable=on" in out
+    if prog[8] == "s":
+        assert routed == 2 * (2 * 7 + 7 * 2 * 1)
+        assert "q ring True, p ring True" in out
+    else:
+        assert routed == 0
+        assert "q ring False, p ring False" in out
+    assert pmesh.active() is None
+
+
 def test_every_kernel_wrapper_is_counted():
     """The driver reads the launch counter of every kernel wrapper."""
-    assert [lab for lab, _ in common.KERNELS] == ["k1", "k2", "k3", "k4"]
-    assert [mod for _, mod in common.KERNELS] == [pk, pdd, plu, pqr]
+    assert [lab for lab, _ in common.KERNELS] == ["k1", "k2", "k3", "k4",
+                                                  "k5"]
+    assert [mod for _, mod in common.KERNELS] == [pk, pdd, plu, pqr, pring]
     assert all(hasattr(mod, "LAUNCHES") for _, mod in common.KERNELS)
 
 
@@ -175,8 +212,8 @@ def test_bad_invocations(capsys):
     assert e.value.code == 2
     assert main(["testing_sheev", "-N", "8"]) == 2
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
-    with pytest.raises(SystemExit, match="one device"):
-        main(["testing_spotrf", "-N", "8", "-p", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="invalid grid"):
+        main(["testing_spotrf", "-N", "8", "-p", "0", "--device", "cpu"])
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -41,7 +41,9 @@ def test_sweep_finds_the_package():
     assert all(p.exists() for p in FILES)
     names = {str(p.relative_to(REPO)) for p in FILES}
     for mod in ("kernels/householder.py", "kernels/pallas_qr.py",
-                "kernels/panels.py", "ops/qr.py", "ops/checks.py"):
+                "kernels/panels.py", "ops/qr.py", "ops/checks.py",
+                "kernels/pallas_ring.py", "parallel/layout.py",
+                "parallel/mesh.py", "parallel/cyclic.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
