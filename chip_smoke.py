@@ -13,7 +13,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    function (the yardstick only; the port never calls it in place of the
    kernel: K1's is ``torch.matmul``, K3's ``torch.linalg.lu_factor_ex``
    on cuSOLVER, K4's ``torch.geqrf`` on cuSOLVER) and the bound; K4 is
-   also held to the reference's QR checks on each panel;
+   also held to the reference's QR checks on each panel. K3 and K4 are
+   one thread-block cluster per panel: the build logs their ptxas
+   reports, each case logs the cluster geometry its launch used (and how
+   many such clusters the card holds), K3 must be bitwise equal to its
+   plain version (perm and factor) on every case, on all 32 main-path
+   panels and on 100 back-to-back launches of the top panel, and two K4
+   launches on one panel must be ``torch.equal``; the record keeps each
+   main-path panel's row (M, kernel, cuSOLVER and bound ms) and the fit
+   ms = a + b·M that splits the per-column chain from the part that grows
+   with M;
 3. the Cholesky path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
    port's driver with K1 enabled. Kernel launch counts are zeroed just
    before and read just after; every update product of each
@@ -112,7 +121,7 @@ GRID = (2, 2)             # the distributed paths' P x Q virtual mesh
 N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
 N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
 DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
-K3_TOL = 1e-4       # max|Δ|/max|packed|; the perm must be bitwise equal
+K3_REPEATS = 100    # back-to-back K3 launches, each bitwise checked
 # K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
 # (the two sum in other orders); each panel's Q must pass the QR checks
 K4_TOL = 1e-4
@@ -207,6 +216,25 @@ def lu_bound_ms(M, nb):
 def main_path_panels(n, nb):
     """Heights of the KT panels of one sgetrf_1d factorization."""
     return [n - k * nb for k in range(n // nb)]
+
+
+def fit_against_m(rows):
+    """Least-squares fit of per-panel kernel time against the panel's
+    height, ms = a + b·M: ``a`` is the part that does not grow with M
+    (the chain of column steps; a / nb per column), ``b·M`` the part that
+    does (the rows' updates)."""
+    n = len(rows)
+    mx = sum(r["M"] for r in rows) / n
+    my = sum(r["ms"] for r in rows) / n
+    sxx = sum((r["M"] - mx) ** 2 for r in rows)
+    b = sum((r["M"] - mx) * (r["ms"] - my) for r in rows) / sxx
+    return {"fixed_ms": my - b * mx, "ms_per_row": b}
+
+
+def cluster_log(mod, M, nb):
+    """The launch geometry of a K3/K4 panel (cluster size, rows per
+    block, strip rows in shared memory, dynamic shared memory)."""
+    return mod.launch_geometry(M, nb)._asdict()
 
 
 def qr_bound_ms(M, nb):
@@ -313,11 +341,14 @@ def phase_build(record):
     per = json.dumps({k: round(v, 1) for k, v in took.items()})
     log(f"[build] kernels {sorted(_build.SOURCES)} built in {total:.1f} s "
         f"(per source: {per})")
+    report = {}
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+                report.setdefault(name, []).append(line.strip())
     record["build_s"] = total
+    record["ptxas"] = report
 
 
 def phase_k1(torch, pk, record):
@@ -431,8 +462,8 @@ def with_cusolver(torch, fn, *args):
 
 def k3_case(torch, plu, a):
     """K3 against lu_panel_reference on one panel: (perm equal, max abs
-    error, max abs error / max|packed|, kernel ms, plain ms, cuSOLVER
-    getrf ms)."""
+    error (0: bitwise), max abs error / max|packed|, kernel ms, plain
+    ms, cuSOLVER getrf ms)."""
     packed, perm = plu.lu_panel(a)
     want, wperm = plu.lu_panel_reference(a)
     torch.cuda.synchronize()
@@ -451,16 +482,30 @@ def k3_case(torch, plu, a):
     return perm_eq, mabs, rel, k_ms, p_ms, l_ms
 
 
+def tie_panel(torch, M, nb, seed):
+    """An integer panel full of ties across the cluster's blocks, with
+    column 0's largest |a| twice in the last block (the lower row wins)
+    and row 0 in the first."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randint(-2, 3, (M, nb), device="cuda", generator=g).float()
+    a[:, 0] = 1.0
+    a[M - 3, 0], a[M - 1, 0] = 7.0, -7.0
+    return a
+
+
 def phase_k3(torch, plu, record):
     g = torch.Generator(device="cuda").manual_seed(300)
     tie = torch.randint(-2, 3, (2048, 64), device="cuda", generator=g)
     tie = tie.float()
     tie[:, 5] = 0.0          # a zero column: its L must come out 0
+    last = tie_panel(torch, 4096, 64, 301)
     named = [("sgetrf top panel", (N_LU, NB_LU)),
              ("sgetrf middle panel", (N_LU // 2, NB_LU)),
              ("sgetrf last panel", (NB_LU, NB_LU)),
+             ("M not k * cluster", (N_LU - 8, NB_LU)),
              ("ragged", (1000, 64)), ("tall narrow", (262144, 8)),
-             ("ties + zero column", tie)]
+             ("ties + zero column", tie),
+             ("tie, winner in last block", last)]
     rows = []
     for label, what in named:
         a = what if torch.is_tensor(what) else torch.randn(
@@ -468,33 +513,57 @@ def phase_k3(torch, plu, record):
         M, nb = a.shape
         perm_eq, mabs, rel, k_ms, p_ms, l_ms = k3_case(torch, plu, a)
         b_ms, b_by = lu_bound_ms(M, nb)
-        log(f"[k3] {label:20s} M={M:6d} nb={nb:3d} perm "
+        geo = cluster_log(plu, M, nb)
+        log(f"[k3] {label:26s} M={M:6d} nb={nb:3d} perm "
             f"{'equal' if perm_eq else 'DIFFERS'} max_abs_err={mabs:.3e} "
-            f"rel={rel:.3e} (tol {K3_TOL:.0e})  kernel {k_ms:8.3f} ms  "
+            f"(bitwise: 0)  kernel {k_ms:8.3f} ms  "
             f"plain {p_ms:8.3f} ms  cuSOLVER getrf {l_ms:8.3f} ms  "
-            f"bound {b_ms:7.4f} ms ({b_by})")
+            f"bound {b_ms:7.4f} ms ({b_by})  cluster {geo['cluster']} x "
+            f"{geo['rows_per_block']} rows, smem rows {geo['smem_rows']}, "
+            f"{geo['smem_bytes']} B")
         rows.append({"case": label, "M": M, "nb": nb, "perm_equal": perm_eq,
                      "max_abs_err": mabs, "rel_err": rel, "ms": k_ms,
                      "plain_ms": p_ms, "library_ms": l_ms,
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by, "geometry": geo})
         check(perm_eq, f"K3 perm differs from lu_panel_reference on {label}")
-        check(rel <= K3_TOL, f"K3 disagrees with lu_panel_reference on "
-                             f"{label}: {rel:.3e} > {K3_TOL:.0e}")
+        check(mabs == 0.0, f"K3 is not bitwise equal to lu_panel_reference "
+                           f"on {label}: max abs err {mabs:.3e}")
         if what is tie:
             check(bool((plu.lu_panel(tie)[0][6:, 5] == 0).all()),
                   "K3: the zero column's L is not 0")
+        if what is last:
+            check(int(plu.lu_panel(last)[1][0]) == 4096 - 3,
+                  "K3: the tie in the last block did not go to its lower row")
     record["k3_cases"] = rows
+
+    # back-to-back launches on the top panel, each bitwise equal to the
+    # plain version (a memory-ordering fault between the cluster's SMs
+    # would show as an occasional difference)
+    a = torch.randn(N_LU, NB_LU, device="cuda", generator=g)
+    want, wperm = plu.lu_panel_reference(a)
+    outs = [plu.lu_panel(a) for _ in range(K3_REPEATS)]
+    torch.cuda.synchronize()
+    bad = [n for n, (p, q) in enumerate(outs)
+           if not (torch.equal(p, want) and torch.equal(q, wperm))]
+    log(f"[k3] {K3_REPEATS} back-to-back launches on the top panel: "
+        f"{K3_REPEATS - len(bad)} bitwise equal to the plain version")
+    check(not bad, f"K3 launches {bad} differ from the plain version")
+    del outs
 
     # every panel of one main-path factorization, timed in turn
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "max_abs_err": 0.0, "rel_err": 0.0}
     heights = main_path_panels(N_LU, NB_LU)
+    per_panel = []
     for M in heights:
         a = torch.randn(M, NB_LU, device="cuda", generator=g)
         perm_eq, mabs, rel, k_ms, p_ms, l_ms = k3_case(torch, plu, a)
-        check(perm_eq and rel <= K3_TOL,
+        check(perm_eq and mabs == 0.0,
               f"K3 disagrees on main-path panel {M}x{NB_LU}: perm "
-              f"{perm_eq}, rel {rel:.3e}")
+              f"{perm_eq}, max abs err {mabs:.3e}")
+        per_panel.append({"M": M, "ms": k_ms, "library_ms": l_ms,
+                          "bound_ms": lu_bound_ms(M, NB_LU)[0],
+                          "cluster": plu.launch_geometry(M, NB_LU).cluster})
         tot["ms"] += k_ms
         tot["plain_ms"] += p_ms
         tot["library_ms"] += l_ms
@@ -507,8 +576,21 @@ def phase_k3(torch, plu, record):
         f"{NB_LU}): kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f} "
         f"ms  cuSOLVER getrf {tot['library_ms']:.3f} ms  bound "
         f"{tot['bound_ms']:.3f} ms  max abs err {tot['max_abs_err']:.3e}")
-    record["k3_main_path"] = dict(tot, panels=len(heights))
+    fit = fit_against_m(per_panel)
+    log_panels("k3", per_panel, fit, NB_LU, "cuSOLVER getrf")
+    record["k3_main_path"] = dict(tot, panels=len(heights), rows=per_panel,
+                                  fit=fit)
     return tot, len(heights)
+
+
+def log_panels(tag, per_panel, fit, nb, lib):
+    for r in per_panel:
+        log(f"[{tag}]   panel M={r['M']:5d} cluster {r['cluster']:2d}: kernel "
+            f"{r['ms']:.4f} ms  {lib} {r['library_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms")
+    log(f"[{tag}] fit ms = a + b*M over the panels: a = "
+        f"{fit['fixed_ms']:.4f} ms ({1e3 * fit['fixed_ms'] / nb:.3f} us per "
+        f"column), b = {1e6 * fit['ms_per_row']:.4f} ns per row")
 
 
 def k4_case(torch, pqr, a):
@@ -558,9 +640,11 @@ def phase_k4(torch, pqr, record):
     strided = torch.randn(512, 3000, device="cuda", generator=g)[64:128].T
     named = [("ragged", (1000, 64)), ("middle panel", (4096, NB_QR)),
              ("sgeqrf top panel", (N_QR, NB_QR)),
+             ("M not k * cluster", (N_QR - 8, NB_QR)),
              ("square (tau = 2)", (NB_QR, NB_QR)),
              ("tall narrow", (262144, 8)), ("zero column", zero),
-             ("strided (a.T view)", strided)]
+             ("strided (a.T view)", strided),
+             ("tie panel", tie_panel(torch, 4096, 64, 401))]
     rows = []
     for label, what in named:
         a = what if torch.is_tensor(what) else torch.randn(
@@ -568,16 +652,24 @@ def phase_k4(torch, pqr, record):
         M, nb = a.shape
         r = k4_case(torch, pqr, a)
         b_ms, b_by = qr_bound_ms(M, nb)
+        geo = cluster_log(pqr, M, nb)
+        p1, t1 = pqr.geqrt_panel_packed(a)
+        p2, t2 = pqr.geqrt_panel_packed(a)
+        same = bool(torch.equal(p1, p2) and torch.equal(t1, t2))
         log(f"[k4] {label:20s} M={M:6d} nb={nb:3d} rel={r['rel_err']:.3e} "
             f"tau={r['tau_err']:.3e} (tol {K4_TOL:.0e}) |A-QR| "
             f"{r['qr_residual']:.2f} |I-Q'Q| {r['orth_residual']:.2f}  "
+            f"two launches {'equal' if same else 'DIFFER'}  "
             f"kernel {r['ms']:8.3f} ms  plain {r['plain_ms']:8.3f} ms  "
             f"cuSOLVER geqrf {r['library_ms']:8.3f} ms  bound "
-            f"{b_ms:7.4f} ms ({b_by})")
+            f"{b_ms:7.4f} ms ({b_by})  cluster {geo['cluster']} x "
+            f"{geo['rows_per_block']} rows, smem rows {geo['smem_rows']}, "
+            f"{geo['smem_bytes']} B")
         rows.append(dict(r, case=label, M=M, nb=nb, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by, geometry=geo, repeat_equal=same))
         check(_k4_ok(r), f"K4 disagrees with geqrt_panel_reference on "
                          f"{label}: {r}")
+        check(same, f"K4: two launches on {label} differ")
         if label.startswith("square"):
             taus = pqr.geqrt_panel_packed(a)[1]
             check(float(taus[-1]) == 2.0, "K4: the square panel's last "
@@ -609,10 +701,15 @@ def phase_k4(torch, pqr, record):
            "max_abs_err": 0.0, "rel_err": 0.0, "tau_err": 0.0,
            "qr_residual": 0.0, "orth_residual": 0.0}
     heights = main_path_panels(N_QR, NB_QR)
+    per_panel = []
     for M in heights:
         a = torch.randn(M, NB_QR, device="cuda", generator=g)
         r = k4_case(torch, pqr, a)
         check(_k4_ok(r), f"K4 disagrees on main-path panel {M}x{NB_QR}: {r}")
+        per_panel.append({"M": M, "ms": r["ms"],
+                          "library_ms": r["library_ms"],
+                          "bound_ms": qr_bound_ms(M, NB_QR)[0],
+                          "cluster": pqr.launch_geometry(M, NB_QR).cluster})
         for key in ("ms", "plain_ms", "library_ms"):
             tot[key] += r[key]
         tot["bound_ms"] += qr_bound_ms(M, NB_QR)[0]
@@ -627,7 +724,10 @@ def phase_k4(torch, pqr, record):
         f"{tot['bound_ms']:.3f} ms  max abs err {tot['max_abs_err']:.3e}  "
         f"max |A-QR| {tot['qr_residual']:.2f} |I-Q'Q| "
         f"{tot['orth_residual']:.2f}")
-    record["k4_main_path"] = dict(tot, panels=len(heights))
+    fit = fit_against_m(per_panel)
+    log_panels("k4", per_panel, fit, NB_QR, "cuSOLVER geqrf")
+    record["k4_main_path"] = dict(tot, panels=len(heights), rows=per_panel,
+                                  fit=fit)
     return tot, len(heights)
 
 

@@ -3,15 +3,23 @@
 Replaces ``dplasma_tpu/kernels/pallas_lu.py:lu_panel`` (the Pallas
 kernel on the TPU; this module keeps its name so a reader finds the
 counterpart). The kernel is ``csrc/lu_panel.cu``: CUDA C++ for
-``sm_90a``, one block of 1024 threads per panel, the panel in device
-memory (L2-resident) in column-major order, JB = 8 column blocks, a
-block-wide lowest-index pivot reduction per column, deferred swaps of
-the columns outside the strip, and per block the unit-lower U12 solve
-and the rank-8 trailing update.
+``sm_90a``, one thread-block cluster per panel with K4's launch
+geometry (``pallas_qr.launch_geometry``: 2 to 16 blocks of 512 threads,
+each owning a contiguous range of rows and keeping them of the current
+JB = 8 column strip in shared memory; the panel in device memory,
+L2-resident, column-major). Per column one exchange: each block pushes
+its lowest-index max-|a| candidate with that row's strip values into
+every block's shared memory (``st.async`` counted off an mbarrier), and
+every block elects the same pivot from the C candidates. That chain runs
+on half of each block's threads while the other half applies the
+previous strip's rank-8 update; per JB block two cluster barriers
+around the row moves of the columns outside the strip and the U12
+solve. Bitwise equal to :func:`lu_panel_reference`.
 
-What bounds it: latency, not FLOP/s or bytes — one SM of the card's
-132 does the work, with nb sequential pivot steps. A later design
-spreads each panel over many SMs.
+What bounds it: the chain of nb sequential pivot steps, each a round of
+communication between the cluster's SMs, and the rank-8 updates at two
+FP32 instructions per multiply-subtract (no FMA, to stay bitwise), not
+bytes.
 
 The route and its gate are the reference's: ``ops.lu._base_lu`` sends a
 panel here under MCA ``panel.kernel=pallas`` (or ``lu.pallas_panel=on``
@@ -25,15 +33,14 @@ device, ``LAUNCHES`` the CUDA launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from dplasma_tpu_torch.kernels import panels as _panels
 # the fused-panel gate has one home, K4's module, as in the reference
 # (dplasma_tpu/kernels/pallas_lu.py:134-139)
+from dplasma_tpu_torch.kernels import pallas_qr as _pqr
 from dplasma_tpu_torch.kernels.pallas_qr import (  # noqa: F401
-    JB, VMEM_PANEL_BYTES, eligible_shape)
+    JB, VMEM_PANEL_BYTES, eligible_shape, launch_geometry)
 
 #: calls that took the K3 route, on any device
 ROUTED = 0
@@ -69,28 +76,24 @@ def _kernel():
     global _FN
     if _FN is None:
         from dplasma_tpu_torch.kernels import _build
-        fn = _build.load("lu_panel").dtt_k3_lu_panel
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
-        _FN = fn
+        lib = _build.load("lu_panel")
+        _FN = _pqr.bind_cluster_entry(lib.dtt_k3_lu_panel, 3)
     return _FN
 
 
 def _launch(a):
     global LAUNCHES
     M, nb = a.shape
-    work = torch.empty((nb, M), dtype=torch.float32, device=a.device)
-    work.copy_(a.T)                      # column-major panel, in place
+    geom = launch_geometry(M, nb)
+    work = _pqr.column_major(a)
     swaps = torch.empty(nb, dtype=torch.int32, device=a.device)
     perm = torch.empty(M, dtype=torch.int64, device=a.device)
     with torch.cuda.device(a.device):
-        err = _kernel()(M, nb, work.data_ptr(), swaps.data_ptr(),
+        err = _kernel()(M, nb, *geom, work.data_ptr(), swaps.data_ptr(),
                         perm.data_ptr(),
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K3 lu_panel launch failed: cudaError {err} "
-                           f"(M={M} nb={nb})")
+        raise _pqr.launch_error("K3 lu_panel", err, M, nb, geom)
     LAUNCHES += 1
     return work.T.contiguous(), perm
 

@@ -3,17 +3,21 @@
 Replaces ``dplasma_tpu/kernels/pallas_qr.py:geqrt_panel`` (body
 ``_geqrt_kernel``, ``pallas_call`` at :123; this module keeps its name
 so a reader finds the counterpart). The kernel is
-``csrc/geqrt_panel.cu``: CUDA C++ for ``sm_90a``, one block of 512
-threads per panel, the panel in device memory (L2-resident) in
-column-major order, JB = 8 column blocks; per column one block-wide
-reduction (the sum of squares below the diagonal and the dot products
-with the strip columns to its right), the reflector and its apply to
-the strip; per block the Gram VbᵀVb, the 8×8 T_blk by the larft
-recurrence and the rank-8 compact-WY update of the trailing columns.
+``csrc/geqrt_panel.cu``: CUDA C++ for ``sm_90a``, one thread-block
+cluster per panel (:func:`launch_geometry`: 2 to 16 blocks of 512
+threads, each owning a contiguous range of rows and keeping them of the
+current JB = 8 column strip in shared memory; the panel in device
+memory, L2-resident, column-major). Per column one exchange: each block
+pushes its partial sum of squares and dot products with the strip
+columns to its right into every block's shared memory (``st.async``
+counted off an mbarrier), and every block sums the C partials in one
+fixed order, so all derive the same reflector; per JB block two
+cluster barriers for the Gram VbᵀVb, the 8×8 T_blk by the larft
+recurrence and the rank-8 compact-WY update of the trailing columns,
+each block on its own rows.
 
-What bounds it: latency, not FLOP/s or bytes — one SM of the card's
-132 does the work, with nb sequential reflectors and their block-wide
-barriers. A later design spreads each panel over many SMs.
+What bounds it: the chain of nb sequential reflectors, each a round of
+communication between the cluster's SMs, not FLOP/s or bytes.
 
 Reflector rule: the reference's, not LAPACK's larfg. With alpha the
 diagonal entry and norm = sqrt(alpha² + Σ below²): beta = -norm if
@@ -36,6 +40,8 @@ the on-card comparison use. ``ROUTED`` counts calls on any device,
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +52,43 @@ JB = 8
 #: whole-panel residency budget of the fused panel kernels
 #: (pallas_qr.py:150); kept as the routing gate
 VMEM_PANEL_BYTES = 8 * 2 ** 20
+
+#: most blocks in one cluster (Hopper's non-portable limit)
+MAX_CLUSTER = 16
+#: rows a block should own before the cluster grows by one more block
+ROWS_PER_BLOCK_TARGET = 64
+#: dynamic shared memory a block may take: the card's 232,448-byte
+#: per-block limit less room for each kernel's static shared memory
+SMEM_LIMIT = 232448
+SMEM_BUDGET = SMEM_LIMIT - 16384
+
+
+class Geometry(NamedTuple):
+    """How K3 and K4 spread an (M, nb) panel over one cluster."""
+    cluster: int         # blocks in the cluster (2..16)
+    rows_per_block: int  # block r owns rows [r·R, min(M, (r+1)·R))
+    smem_rows: int       # rows of its strip a block keeps in shared memory
+    smem_bytes: int      # dynamic shared memory per block
+
+
+def launch_geometry(m: int, nb: int) -> Geometry:
+    """The cluster launch of K3 and K4 for an (m, nb) panel: one block
+    per ~:data:`ROWS_PER_BLOCK_TARGET` rows, at least 2 and at most
+    :data:`MAX_CLUSTER`; each block keeps as many of its rows of the
+    8-column strip in shared memory as fit twice (K3 double-buffers the
+    strip) beside two staging areas of JB·nb floats and the nb pivots,
+    and reads the rest from the panel.
+    A constant of the design (not an MCA knob); the tests check it for
+    every shape the gate admits."""
+    if m < 1 or nb < 1:
+        raise ValueError(f"no launch geometry for a {m}x{nb} panel")
+    cluster = min(MAX_CLUSTER, max(2, math.ceil(m / ROWS_PER_BLOCK_TARGET)))
+    rows = math.ceil(m / cluster)
+    fixed = 4 * (2 * JB * nb + nb)
+    smem_rows = max(0, min(rows, (SMEM_BUDGET - fixed) // (8 * JB)))
+    return Geometry(cluster, rows, smem_rows,
+                    8 * JB * smem_rows + fixed)
+
 
 #: calls that took the K4 route, on any device
 ROUTED = 0
@@ -140,26 +183,48 @@ def _kernel():
     global _FN
     if _FN is None:
         from dplasma_tpu_torch.kernels import _build
-        fn = _build.load("geqrt_panel").dtt_k4_geqrt_panel
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
-        _FN = fn
+        lib = _build.load("geqrt_panel")
+        _FN = bind_cluster_entry(lib.dtt_k4_geqrt_panel, 2)
     return _FN
+
+
+def bind_cluster_entry(fn, n_ptrs):
+    """ctypes types of a cluster panel entry point: M, nb and the four
+    geometry ints, then ``n_ptrs`` tensor pointers (the column-major
+    panel first) and the stream."""
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * (n_ptrs + 1)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def column_major(a):
+    """The (M, nb) panel ``a`` copied into column-major order, as the
+    cluster panel kernels factor it in place: an (nb, M) tensor."""
+    work = torch.empty((a.shape[1], a.shape[0]), dtype=torch.float32,
+                       device=a.device)
+    work.copy_(a.T)
+    return work
+
+
+def launch_error(name, err, M, nb, geom):
+    """The error a refused cluster launch raises."""
+    why = ("no cluster of this shape fits on the card" if err == -1
+           else f"cudaError {err}")
+    return RuntimeError(f"{name} launch failed: {why} (M={M} nb={nb}, "
+                        f"{geom})")
 
 
 def _launch(a):
     global LAUNCHES
     M, nb = a.shape
-    work = torch.empty((nb, M), dtype=torch.float32, device=a.device)
-    work.copy_(a.T)                      # column-major panel, in place
+    geom = launch_geometry(M, nb)
+    work = column_major(a)
     taus = torch.empty(nb, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        err = _kernel()(M, nb, work.data_ptr(), taus.data_ptr(),
+        err = _kernel()(M, nb, *geom, work.data_ptr(), taus.data_ptr(),
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K4 geqrt_panel launch failed: cudaError "
-                           f"{err} (M={M} nb={nb})")
+        raise launch_error("K4 geqrt_panel", err, M, nb, geom)
     LAUNCHES += 1
     return work.T.contiguous(), taus
 

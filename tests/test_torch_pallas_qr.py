@@ -159,3 +159,85 @@ def test_reset_counts():
     pqr.geqrt_panel(torch.ones((16, 8)))
     pqr.reset_counts()
     assert (pqr.ROUTED, pqr.LAUNCHES) == (0, 0)
+
+
+def _block_rows(geom, m):
+    """Per block of the cluster, as the kernels compute it: (first row,
+    end row, rows in shared memory, rows read from the panel)."""
+    out = []
+    for r in range(geom.cluster):
+        r0 = min(m, r * geom.rows_per_block)
+        r1 = min(m, r0 + geom.rows_per_block)
+        in_smem = min(r1 - r0, geom.smem_rows)
+        out.append((r0, r1, in_smem, r1 - r0 - in_smem))
+    return out
+
+
+def _check_bounds(M, nb):
+    """The geometry's closed-form invariants at one (M, nb)."""
+    geom = pqr.launch_geometry(M, nb)
+    assert 2 <= geom.cluster <= pqr.MAX_CLUSTER, (M, nb, geom)
+    assert geom.smem_bytes <= pqr.SMEM_LIMIT, (M, nb, geom)
+    # the kernels' dynamic shared memory: two buffers of the strip rows,
+    # two staging areas of JB·nb floats and the nb pivots
+    assert geom.smem_bytes == 4 * (2 * pqr.JB * geom.smem_rows
+                                   + 2 * pqr.JB * nb + nb)
+    assert 0 <= geom.smem_rows <= geom.rows_per_block
+    # the cluster's blocks reach past the last row, and the last block
+    # starts below it
+    assert (geom.cluster - 1) * geom.rows_per_block < M \
+        <= geom.cluster * geom.rows_per_block, (M, nb, geom)
+    return geom
+
+
+def _check_geometry(M, nb):
+    """The closed-form invariants, then the blocks walked one by one."""
+    geom = _check_bounds(M, nb)
+    end = 0
+    for r0, r1, in_smem, in_panel in _block_rows(geom, M):
+        assert r0 == end and r1 >= r0, (M, nb, geom)
+        assert in_smem + in_panel == r1 - r0 and in_panel >= 0
+        assert in_smem <= geom.smem_rows
+        end = r1
+    assert end == M, (M, nb, geom)
+    return geom
+
+
+@pytest.mark.parametrize("nb", [8, 24, 64, 256])
+def test_launch_geometry_covers_every_gated_shape(nb):
+    """For every M the gate admits at this nb: the blocks' row ranges
+    cover 0..M-1 once, the cluster has 2..16 blocks, the dynamic shared
+    memory stays under the card's per-block limit, and every row a
+    block cannot keep in shared memory is counted as read from the
+    panel."""
+    top = pqr.VMEM_PANEL_BYTES // (4 * nb)
+    assert pqr.eligible_shape(top, nb) and not pqr.eligible_shape(
+        top + 1, nb)
+    prev = None
+    for M in range(nb, top + 1):
+        geom = _check_bounds(M, nb)
+        # the blocks walked one by one wherever the geometry changes
+        # (cluster size, rows per block, strip rows in shared memory),
+        # at both ends of the gate, and at every 997th M between
+        if geom != prev or M in (nb, top) or M % 997 == 0:
+            _check_geometry(M, nb)
+            if prev is not None:
+                _check_geometry(M - 1, nb)
+        prev = geom
+
+
+@pytest.mark.parametrize("M,nb,cluster,overflow", [
+    (8, 8, 2, False),            # M = nb, the smallest panel
+    (100, 8, 2, False),          # few rows: at least 2 blocks
+    (256, 256, 4, False),        # sgetrf's last panel
+    (8192, 256, 16, False),      # the top panel: 16 blocks of 512 rows
+    (8184, 256, 16, False),      # rows not a multiple of the cluster
+    (1000, 64, 16, False),
+    (262144, 8, 16, True),       # tall narrow: rows read from the panel
+    (1448, 1448, 16, False),     # the widest panel the gate admits
+])
+def test_launch_geometry_named_shapes(M, nb, cluster, overflow):
+    geom = _check_geometry(M, nb)
+    assert geom.cluster == cluster
+    assert any(p for *_, p in _block_rows(geom, M)) == overflow
+    assert plu.launch_geometry is pqr.launch_geometry
