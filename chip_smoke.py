@@ -23,6 +23,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    main-path panel's row (M, kernel, cuSOLVER and bound ms) and the fit
    ms = a + b·M that splits the per-column chain from the part that grows
    with M;
+   K1 is two kernels chosen per product by ``pallas_kernels.plan``
+   (the tensor-core kernel, 3xTF32 for f32 with split-K in the launch,
+   and the FFMA kernel for operands TMA cannot describe): each case logs
+   its plan and the ptxas line of the instance it ran, two launches of a
+   split-K product must be ``torch.equal``, and every distinct product of
+   one spotrf, sgetrf, sgeqrf (recorded by running one factorization
+   through the wrapper), sgetrf_ptgpanel and potrf_cyclic factorization
+   is held to ``gemm_reference``, must take the tensor-core kernel, and
+   is timed times its count beside ``torch.matmul`` and the 3xTF32 and
+   FFMA bounds; every driver phase below also checks that no K1 product
+   took the FFMA kernel;
 3. the Cholesky path: ``testing_spotrf -N 16384 -t 1024 -x`` through the
    port's driver with K1 enabled. Kernel launch counts are zeroed just
    before and read just after; every update product of each
@@ -35,7 +46,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    every Schur product through K1 (2·KT − 3 = 61); the -x check must
    pass and a smaller factorization must reproduce its input
    (``a[perm] = L U``); then one factorization under ``torch.profiler``,
-   its device time by kernel and the device's idle share;
+   its device time by kernel and the device's idle share (phases 3, 6, 9
+   and 10 profile one factorization the same way);
 5. ``testing_sgesv -N 8192 -t 256 -x`` (K3 and K1 on),
    ``testing_dgetrf -N 8192 -t 256 -x`` (default ``panel.kernel=auto``:
    cuSOLVER in FP64, no kernel by design), ``testing_dpotrf -N 8192 -t
@@ -290,15 +302,37 @@ def rel_fro(torch, got, want):
                  / torch.linalg.norm(want))
 
 
-def k1_case(torch, pk, M, K, N, dtype, beta, b_view, seed, f64=False):
+def k1_operand(torch, g, rows, cols, strides, dtype):
+    """A (rows, cols) operand with the given element strides (one of them
+    1), as a view of a larger random matrix where the other stride asks
+    for it: a row-major slice (1 on the right) or a transposed view."""
+    s0, s1 = strides
+    if s1 == 1 and (s0 == cols or rows == 1):
+        return torch.randn(rows, cols, device="cuda", generator=g).to(dtype)
+    if s1 == 1:
+        return torch.randn(rows, s0, device="cuda",
+                           generator=g).to(dtype)[:, :cols]
+    return torch.randn(cols, s1, device="cuda",
+                       generator=g).to(dtype)[:, :rows].T
+
+
+def k1_case(torch, pk, M, K, N, dtype, beta, b_view, seed, f64=False,
+            a_strides=None, b_strides=None):
     """K1 against gemm_reference on one shape: (rel Frobenius error,
     max abs error, kernel ms, plain ms, torch.matmul ms, rel Frobenius
-    error against a float64 product when ``f64``). ``b_view``: False a
-    contiguous B, True a b.T view, ``"cols"`` a column slice of an
-    8·N-wide matrix (the getrf_cyclic lookahead's ``u12[:, c1]``)."""
+    error against a float64 product when ``f64``, the plan). ``b_view``:
+    False a contiguous B, True a b.T view, ``"cols"`` a column slice of
+    an 8·N-wide matrix (the getrf_cyclic lookahead's ``u12[:, c1]``);
+    ``a_strides`` / ``b_strides``, where given, the element strides of a
+    product recorded from a factorization."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    a = torch.randn(M, K, device="cuda", generator=g).to(dtype)
-    if b_view == "cols":
+    if a_strides is not None:
+        a = k1_operand(torch, g, M, K, a_strides, dtype)
+    else:
+        a = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+    if b_strides is not None:
+        b = k1_operand(torch, g, K, N, b_strides, dtype)
+    elif b_view == "cols":
         b = torch.randn(K, 8 * N, device="cuda",
                         generator=g).to(dtype)[:, N:2 * N]
     elif b_view:   # B as blas.dot(..., tb=True) hands it over: a b.T view
@@ -330,7 +364,94 @@ def k1_case(torch, pk, M, K, N, dtype, beta, b_view, seed, f64=False):
     else:
         l_ms = time_ms(torch, lambda: torch.addmm(c, a, b, beta=beta,
                                                   alpha=alpha))
-    return rel, mabs, k_ms, p_ms, l_ms, rel64
+    return rel, mabs, k_ms, p_ms, l_ms, rel64, pk.plan_for(a, b)
+
+
+def k1_ptxas(record, plan, dtype="float32", has_c=False):
+    """The ptxas line (registers, spills) of the kernel instance a plan
+    runs, from the build log (mangled names: ``k1_gemm_wgmma_kernel<T,
+    A_K, B_K>``, ``k1_gemm_kernel<T, HAS_C, A_KFAST, B_NFAST>``)."""
+    t = "f" if dtype == "float32" else "13__nv_bfloat16"
+    if plan.kernel == "wgmma":
+        want = (f"k1_gemm_wgmma_kernelI{t}Lb{int(plan.a_kmajor)}E"
+                f"Lb{int(plan.b_kmajor)}E")
+    else:
+        want = (f"k1_gemm_kernelI{t}Lb{int(has_c)}E"
+                f"Lb{int(plan.a_kmajor)}ELb{int(not plan.b_kmajor)}E")
+    return next((v for k, v in record.get("ptxas_by_kernel", {}).items()
+                 if k.startswith(want)), "not in the log")
+
+
+def k1_path_sum(torch, pk, record, path, products, seed):
+    """Every distinct K1 product of one factorization of ``path`` (label,
+    M, K, N, b_view, a_strides, b_strides, count), each held to
+    gemm_reference and to the tensor-core kernel, timed, times its count:
+    kernel, plain version, torch.matmul and both bounds (FP32 FFMA and
+    3xTF32 operations)."""
+    t = {"products": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+         "bound_ms": 0.0, "bound_ffma_ms": 0.0, "max_abs_err": 0.0,
+         "rel_fro": 0.0, "rows": []}
+    for i, (label, M, K, N, view, a_s, b_s, cnt) in enumerate(products):
+        rel, mabs, k_ms, p_ms, l_ms, _, plan = k1_case(
+            torch, pk, M, K, N, torch.float32, 0.0, view, seed=seed + i,
+            a_strides=a_s, b_strides=b_s)
+        b_ffma, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
+        b_tc, _ = gemm_bound_ms(M, N, K, 4, False, TF32_FLOPS / 3)
+        ptx = k1_ptxas(record, plan)
+        log(f"[k1] {path} {label:12s} M={M:5d} K={K:5d} N={N:5d} "
+            f"a{tuple(a_s) if a_s else ''} b={b_s or view} x{cnt}: "
+            f"{plan.kernel} splits={plan.splits} "
+            f"({plan.work_units} work units) rel_fro={rel:.3e} kernel "
+            f"{k_ms:8.4f} ms  plain {p_ms:8.4f} ms  torch {l_ms:8.4f} ms  "
+            f"bound {b_tc:7.4f} (3xTF32) / {b_ffma:7.4f} (FFMA) ms; {ptx}")
+        check(rel <= TOL["float32"],
+              f"K1 disagrees with gemm_reference on {path}'s {label} "
+              f"product {(M, K, N)}: rel_fro {rel:.3e}")
+        check(plan.kernel == "wgmma",
+              f"{path}'s {label} product {(M, K, N)} would take the "
+              f"{plan.kernel} kernel, not the tensor-core kernel")
+        t["products"] += cnt
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", b_tc), ("bound_ffma_ms", b_ffma)):
+            t[key] += cnt * v
+        t["max_abs_err"] = max(t["max_abs_err"], mabs)
+        t["rel_fro"] = max(t["rel_fro"], rel)
+        t["rows"].append({"label": label, "M": M, "K": K, "N": N,
+                          "a_strides": a_s, "b_strides": b_s,
+                          "b_view": view, "count": cnt,
+                          "kernel": plan.kernel, "splits": plan.splits,
+                          "ms": k_ms, "library_ms": l_ms, "rel_fro": rel,
+                          "ptxas": ptx})
+    log(f"[k1] one {path}'s {t['products']} products: kernel "
+        f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  torch "
+        f"{t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms (3xTF32) "
+        f"/ {t['bound_ffma_ms']:.3f} ms (FFMA)  max rel_fro "
+        f"{t['rel_fro']:.3e}")
+    return t
+
+
+def recorded_k1_products(torch, pk, run):
+    """[(label, M, K, N, None, a_strides, b_strides, count)]: the K1
+    products one call of ``run`` makes, recorded through the wrapper
+    (each distinct shape and layout once, with its count)."""
+    seen = {}
+    orig = pk.gemm
+
+    def recorder(a, b, c=None, **kw):
+        key = (a.shape[0], a.shape[1], b.shape[1], tuple(a.stride()),
+               tuple(b.stride()))
+        seen[key] = seen.get(key, 0) + 1
+        return orig(a, b, c, **kw)
+
+    pk.gemm = recorder
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        pk.gemm = orig
+    return [(f"{'aT' if a_s[0] == 1 else 'a'}"
+             f"{'.bT' if b_s[0] == 1 else '.b'}", M, K, N, None, a_s, b_s,
+             cnt) for (M, K, N, a_s, b_s), cnt in sorted(seen.items())]
 
 
 def phase_build(record):
@@ -349,38 +470,63 @@ def phase_build(record):
                 report.setdefault(name, []).append(line.strip())
     record["build_s"] = total
     record["ptxas"] = report
+    # mangled entry name -> its ptxas line (registers, spills)
+    by_kernel, entry = {}, None
+    for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else None
+            elif entry and ("registers" in line or "spill" in line):
+                by_kernel[entry] = (by_kernel.get(entry, "") + " "
+                                    + line.split(":", 1)[-1].strip()).strip()
+    record["ptxas_by_kernel"] = {
+        (e[e.find("k1_gemm"):] if "k1_gemm" in e else e): v
+        for e, v in by_kernel.items()}
 
 
 def phase_k1(torch, pk, record):
     f32, bf16 = torch.float32, torch.bfloat16
     ragged = (1000, 777, 1030)
+    vt = (1, 8192)       # sgeqrf's A = V^T view: unit stride along M
     cases = [
-        ("ragged f32 beta!=0", *ragged, f32, -0.5, False),
-        ("ragged f32 beta=0", *ragged, f32, 0.0, False),
-        ("ragged bf16 beta!=0", *ragged, bf16, -0.5, False),
-        ("ragged bf16 beta=0", *ragged, bf16, 0.0, False),
-        ("ragged f32 b.T view", *ragged, f32, 0.0, True),
+        # label, M, K, N, dtype, beta, b_view, a_strides, b_strides
+        ("ragged f32 beta!=0", *ragged, f32, -0.5, False, None, None),
+        ("ragged f32 beta=0", *ragged, f32, 0.0, False, None, None),
+        ("ragged bf16 beta!=0", *ragged, bf16, -0.5, False, None, None),
+        ("ragged bf16 beta=0", *ragged, bf16, 0.0, False, None, None),
+        ("ragged f32 b.T view", *ragged, f32, 0.0, True, None, None),
+        ("Gram V^T V 256x8192x256", 256, 8192, 256, f32, 0.0, False, vt,
+         None),
+        ("V^T C row-major B", 256, 8192, 2048, f32, 0.0, False, vt, None),
+        ("b.T view beta!=0", 2048, 1024, 1024, f32, -0.5, True, None, None),
+        ("column slice of B", 3072, 512, 512, f32, 0.0, "cols", None, None),
+        ("bf16 beta!=0", 2048, 1024, 1024, bf16, -0.5, True, None, None),
         ("spotrf narrow (N-s)x1024x1024", N_MAIN - NB_MAIN, NB_MAIN,
-         NB_MAIN, f32, 0.0, True),
+         NB_MAIN, f32, 0.0, True, None, None),
         ("spotrf far (N-s)x(k*1024)x1024", N_MAIN - 8 * NB_MAIN,
-         7 * NB_MAIN, NB_MAIN, f32, 0.0, True),
+         7 * NB_MAIN, NB_MAIN, f32, 0.0, True, None, None),
     ]
     rows = []
-    for i, (label, M, K, N, dt, beta, view) in enumerate(cases):
-        rel, mabs, k_ms, p_ms, l_ms, rel64 = k1_case(
-            torch, pk, M, K, N, dt, beta, view, seed=100 + i, f64=True)
+    for i, (label, M, K, N, dt, beta, view, a_s, b_s) in enumerate(cases):
+        rel, mabs, k_ms, p_ms, l_ms, rel64, plan = k1_case(
+            torch, pk, M, K, N, dt, beta, view, seed=100 + i, f64=True,
+            a_strides=a_s, b_strides=b_s)
         tname = str(dt).split(".")[-1]
-        peak = FP32_FLOPS if dt == f32 else BF16_FLOPS
+        peak = TF32_FLOPS / 3 if dt == f32 else BF16_FLOPS
         b_ms, b_by = gemm_bound_ms(M, N, K, 4 if dt == f32 else 2,
                                    beta != 0.0, peak)
         ok = rel <= TOL[tname]
         log(f"[k1] {label:32s} M={M:5d} K={K:5d} N={N:5d} {tname:8s} "
+            f"{plan.kernel} splits={plan.splits} "
             f"rel_fro={rel:.3e} (tol {TOL[tname]:.0e}; vs f64 "
             f"{rel64:.3e}) "
             f"kernel {k_ms:9.3f} ms  plain {p_ms:9.3f} ms  "
-            f"torch {l_ms:9.3f} ms  bound {b_ms:8.3f} ms ({b_by})")
+            f"torch {l_ms:9.3f} ms  bound {b_ms:8.3f} ms ({b_by}); "
+            f"{k1_ptxas(record, plan, tname, beta != 0.0)}")
         rows.append({"case": label, "M": M, "K": K, "N": N, "dtype": tname,
-                     "beta": beta, "b_view": view, "rel_fro": rel,
+                     "beta": beta, "b_view": view, "a_strides": a_s,
+                     "b_strides": b_s, "kernel": plan.kernel,
+                     "splits": plan.splits, "rel_fro": rel,
                      "rel_fro_vs_f64": rel64,
                      "max_abs_err": mabs, "ms": k_ms, "plain_ms": p_ms,
                      "library_ms": l_ms, "bound_ms": b_ms,
@@ -389,64 +535,63 @@ def phase_k1(torch, pk, record):
                   f"rel_fro {rel:.3e} > {TOL[tname]:.0e}")
     record["k1_cases"] = rows
 
+    # two launches of a split-K product are bitwise equal
+    g = torch.Generator(device="cuda").manual_seed(150)
+    a = torch.randn(8192, 256, device="cuda", generator=g).T
+    b = torch.randn(8192, 256, device="cuda", generator=g)
+    plan = pk.plan_for(a, b)
+    same = torch.equal(pk.matmul(a, b), pk.matmul(a, b))
+    log(f"[k1] split-K Gram 256x8192x256 ({plan.splits} splits, "
+        f"{plan.work_units} work units): two launches "
+        f"{'torch.equal' if same else 'DIFFER'}")
+    check(plan.splits > 1 and same, "two launches of a split-K product "
+                                    "differ")
+
     # every product of one main-path factorization, timed in turn
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bound_3xtf32_ms": 0.0, "max_abs_err": 0.0, "rel_fro": 0.0}
-    shapes = main_path_products(N_MAIN, NB_MAIN)
-    for i, (M, K, N) in enumerate(shapes):
-        rel, mabs, k_ms, p_ms, l_ms, _ = k1_case(torch, pk, M, K, N, f32,
-                                                 0.0, True, seed=200 + i)
-        check(rel <= TOL["float32"],
-              f"K1 disagrees on main-path shape {(M, K, N)}: {rel:.3e}")
-        b_ms, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["library_ms"] += l_ms
-        tot["bound_ms"] += b_ms
-        tot["bound_3xtf32_ms"] += 1e3 * 3 * 2.0 * M * N * K / TF32_FLOPS
-        tot["max_abs_err"] = max(tot["max_abs_err"], mabs)
-        tot["rel_fro"] = max(tot["rel_fro"], rel)
-    gflop = sum(2.0 * M * N * K for M, K, N in shapes) / 1e9
-    log(f"[k1] one spotrf's {len(shapes)} products ({gflop:.0f} GFLOP): "
-        f"kernel {tot['ms']:.3f} ms ({gflop / tot['ms']:.1f} TFLOP/s)  "
-        f"plain {tot['plain_ms']:.3f} ms  torch {tot['library_ms']:.3f} ms  "
-        f"bound {tot['bound_ms']:.3f} ms (FP32 FFMA peak)  "
-        f"3xTF32 bound {tot['bound_3xtf32_ms']:.3f} ms  "
-        f"max rel_fro {tot['rel_fro']:.3e}")
-    record["k1_main_path"] = dict(tot, products=len(shapes), gflop=gflop)
+    spotrf = [("narrow" if K == NB_MAIN else "far", M, K, N, True, None,
+               None, 1) for M, K, N in main_path_products(N_MAIN, NB_MAIN)]
+    tot = k1_path_sum(torch, pk, record, "spotrf", spotrf, 200)
+    gflop = sum(2.0 * M * N * K for _, M, K, N, *_ in spotrf) / 1e9
+    log(f"[k1] one spotrf's {len(spotrf)} products ({gflop:.0f} GFLOP): "
+        f"{gflop / tot['ms']:.1f} TFLOP/s")
+    record["k1_main_path"] = dict(tot, gflop=gflop)
 
     # every distinct product of one getrf_cyclic and one potrf_cyclic
     # factorization on the 2x2 grid, times its count
     cyc = {}
     for j, (path, prods) in enumerate(cyclic_k1_products().items()):
-        t = {"products": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "bound_ms": 0.0, "max_abs_err": 0.0, "rel_fro": 0.0}
-        for i, (label, M, K, N, view, cnt) in enumerate(prods):
-            rel, mabs, k_ms, p_ms, l_ms, _ = k1_case(
-                torch, pk, M, K, N, f32, 0.0, view, seed=300 + 10 * j + i)
-            b_ms, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
-            log(f"[k1] {path} {label:9s} M={M:5d} K={K:5d} N={N:5d} "
-                f"b={'contiguous' if view is False else view} x{cnt}: "
-                f"rel_fro={rel:.3e} (tol {TOL['float32']:.0e}) kernel "
-                f"{k_ms:8.3f} ms  plain {p_ms:8.3f} ms  torch {l_ms:8.3f} "
-                f"ms  bound {b_ms:7.3f} ms")
-            check(rel <= TOL["float32"],
-                  f"K1 disagrees with gemm_reference on {path}'s {label} "
-                  f"product {(M, K, N)}: rel_fro {rel:.3e}")
-            t["products"] += cnt
-            t["ms"] += cnt * k_ms
-            t["plain_ms"] += cnt * p_ms
-            t["library_ms"] += cnt * l_ms
-            t["bound_ms"] += cnt * b_ms
-            t["max_abs_err"] = max(t["max_abs_err"], mabs)
-            t["rel_fro"] = max(t["rel_fro"], rel)
-        log(f"[k1] one {path}'s {t['products']} products: kernel "
-            f"{t['ms']:.3f} ms  plain {t['plain_ms']:.3f} ms  torch "
-            f"{t['library_ms']:.3f} ms  bound {t['bound_ms']:.3f} ms  "
-            f"max rel_fro {t['rel_fro']:.3e}")
-        cyc[path] = t
+        cyc[path] = k1_path_sum(
+            torch, pk, record, path,
+            [(label, M, K, N, view, None, None, cnt)
+             for label, M, K, N, view, cnt in prods], 300 + 10 * j)
     record["k1_cyclic_paths"] = cyc
-    return tot, len(shapes), cyc
+    return tot, len(spotrf), cyc
+
+
+def phase_k1_lu_qr(torch, pk, record):
+    """Every distinct K1 product of one sgetrf and one sgeqrf
+    factorization (N=8192, nb=256, ``panel.kernel=pallas``), recorded by
+    running each once through the wrapper, timed times its count."""
+    from dplasma_tpu_torch.ops import generators, lu, qr
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    out = {}
+    for j, (path, n, nb, run) in enumerate((
+            ("sgetrf", N_LU, NB_LU, lu.getrf_1d),
+            ("sgeqrf", N_QR, NB_QR, qr.geqrf))):
+        A = generators.plrnt(n, n, nb, nb, seed=3872)
+        with cfg.override_scope({"panel.kernel": "pallas"}):
+            prods = recorded_k1_products(torch, pk, lambda: run(A))
+        want = 2 * (n // nb) - 3 if path == "sgetrf" \
+            else qr_k1_products(n // nb)
+        got = sum(p[-1] for p in prods)
+        check(got == want, f"{path}: {got} K1 products recorded, want "
+                           f"{want}")
+        out[path] = k1_path_sum(torch, pk, record, path, prods, 400 + 50 * j)
+        del A
+    record["k1_lu_qr_paths"] = out
+    return out
 
 
 def with_cusolver(torch, fn, *args):
@@ -869,6 +1014,8 @@ def phase_spotrf(torch, pk, record):
     wall = time.perf_counter() - t0
     launches, routed = pk.LAUNCHES, pk.ROUTED
     check(rc == 0, f"testing_spotrf exited {rc}")
+    check(pk.FFMA_LAUNCHES == 0 and pk.WGMMA_LAUNCHES == launches,
+          f"spotrf: {pk.FFMA_LAUNCHES} K1 products took the FFMA kernel")
     run = common.RUNS[-1]
     op = run["ops"][0]
     checks = {c["check"]: c for c in run["checks"]}
@@ -901,6 +1048,12 @@ def phase_spotrf(torch, pk, record):
     check(bool(torch.isfinite(L).all()) and err <= 1e-4,
           f"small factorization disagrees with float64: {err:.3e}")
     record["spotrf_small_rel_err"] = err
+
+    # one factorization of the main size under torch.profiler
+    del A, L
+    A = generators.plghe(float(N_MAIN), N_MAIN, NB_MAIN, seed=3872)
+    _profile(torch, record, "spotrf_profile", f"N={N_MAIN} nb={NB_MAIN}",
+             lambda: potrf_mod.potrf(A, "L"))
     return launches
 
 
@@ -922,7 +1075,10 @@ def phase_sgetrf(torch, pk, plu, record):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1_run, k3_run = pk.LAUNCHES, plu.LAUNCHES
+        k1_ffma = pk.FFMA_LAUNCHES
     check(rc == 0, f"testing_sgetrf exited {rc}")
+    check(k1_ffma == 0, f"sgetrf: {k1_ffma} K1 products took the FFMA "
+                        f"kernel")
     run = common.RUNS[-1]
     op = run["ops"][0]
     chk = {c["check"]: c for c in run["checks"]}["GETRF |b-Ax|"]
@@ -1077,7 +1233,10 @@ def phase_sgeqrf(torch, pk, plu, pqr, record):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1_run, k3_run, k4_run = pk.LAUNCHES, plu.LAUNCHES, pqr.LAUNCHES
+        k1_ffma = pk.FFMA_LAUNCHES
     check(rc == 0, f"testing_sgeqrf exited {rc}")
+    check(k1_ffma == 0, f"sgeqrf: {k1_ffma} K1 products took the FFMA "
+                        f"kernel")
     run = common.RUNS[-1]
     op = run["ops"][0]
     chk = {c["check"]: c["residual"] for c in run["checks"]}
@@ -1389,7 +1548,40 @@ def k5_times(torch, pring, kind, xs, root=0, chunks=1):
             "plain_ms": time_ms(torch, p, reps=20),
             "library_ms": time_ms(torch, lib, reps=20),
             "copy_ms": time_ms(torch, copies, reps=20),
-            "psum_ms": time_ms(torch, ps, reps=20)}
+            "psum_ms": time_ms(torch, ps, reps=20),
+            "host_us": host_us(torch, k), "library_host_us": host_us(torch, lib),
+            "device_us": k5_device_us(torch, k)}
+
+
+def host_us(torch, fn, reps=200):
+    """Wall time of one call on the host (µs), over ``reps`` calls
+    enqueued back to back (no synchronisation between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k5_device_us(torch, fn, reps=20):
+    """Device time of one K5 launch (µs): the k5_ring kernels' time in a
+    torch.profiler trace of ``reps`` calls, over the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [ev for ev in prof.events()
+           if ev.device_type == cuda and "k5_ring" in ev.name]
+    if not evs:
+        return None
+    return 1e3 * sum(_device_ms(ev) for ev in evs) / len(evs)
 
 
 def phase_k5(torch, pring, record):
@@ -1449,6 +1641,9 @@ def phase_k5(torch, pring, record):
             f"equal: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
             f"library {t['library_ms']:.4f} ms  copy_ {t['copy_ms']:.4f} ms"
             f"  psum path {t['psum_ms']:.4f} ms  bound {b_ms:.4f} ms "
+            f"(host {t['host_us']:.1f} us per launch through the wrapper, "
+            f"device {t['device_us'] or float('nan'):.1f} us in the "
+            f"profile; library host {t['library_host_us']:.1f} us) "
             f"(bytes, {'(n+1)' if kind == 'bcast' else '2*n'}*S); "
             f"x{per_fact} per factorization")
         out[name] = dict(t, rows=r, cols=cols, n=len(xs), chunks=c,
@@ -1487,7 +1682,9 @@ def phase_k5(torch, pring, record):
             "ms", "plain_ms", "library_ms", "copy_ms", "psum_ms",
             "bound_ms")}
         tot[kind][path].update(max_abs_err=t["max_abs_err"],
-                               launches_per_factorization=k)
+                               launches_per_factorization=k,
+                               host_us_per_launch=t["host_us"],
+                               device_us_per_launch=t["device_us"])
         v = tot[kind][path]
         log(f"[k5] one {path} factorization's {k} {kind}s: kernel "
             f"{v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  library "
@@ -1520,6 +1717,8 @@ def phase_getrf_ptgpanel(torch, pk, pring, record):
     k1_run, k5_run = pk.LAUNCHES, pring.LAUNCHES
     b_run, s_run = pring.BCAST_LAUNCHES, pring.SHIFT_LAUNCHES
     check(rc == 0, f"testing_sgetrf_ptgpanel exited {rc}")
+    check(pk.FFMA_LAUNCHES == 0, f"sgetrf_ptgpanel: {pk.FFMA_LAUNCHES} K1 "
+                                 f"products took the FFMA kernel")
     run = common.RUNS[-1]
     op = run["ops"][0]
     chk = {c["check"]: c for c in run["checks"]}["GETRF_PTGPANEL |b-Ax|"]
@@ -1606,12 +1805,18 @@ def phase_potrf_cyclic(torch, pk, pring, record):
         secs = start.elapsed_time(end) / 1e3
         k5, b, s, k1 = (pring.LAUNCHES, pring.BCAST_LAUNCHES,
                         pring.SHIFT_LAUNCHES, pk.LAUNCHES)
+        check(pk.FFMA_LAUNCHES == 0, f"potrf_cyclic: {pk.FFMA_LAUNCHES} K1 "
+                                     f"products took the FFMA kernel")
         res, ok = checks.check_potrf(A, L.to_tile(), "L")
         with cfg.override_scope({"ring.enable": "off"}):
             L0 = cyclic.potrf_cyclic(C)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b_) for r0, r1 in zip(L0.data, L.data)
                    for a, b_ in zip(r0, r1))
+        del L0
+        _profile(torch, record, "potrf_cyclic_profile",
+                 f"N={N_PC} nb={NB_PC} grid {P}x{Q}",
+                 lambda: cyclic.potrf_cyclic(C))
     from dplasma_tpu_torch.utils import flops
     gflops = flops.potrf(N_PC, False) / 1e9 / secs
     spotrf = record.get("spotrf", {}).get("best_s")
@@ -1653,6 +1858,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {record['device']}")
     phase_build(record)
     k1tot, nprod, k1cyc = phase_k1(torch, pk, record)
+    k1luqr = phase_k1_lu_qr(torch, pk, record)
     k3tot, npan = phase_k3(torch, plu, record)
     k4tot, nqpan = phase_k4(torch, pqr, record)
     k2tot, nk2 = phase_k2(torch, pdd, record)
@@ -1671,11 +1877,11 @@ def main() -> int:
                                                     record)
     k5b_pc, k1_pc = phase_potrf_cyclic(torch, pk, pring, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
-    k1_by_path = {"spotrf": dict({k: k1tot[k] for k in keys},
-                                 products=nprod)}
-    k1_by_path.update({path: dict({k: t[k] for k in keys},
-                                  products=t["products"])
-                       for path, t in k1cyc.items()})
+    k1_by_path = {path: dict({k: t[k] for k in keys},
+                             bound_ffma_ms=t["bound_ffma_ms"],
+                             products=t["products"])
+                  for path, t in (("spotrf", k1tot), *k1luqr.items(),
+                                  *k1cyc.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
@@ -1711,7 +1917,8 @@ def main() -> int:
                               "sgeqrf": k1_sgeqrf, "sgetrf_ptgpanel": k1_gt,
                               "potrf_cyclic": k1_pc},
          "max_abs_err": max([k1tot["max_abs_err"]]
-                            + [t["max_abs_err"] for t in k1cyc.values()]),
+                            + [t["max_abs_err"] for t in k1cyc.values()]
+                            + [t["max_abs_err"] for t in k1luqr.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -1762,9 +1969,13 @@ def main() -> int:
         f"launches of one dd dpotrf factorization (N={N_DD}, nb={NB_DD}; "
         f"no single PyTorch call computes it: library null); launches "
         f"count each main-path driver run (warm-up, timed run, -x check), "
-        f"K2's the direct dpotrf call and the dgemm driver run; by_path "
-        f"gives K1's sums over one factorization of spotrf, "
-        f"sgetrf_ptgpanel (N={N_GT}, nb={NB_GT}) and potrf_cyclic "
+        f"K2's the direct dpotrf call and the dgemm driver run; K1's "
+        f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "
+        f"tensor-core peak), bound_ffma_ms the FP32 FFMA one; by_path "
+        f"gives K1's sums over one factorization of spotrf, sgetrf and "
+        f"sgeqrf (N={N_LU}, nb={NB_LU}; products recorded from one "
+        f"factorization), sgetrf_ptgpanel (N={N_GT}, nb={NB_GT}) and "
+        f"potrf_cyclic "
         f"(N={N_PC}, nb={NB_PC}), grid {GRID[0]}x{GRID[1]}, whose "
         f"launches are the driver run (warm-up, timed run, -x check) and "
         f"one timed potrf_cyclic call; K5's ms/plain_ms/bound_ms/"

@@ -2,27 +2,37 @@
 
 Replaces ``dplasma_tpu/kernels/pallas_kernels.py:gemm`` / ``matmul``
 (the Pallas kernel on the TPU; this module keeps its name so a reader
-finds the counterpart). The kernel is ``csrc/gemm.cu``: CUDA C++ for
-``sm_90a``, one block per 128×128 output tile with a loop over K inside
-it, A and B tiles staged in shared memory, f32 FFMA accumulation (full
-f32, never TF32) and the alpha/beta epilogue fused so C is read once
-(never, when beta = 0). It takes strides and masks ragged edges, so
-transposed views and odd shapes need no copy and no padding.
+finds the counterpart). The kernels are in ``csrc/gemm.cu``, CUDA C++
+for ``sm_90a``; :func:`plan` picks one per product:
 
-What bounds it: FP32 CUDA-core FLOP/s (67 TFLOP/s on an H100 SXM) for
-the large update products of the Cholesky sweep. A later design moves
-them to the tensor cores (wgmma + TMA, 3xTF32 to keep f32 accuracy).
+- ``wgmma``, for every operand TMA can describe (a unit stride on one
+  axis, 16-byte aligned base and leading stride; every main-path
+  product): TMA loads in a ring of stages fed by a producer warp, two
+  consumer warpgroups on ``wgmma``, 128×128 output tiles. f32 is
+  3xTF32 (each operand split into ``hi = tf32_rna(x)`` and
+  ``lo = tf32_rna(x - hi)``; ``lo·hi + hi·lo + hi·hi``), the Hopper
+  analogue of the reference's ``Precision.HIGHEST``; bf16 is one pass.
+  Products with too few output tiles to fill the card are split over K
+  inside the same launch (the partials summed in a fixed order, so two
+  launches are bitwise equal).
+- ``ffma``, the first port's kernel (128×128 tiles, f32 FFMA), for the
+  rest (odd strides such as the ragged K = 777 tests).
+
+What bounds it: operations (tensor-core TF32 rate / 3 for f32, 495 / 3
+TFLOP/s on an H100 SXM; 67 for the FFMA kernel).
 
 As in the reference the route is opt-in (:func:`enable`) and gated by
 :func:`eligible` (f32/bf16, every dimension >= 256). On a CUDA tensor
-the wrapper launches the kernel or raises; only a CPU tensor takes
+the wrapper launches a kernel or raises; only a CPU tensor takes
 :func:`gemm_reference`, the plain PyTorch version the tests and the
 on-card comparison use. ``ROUTED`` counts calls that took the K1 route
-on any device, ``LAUNCHES`` the CUDA launches.
+on any device, ``LAUNCHES`` the CUDA launches of either kernel
+(``WGMMA_LAUNCHES`` + ``FFMA_LAUNCHES``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,11 +43,23 @@ _MIN_DIM = 256
 
 #: calls that took the K1 route, on any device
 ROUTED = 0
-#: CUDA launches of the K1 kernel
+#: CUDA launches of K1, either kernel
 LAUNCHES = 0
+#: CUDA launches of the tensor-core kernel and of the FFMA kernel
+WGMMA_LAUNCHES = 0
+FFMA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+_FNS: dict = {}
+
+# The tensor-core kernel's tile (csrc/gemm.cu, namespace wg): 128×128
+# output, K in 128-byte rows (32 f32, 64 bf16)
+TILE_M = TILE_N = 128
+_ROW_BYTES = 128
+#: the least K tiles one split takes
+MIN_KT_PER_SPLIT = 4
+#: SMs of an H100 SXM, the plan's default
+H100_SMS = 132
 
 
 def enable(on: bool = True) -> None:
@@ -50,9 +72,8 @@ def enabled() -> bool:
 
 
 def reset_counts() -> None:
-    global ROUTED, LAUNCHES
-    ROUTED = 0
-    LAUNCHES = 0
+    global ROUTED, LAUNCHES, WGMMA_LAUNCHES, FFMA_LAUNCHES
+    ROUTED = LAUNCHES = WGMMA_LAUNCHES = FFMA_LAUNCHES = 0
 
 
 def eligible(a, b, c=None) -> bool:
@@ -80,53 +101,245 @@ def gemm_reference(a, b, c=None, *, alpha=1.0, beta=1.0):
     return acc.to(out_dtype)
 
 
+# ---------------------------------------------------------------------
+# 3xTF32, plain
+# ---------------------------------------------------------------------
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to the nearest TF32 value (10 mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits of the
+    pattern become zero. Signed zeros and subnormals round like any
+    value; Inf and NaN pass through unchanged."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    rounded = (bits + 0x1000) & ~0x1FFF
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = tf32_rna(x), lo = tf32_rna(x - hi), lo = 0 where hi
+    is not finite. hi + lo is x within 2^-21 relative."""
+    x = x.to(torch.float32)
+    hi = tf32_rna(x)
+    lo = torch.where(torch.isfinite(hi), tf32_rna(x - hi),
+                     torch.zeros_like(x))
+    return hi, lo
+
+
+def gemm_3xtf32_reference(a, b):
+    """A @ B from the 3xTF32 split in plain f32 matmuls, the tensor-core
+    kernel's terms (lo·hi + hi·lo + hi·hi; lo·lo dropped). Every operand
+    is a TF32 value, so each product is exact in f32."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+# ---------------------------------------------------------------------
+# The plan
+# ---------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """How one product runs: the kernel (``"wgmma"`` or ``"ffma"``), its
+    tile, the K split (``splits`` launches' worth of work units per tile,
+    ``kt_per`` K tiles each), whether each operand is K-major in memory,
+    and the output tiles."""
+    kernel: str
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    kt_per: int
+    a_kmajor: bool
+    b_kmajor: bool
+    tiles: int
+
+    @property
+    def work_units(self) -> int:
+        return self.tiles * self.splits
+
+
+def _tma_kmajor(strides, esz: int, ptr: int, k_is_cols: bool):
+    """Can TMA describe a 2-D operand with these element strides? None if
+    not (no unit stride, or a base or leading stride not 16-byte
+    aligned), else whether its K axis is the unit-stride one."""
+    s0, s1 = strides
+    if s1 == 1:
+        inner_is_k, ld = k_is_cols, s0
+    elif s0 == 1:
+        inner_is_k, ld = not k_is_cols, s1
+    else:
+        return None
+    ldb = ld * esz
+    if ptr % 16 or ldb % 16 or ldb <= 0 or ldb >= 1 << 40:
+        return None
+    return inner_is_k
+
+
+def plan(M: int, N: int, K: int, dtype, a_strides, b_strides,
+         a_ptr: int = 0, b_ptr: int = 0, sms: int = H100_SMS) -> Plan:
+    """The plan of one product A (M, K) @ B (K, N) with the given element
+    strides and base addresses, on a card of ``sms`` SMs.
+
+    The tensor-core kernel takes it when TMA can describe both operands
+    and K >= 1; else the FFMA kernel. Output tiles that fill the card
+    run whole; fewer are split over K, into as many splits as the card
+    holds blocks beside them, each at least ``MIN_KT_PER_SPLIT`` K
+    tiles, none empty."""
+    name = dtype if isinstance(dtype, str) else str(dtype).split(".")[-1]
+    esz = {"float32": 4, "bfloat16": 2}[name]
+    bk = _ROW_BYTES // esz
+    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    a_k = _tma_kmajor(a_strides, esz, a_ptr, True)
+    b_k = _tma_kmajor(b_strides, esz, b_ptr, False)
+    if a_k is None or b_k is None or K < 1 or M < 1 or N < 1:
+        return Plan("ffma", 128, 128, 16, 1, -(-max(K, 1) // 16),
+                    a_strides[1] == 1, b_strides[0] == 1, tiles)
+    ktiles = -(-K // bk)
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(sms // tiles, ktiles // MIN_KT_PER_SPLIT))
+    kt_per = -(-ktiles // splits)
+    splits = -(-ktiles // kt_per)
+    return Plan("wgmma", TILE_M, TILE_N, bk, splits, kt_per, a_k, b_k,
+                tiles)
+
+
+_SMS: dict = {}
+
+
+def _sms(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+def plan_for(a, b) -> Plan:
+    """:func:`plan` of ``a @ b`` as the wrapper computes it (the SM count
+    of the tensors' card; an H100's for CPU tensors)."""
+    sms = _sms(a.device) if a.device.type == "cuda" else H100_SMS
+    return plan(a.shape[0], b.shape[1], a.shape[1], a.dtype, a.stride(),
+                b.stride(), a.data_ptr(), b.data_ptr(), sms)
+
+
+# ---------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------
+
+class _K1Args(ctypes.Structure):
+    """``K1Args`` of csrc/gemm.cu: one launch's arguments."""
+    _fields_ = [("dtype", ctypes.c_int), ("has_c", ctypes.c_int),
+                ("M", ctypes.c_int), ("N", ctypes.c_int),
+                ("K", ctypes.c_int),
+                ("A", ctypes.c_void_p), ("sam", ctypes.c_longlong),
+                ("sak", ctypes.c_longlong),
+                ("B", ctypes.c_void_p), ("sbk", ctypes.c_longlong),
+                ("sbn", ctypes.c_longlong),
+                ("C", ctypes.c_void_p), ("scm", ctypes.c_longlong),
+                ("scn", ctypes.c_longlong),
+                ("O", ctypes.c_void_p), ("som", ctypes.c_longlong),
+                ("son", ctypes.c_longlong),
+                ("alpha", ctypes.c_float), ("beta", ctypes.c_float),
+                ("kernel", ctypes.c_int), ("bm", ctypes.c_int),
+                ("bn", ctypes.c_int), ("bk", ctypes.c_int),
+                ("splits", ctypes.c_int), ("kt_per", ctypes.c_int),
+                ("a_k", ctypes.c_int), ("b_k", ctypes.c_int),
+                ("ws", ctypes.c_void_p), ("counters", ctypes.c_void_p),
+                ("stream", ctypes.c_void_p)]
+
+
 def _kernel():
-    global _FN
-    if _FN is None:
+    fn = _FNS.get("gemm")
+    if fn is None:
         from dplasma_tpu_torch.kernels import _build
         fn = _build.load("gemm").dtt_k1_gemm
-        i64, ptr = ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
-                       ptr, i64, i64, ptr, i64, i64, ptr, i64, i64,
-                       ptr, i64, i64,
-                       ctypes.c_float, ctypes.c_float, ptr]
+        fn.argtypes = [ctypes.POINTER(_K1Args)]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS["gemm"] = fn
+    return fn
+
+
+#: device index -> int32 per-tile counters of the split-K kernel (zero
+#: between launches: the last split of each tile resets its counter)
+_COUNTERS: dict = {}
+
+
+def _counters(device, tiles: int):
+    idx = device.index
+    buf = _COUNTERS.get(idx)
+    if buf is None or buf.numel() < tiles:
+        buf = _COUNTERS[idx] = torch.zeros(max(tiles, 1024),
+                                           dtype=torch.int32, device=device)
+    return buf
+
+
+#: product shape, layout and alignment -> (plan, its _K1Args)
+_LAUNCH_ARGS: dict = {}
 
 
 def _launch(a, b, c, out, alpha, beta) -> None:
-    global LAUNCHES
-    M, K = a.shape
-    N = b.shape[1]
-    if M == 0 or N == 0:
+    """One K1 launch into ``out``. The plan and the launch arguments are
+    cached per shape, strides, dtype, base alignment and device; a call
+    fills the pointers, alpha and beta."""
+    global LAUNCHES, WGMMA_LAUNCHES, FFMA_LAUNCHES
+    dev = a.device
+    pa, pb = a.data_ptr(), b.data_ptr()
+    key = (a.shape, b.shape, a.stride(), b.stride(), a.dtype,
+           None if c is None else c.stride(), (pa | pb) % 16 == 0, dev)
+    hit = _LAUNCH_ARGS.get(key)
+    if hit is None:
+        M, K = a.shape
+        N = b.shape[1]
+        p = plan(M, N, K, a.dtype, a.stride(), b.stride(), pa, pb,
+                 _sms(dev))
+        args = _K1Args(
+            dtype=_DTYPES[a.dtype], has_c=int(c is not None), M=M, N=N, K=K,
+            sam=a.stride(0), sak=a.stride(1), sbk=b.stride(0),
+            sbn=b.stride(1), scm=0 if c is None else c.stride(0),
+            scn=0 if c is None else c.stride(1), som=N, son=1,
+            kernel=int(p.kernel == "wgmma"), bm=p.bm, bn=p.bn, bk=p.bk,
+            splits=p.splits, kt_per=p.kt_per, a_k=int(p.a_kmajor),
+            b_k=int(p.b_kmajor))
+        if p.splits > 1:
+            args.counters = _counters(dev, p.tiles).data_ptr()
+        hit = _LAUNCH_ARGS[key] = (p, args)
+    p, args = hit
+    if out.numel() == 0:
         return
-    has_c = c is not None
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
-            _DTYPES[a.dtype], int(has_c), M, N, K,
-            a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1),
-            c.data_ptr() if has_c else None,
-            c.stride(0) if has_c else 0, c.stride(1) if has_c else 0,
-            out.data_ptr(), out.stride(0), out.stride(1),
-            alpha, beta, stream)
+    args.A, args.B, args.O = pa, pb, out.data_ptr()
+    args.C = None if c is None else c.data_ptr()
+    args.alpha, args.beta = alpha, beta
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty(p.splits * p.tiles * TILE_M * TILE_N,
+                         dtype=torch.float32, device=dev)
+        args.ws = ws.data_ptr()
+    args.stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _kernel()(ctypes.byref(args))
     if err != 0:
-        raise RuntimeError(f"K1 gemm launch failed: cudaError {err} "
-                           f"(M={M} N={N} K={K} {a.dtype})")
+        raise RuntimeError(f"K1 {p.kernel} launch failed: cudaError {err} "
+                           f"(shapes {tuple(a.shape)} {tuple(b.shape)} "
+                           f"{a.dtype} {p})")
     LAUNCHES += 1
+    if p.kernel == "wgmma":
+        WGMMA_LAUNCHES += 1
+    else:
+        FFMA_LAUNCHES += 1
 
 
 def gemm(a, b, c=None, *, alpha=1.0, beta=1.0, bm=512, bn=512, bk=512,
          precision=None):
-    """C = alpha * A @ B + beta * C as one fused kernel.
+    """C = alpha * A @ B + beta * C as one fused kernel launch.
 
     A:(M,K) B:(K,N) C:(M,N), real f32/bf16, any strides. ``c=None`` (or
     beta=0) selects the variant that never reads C. ``bm/bn/bk`` and
-    ``precision`` keep the reference's signature: the Hopper kernel's
-    tile is fixed at 128×128×16 and its products are always full f32.
+    ``precision`` keep the reference's signature: the tiles are the
+    plan's (:func:`plan`) and f32 products are always 3xTF32 on the
+    tensor cores (or full f32 FFMA), the analogue of ``HIGHEST``.
     """
     global ROUTED
     if beta == 0.0:

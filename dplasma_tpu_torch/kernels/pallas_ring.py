@@ -15,8 +15,12 @@ order in the source).
 
 What bounds it: bytes. A broadcast of S bytes to n ranks must read the
 root's block once and write n blocks, (n+1)·S; the store-and-forward
-schedule moves 2·n·S (the seed copy and n−1 forwards, each read and
-written once). A shift must move 2·n·S.
+schedule moves (2n−1)·S (the root's seed and first hop in one pass,
+then n−2 forwards). A shift must move 2·n·S.
+
+The host side of a launch is cached per shape (:class:`_Launch`:
+geometry from :func:`ring_geometry`, flag slot, prebuilt ctypes
+arguments); a call fills the pointers, bumps the epoch and launches.
 
 The route: MCA ``ring.enable`` (auto/on/off) resolved per axis by
 :func:`ring_active`, with the reference's rules (off, a size-1 axis, a
@@ -39,8 +43,10 @@ not ported yet.
 from __future__ import annotations
 
 import ctypes
+import functools
+import operator
 import sys
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -299,16 +305,43 @@ def _coresident(device) -> int:
     return m
 
 
-def _unit(rows_bytes: int, tensors) -> int:
-    """The widest copy unit (16, 4 or 2 bytes) that divides the row
-    bytes, every row stride and every address."""
+class RingGeometry(NamedTuple):
+    """One K5 launch's shape: the copy unit (16, 4 or 2 bytes), the
+    blocks per rank, the units per chunk of one rank and the flag
+    counters the launch uses."""
+    unit: int
+    blocks: int
+    units: int
+    flags: int
+
+
+def _widest_unit(row_bytes: int, strides_bytes) -> int:
+    """The widest copy unit (16, 4 or 2 bytes) that divides the row bytes
+    and every row stride (the pointers are tested per call)."""
     for u in (16, 4, 2):
-        if rows_bytes % u:
-            continue
-        if all(t.data_ptr() % u == 0 and (t.stride(0) * t.element_size()) % u
-               == 0 for t in tensors):
+        if row_bytes % u == 0 and all(s % u == 0 for s in strides_bytes):
             return u
     raise ValueError("K5 needs 2-byte aligned rows")
+
+
+def ring_geometry(kind: str, n: int, rows: int, row_bytes: int,
+                  strides_bytes, chunks: int, room: int,
+                  threads: int = _THREADS) -> RingGeometry:
+    """The geometry of one ring transfer of ``rows`` rows of
+    ``row_bytes`` along ``n`` ranks in ``chunks`` chunks, with these row
+    strides (bytes, every rank's in and out), on a card that holds
+    ``room`` co-resident K5 blocks: the widest unit, as many blocks per
+    rank as the card holds for n ranks but no more than one unit per
+    thread of a chunk needs, and n·chunks counters for a broadcast, n
+    for a shift."""
+    if n > room:
+        raise RuntimeError(f"K5: {n} ranks do not fit one cooperative "
+                           f"launch ({room} blocks)")
+    unit = _widest_unit(row_bytes, strides_bytes)
+    units = rows // chunks * (row_bytes // unit)
+    blocks = max(1, min(room // n, -(-units // threads)))
+    return RingGeometry(unit, blocks, units,
+                        n * chunks if kind == "bcast" else n)
 
 
 def _check(xs: List[torch.Tensor], what: str) -> None:
@@ -329,62 +362,117 @@ def _check(xs: List[torch.Tensor], what: str) -> None:
                              f"{x.device} vs {x0.device}")
 
 
-def _launch(kind: str, xs, outs, *, root: int = 0, chunks: int = 1):
-    global LAUNCHES, BCAST_LAUNCHES, SHIFT_LAUNCHES
+class _Launch:
+    """The cached host side of one launch shape: its geometry, flag
+    slot and a prebuilt ctypes argument list. A call fills the pointers,
+    the target and the stream, and calls."""
+    __slots__ = ("kind", "chunks", "shape", "geo", "dev", "fn", "slot",
+                 "ins", "outs", "target", "stream", "args")
+
+    def __init__(self, kind, dev, n, root, chunks, rows, cols, esz, ld_in,
+                 ld_out, room, align=()):
+        self.kind, self.chunks = kind, chunks
+        self.shape = (n, rows, cols)
+        row_bytes = cols * esz
+        self.geo = ring_geometry(kind, n, rows, row_bytes,
+                                 (*ld_in, *ld_out, *align), chunks, room)
+        self.fn = _kernel(kind)
+        self.dev = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        key = (kind, dev.index, n, chunks, self.geo.blocks)
+        slot = _FLAGS.get(key)
+        if slot is None:
+            slot = _FLAGS[key] = [torch.zeros(self.geo.flags,
+                                              dtype=torch.int64,
+                                              device=dev), 0]
+        self.slot = slot
+        parr, larr = ctypes.c_void_p * n, ctypes.c_longlong * n
+        self.ins, self.outs = parr(), parr()
+        self.target = ctypes.c_ulonglong(0)
+        self.stream = ctypes.c_void_p(0)
+        ci, cl = ctypes.c_int, ctypes.c_longlong
+        tail = (self.ins, larr(*ld_in), self.outs, larr(*ld_out),
+                ctypes.c_void_p(slot[0].data_ptr()), self.target,
+                self.stream)
+        if kind == "bcast":
+            self.args = (ci(n), ci(root), ci(chunks), ci(self.geo.blocks),
+                         cl(rows), cl(row_bytes), ci(self.geo.unit)) + tail
+        else:
+            self.args = (ci(n), ci(self.geo.blocks), cl(rows),
+                         cl(row_bytes), ci(self.geo.unit)) + tail
+
+
+#: (kind, root, chunks, block signature) -> _Launch
+_LAUNCHES: dict = {}
+
+
+def _signature(xs):
+    """(shape, strides, dtype, device index) of every rank's block: the
+    launch cache's key, so a launch shape is checked once."""
+    return tuple((x.shape, x.stride(), x.dtype, x.get_device())
+                 for x in xs)
+
+
+def _new_launch(kind, xs, root, chunks):
+    """The cached host side of a launch shape not seen before (after
+    :func:`_check`)."""
     n = len(xs)
     if n > MAX_RANKS:
         raise ValueError(f"K5 takes at most {MAX_RANKS} ranks, got {n}")
     x0 = xs[root]
-    rows, cols = x0.shape
-    src = [xs[root]] if kind == "bcast" else list(xs)
-    for t in src + list(outs):
+    for t in [x0] if kind == "bcast" else xs:
         if t.shape[0] > 1 and t.shape[1] > 1 and t.stride(1) != 1:
             raise ValueError(f"K5 needs unit-stride columns, got strides "
                              f"{t.stride()}")
+    rows, cols = x0.shape
     esz = x0.element_size()
-    row_bytes = cols * esz
-    unit = _unit(row_bytes, src + list(outs))
-    dev = x0.device
-    room = _coresident(dev)
-    if n > room:
-        raise RuntimeError(f"K5: {n} ranks do not fit one cooperative "
-                           f"launch on {dev} ({room} blocks)")
-    units = rows // chunks * (row_bytes // unit)
-    blocks = max(1, min(room // n, -(-units // _THREADS)))
-    key = (kind, dev.index, n, chunks, blocks)
-    slot = _FLAGS.get(key)
-    if slot is None:
-        size = n * chunks if kind == "bcast" else n
-        slot = _FLAGS[key] = [torch.zeros(size, dtype=torch.int64,
-                                          device=dev), 0]
+    # the outputs are new contiguous blocks: row stride = row bytes
+    return _Launch(kind, x0.device, n, root, chunks, rows, cols, esz,
+                   [x.stride(0) * esz for x in xs], [cols * esz] * n,
+                   _coresident(x0.device))
+
+
+def _launch(ent, xs, root: int = 0):
+    """One K5 launch of a cached shape: new contiguous outputs, the
+    pointers filled in, the epoch bumped."""
+    global LAUNCHES, BCAST_LAUNCHES, SHIFT_LAUNCHES
+    x0 = xs[root]
+    outs = x0.new_empty(ent.shape).unbind(0)
+    if not x0.numel():
+        return list(outs)
+    n = len(xs)
+    ptrs_in = [x.data_ptr() for x in xs]
+    ptrs_out = [o.data_ptr() for o in outs]
+    align = ptrs_out[0] | (ptrs_in[root] if ent.kind == "bcast"
+                           else functools.reduce(operator.or_, ptrs_in))
+    if align % ent.geo.unit:
+        # a view off the unit's alignment: this call takes the widest
+        # unit its pointers allow, outside the cache
+        rows, cols = x0.shape
+        esz = x0.element_size()
+        ent = _Launch(ent.kind, x0.device, n, root, ent.chunks, rows, cols,
+                      esz, [x.stride(0) * esz for x in xs],
+                      [cols * esz] * n, _coresident(x0.device),
+                      align=(align,))
+    for i in range(n):
+        ent.ins[i] = ptrs_in[i]
+        ent.outs[i] = ptrs_out[i]
+    slot = ent.slot
     slot[1] += 1
-    target = blocks * slot[1]
-    parr = ctypes.c_void_p * n
-    larr = ctypes.c_longlong * n
-    ins = parr(*[x.data_ptr() for x in xs])
-    ld_in = larr(*[x.stride(0) * esz for x in xs])
-    outp = parr(*[o.data_ptr() for o in outs])
-    ld_out = larr(*[o.stride(0) * esz for o in outs])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if kind == "bcast":
-            err = _kernel("bcast")(n, root, chunks, blocks, rows, row_bytes,
-                                   unit, ins, ld_in, outp, ld_out,
-                                   slot[0].data_ptr(), target, stream)
-        else:
-            err = _kernel("shift")(n, blocks, rows, row_bytes, unit, ins,
-                                   ld_in, outp, ld_out, slot[0].data_ptr(),
-                                   target, stream)
+    ent.target.value = ent.geo.blocks * slot[1]
+    ent.stream.value = torch._C._cuda_getCurrentRawStream(ent.dev)
+    err = ent.fn(*ent.args)
     if err != 0:
         slot[1] -= 1
-        raise RuntimeError(f"K5 ring_{kind} launch failed: cudaError {err} "
-                           f"(n={n} rows={rows} cols={cols} {x0.dtype} "
-                           f"blocks/rank={blocks})")
+        raise RuntimeError(f"K5 ring_{ent.kind} launch failed: cudaError "
+                           f"{err} (n={n} shape={tuple(x0.shape)} "
+                           f"{x0.dtype} {ent.geo})")
     LAUNCHES += 1
-    if kind == "bcast":
+    if ent.kind == "bcast":
         BCAST_LAUNCHES += 1
     else:
         SHIFT_LAUNCHES += 1
+    return list(outs)
 
 
 def ring_bcast(xs: List[torch.Tensor], *, root: int,
@@ -396,25 +484,28 @@ def ring_bcast(xs: List[torch.Tensor], *, root: int,
     in ``chunks`` pieces (MCA ``ring.chunks`` by default, clamped down
     to a divisor of the rows)."""
     global ROUTED
+    want = chunks if chunks is not None \
+        else _cfg.mca_get_int("ring.chunks", 4)
+    key = ("bcast", root, want, _signature(xs))
+    ent = _LAUNCHES.get(key)
+    if ent is not None:          # a CUDA launch shape seen (and checked)
+        ROUTED += 1
+        return _launch(ent, xs, root)
     _check(xs, "ring_bcast")
     n = len(xs)
     if not 0 <= root < n:
         raise ValueError(f"K5 ring_bcast: root {root} outside 0..{n - 1}")
     if n == 1:
         return [xs[0].clone(memory_format=torch.contiguous_format)]
-    c = _resolve_chunks(xs[root].shape[0], chunks)
+    c = _resolve_chunks(xs[root].shape[0], want)
     ROUTED += 1
     dev = xs[root].device
     if dev.type == "cpu":
         return ring_bcast_reference(xs, root, c)
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on cuda (or cpu), not {dev}")
-    out = torch.empty((n, *xs[root].shape), dtype=xs[root].dtype,
-                      device=dev)
-    outs = list(out.unbind(0))
-    if out.numel():
-        _launch("bcast", xs, outs, root=root, chunks=c)
-    return outs
+    ent = _LAUNCHES[key] = _new_launch("bcast", xs, root, c)
+    return _launch(ent, xs, root)
 
 
 def ring_shift(xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -422,6 +513,11 @@ def ring_shift(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     to ``(r+1) % n`` and returns the block received from ``(r-1) % n``
     (n new contiguous blocks)."""
     global ROUTED
+    key = ("shift", 0, 1, _signature(xs))
+    ent = _LAUNCHES.get(key)
+    if ent is not None:          # a CUDA launch shape seen (and checked)
+        ROUTED += 1
+        return _launch(ent, xs)
     _check(xs, "ring_shift")
     n = len(xs)
     if n == 1:
@@ -432,11 +528,8 @@ def ring_shift(xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return ring_shift_reference(xs)
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on cuda (or cpu), not {dev}")
-    out = torch.empty((n, *xs[0].shape), dtype=xs[0].dtype, device=dev)
-    outs = list(out.unbind(0))
-    if out.numel():
-        _launch("shift", xs, outs)
-    return outs
+    ent = _LAUNCHES[key] = _new_launch("shift", xs, 0, 1)
+    return _launch(ent, xs)
 
 
 def ring_allreduce(xs: List[torch.Tensor]) -> List[torch.Tensor]:

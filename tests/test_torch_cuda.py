@@ -6,8 +6,11 @@ GPU; on a machine with one they build K1, K2, K3 and K4 from
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: K1, relative Frobenius error <= 1e-5 for f32 (summation
-order only) and <= 1e-2 for bf16 output. K3, bitwise equal to its
+Tolerances: K1, relative Frobenius error <= 1e-5 for f32 (3xTF32 on
+the tensor cores drops the lo*lo term, 2^-22 relative, and sums in
+another order) and <= 1e-2 for bf16 output; against a float64 product
+its f32 error is no worse than twice torch.matmul's (full FP32), and a
+product split over K gives the same bits on every launch. K3, bitwise equal to its
 plain version, permutation and packed factor (the kernel rounds each
 step as the plain version does, whichever block of its cluster owns the
 row), also over 100 back-to-back launches (a fault in the ordering of
@@ -77,6 +80,70 @@ def test_k1_matches_plain_version(card, dtype, tol, beta, b_view):
     assert got.dtype == dtype and got.shape == (M, N)
     want = pk.gemm_reference(a, b, c, alpha=1.5, beta=beta)
     assert _rel(got, want) <= tol
+
+
+def _k1_operands(card, g, M, K, N, layout, dtype):
+    """A and B of one product in a main-path layout: ``gram``/``vtc``
+    sgeqrf's V^T view (unit stride along M) times a row-major B; ``bT``
+    a b.T view; ``cols`` a column slice of a wider row-major B."""
+    if layout in ("gram", "vtc"):
+        a = torch.randn(K, M, device=card, generator=g).to(dtype).T
+    else:
+        a = torch.randn(M, K, device=card, generator=g).to(dtype)
+    if layout == "bT":
+        b = torch.randn(N, K, device=card, generator=g).to(dtype).T
+    elif layout == "cols":
+        b = torch.randn(K, 4 * N, device=card,
+                        generator=g).to(dtype)[:, N:2 * N]
+    else:
+        b = torch.randn(K, N, device=card, generator=g).to(dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("beta", [0.0, -0.5])
+@pytest.mark.parametrize("M,K,N,layout", [
+    (256, 8192, 256, "gram"), (256, 8192, 2048, "vtc"),
+    (2048, 1024, 1024, "bT"), (3072, 512, 512, "cols")])
+def test_k1_tensor_core_kernel_matches_plain_version(card, dtype, tol, beta,
+                                                     M, K, N, layout):
+    """The main paths' layouts take the tensor-core kernel (3xTF32 for
+    f32, one bf16 pass) and agree with gemm_reference."""
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    a, b = _k1_operands(card, g, M, K, N, layout, dtype)
+    c = torch.randn(M, N, device=card, generator=g).to(dtype)
+    assert pk.plan_for(a, b).kernel == "wgmma"
+    wgmma = pk.WGMMA_LAUNCHES
+    got = pk.gemm(a, b, c, alpha=1.5, beta=beta)
+    torch.cuda.synchronize()
+    assert pk.WGMMA_LAUNCHES == wgmma + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert _rel(got, pk.gemm_reference(a, b, c, alpha=1.5, beta=beta)) <= tol
+
+
+def test_k1_split_k_launches_are_bitwise_equal(card):
+    g = torch.Generator(device=card).manual_seed(8)
+    a, b = _k1_operands(card, g, 256, 8192, 256, "gram", torch.float32)
+    plan = pk.plan_for(a, b)
+    assert plan.kernel == "wgmma" and plan.splits > 1
+    assert plan.work_units >= 64
+    first = pk.matmul(a, b)
+    for _ in range(5):
+        assert torch.equal(pk.matmul(a, b), first)
+
+
+@pytest.mark.parametrize("M,K,N,layout", [
+    (256, 8192, 256, "gram"), (4096, 4096, 1024, "bT"),
+    (1024, 14336, 1024, "bT")])
+def test_k1_error_against_float64_within_twice_fp32_matmul(card, M, K, N,
+                                                           layout):
+    g = torch.Generator(device=card).manual_seed(9)
+    a, b = _k1_operands(card, g, M, K, N, layout, torch.float32)
+    exact = a.double() @ b.double()
+    mine = _rel(pk.matmul(a, b), exact)
+    fp32 = _rel(torch.matmul(a, b), exact)
+    assert mine <= 2 * fp32, (mine, fp32)
 
 
 def test_k1_rejects_mixed_devices(card):
@@ -401,6 +468,28 @@ def test_k5_bcast_strided_panel_and_many_launches(card):
     for i in range(300):
         got = pring.ring_bcast(xs, root=0, chunks=4)
         assert all(torch.equal(o, want) for o in got), i
+
+
+def test_k5_1000_back_to_back_launches_with_a_strided_root(card):
+    """The main path's broadcast (a column slice of a slab as the root,
+    4 chunks) and shift, 1000 launches each on one flag buffer, each
+    checked bitwise."""
+    g = torch.Generator(device=card).manual_seed(61)
+    slab = torch.randn(4096, 4096, device=card, generator=g)
+    other = torch.empty(4096, 512, device=card)
+    want = slab[:, 512:1024].contiguous()
+    for i in range(1000):
+        root = i % 2
+        xs = [slab[:, 512:1024] if q == root else other for q in range(2)]
+        got = pring.ring_bcast(xs, root=root, chunks=4)
+        assert all(torch.equal(o, want) for o in got), i
+    cur = [torch.randn(512, 4096, device=card, generator=g)
+           for _ in range(2)]
+    for i in range(1000):
+        nxt = pring.ring_shift(cur)
+        assert all(torch.equal(nxt[(r + 1) % 2], cur[r])
+                   for r in range(2)), i
+        cur = nxt
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])

@@ -240,3 +240,51 @@ def test_wrappers_reject_bad_input():
     one = _blocks(1)
     assert torch.equal(pring.ring_bcast(one, root=0)[0], one[0])
     assert torch.equal(pring.ring_shift(one)[0], one[0])
+
+
+def _pr5_geometry(kind, n, rows, cols, esz, strides_bytes, ptrs, chunks,
+                  room, threads=256):
+    """The launch rule K5 has had since it was ported, written out: the
+    widest unit dividing the row bytes, every row stride and every
+    pointer; units per chunk; blocks per rank."""
+    row_bytes = cols * esz
+    unit = next(u for u in (16, 4, 2) if row_bytes % u == 0
+                and all(s % u == 0 for s in strides_bytes)
+                and all(p % u == 0 for p in ptrs))
+    units = rows // chunks * (row_bytes // unit)
+    blocks = max(1, min(room // n, -(-units // threads)))
+    return unit, blocks, units
+
+
+@pytest.mark.parametrize("room", [792, 1056, 264])
+@pytest.mark.parametrize("case", [
+    # kind, n, rows, cols, root row stride (elements), chunks: the main
+    # paths' transfers on the 2x2 grid and odd ones
+    ("bcast", 2, 4096, 512, 4096, 4),      # sgetrf_ptgpanel's broadcast
+    ("shift", 2, 512, 4096, 4096, 1),      # its winner-row shift
+    ("bcast", 2, 8192, 1024, 8192, 4),     # potrf_cyclic's broadcast
+    ("bcast", 3, 1000, 300, 900, 4),
+    ("bcast", 4, 1000, 301, 301, 1),
+    ("shift", 3, 1000, 300, 300, 1)])
+def test_ring_geometry_keeps_the_launch_rule(case, room):
+    kind, n, rows, cols, ld, chunks = case
+    esz = 4
+    ld_in = [ld * esz] * n
+    ld_out = [cols * esz] * n
+    geo = pring.ring_geometry(kind, n, rows, cols * esz, ld_in + ld_out,
+                              chunks, room)
+    unit, blocks, units = _pr5_geometry(kind, n, rows, cols, esz,
+                                        ld_in + ld_out, [0] * (2 * n),
+                                        chunks, room)
+    assert (geo.unit, geo.blocks, geo.units) == (unit, blocks, units)
+    assert geo.flags == (n * chunks if kind == "bcast" else n)
+    # a pointer off the unit narrows it, as the per-call test does
+    off = pring.ring_geometry(kind, n, rows, cols * esz,
+                              ld_in + ld_out + [4], chunks, room)
+    assert off.unit == _pr5_geometry(kind, n, rows, cols, esz,
+                                     ld_in + ld_out, [4], chunks, room)[0]
+
+
+def test_ring_geometry_refuses_more_ranks_than_the_card_holds():
+    with pytest.raises(RuntimeError, match="do not fit"):
+        pring.ring_geometry("bcast", 4, 100, 64, [64] * 8, 1, 3)
