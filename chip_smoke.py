@@ -122,6 +122,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FP32_FLOPS = 67e12          # CUDA-core FFMA
 TF32_FLOPS = 495e12         # tensor cores
 BF16_FLOPS = 989e12         # tensor cores
+INT8_OPS = 1979e12          # tensor cores, dense int8
 HBM_BYTES_S = 3.35e12
 
 N_MAIN, NB_MAIN = 16384, 1024
@@ -134,6 +135,7 @@ N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
 N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
 DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
 K3_REPEATS = 100    # back-to-back K3 launches, each bitwise checked
+K2_REPEATS = 1000   # back-to-back split K2 launches, each bitwise checked
 # K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
 # (the two sum in other orders); each panel's Q must pass the QR checks
 K4_TOL = 1e-4
@@ -261,32 +263,38 @@ def qr_bound_ms(M, nb):
 
 
 def dd_k2_shapes(n, nb):
-    """(nl, M, N, base) of every K2 launch of one ``potrf_f64_blocked``
+    """(nl, M, N, K, base) of every K2 launch of one ``potrf_f64_blocked``
     factorization, in order. Column k (s = k·nb): the trailing product
-    (k >= 1; its base a view of A), the diagonal tile's two refinement
-    residuals (bits 32 then 53: nl 5 then 8; base the scaled tile) and,
-    but for the last column, the panel's two (n − s − nb rows; base the
-    slab below the tile, a view of A at k = 0): 5·nt − 3 in all."""
+    (k >= 1, K = s: the limb cache's views, its base a view of A), the
+    diagonal tile's two refinement residuals (K = nb; bits 32 then 53:
+    nl 5 then 8; base the scaled tile) and, but for the last column, the
+    panel's two (n − s − nb rows, K = nb; base the slab below the tile, a
+    view of A at k = 0): 5·nt − 3 in all."""
     nt = n // nb
     shapes = []
     for k in range(nt):
         m = n - k * nb
         if k:
-            shapes.append((8, m, nb, "view"))
-        shapes += [(5, nb, nb, "dense"), (8, nb, nb, "dense")]
+            shapes.append((8, m, nb, k * nb, "cache"))
+        shapes += [(5, nb, nb, nb, "dense"), (8, nb, nb, nb, "dense")]
         if k < nt - 1:
             kind = "view" if k == 0 else "dense"
-            shapes += [(5, m - nb, nb, kind), (8, m - nb, nb, kind)]
+            shapes += [(5, m - nb, nb, nb, kind), (8, m - nb, nb, nb, kind)]
     return shapes
 
 
-def k2_bound_ms(nl, M, N, has_base):
-    """Least time for one recombine: its bytes (the int32 levels, sa, sb
-    and the base read once, the f64 output written once) over the HBM
-    rate. Its ~2·nl + 2 f64 operations per element are far below the f64
-    peak, so bytes bound it."""
-    nbytes = (4 * nl + 8 + (8 if has_base else 0)) * M * N + 8 * (M + N)
-    return 1e3 * nbytes / HBM_BYTES_S
+def k2_bound_ms(nl, M, N, K, has_base):
+    """Least time for one fused limb product, and what bounds it: its
+    int8 operations (nl(nl+1)/2 limb pairs of 2·M·N·K) at the dense int8
+    tensor-core peak, or its bytes (the nl limb planes of both operands,
+    the scales and the base read once, the f64 output written once) over
+    the HBM rate."""
+    t_ops = nl * (nl + 1) // 2 * 2.0 * M * N * K / INT8_OPS
+    nbytes = (nl * (M + N) * K + (16 if has_base else 8) * M * N
+              + 8 * (M + N))
+    t_bytes = nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def qr_k1_products(kt):
@@ -465,7 +473,8 @@ def phase_build(record):
     report = {}
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
                 report.setdefault(name, []).append(line.strip())
     record["build_s"] = total
@@ -480,7 +489,7 @@ def phase_build(record):
                 by_kernel[entry] = (by_kernel.get(entry, "") + " "
                                     + line.split(":", 1)[-1].strip()).strip()
     record["ptxas_by_kernel"] = {
-        (e[e.find("k1_gemm"):] if "k1_gemm" in e else e): v
+        next((e[e.find(k):] for k in ("k1_gemm", "k2_") if k in e), e): v
         for e, v in by_kernel.items()}
 
 
@@ -876,34 +885,55 @@ def phase_k4(torch, pqr, record):
     return tot, len(heights)
 
 
-def k2_case(torch, pdd, lv, base, sa, sb):
-    """K2 against recombine_base_reference on one input: (bitwise equal,
-    max abs error, kernel ms, plain ms)."""
-    got = pdd.recombine_base(lv, base, sa, sb, 7)
-    want = pdd.recombine_base_reference(lv, base, sa, sb, 7)
+def k2_check(torch, pdd, al, bl, base, sa, sb):
+    """One fused K2 launch against limb_product_base_reference: (bitwise
+    equal, max abs error), failing the run if it took no launch."""
+    launches = pdd.LAUNCHES
+    got = pdd.limb_product_base(al, bl, base, sa, sb, 7)
+    want = pdd.limb_product_base_reference(al, bl, base, sa, sb, 7)
     torch.cuda.synchronize()
+    check(pdd.LAUNCHES == launches + 1, "K2 did not launch")
     check(got.dtype == torch.float64 and got.shape == want.shape,
           f"K2 output {got.dtype} {tuple(got.shape)}")
     same = bool(torch.equal(got.view(torch.int64), want.view(torch.int64)))
-    mabs = float((got - want).abs().max())
-    return (same, mabs, time_ms(torch, lambda: pdd.recombine_base(
-        lv, base, sa, sb, 7)), time_ms(torch, lambda: (
-            pdd.recombine_base_reference(lv, base, sa, sb, 7))))
+    return same, float((got - want).abs().max())
 
 
-def k2_inputs(torch, g, nl, M, N, extreme=False):
-    lim = 2 ** 31 - 1 if extreme else 2 ** 30
-    lv = torch.randint(-lim, lim + 1, (nl, M, N), device="cuda",
-                       generator=g, dtype=torch.int32)
-    if extreme:
-        lv[:, : M // 2] = lim
-        lv[:, M // 2:] = -lim
-    pow2 = torch.randint(-3, 4, (M + N,), device="cuda", generator=g)
-    sc = torch.pow(2.0, pow2.double())
-    return lv, sc[:M, None].contiguous(), sc[None, M:].contiguous()
+def k2_times(torch, dd, pdd, al, bl, base, sa, sb, a64=None, b64=None):
+    """Device ms of one fused K2 launch, of ``dd._limb_levels`` alone on
+    the same limbs (the unfused route's int8 products and level sums on
+    ``torch._int_mm``), of the plain version, and of native FP64
+    ``torch.addmm`` on the f64 operands (context: not the same bits;
+    None without them)."""
+    nl, _, K = al.shape
+    planes = list(al), [x.T for x in bl]
+    t = {"ms": time_ms(torch, lambda: pdd.limb_product_base(
+             al, bl, base, sa, sb, 7)),
+         "limb_levels_ms": time_ms(torch, lambda: dd._limb_levels(
+             *planes, K, 7, nl, K)),
+         "plain_ms": time_ms(torch, lambda: (
+             pdd.limb_product_base_reference(al, bl, base, sa, sb, 7))),
+         "library_ms": None}
+    if a64 is not None:
+        c = base if base is not None else torch.zeros(
+            (a64.shape[0], b64.shape[1]), dtype=torch.float64,
+            device="cuda")
+        t["library_ms"] = time_ms(torch, lambda: torch.addmm(
+            c, a64, b64, alpha=-1.0))
+    return t
 
 
-def phase_k2(torch, pdd, record):
+def k2_operands(torch, dd, g, nl, M, N, K):
+    """Limb planes of random f64 operands A (M, K) and B (K, N), split as
+    the dd route splits them, with their scales and the f64 operands."""
+    a = torch.randn(M, K, device="cuda", generator=g, dtype=torch.float64)
+    b = torch.randn(K, N, device="cuda", generator=g, dtype=torch.float64)
+    al, sa, _ = dd._split_rows(a, 7, nl)
+    bl, sb, _ = dd._split_rows(b.T, 7, nl)
+    return al, bl, sa, sb.T, a, b
+
+
+def phase_k2(torch, dd, pdd, record):
     g = torch.Generator(device="cuda").manual_seed(500)
     big = torch.randn(N_DD, N_DD, device="cuda", generator=g,
                       dtype=torch.float64)
@@ -912,57 +942,147 @@ def phase_k2(torch, pdd, record):
         return torch.randn(M, N, device="cuda", generator=g,
                            dtype=torch.float64)
 
-    named = [("ragged nl=8", 8, 1000, 300, "dense", False),
-             ("ragged nl=5", 5, 1000, 300, "dense", False),
-             ("no base, -sa (gemm_f64 form)", 8, 1000, 300, None, False),
-             ("strided base (a.T view)", 8, 640, 384, "tview", False),
-             ("levels at +-(2^31 - 1)", 8, 512, 512, "dense", True),
-             ("dgemm product 8192^2", 8, N_DD, N_DD, None, False)]
+    # (label, nl, M, N, K, base, form): ragged shapes (K = 777 in
+    # contiguous planes: TMA needs the aligned copy), the epilogue's three
+    # forms, every digit at +-127 at the int32 bound, a split product
+    named = [("ragged nl=8, K=777 (aligned copy)", 8, 1000, 300, 777,
+              "dense", "copy"),
+             ("ragged nl=5, K=777 (aligned copy)", 5, 1000, 300, 777,
+              "dense", "copy"),
+             ("no base, -sa (gemm_f64 form)", 8, 1000, 300, 1000, None,
+              "split"),
+             ("unscaled (_pair_dot form)", 8, 640, 384, 512, None,
+              "unscaled"),
+             ("strided base (a.T view)", 8, 640, 384, 528, "tview",
+              "split"),
+             ("digits +-127 at K = kc, nl=8", 8, 256, 256,
+              pdd.max_depth(8), "dense", "extreme"),
+             ("digits +-127 at K = kc, nl=5", 5, 256, 256,
+              pdd.max_depth(5), "dense", "extreme"),
+             ("split product 512^3", 8, 512, 512, 512, "dense", "split")]
     rows = []
-    for label, nl, M, N, kind, extreme in named:
-        lv, sa, sb = k2_inputs(torch, g, nl, M, N, extreme)
+    mabs_all = 0.0
+    for label, nl, M, N, K, kind, form in named:
+        al, bl, sa, sb, _, _ = k2_operands(torch, dd, g, nl, M, N, K)
+        if form == "extreme":
+            al.fill_(127)
+            bl.fill_(-127)
+        if form == "copy":
+            al, bl = al.contiguous(), bl.contiguous()
         base = (None if kind is None else dense(M, N) if kind == "dense"
                 else big[1000:1000 + N, 512:512 + M].T)
-        if base is None:
+        if form == "unscaled":
+            sa = sb = None
+        elif base is None:
             sa = -sa
-        same, mabs, k_ms, p_ms = k2_case(torch, pdd, lv, base, sa, sb)
-        b_ms = k2_bound_ms(nl, M, N, base is not None)
-        log(f"[k2] {label:30s} nl={nl} M={M:5d} N={N:5d} "
+        p = pdd.plan_for(al, bl)
+        same, mabs = k2_check(torch, pdd, al, bl, base, sa, sb)
+        t = k2_times(torch, dd, pdd, al, bl, base, sa, sb)
+        b_ms, b_by = k2_bound_ms(nl, M, N, K, base is not None)
+        log(f"[k2] {label:36s} nl={nl} M={M:5d} N={N:5d} K={K:5d} "
+            f"splits={p.splits} copy={int(p.a_copy)}{int(p.b_copy)} "
             f"{'bitwise equal' if same else 'DIFFERS'} (max abs err "
-            f"{mabs:.3e})  kernel {k_ms:8.4f} ms  plain {p_ms:8.4f} ms  "
-            f"bound {b_ms:8.4f} ms (bytes)")
-        rows.append({"case": label, "nl": nl, "M": M, "N": N,
-                     "base": kind, "bitwise": same, "max_abs_err": mabs,
-                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": "bytes", "library_ms": None})
+            f"{mabs:.3e})  kernel {t['ms']:8.4f} ms  _limb_levels "
+            f"{t['limb_levels_ms']:8.4f} ms  plain {t['plain_ms']:8.4f} ms"
+            f"  bound {b_ms:8.4f} ms ({b_by})")
+        rows.append(dict(t, case=label, nl=nl, M=M, N=N, K=K, base=kind,
+                         splits=p.splits, bitwise=same, max_abs_err=mabs,
+                         bound_ms=b_ms, bound_by=b_by))
+        mabs_all = max(mabs_all, mabs)
         check(same, f"K2 is not bitwise equal to its plain version on "
                     f"{label}: max abs err {mabs:.3e}")
-        del lv, base
+        del al, bl, base
     record["k2_cases"] = rows
 
-    # every launch of one dpotrf factorization (N_DD, NB_DD), in turn
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    # back-to-back launches of one split shape, each checked
+    al, bl, sa, sb, _, _ = k2_operands(torch, dd, g, 8, 512, 512, 512)
+    base = dense(512, 512)
+    check(pdd.plan_for(al, bl).splits > 1, "the 512^3 product is not split")
+    want = pdd.limb_product_base_reference(al, bl, base, sa, sb, 7)
+    bad = 0
+    for _ in range(K2_REPEATS):
+        got = pdd.limb_product_base(al, bl, base, sa, sb, 7)
+        bad += int(not torch.equal(got.view(torch.int64),
+                                   want.view(torch.int64)))
+    torch.cuda.synchronize()
+    log(f"[k2] {K2_REPEATS} back-to-back split launches (512^3, "
+        f"{pdd.plan_for(al, bl).splits} splits): {bad} differ")
+    check(bad == 0, f"{bad} of {K2_REPEATS} split K2 launches differ")
+    record["k2_repeats"] = {"launches": K2_REPEATS, "differ": bad}
+
+    # every launch of one dpotrf factorization (N_DD, NB_DD), in turn: the
+    # trailing products on views of one limb cache split from random f64
+    # (with the factorization's row scales), the residuals on split
+    # random operands
+    keys = ("ms", "limb_levels_ms", "plain_ms", "library_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    tot.update(max_abs_err=0.0, ops_bound_ms=0.0)
+    bound_by = {"operations": 0.0, "bytes": 0.0}
     shapes = dd_k2_shapes(N_DD, NB_DD)
-    for i, (nl, M, N, kind) in enumerate(shapes):
-        lv, sa, sb = k2_inputs(torch, g, nl, M, N)
-        s = N_DD - M if kind == "view" else 0
-        base = big[s:, s:s + N] if kind == "view" else dense(M, N)
-        same, mabs, k_ms, p_ms = k2_case(torch, pdd, lv, base, sa, sb)
-        check(same, f"K2 differs on dpotrf launch {i} {(nl, M, N, kind)}: "
-                    f"max abs err {mabs:.3e}")
-        tot["ms"] += k_ms
-        tot["plain_ms"] += p_ms
-        tot["bound_ms"] += k2_bound_ms(nl, M, N, True)
+    F = torch.randn(N_DD, N_DD - NB_DD, device="cuda", generator=g,
+                    dtype=torch.float64)
+    scale = dd._row_norm_scales(torch.full(
+        (N_DD,), float(N_DD), device="cuda", dtype=torch.float64))[:, None]
+    W = dd._limb_planes(8, N_DD, N_DD - NB_DD, "cuda")
+    dd._split_fixed(F * 8.0, scale, 7, 8, out=W)      # |x| < scale / 2
+    per = []
+    for i, (nl, M, N, K, kind) in enumerate(shapes):
+        if kind == "cache":
+            s = N_DD - M
+            al, bl = W[:, s:, :s], W[:, s:s + N, :s]
+            sa, sb = scale[s:], scale[s:s + N].T
+            a64, b64 = F[s:, :s] * 8.0, (F[s:s + N, :s] * 8.0).T
+            base = big[s:, s:s + N]
+        else:
+            al, bl, sa, sb, a64, b64 = k2_operands(torch, dd, g, nl, M, N,
+                                                   K)
+            base = big[NB_DD:, :N] if kind == "view" else dense(M, N)
+        p = pdd.plan_for(al, bl)
+        check(not (p.a_copy or p.b_copy),
+              f"dpotrf launch {i} {(nl, M, N, K, kind)} needs a copy: {p}")
+        same, mabs = k2_check(torch, pdd, al, bl, base, sa, sb)
+        check(same, f"K2 differs on dpotrf launch {i} "
+                    f"{(nl, M, N, K, kind)}: max abs err {mabs:.3e}")
+        t = k2_times(torch, dd, pdd, al, bl, base, sa, sb, a64, b64)
+        b_ms, b_by = k2_bound_ms(nl, M, N, K, True)
+        t_ops = nl * (nl + 1) // 2 * 2.0 * M * N * K / INT8_OPS * 1e3
+        for k in keys[:-1]:
+            tot[k] += t[k]
+        tot["bound_ms"] += b_ms
+        tot["ops_bound_ms"] += t_ops
+        bound_by[b_by] += b_ms
         tot["max_abs_err"] = max(tot["max_abs_err"], mabs)
-    tot["max_abs_err"] = max([tot["max_abs_err"]]
-                             + [r["max_abs_err"] for r in rows])
-    gemm = rows[-1]
-    log(f"[k2] one dpotrf's {len(shapes)} launches (N={N_DD} nb={NB_DD}): "
-        f"kernel {tot['ms']:.3f} ms  plain {tot['plain_ms']:.3f} ms  bound "
-        f"{tot['bound_ms']:.3f} ms (bytes), all bitwise equal; one dgemm "
-        f"product: kernel {gemm['ms']:.3f} ms  plain {gemm['plain_ms']:.3f}"
-        f" ms  bound {gemm['bound_ms']:.3f} ms")
-    record["k2_main_path"] = dict(tot, launches=len(shapes), dgemm=gemm)
+        per.append(dict(t, nl=nl, M=M, N=N, K=K, base=kind,
+                        splits=p.splits, bound_ms=b_ms, bound_by=b_by))
+        del al, bl, a64, b64
+    del W, F
+    tot["max_abs_err"] = max(tot["max_abs_err"], mabs_all)
+    # what bounds the sum: what bounds the launches most of it comes from
+    tot["bound_by"] = max(bound_by, key=bound_by.get)
+    log(f"[k2] one dpotrf's {len(shapes)} launches (N={N_DD} nb={NB_DD}), "
+        f"all bitwise equal: kernel {tot['ms']:.3f} ms  _limb_levels "
+        f"{tot['limb_levels_ms']:.3f} ms  plain {tot['plain_ms']:.3f} ms  "
+        f"bound {tot['bound_ms']:.3f} ms (int8 operations "
+        f"{tot['ops_bound_ms']:.3f} ms)  FP64 addmm "
+        f"{tot['library_ms']:.3f} ms")
+
+    # one dgemm dd product at N_DD^3
+    al, bl, sa, sb, a64, b64 = k2_operands(torch, dd, g, 8, N_DD, N_DD,
+                                           N_DD)
+    same, mabs = k2_check(torch, pdd, al, bl, None, -sa, sb)
+    check(same, f"K2 differs on the dgemm product: max abs err {mabs:.3e}")
+    gemm = k2_times(torch, dd, pdd, al, bl, None, -sa, sb, a64, b64)
+    gemm["bound_ms"], gemm["bound_by"] = k2_bound_ms(8, N_DD, N_DD, N_DD,
+                                                     False)
+    gemm["max_abs_err"] = mabs
+    gemm["splits"] = pdd.plan_for(al, bl).splits
+    log(f"[k2] one dgemm product {N_DD}^3 (nl=8), bitwise equal: kernel "
+        f"{gemm['ms']:.3f} ms  _limb_levels {gemm['limb_levels_ms']:.3f} "
+        f"ms  plain {gemm['plain_ms']:.3f} ms  bound {gemm['bound_ms']:.3f}"
+        f" ms ({gemm['bound_by']})  FP64 addmm {gemm['library_ms']:.3f} ms")
+    del al, bl, a64, b64
+    record["k2_main_path"] = dict(tot, launches=len(shapes), dgemm=gemm,
+                                  per_launch=per)
     del big
     return tot, len(shapes)
 
@@ -1127,16 +1247,25 @@ def _device_ms(ev) -> float:
 
 
 # name pieces of the hand-written kernels, each kept apart in a profile
-PORT_KERNELS = ("k1_gemm", "k2_recombine", "k3_lu_panel", "k4_geqrt_panel",
+PORT_KERNELS = ("k1_gemm", "k2_", "k3_lu_panel", "k4_geqrt_panel",
                 "k5_ring")
 
+# name pieces of cuBLAS's int8 GEMMs (torch._int_mm): none may run on the
+# dd route's main path, whose limb products are K2's
+INT8_LIBRARY = ("gemm_s8", "imma")
+
 # kernel-name pieces -> the category the breakdown reports them under
+# (first match; a tuple of pieces matches a name that holds them all);
+# PyTorch's elementwise kernels are told apart by the functor and the
+# element type in their name: the dd route's int64 elementwise work is
+# its digit splits and scales (shifts, ands, ors, wheres, clamps,
+# negations, scalar arithmetic on the f64 bit patterns)
 _CATEGORIES = (("K5 (k5_ring)", ("k5_ring",)),
-               ("K2 (k2_recombine)", ("k2_recombine",)),
+               ("K2 (k2_limb_gemm)", ("k2_",)),
                ("K3 (k3_lu_panel)", ("k3_lu_panel",)),
                ("K4 (k4_geqrt_panel)", ("k4_geqrt_panel",)),
                ("K1 (k1_gemm)", ("k1_gemm",)),
-               ("int8 products (torch._int_mm)", ("gemm_s8", "imma")),
+               ("int8 products (torch._int_mm)", INT8_LIBRARY),
                ("cuSOLVER getrf (panel LUs)", ("getrf_pivot", "ipiv_",
                                                "create_pivot")),
                ("trsm (cuBLAS)", ("trsm",)),
@@ -1144,8 +1273,19 @@ _CATEGORIES = (("K5 (k5_ring)", ("k5_ring",)),
                                            "larf", "cublas", "cusolver")),
                ("gathers (index, gather)", ("index", "gather", "Gather")),
                ("cat", ("CatArray",)),
-               ("copies", ("copy", "Copy", "transpose")),
-               ("elementwise (dd digit splits, ...)", ("elementwise",)))
+               ("casts and copies", ("copy", "Copy", "transpose")),
+               ("digit splits (int64 elementwise: shifts, ands, wheres, "
+                "clamps, ...)",
+                ("shift_kernel", "bitwise_and", "BitwiseAnd", "where_kernel",
+                 "clamp", ("elementwise", "long"))),
+               ("adds and subtractions",
+                ("CUDAFunctor_add", "CUDAFunctorOnSelf_add", "AddFunctor",
+                 "add_kernel")),
+               ("muls and divs", ("MulFunctor", "mul_kernel", "DivFunctor",
+                                  "div_true", "div_kernel")),
+               ("reductions (scales, norms)", ("reduce_kernel",)),
+               ("fills", ("FillFunctor", "fill_kernel")),
+               ("elementwise other", ("elementwise",)))
 
 
 def _profile(torch, record, key, label, run):
@@ -1175,7 +1315,8 @@ def _profile(torch, record, key, label, run):
     cats = {}
     for name, ms in by_kernel.items():
         cat = next((c for c, keys in _CATEGORIES
-                    if any(k in name for k in keys)), "other")
+                    if any(all(p in name for p in k) if isinstance(k, tuple)
+                           else k in name for k in keys)), "other")
         cats[cat] = cats.get(cat, 0.0) + ms
     tag = f"[{key}]"
     if not by_kernel:
@@ -1196,6 +1337,7 @@ def _profile(torch, record, key, label, run):
         "categories_ms": cats,
         "port_kernels_ms": {n: ms for n, ms in by_kernel.items()
                             if any(k in n for k in PORT_KERNELS)},
+        "all_kernels_ms": by_kernel,
         "top_kernels_ms": dict(sorted(by_kernel.items(),
                                       key=lambda kv: -kv[1])[:20])}
 
@@ -1391,17 +1533,21 @@ def phase_dpotrf_dd(torch, pk, pdd, record):
         pdd.reset_counts()
         L = potrf_mod.potrf(A, "L")
         torch.cuda.synchronize()
-        k1, k2 = pk.LAUNCHES, pdd.LAUNCHES
+        k1, k2, unfused = pk.LAUNCHES, pdd.LAUNCHES, pdd.UNFUSED
     log(f"[dpotrf-dd] one ops.potrf.potrf call, counts zeroed just before: "
-        f"K2 {k2} (want {want_k2}), K1 {k1}")
+        f"K2 {k2} (want {want_k2}), unfused limb products {unfused}, K1 "
+        f"{k1}")
     check(k2 == want_k2 and k1 == 0,
           f"dd potrf launched K2 {k2} (want {want_k2}) and K1 {k1} times")
+    check(unfused == 0, f"{unfused} dd potrf limb products took the "
+                        f"unfused route")
     check(bool(torch.isfinite(L.to_dense()).all()), "dd factor not finite")
     record["dpotrf_dd"] = {
         "N": N_DD, "nb": NB_DD, "best_s": op["best_s"],
         "gflops": op["gflops"], "warmup_s": op["warmup_s"],
         "k2_launches_per_factorization": op["k2_launches"],
         "k2_launches_direct_call": k2, "k1_launches_direct_call": k1,
+        "unfused_direct_call": unfused,
         "checks": run["checks"]}
     del L
 
@@ -1420,6 +1566,8 @@ def phase_dpotrf_dd(torch, pk, pdd, record):
 
 
 def phase_dpotrf_dd_profile(torch, record):
+    """One dd factorization under torch.profiler: K2 must be in it and
+    no cuBLAS int8 GEMM (the limb products are all K2's)."""
     from dplasma_tpu_torch.ops import generators
     from dplasma_tpu_torch.ops import potrf as potrf_mod
     from dplasma_tpu_torch.utils import config as cfg
@@ -1428,6 +1576,13 @@ def phase_dpotrf_dd_profile(torch, record):
     with cfg.override_scope({"dd_gemm": "always"}):
         _profile(torch, record, "dpotrf_dd_profile",
                  f"N={N_DD} nb={NB_DD} dd", lambda: potrf_mod.potrf(A, "L"))
+    prof = record["dpotrf_dd_profile"]
+    if prof["busy_ms"] is None:
+        return
+    names = prof["all_kernels_ms"]
+    lib = sorted(n for n in names if any(k in n for k in INT8_LIBRARY))
+    check(not lib, f"the dd profile ran cuBLAS int8 GEMMs: {lib[:3]}")
+    check(any("k2_" in n for n in names), "the dd profile shows no K2")
 
 
 def phase_dd_drivers(torch, pk, pdd, record):
@@ -1451,7 +1606,7 @@ def phase_dd_drivers(torch, pk, pdd, record):
             pdd.reset_counts()
             rc = main(argv + ["-v"])
             torch.cuda.synchronize()
-            pdd_launches = pdd.LAUNCHES
+            pdd_launches, unfused = pdd.LAUNCHES, pdd.UNFUSED
         run = common.RUNS[-1]
         op = run["ops"][0]
         launches = op["k2_launches"]
@@ -1467,6 +1622,8 @@ def phase_dd_drivers(torch, pk, pdd, record):
                                          f"{launches}")
         check(all(n == 0 for n in op["k1_launches"]),
               f"{argv[0]}: K1 launches {op['k1_launches']}")
+        check(unfused == 0, f"{argv[0]}: {unfused} limb products took the "
+                            f"unfused route")
         if argv[0] == "testing_dgemm":
             k2_dgemm = pdd_launches
         out[f"{argv[0]} {' '.join(argv[1:])} {mca or 'native'}"] = {
@@ -1846,6 +2003,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from dplasma_tpu_torch.kernels import dd
     from dplasma_tpu_torch.kernels import pallas_dd as pdd
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
     from dplasma_tpu_torch.kernels import pallas_lu as plu
@@ -1861,7 +2019,7 @@ def main() -> int:
     k1luqr = phase_k1_lu_qr(torch, pk, record)
     k3tot, npan = phase_k3(torch, plu, record)
     k4tot, nqpan = phase_k4(torch, pqr, record)
-    k2tot, nk2 = phase_k2(torch, pdd, record)
+    k2tot, nk2 = phase_k2(torch, dd, pdd, record)
     phase_int_mm_layouts(torch, record)
     k5tot = phase_k5(torch, pring, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
@@ -1922,7 +2080,7 @@ def main() -> int:
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
-        {"name": "k2_recombine", "route": "cuda",
+        {"name": "k2_limb_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
          "launches": k2_dpotrf + k2_dgemm,
@@ -1930,8 +2088,12 @@ def main() -> int:
                               "dgemm_dd": k2_dgemm},
          "max_abs_err": k2tot["max_abs_err"],
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
-         "bound_ms": k2tot["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
+         "library_ms": k2tot["library_ms"],
+         "limb_levels_ms": k2tot["limb_levels_ms"],
+         "dgemm": {k: record["k2_main_path"]["dgemm"][k]
+                   for k in ("ms", "limb_levels_ms", "plain_ms",
+                             "bound_ms", "library_ms")}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
@@ -1967,7 +2129,12 @@ def main() -> int:
         f"panels of one sgeqrf factorization (N={N_QR}, nb={NB_QR}; "
         f"library = torch.geqrf on cuSOLVER); K2's over the {nk2} "
         f"launches of one dd dpotrf factorization (N={N_DD}, nb={NB_DD}; "
-        f"no single PyTorch call computes it: library null); launches "
+        f"K2 is the whole limb product with its recombine; library = "
+        f"native FP64 torch.addmm on the f64 operands, not the same bits; "
+        f"limb_levels_ms = the unfused route's int8 products and level "
+        f"sums on torch._int_mm; bound = max(int8 operations at "
+        f"{INT8_OPS / 1e12:.0f} TOP/s, bytes at HBM rate); dgemm = one "
+        f"dd product at {N_DD}^3); launches "
         f"count each main-path driver run (warm-up, timed run, -x check), "
         f"K2's the direct dpotrf call and the dgemm driver run; K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "

@@ -4,25 +4,30 @@ Ports the Cholesky/GEMM part of ``dplasma_tpu/kernels/dd.py`` (:1-331,
 :333-454, :456-541, :591-701, :782-889). Each f64 operand is scaled
 (per A-row / per B-column, by a power of two read from the exponent
 field) and split EXACTLY into ``nl`` limbs of ``w = 7`` bits stored as
-int8 digits. Limb-pair products accumulate exactly in int32
-(``torch._int_mm``; chunk bound ``nl·kc·127² < 2^31``), and only the
-``nl`` level sums touch f64, in the epilogue ``base − (sa·sb)·Σ_l
-levels[l]·2^(−w(l+2))`` that kernel K2 (``kernels/pallas_dd.py``,
-``csrc/recombine.cu``) computes on the card.
+int8 digits. Limb-pair products accumulate exactly in int32 (chunk bound
+``nl·kc·127² < 2^31``), and only the ``nl`` level sums touch f64, in the
+epilogue ``base − (sa·sb)·Σ_l levels[l]·2^(−w(l+2))``. On the card every
+unchunked product is ONE launch of kernel K2 (``kernels/pallas_dd.py``,
+``csrc/recombine.cu``), the int8 tensor-core product with that epilogue
+fused (:func:`_limb_product_base`); the plain route (``torch._int_mm``
+per left limb, the level adds, the plain recombine) takes the rest.
 
 Everything here is the reference's true-f64 branch (Hopper and the CPU
 have f64 ALUs); the float-float digit split ``_split_fixed_ff`` waits
 for a later slice. Differences from the reference, none of which
 changes a number:
 
-* ``_limb_levels`` returns one (nl, M, N) tensor (int32 unchunked, f64
-  chunked), accumulated in place, so K2 reads it without a stack copy;
-  the right limbs are concatenated once, K-contiguous.
+* The limbs of an operand are one (nl, rows, K) int8 tensor, K-major,
+  its rows padded to 16 bytes (what TMA reads without a copy); the right
+  operand's limbs are split from Bᵀ's rows, so both are K-major.
+* ``_limb_levels`` (the plain route) returns one (nl, M, N) tensor
+  (int32 unchunked, f64 chunked), accumulated in place; the right limbs
+  are concatenated once, K-contiguous.
 * The blocked Cholesky keeps its limb cache row-major,
   ``W[l, row, col]``, so both operands of the trailing product are
-  K-contiguous (the reference stores the transpose, the layout the
-  TPU's MXU prefers), and works on the live rows of each block column
-  (the reference's fixed (N, nb) slab and rolled scales exist for
+  K-major views of it (the reference stores the transpose, the layout
+  the TPU's MXU prefers), and works on the live rows of each block
+  column (the reference's fixed (N, nb) slab and rolled scales exist for
   XLA's compile cache).
 * ``_pin_cat_axis`` has no counterpart: it only matters under a device
   mesh, which waits for the distribution slice.
@@ -47,11 +52,10 @@ def _plan(K: int, bits: int):
     """Limb width/count and chunk depth for a K-deep product: nl covers
     the requested mantissa; kc bounds the per-chunk depth so the worst
     level sum (nl pair products of kc-deep 7-bit digit dots) stays exact
-    in int32: nl·kc·(2^w − 1)² < 2^31."""
+    in int32: nl·kc·(2^w − 1)² < 2^31 (:func:`pallas_dd.max_depth`)."""
     w = W8
     nl = math.ceil((bits + 1) / w)
-    kc = (2 ** 31 - 1) // (nl * (2 ** w - 1) ** 2)
-    return w, nl, min(K, kc)
+    return w, nl, min(K, _pdd.max_depth(nl))
 
 
 # The chunk depth at 53 bits for deep K (tests poke it).
@@ -67,14 +71,15 @@ def _pow2_scale_bits(m):
     return (e << 52).view(_F64)
 
 
-def _split_fixed(x, scale, w: int, nl: int):
+def _split_fixed(x, scale, w: int, nl: int, out=None):
     """Exact limb split with a caller-supplied power-of-two scale
     (requires |x| <= scale/2): x == scale · Σ_l limbs[l]·2^(−w(l+1)) up
     to the dropped tail. Digits are read straight from the f64 bit
     pattern (shifted mantissa windows); the arithmetic ``>>`` on int64 is
     harmless because the exponent is masked and the sign read from bit
     63, and the shift counts are clipped to [0, 63] as in the
-    reference."""
+    reference. Writes the nl int8 limbs into ``out`` (nl, *x.shape), a
+    new tensor when None, and returns it."""
     p = x.to(_F64).view(torch.int64)
     e_x = (p >> 52) & 0x7FF
     mant = torch.where(e_x > 0, (p & ((1 << 52) - 1)) | (1 << 52),
@@ -83,21 +88,38 @@ def _split_fixed(x, scale, w: int, nl: int):
     e_s = (torch.as_tensor(scale).to(_F64).view(torch.int64) >> 52) & 0x7FF
     t0 = 52 - (e_x - e_s)           # bit offset of limb l's LSB: t0 - w(l+1)
     mask = 2 ** w - 1
-    limbs = []
+    if out is None:
+        out = torch.empty((nl, *x.shape), dtype=torch.int8, device=x.device)
     for l in range(nl):
         t = t0 - w * (l + 1)
         d = ((mant >> t.clamp(0, 63)) << (-t).clamp(0, 63)) & mask
-        limbs.append((sgn * d).to(torch.int8))
-    return limbs
+        out[l].copy_(sgn * d)
+    return out
 
 
-def _split_int(x, w: int, nl: int, axis: int):
+def _split_int(x, w: int, nl: int, axis: int, out=None):
     """Row- (axis 0) or column- (axis 1) scaled limb split. Returns
     (limbs, scale, m): ``m`` is the row/column max the scale derives
-    from, which callers reuse for NaN/Inf detection."""
+    from, which callers reuse for NaN/Inf detection; ``out`` as in
+    :func:`_split_fixed`."""
     m = torch.amax(torch.abs(x), dim=1 - axis, keepdim=True)
     scale = _pow2_scale_bits(m)
-    return _split_fixed(x, scale, w, nl), scale, m
+    return _split_fixed(x, scale, w, nl, out=out), scale, m
+
+
+def _limb_planes(nl: int, rows: int, K: int, device):
+    """An (nl, rows, K) int8 buffer for limbs, K-major, each row padded
+    to a multiple of 16 bytes (TMA's stride rule: K2 reads it as is)."""
+    return torch.empty((nl, rows, -(-K // 16) * 16), dtype=torch.int8,
+                       device=device)[:, :, :K]
+
+
+def _split_rows(x, w: int, nl: int):
+    """Row-scaled limbs of x (rows, K) as (nl, rows, K) planes: (limbs,
+    scale (rows, 1), row max). The right operand of a product B (K, N)
+    goes in as Bᵀ: its row scales are B's column scales, its digits B's
+    digits."""
+    return _split_int(x, w, nl, 0, out=_limb_planes(nl, *x.shape, x.device))
 
 
 def _level_recombine(levels, w: int):
@@ -113,9 +135,11 @@ def _imm(a, b):
     """Exact int8 (M, K) @ (K, N) -> int32 by ``torch._int_mm``. On the
     card it takes M > 16 and K, N multiples of 8, and its int8 product
     runs ~7x faster with both operands K-contiguous (A row-major, B
-    column-major; any leading dimension) than in the other three layouts
-    (chip_smoke.py, PERF.md). Other operands are copied once into that
-    form, zero-padded: zeros add nothing to an integer sum."""
+    column-major; a leading dimension that is a multiple of 8) than in
+    the other three layouts (chip_smoke.py, PERF.md); cuBLASLt refuses a
+    base address that is not 16-byte aligned. Other operands are copied
+    once into that form, zero-padded: zeros add nothing to an integer
+    sum."""
     if a.device.type != "cuda":
         return torch._int_mm(a, b)
     M, K = a.shape
@@ -123,7 +147,8 @@ def _imm(a, b):
     Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
 
     def k_major(x, rows):          # x (rows, Kp) with K contiguous
-        return x.shape == (rows, Kp) and x.stride(1) == 1
+        return (x.shape == (rows, Kp) and x.stride(1) == 1
+                and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0)
 
     if not k_major(a, Mp):
         ap = torch.zeros((Mp, Kp), dtype=torch.int8, device=a.device)
@@ -174,13 +199,37 @@ def _limb_levels(al, bl, K: int, w: int, nl: int, kc: int,
 
 
 def _recombine_scale_base(levels, base, sa, sb, w: int):
-    """``base − (sa·sb)·Σ_l levels[l]·2^(−w(l+2))`` — the epilogue that
-    closes every exact limb product: K2 where :func:`pallas_dd.eligible`
-    holds (unchunked int32 levels), else the exact plain recombine."""
-    if _pdd.eligible(levels):
+    """``base − (sa·sb)·Σ_l levels[l]·2^(−w(l+2))`` — the plain route's
+    epilogue: :func:`pallas_dd.recombine_base` for unchunked int32
+    levels on the CPU where :func:`pallas_dd.eligible` holds (the
+    reference's K2 gate), else the exact plain recombine."""
+    if levels.device.type == "cpu" and _pdd.eligible(levels):
         return _pdd.recombine_base(levels, base, sa, sb, w)
     prod = _level_recombine(levels, w) * (sa * sb)
     return -prod if base is None else base - prod
+
+
+def _limb_product_base(al, bl, base, sa, sb, K: int, w: int, nl: int,
+                       kc: int):
+    """``base − (sa·sb)·Σ_l 2^(−w(l+2))·Σ_{i+j=l} al[i] @ bl[j]ᵀ``, the
+    exact limb product and its epilogue; with ``sa``/``sb`` None (and no
+    base) the unscaled level recombine. ``al`` (nl, M, K) and ``bl``
+    (nl, N, K) int8 planes, K-major.
+
+    On the card an unchunked product (K <= kc) with MCA ``dd_epilogue``
+    not ``off`` is one launch of K2 (:func:`pallas_dd.limb_product_base`).
+    Every other product takes the plain route, the reference's
+    ``_recombine_scale_base(_limb_levels(...))``, and on the card adds
+    one to ``pallas_dd.UNFUSED``."""
+    cuda = al.device.type == "cuda"
+    if cuda and K <= kc and _pdd.fused():
+        return _pdd.limb_product_base(al, bl, base, sa, sb, w)
+    if cuda:
+        _pdd.UNFUSED += 1
+    levels = _limb_levels(list(al), [x.T for x in bl], K, w, nl, kc)
+    if sa is None:
+        return _level_recombine(levels, w)
+    return _recombine_scale_base(levels, base, sa, sb, w)
 
 
 def gemm_residual(base, a, b, bits: int = 53):
@@ -191,10 +240,10 @@ def gemm_residual(base, a, b, bits: int = 53):
     b = b.to(_F64)
     K = a.shape[1]
     w, nl, kc = _plan(K, bits)
-    al, sa, _ = _split_int(a, w, nl, axis=0)
-    bl, sb, _ = _split_int(b, w, nl, axis=1)
-    levels = _limb_levels(al, bl, K, w, nl, kc)
-    return _recombine_scale_base(levels, base.to(_F64), sa, sb, w)
+    al, sa, _ = _split_rows(a, w, nl)
+    bl, sb, _ = _split_rows(b.T, w, nl)
+    return _limb_product_base(al, bl, base.to(_F64), sa, sb.T, K, w, nl,
+                              kc)
 
 
 def gemm_f64(a, b, bits: int = 53, _nonfinite_mask: bool = True):
@@ -208,14 +257,13 @@ def gemm_f64(a, b, bits: int = 53, _nonfinite_mask: bool = True):
     b = b.to(_F64)
     K = a.shape[1]
     w, nl, kc = _plan(K, bits)
-    al, sa, ma = _split_int(a, w, nl, axis=0)   # row-scaled
-    bl, sb, mb = _split_int(b, w, nl, axis=1)   # col-scaled
-    levels = _limb_levels(al, bl, K, w, nl, kc)
+    al, sa, ma = _split_rows(a, w, nl)      # row-scaled
+    bl, sb, mb = _split_rows(b.T, w, nl)    # B's columns, K-major
+    out = _limb_product_base(al, bl, None, -sa, sb.T, K, w, nl, kc)
     del al, bl
-    out = _recombine_scale_base(levels, None, -sa, sb, w)
     if not _nonfinite_mask:
         return out
-    bad = ~torch.isfinite(ma) | ~torch.isfinite(mb)
+    bad = ~torch.isfinite(ma) | ~torch.isfinite(mb.T)
     return torch.where(bad, torch.full((), float("nan"), dtype=_F64,
                                        device=out.device), out)
 
@@ -380,19 +428,29 @@ def _row_norm_scales(diag):
     return _pow2_scale_bits(torch.sqrt(torch.clamp(diag, min=tiny)))
 
 
+def _k_major(limbs):
+    """nl limbs given (K, R) each, as in the reference — a sequence, or a
+    (nl, K, R) view such as the blocked sweep's cache — as (nl, R, K)
+    planes: a view of a tensor, a stack of a sequence."""
+    if torch.is_tensor(limbs):
+        return limbs.transpose(1, 2)
+    return torch.stack([x.T for x in limbs])
+
+
 def _pair_dot_base(al, bl, base, sa, sb, K: int, w: int, nl: int,
                    kc: int):
     """``base − (sa·sb)·pair-dot`` with the epilogue fused (the trailing
-    update of the blocked sweep). ``al`` (K, M) and ``bl`` (K, N)."""
-    levels = _limb_levels(al, bl, K, w, nl, kc, lhs_t=True)
-    return _recombine_scale_base(levels, base, sa, sb, w)
+    update of the blocked sweep). ``al`` nl (K, M) and ``bl`` nl (K, N)
+    limbs (:func:`_k_major`)."""
+    return _limb_product_base(_k_major(al), _k_major(bl), base, sa, sb, K,
+                              w, nl, kc)
 
 
 def _pair_dot(al, bl, K: int, w: int, nl: int, kc: int):
     """Unscaled limb product Σ_l 2^(−w(l+2)) Σ_{i+j=l} al[i]ᵀ @ bl[j],
-    ``al`` (K, M) and ``bl`` (K, N)."""
-    return _level_recombine(
-        _limb_levels(al, bl, K, w, nl, kc, lhs_t=True), w)
+    ``al`` nl (K, M) and ``bl`` nl (K, N) limbs (:func:`_k_major`)."""
+    return _limb_product_base(_k_major(al), _k_major(bl), None, None, None,
+                              K, w, nl, kc)
 
 
 def _potrf_tile_ir(Akk, refine: int = 3, newton: int = 2,
@@ -475,8 +533,10 @@ def potrf_f64_blocked(A, nb: int = 512, lower: bool = True,
     w, nl, _ = _plan(N, 53)
     scale = _row_norm_scales(torch.diagonal(A))[:, None]
     # limb cache W[l, row, col] of the finished columns: rows s.. of
-    # column block k live at W[:, s:, s:s+nb]
-    W = torch.zeros((nl, N, N - nb), dtype=torch.int8, device=A.device)
+    # column block k live at W[:, s:, s:s+nb]; rows padded to 16 bytes,
+    # so every product reads K-major views of it with no copy
+    W = torch.zeros((nl, N, -(-(N - nb) // 16) * 16), dtype=torch.int8,
+                    device=A.device)[:, :, :N - nb]
     out = torch.zeros((N, N), dtype=_F64, device=A.device)
     for k in range(nt):
         s = k * nb
@@ -484,8 +544,8 @@ def potrf_f64_blocked(A, nb: int = 512, lower: bool = True,
         if k:
             _, _, kc = _plan(s, 53)
             slab = _pair_dot_base(
-                [W[i, s:, :s].T for i in range(nl)],
-                [W[i, s:s + nb, :s].T for i in range(nl)], slab,
+                W[:, s:, :s].transpose(1, 2),
+                W[:, s:s + nb, :s].transpose(1, 2), slab,
                 scale[s:], scale[s:s + nb].T, K=s, w=w, nl=nl, kc=kc)
         Lkk, _ = _potrf_tile_ir(slab[:nb], refine=refine,
                                 need_inverse=False)
@@ -494,7 +554,6 @@ def potrf_f64_blocked(A, nb: int = 512, lower: bool = True,
             pan = _panel_trsm_ir(Lkk, slab[nb:])
             out[s + nb:, s:s + nb] = pan
             if k + 1 < nt:
-                limbs = _split_fixed(out[s:, s:s + nb], scale[s:], w, nl)
-                for i in range(nl):
-                    W[i, s:, s:s + nb] = limbs[i]
+                _split_fixed(out[s:, s:s + nb], scale[s:], w, nl,
+                             out=W[:, s:, s:s + nb])
     return out

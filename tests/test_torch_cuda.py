@@ -18,10 +18,13 @@ memory between the cluster's SMs would show as an occasional
 difference). K4, max|Δpacked|/max|packed| <= 1e-4 and max|Δtau| <= 1e-4
 (it sums in another order than the plain version), the Q rebuilt from
 its output passes the reference's QR checks (< 60), and two launches
-agree bitwise (its sums run in a fixed order). K2, bitwise equal to
-its plain version (every operation in its chain is exact but the last
-rounding, which both make the same); the dd products it closes are
-therefore bitwise equal on the card and on the CPU. K5, bitwise equal to
+agree bitwise (its sums run in a fixed order). K2 (the int8 limb
+product with the recombine fused), bitwise equal to its plain version
+(integer sums are exact in any order within int32, and every operation
+of the f64 epilogue is exact but the last rounding, which both make the
+same), also split over K and over 1000 back-to-back launches; the dd
+products it closes are therefore bitwise equal on the card and on the
+CPU. K5, bitwise equal to
 its plain version (it moves bytes), also over many launches on one flag
 buffer (flags are never reset), and the cyclic factorizations' ring
 route ``torch.equal`` to their psum route.
@@ -350,53 +353,133 @@ def test_sgeqrf_on_card_routes_every_panel_and_product(card, k1_on):
     assert ok, r
 
 
-def _k2_inputs(card, nl, M, N, seed, lo=-2 ** 30, hi=2 ** 30):
+def _k2_operands(card, nl, M, N, K, seed, *, digits=None):
+    """Limb planes (nl, M, K) and (nl, N, K) of random f64 operands split
+    as the dd route splits them (``dd._split_rows``), their scales, and a
+    base; ``digits`` fills every digit with that value instead."""
     g = torch.Generator(device=card).manual_seed(seed)
-    lv = torch.randint(lo, hi, (nl, M, N), device=card, generator=g,
-                       dtype=torch.int32)
-    sa = 2.0 ** torch.randint(-3, 4, (M, 1), device=card, generator=g)
-    sb = 2.0 ** torch.randint(-3, 4, (1, N), device=card, generator=g)
+    a = torch.randn(M, K, device=card, generator=g, dtype=torch.float64)
+    b = torch.randn(N, K, device=card, generator=g, dtype=torch.float64)
+    w, _, _ = dd._plan(K, 53)
+    al, sa, _ = dd._split_rows(a, w, nl)
+    bl, sb, _ = dd._split_rows(b, w, nl)
+    if digits is not None:
+        al.fill_(digits)
+        bl.fill_(digits)
     base = torch.randn(M, N, device=card, generator=g,
                        dtype=torch.float64) * 8.0
-    return lv, base, sa.double(), sb.double()
+    return al, bl, base, sa, sb.T
 
 
-def _k2_check(lv, base, sa, sb, w=7):
-    launches = pdd.LAUNCHES
-    got = pdd.recombine_base(lv, base, sa, sb, w)
+def _k2_check(al, bl, base, sa, sb, w=7):
+    """The fused kernel, one launch, bitwise equal to its plain version."""
+    launches, unfused = pdd.LAUNCHES, pdd.UNFUSED
+    got = pdd.limb_product_base(al, bl, base, sa, sb, w)
     torch.cuda.synchronize()
-    assert pdd.LAUNCHES == launches + 1
-    want = pdd.recombine_base_reference(lv, base, sa, sb, w)
+    assert (pdd.LAUNCHES, pdd.UNFUSED) == (launches + 1, unfused)
+    want = pdd.limb_product_base_reference(al, bl, base, sa, sb, w)
     assert got.dtype == torch.float64 and got.shape == want.shape
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    return got
 
 
-@pytest.mark.parametrize("nl,M,N", [(8, 1000, 300), (5, 1000, 300),
-                                    (8, 7680, 512), (5, 512, 512),
-                                    (8, 1, 1), (3, 17, 9)])
-def test_k2_matches_plain_version_bitwise(card, nl, M, N):
-    lv, base, sa, sb = _k2_inputs(card, nl, M, N, seed=nl + M)
-    _k2_check(lv, base, sa, sb)
-    _k2_check(lv, None, -sa, sb)          # the gemm_f64 form
+@pytest.mark.parametrize("nl,M,N,K", [(8, 1000, 300, 777),
+                                      (5, 1000, 300, 777),
+                                      (8, 7680, 512, 512),
+                                      (5, 512, 512, 512), (8, 1, 1, 1),
+                                      (3, 17, 9, 13), (8, 130, 70, 1100)])
+def test_k2_matches_plain_version_bitwise(card, nl, M, N, K):
+    al, bl, base, sa, sb = _k2_operands(card, nl, M, N, K, seed=nl + M)
+    _k2_check(al, bl, base, sa, sb)
+    _k2_check(al, bl, None, -sa, sb)          # the gemm_f64 form
+    _k2_check(al, bl, None, None, None)       # _pair_dot's unscaled form
+    # K not a multiple of 16 in contiguous planes: TMA needs the copy
+    contiguous = al.contiguous(), bl.contiguous()
+    assert pdd.plan_for(*contiguous).a_copy == (K % 16 != 0)
+    _k2_check(*contiguous, base, sa, sb)
 
 
-def test_k2_strided_base_and_extreme_levels(card):
-    lv, _, sa, sb = _k2_inputs(card, 8, 640, 128, seed=9,
-                               lo=-(2 ** 31 - 1), hi=2 ** 31)
-    lv[:, :4] = 2 ** 31 - 1
-    lv[:, 4:8] = -(2 ** 31 - 1)
+@pytest.mark.parametrize("nl", [8, 5])
+def test_k2_strided_base_and_extreme_levels(card, nl):
+    """Every digit +127 (or -127 in B) at K = the int32 bound: every
+    level sum at its largest; the base a view and a transposed view."""
+    K = pdd.max_depth(nl)
+    al, bl, _, sa, sb = _k2_operands(card, nl, 192, 130, K, seed=9,
+                                     digits=127)
+    bl.neg_()
     A = torch.randn(2048, 2048, device=card, dtype=torch.float64)
-    _k2_check(lv, A[1000:1640, 512:640], sa, sb)      # a view of A
-    _k2_check(lv, A[512:640, 1000:1640].T, sa, sb)    # a transposed view
+    _k2_check(al, bl, A[1000:1192, 512:642], sa, sb)     # a view of A
+    _k2_check(al, bl, A[512:642, 1000:1192].T, sa, sb)   # transposed
+    _k2_check(al, bl, None, -sa, sb)
+
+
+def test_k2_cache_views_at_several_k(card):
+    """The blocked sweep's trailing product: K-major views of one limb
+    cache W[l, row, col] handed over with no copy, at several k."""
+    N, nb = 2048, 256
+    g = torch.Generator(device=card).manual_seed(11)
+    F = torch.randn(N, N - nb, device=card, generator=g,
+                    dtype=torch.float64)
+    scale = dd._row_norm_scales(torch.full((N,), float(N), device=card,
+                                           dtype=torch.float64))[:, None]
+    w, nl, _ = dd._plan(N, 53)
+    W = torch.zeros((nl, N, N - nb), dtype=torch.int8, device=card)
+    dd._split_fixed(F * 8.0, scale, w, nl, out=W)   # |x| < scale/2
+    A = torch.randn(N, N, device=card, generator=g, dtype=torch.float64)
+    for k in (1, 2, 5, 7):
+        s = k * nb
+        al, bl = W[:, s:, :s], W[:, s:s + nb, :s]
+        p = pdd.plan_for(al, bl)
+        assert not (p.a_copy or p.b_copy), p
+        _k2_check(al, bl, A[s:, s:s + nb], scale[s:], scale[s:s + nb].T)
+
+
+def test_k2_split_shapes_and_many_launches(card):
+    """Products whose tiles are too few to fill the card split over K in
+    the launch; 1000 back-to-back launches each give the same bits (the
+    workspace and counters are left zero by every launch)."""
+    for nl, M, N, K in ((8, 512, 512, 512), (5, 512, 512, 512),
+                        (8, 512, 512, 7680), (8, 100, 70, 3000)):
+        al, bl, base, sa, sb = _k2_operands(card, nl, M, N, K, seed=K + M)
+        assert pdd.plan_for(al, bl).splits > 1
+        _k2_check(al, bl, base, sa, sb)
+    al, bl, base, sa, sb = _k2_operands(card, 8, 512, 512, 512, seed=3)
+    want = pdd.limb_product_base_reference(al, bl, base, sa, sb, 7)
+    for i in range(1000):
+        got = pdd.limb_product_base(al, bl, base, sa, sb, 7)
+        assert torch.equal(got.view(torch.int64),
+                           want.view(torch.int64)), i
+
+
+def test_k2_misaligned_operand_is_padded_not_rerouted(card):
+    """An operand TMA cannot describe (an odd base address, an odd row
+    stride) is copied once into an aligned buffer and still launches the
+    fused kernel."""
+    al, bl, base, sa, sb = _k2_operands(card, 8, 300, 200, 528, seed=4)
+    buf = torch.zeros((8, 300, 530), dtype=torch.int8, device=card)
+    buf[:, :, 1:529] = al
+    odd = buf[:, :, 1:529]                       # base address + 1
+    assert pdd.plan_for(odd, bl).a_copy
+    routed = pdd.ROUTED
+    _k2_check(odd, bl, base, sa, sb)
+    assert pdd.ROUTED == routed + 1
+    odd_rows = bl[:, :, :527].contiguous()       # row stride 527
+    assert pdd.plan_for(al[:, :, :527], odd_rows).b_copy
+    _k2_check(al[:, :, :527], odd_rows, base, sa, sb)
 
 
 def test_k2_only_cpu_takes_the_plain_version(card):
-    lv, base, sa, sb = _k2_inputs(card, 8, 64, 64, seed=2)
+    al, bl, base, sa, sb = _k2_operands(card, 8, 64, 64, 96, seed=2)
     routed, launches = pdd.ROUTED, pdd.LAUNCHES
-    pdd.recombine_base(lv.cpu(), base.cpu(), sa.cpu(), sb.cpu(), 7)
+    got = pdd.limb_product_base(al.cpu(), bl.cpu(), base.cpu(), sa.cpu(),
+                                sb.cpu(), 7)
     assert (pdd.ROUTED, pdd.LAUNCHES) == (routed + 1, launches)
+    assert torch.equal(got, _k2_check(al, bl, base, sa, sb).cpu())
     with pytest.raises(ValueError, match="different devices"):
-        pdd.recombine_base(lv, base.cpu(), sa, sb, 7)
+        pdd.limb_product_base(al, bl, base.cpu(), sa, sb, 7)
+    lv = torch.zeros((8, 64, 64), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="fused"):
+        pdd.recombine_base(lv, base, sa, sb, 7)
 
 
 @pytest.mark.parametrize("M,K,N,view", [(300, 200, 100, False),
@@ -430,11 +513,12 @@ def test_dpotrf_dd_on_card_routes_every_product(card):
     from dplasma_tpu_torch.ops import checks, generators, potrf
     from dplasma_tpu_torch.utils import config as cfg
     A = generators.plghe(2048.0, 2048, 512, seed=3, dtype=torch.float64)
-    k1, k2 = pk.LAUNCHES, pdd.LAUNCHES
+    k1, k2, unfused = pk.LAUNCHES, pdd.LAUNCHES, pdd.UNFUSED
     with cfg.override_scope({"dd_gemm": "always"}):
         L = potrf.potrf(A, "L")
     torch.cuda.synchronize()
     assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 17)
+    assert pdd.UNFUSED == unfused
     r, ok = checks.check_potrf(A, L, "L")
     assert ok, r
     L64 = torch.linalg.cholesky(A.to_dense().cpu())
