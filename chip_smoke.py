@@ -86,6 +86,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    K5 broadcasts per factorization, ``check_potrf`` on ``to_tile()``,
    the ring route ``torch.equal`` to the psum route, and its time beside
    spotrf's on one card.
+11. the f64-equivalent LU and QR routes (``dd_gemm=always``):
+   ``testing_dgetrf`` and ``testing_dgesv -N 8192 -t 256 -x``,
+   ``testing_dgeqrf -N 8192 -t 1024 -x`` under the default settings
+   (``auto``: the tree panels on the card) and on the chain panels, and
+   ``testing_dgels -N 8192 -t 1024 -K 16 -x``, each beside native FP64,
+   every timed run's K2 and K1 launches equal to the ops/lu.py and
+   ops/qr.py counts; ``testing_dgetrf -N 8192 -t 1024`` (the ladder's
+   ``dgetrf_f64equiv`` size) timed with its launches gated and its
+   residual logged — there the LU's K = 1024 limb residuals leave the
+   route's accuracy envelope, the reference's as the port's (PERF.md);
+   one direct ``getrf_1d`` at nb=256 with ``panel.kernel=pallas``
+   (counts zeroed just before and read just after: 32 K3 launches on the
+   f32 seeds, the docstring's K2 count, no unfused product),
+   ``torch.equal`` to the same call under ``lu.agg_depth=1``; direct
+   ``geqrf`` calls at nb=1024 on the chain and tree panels with their K2
+   and K1 counts and the -x checks; small factorizations against numpy
+   float64; three factorizations under ``torch.profiler``.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -99,7 +116,9 @@ distinct product shape of phases 9 and 10 too (their slab-wide trailing
 and lookahead products, with B strided as the bodies hand it over). Phase 2 also holds K2 (the dd route's recombine epilogue) against
 its plain version, bitwise, on ragged shapes, a strided base, extreme levels
 and every shape that one dpotrf factorization and one dgemm product give
-it, and times ``torch._int_mm`` (the dd route's int8 products) in its
+it, and on every distinct limb product of one dgetrf dd and one dgeqrf dd
+factorization at N=8192 (recorded through the wrapper, held on the path's
+own operands, timed times its count), and times ``torch._int_mm`` (the dd route's int8 products) in its
 four operand layouts.
 
 It prints the card's name and power limit, one JSON line describing
@@ -130,6 +149,9 @@ N_LU, NB_LU = 8192, 256
 N_QR, NB_QR = 8192, 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 N_DD, NB_DD = 8192, 512   # bench.py's dpotrf_f64equiv size (:18, :499)
+# bench.py's dgetrf_f64equiv / dgeqrf_f64equiv size (:508-513, :644-647)
+N_DDF, NB_DDF = 8192, 1024
+NB_DDK3 = 256             # the dd getrf whose f32 seeds all pass K3's gate
 GRID = (2, 2)             # the distributed paths' P x Q virtual mesh
 N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
 N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
@@ -302,6 +324,44 @@ def qr_k1_products(kt):
     with every dimension >= 256, for kt a multiple of 4 (the count that
     the ops/qr.py docstring derives)."""
     return int(11.5 * kt - 24)
+
+
+def agg_applies(kt, d):
+    """Far applies of one square QR sweep of kt panels at lookahead 1
+    with the far update flushed every d panels: at each step k <= kt − 3
+    either a flush of d held panels (k mod d = d − 1) or the catch-up of
+    the peeled column by the k mod d + 1 held ones — k mod d + 1 applies
+    either way."""
+    return sum(k % d + 1 for k in range(kt - 2))
+
+
+def dd_lu_k2(kt):
+    """K2 launches of one square dd ``getrf_1d`` of kt panels (the
+    ops/lu.py docstring): 4 ``lu_ir`` residuals a panel, 3 a block apply
+    (the U solve's 2 residuals and the Schur product), 2·kt − 3 applies
+    whatever MCA ``lu.agg_depth`` says."""
+    return 10 * kt - 9
+
+
+def dd_qr_k2(kt, d, kind):
+    """K2 launches of one square dd ``geqrf`` of kt panels (the ops/qr.py
+    docstring): 27 a ``geqrt_f64`` panel (21 a ``geqrt_f64_tree`` one),
+    19 for the last (square: a tree panel of nb rows, no V2 solve), 3 a
+    compact-WY apply, a flush of d panels 3·d (its d − 1 ``wy_merge``s
+    and one apply)."""
+    per = 27 if kind == "chain" else 21
+    return per * (kt - 1) + 19 + 3 * (kt - 1 + agg_applies(kt, d))
+
+
+def nopiv_k1(n, base=32):
+    """K1 products of one ``blas.getrf_nopiv_blocked`` of an n×n f32 tile
+    (the dd QR panel's seed): one Schur product a recursion level, K1's
+    when all of its dimensions are at least 256."""
+    if n <= base:
+        return 0
+    n1 = n // 2
+    return (int(min(n1, n - n1) >= 256) + nopiv_k1(n1, base)
+            + nopiv_k1(n - n1, base))
 
 
 def rel_fro(torch, got, want):
@@ -1087,6 +1147,123 @@ def phase_k2(torch, dd, pdd, record):
     return tot, len(shapes)
 
 
+def recorded_k2_products(torch, pdd, run):
+    """The K2 launches one call of ``run`` makes, recorded through the
+    wrapper: {(nl, M, N, K, base form): row}, each distinct shape with
+    its count, its plan (splits, aligned copies) and, from its first
+    launch, whether that launch on the path's own operands was bitwise
+    equal to limb_product_base_reference (and the max abs error)."""
+    seen = {}
+    orig = pdd.limb_product_base
+
+    def recorder(al, bl, base, sa, sb, w):
+        out = orig(al, bl, base, sa, sb, w)
+        nl, M, K = al.shape
+        form = ("no base" if base is None else "base" if
+                base.is_contiguous() else "strided base")
+        key = (nl, M, bl.shape[1], K, form)
+        row = seen.get(key)
+        if row is None:
+            want = pdd.limb_product_base_reference(al, bl, base, sa, sb, w)
+            p = pdd.plan_for(al, bl)
+            row = seen[key] = {
+                "count": 0, "splits": p.splits, "a_copy": p.a_copy,
+                "b_copy": p.b_copy,
+                "bitwise": bool(torch.equal(out.view(torch.int64),
+                                            want.view(torch.int64))),
+                "max_abs_err": float((out - want).abs().max())}
+        row["count"] += 1
+        return out
+
+    pdd.limb_product_base = recorder
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        pdd.limb_product_base = orig
+    return seen
+
+
+def phase_k2_lu_qr(torch, dd, pdd, pk, record):
+    """K2 on every distinct limb product of one dgetrf dd and one dgeqrf
+    dd factorization (N_DDF, NB_DDF): each recorded through the wrapper
+    and held bitwise to its plain version on the path's own operands,
+    then timed on split random operands of its shape times its count,
+    beside its int8 bound, ``dd._limb_levels`` alone and FP64 addmm."""
+    from dplasma_tpu_torch.ops import generators, lu, qr
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    g = torch.Generator(device="cuda").manual_seed(700)
+    kt, k3t = N_DDF // NB_DDF, N_DDF // NB_DDK3
+    A = generators.plrnt(N_DDF, N_DDF, NB_DDF, NB_DDF, seed=3872,
+                         dtype=torch.float64)
+    A3 = generators.plrnt(N_DDF, N_DDF, NB_DDK3, NB_DDK3, seed=3872,
+                          dtype=torch.float64)
+    out = {}
+    for path, kind, run, want in (
+            ("dgetrf_dd", "chain", lambda: lu.getrf_1d(A), dd_lu_k2(kt)),
+            (f"dgetrf_dd_nb{NB_DDK3}", "chain", lambda: lu.getrf_1d(A3),
+             dd_lu_k2(k3t)),
+            ("dgeqrf_dd", "chain", lambda: qr.geqrf(A),
+             dd_qr_k2(kt, 4, "chain")),
+            ("dgeqrf_dd_tree", "tree", lambda: qr.geqrf(A),
+             dd_qr_k2(kt, 4, "tree"))):
+        with cfg.override_scope({"dd_gemm": "always",
+                                 "panel.kernel": kind}):
+            seen = recorded_k2_products(torch, pdd, run)
+        got = sum(r["count"] for r in seen.values())
+        check(got == want, f"{path}: {got} K2 launches recorded, want "
+                           f"{want}")
+        tot = dict.fromkeys(("ms", "limb_levels_ms", "plain_ms",
+                             "library_ms", "bound_ms", "ops_bound_ms"), 0.0)
+        tot["max_abs_err"] = 0.0
+        bound_by = {"operations": 0.0, "bytes": 0.0}
+        rows = []
+        for (nl, M, N, K, form), row in sorted(seen.items()):
+            label = f"{path} nl={nl} M={M} N={N} K={K} {form}"
+            check(row["bitwise"], f"K2 differs from its plain version on "
+                                  f"{label}: max abs err "
+                                  f"{row['max_abs_err']:.3e}")
+            al, bl, sa, sb, a64, b64 = k2_operands(torch, dd, g, nl, M, N,
+                                                   K)
+            base = None if form == "no base" else torch.randn(
+                M, N, device="cuda", generator=g, dtype=torch.float64)
+            if base is None:
+                sa = -sa
+            t = k2_times(torch, dd, pdd, al, bl, base, sa, sb, a64, b64)
+            b_ms, b_by = k2_bound_ms(nl, M, N, K, base is not None)
+            t_ops = nl * (nl + 1) // 2 * 2.0 * M * N * K / INT8_OPS * 1e3
+            c = row["count"]
+            for k in ("ms", "limb_levels_ms", "plain_ms", "library_ms"):
+                tot[k] += c * t[k]
+            tot["bound_ms"] += c * b_ms
+            tot["ops_bound_ms"] += c * t_ops
+            bound_by[b_by] += c * b_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+            log(f"[k2] {label:48s} x{c:3d} splits={row['splits']} copy="
+                f"{int(row['a_copy'])}{int(row['b_copy'])} bitwise: kernel "
+                f"{t['ms']:8.4f} ms  _limb_levels {t['limb_levels_ms']:8.4f}"
+                f" ms  plain {t['plain_ms']:8.4f} ms  addmm "
+                f"{t['library_ms']:8.4f} ms  bound {b_ms:8.4f} ms ({b_by})")
+            rows.append(dict(row, **t, nl=nl, M=M, N=N, K=K, form=form,
+                             bound_ms=b_ms, bound_by=b_by))
+            del al, bl, a64, b64, base
+        tot["bound_by"] = max(bound_by, key=bound_by.get)
+        copies = [r for r in rows if r["a_copy"] or r["b_copy"]]
+        log(f"[k2] one {path}'s {got} launches ({len(rows)} shapes, N="
+            f"{N_DDF}), all bitwise equal: kernel "
+            f"{tot['ms']:.3f} ms  _limb_levels {tot['limb_levels_ms']:.3f} "
+            f"ms  plain {tot['plain_ms']:.3f} ms  bound {tot['bound_ms']:.3f}"
+            f" ms (int8 operations {tot['ops_bound_ms']:.3f} ms)  FP64 addmm "
+            f"{tot['library_ms']:.3f} ms; shapes with an aligned copy: "
+            f"{len(copies)}")
+        out[path] = dict(tot, launches=got, shapes=rows)
+    del A, A3
+    record["k2_lu_qr_paths"] = out
+    return out
+
+
 def phase_int_mm_layouts(torch, record):
     """``torch._int_mm`` (the dd route's exact int8 products) in its four
     operand layouts: A row- or column-major times B row- or
@@ -1268,7 +1445,12 @@ _CATEGORIES = (("K5 (k5_ring)", ("k5_ring",)),
                ("int8 products (torch._int_mm)", INT8_LIBRARY),
                ("cuSOLVER getrf (panel LUs)", ("getrf_pivot", "ipiv_",
                                                "create_pivot")),
+               ("cuSOLVER potrf/geqrf/larft", ("potrf", "geqrf", "geqr2",
+                                               "larf", "orgqr", "org2r")),
                ("trsm (cuBLAS)", ("trsm",)),
+               ("f32 matmuls (cuBLAS SGEMM)",
+                ("sgemm", "gemm_f32f32", ("gemm", "<float"),
+                 "splitKreduce")),
                ("cuBLAS/cuSOLVER other", ("gemm", "gemv", "geqrf",
                                            "larf", "cublas", "cusolver")),
                ("gathers (index, gather)", ("index", "gather", "Gather")),
@@ -1632,6 +1814,269 @@ def phase_dd_drivers(torch, pk, pdd, record):
             "k2_launches_run": pdd_launches, "checks": run["checks"]}
     record["dd_drivers"] = out
     return k2_dgemm
+
+
+def np_lu_nopiv(a):
+    """Unpivoted LU of a float64 numpy matrix, packed L\\U: given the
+    dd route's perm, the float64 factor of A[perm]."""
+    a = a.copy()
+    for k in range(a.shape[0] - 1):
+        a[k + 1:, k] /= a[k, k]
+        a[k + 1:, k + 1:] -= a[k + 1:, k:k + 1] * a[k:k + 1, k + 1:]
+    return a
+
+
+def dd_driver(torch, pdd, argv, mca, k1_want, k2_want, solve):
+    """One driver run (with ``-v``) under ``mca``: its record, checks
+    gated when ``-x`` is in argv, and on the dd route every timed run's
+    K1 launches equal to ``k1_want`` and its K2 launches equal to
+    ``k2_want`` (more when ``solve`` adds a solve), none unfused."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.utils import config as cfg
+    with cfg.override_scope(mca):
+        pdd.reset_counts()
+        t0 = time.perf_counter()
+        rc = main(argv + ["-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        unfused = pdd.UNFUSED
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    dd = mca.get("dd_gemm") == "always"
+    tag = " ".join(f"{k}={v}" for k, v in mca.items()) or "native FP64"
+    log(f"[{argv[0]}] {' '.join(argv[1:])} {tag}: best {op['best_s']:.5f} s "
+        f"{op['gflops']:.1f} GFLOP/s (warm-up {op['warmup_s']:.3f} s, "
+        f"driver wall {wall:.1f} s), per run K2 {op['k2_launches']} K1 "
+        f"{op['k1_launches']} K3 {op['k3_launches']}, checks " + ", ".join(
+            f"{c['check']}={c['residual']:.3e}" for c in run["checks"]))
+    check(rc == 0, f"{argv[0]} ({tag}) exited {rc}")
+    if "-x" in argv:
+        check(run["checks"] and all(c["ok"] for c in run["checks"]),
+              f"{argv[0]} ({tag}): checks {run['checks']}")
+    if dd:
+        check(all(c > k2_want if solve else c == k2_want
+                  for c in op["k2_launches"]),
+              f"{argv[0]}: K2 launches {op['k2_launches']} (want "
+              f"{'more than ' if solve else ''}{k2_want})")
+        check(all(c == k1_want for c in op["k1_launches"]),
+              f"{argv[0]}: K1 launches {op['k1_launches']} (want "
+              f"{k1_want})")
+        check(unfused == 0, f"{argv[0]}: {unfused} limb products took "
+                            f"the unfused route")
+    else:
+        check(not any(op["k2_launches"]) and not any(op["k1_launches"]),
+              f"{argv[0]} native ran K1/K2")
+    check(not any(op["k3_launches"]), f"{argv[0]}: K3 launches "
+                                      f"{op['k3_launches']}")
+    return {"argv": argv[1:], "mca": mca, "best_s": op["best_s"],
+            "gflops": op["gflops"], "warmup_s": op["warmup_s"],
+            "k2_launches": op["k2_launches"],
+            "k1_launches": op["k1_launches"], "checks": run["checks"]}
+
+
+def phase_dd_lu_qr(torch, pk, plu, pdd, record):
+    """The dd LU and QR routes: the drivers beside native FP64, direct
+    calls with every kernel count zeroed just before and read just
+    after, and small factorizations against numpy float64. Returns the
+    main path's launches {kernel: {path: n}}.
+
+    The -x checks are gated where the route holds them: LU at nb =
+    NB_DDK3, QR at NB_DDF. At the reference ladder's nb = 1024 the LU's
+    K = 1024 limb residuals leave the route's accuracy envelope, the
+    reference's as the port's (PERF.md, tools/dd_lu_envelope.py): that
+    run is timed, its counts gated, and its residual logged."""
+    import numpy as np
+    from dplasma_tpu_torch.ops import checks, generators, lu, qr
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)      # K1 on: only the QR panels' f32 seeds take it
+    dd = {"dd_gemm": "always"}
+    chain = dict(dd, **{"panel.kernel": "chain"})
+    kt, k3t = N_DDF // NB_DDF, N_DDF // NB_DDK3
+    lu_k2 = dd_lu_k2(k3t)
+    qr_k1 = kt * nopiv_k1(NB_DDF)
+    n, t, t3 = str(N_DDF), str(NB_DDF), str(NB_DDK3)
+    drivers = {}
+    for argv, mca, k1, k2, solve in (
+            (["testing_dgetrf", "-N", n, "-t", t3, "-x"], dd, 0, lu_k2,
+             False),
+            (["testing_dgesv", "-N", n, "-t", t3, "-x"], dd, 0, lu_k2, True),
+            # the default settings: auto takes the tree panels on the card
+            (["testing_dgeqrf", "-N", n, "-t", t, "-x"], dd, qr_k1,
+             dd_qr_k2(kt, 4, "tree"), False),
+            (["testing_dgeqrf", "-N", n, "-t", t, "-x"], chain, qr_k1,
+             dd_qr_k2(kt, 4, "chain"), False),
+            (["testing_dgels", "-N", n, "-t", t, "-K", "16", "-x"], dd,
+             qr_k1, dd_qr_k2(kt, 4, "tree"), True),
+            # the ladder's size, outside the LU's envelope: timed only
+            (["testing_dgetrf", "-N", n, "-t", t], dd, 0, dd_lu_k2(kt),
+             False)):
+        for m in (mca, {}):
+            key = f"{argv[0]} {' '.join(argv[1:])} {m or 'native'}"
+            if key not in drivers:
+                drivers[key] = dd_driver(torch, pdd, argv, m, k1, k2, solve)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        pk.reset_counts()
+        plu.reset_counts()
+        pdd.reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"s": time.perf_counter() - t0, "k1": pk.LAUNCHES,
+                     "k2": pdd.LAUNCHES, "k3": plu.LAUNCHES,
+                     "unfused": pdd.UNFUSED}
+
+    # getrf_1d at nb = NB_DDK3: 32 panels, K3 on the f32 seeds;
+    # lu.agg_depth 4 must be torch.equal to lu.agg_depth 1
+    A = generators.plrnt(N_DDF, N_DDF, NB_DDK3, NB_DDK3, seed=3872,
+                         dtype=torch.float64)
+    direct = {}
+    res = {}
+    for agg in (4, 1):
+        with cfg.override_scope(dict(dd, **{"panel.kernel": "pallas",
+                                             "lu.agg_depth": str(agg)})):
+            res[agg], c = counted(lambda: lu.getrf_1d(A))
+        want = dd_lu_k2(k3t)
+        log(f"[dgetrf-dd] getrf_1d N={N_DDF} nb={NB_DDK3} panel.kernel="
+            f"pallas lu.agg_depth={agg}: {c['s']:.3f} s, K3 {c['k3']} (want "
+            f"{k3t}), K2 {c['k2']} (want {want}), K1 {c['k1']}, unfused "
+            f"{c['unfused']}")
+        check(c["k3"] == k3t and c["k2"] == want and c["k1"] == 0,
+              f"dd getrf (lu.agg_depth {agg}) launches {c}")
+        check(c["unfused"] == 0, f"dd getrf: {c['unfused']} unfused")
+        direct[f"getrf_1d nb={NB_DDK3} agg={agg}"] = dict(c, k2_want=want)
+    (F4, p4), (F1, p1) = res[4], res[1]
+    same = bool(torch.equal(F4.data, F1.data) and torch.equal(p4, p1))
+    diff = float((F4.data - F1.data).abs().max())
+    log(f"[dgetrf-dd] lu.agg_depth 4 vs 1: torch.equal {same} (max abs "
+        f"diff {diff:.3e}, perm equal {bool(torch.equal(p4, p1))})")
+    check(same, f"dd getrf lu.agg_depth 4 differs from 1: {diff:.3e}")
+    B = generators.plrnt(N_DDF, 1, NB_DDK3, NB_DDK3, seed=3873,
+                         dtype=torch.float64)
+    with cfg.override_scope(dd):
+        r3, ok3 = checks.check_axmb(A, B, lu.getrs("N", F4, p4, B))
+    log(f"[dgetrf-dd] nb={NB_DDK3}: |b-Ax| of its solve {r3:.3e}")
+    check(ok3, f"dd getrf nb={NB_DDK3} solve check {r3:.3e}")
+    del A, B, F4, F1, res
+
+    # the ladder's nb: the LU's solve residual (envelope, logged)
+    A = generators.plrnt(N_DDF, N_DDF, NB_DDF, NB_DDF, seed=3872,
+                         dtype=torch.float64)
+    B = generators.plrnt(N_DDF, 1, NB_DDF, NB_DDF, seed=3873,
+                         dtype=torch.float64)
+    with cfg.override_scope(dd):
+        F, perm = lu.getrf_1d(A)
+        r_dd, _ = checks.check_axmb(A, B, lu.getrs("N", F, perm, B))
+    r_fs, _ = checks.check_axmb(A, B, lu.getrs("N", F, perm, B))
+    F, perm = lu.getrf_1d(A)
+    r_nat, _ = checks.check_axmb(A, B, lu.getrs("N", F, perm, B))
+    log(f"[dgetrf-dd] nb={NB_DDF} (outside the envelope, not gated): "
+        f"|b-Ax| dd factor + dd solve {r_dd:.3e}, dd factor + FP64 solve "
+        f"{r_fs:.3e}; native FP64 {r_nat:.3e} (threshold 60)")
+    envelope = {"lu_nb1024_dd": r_dd, "lu_nb1024_dd_factor_fp64_solve":
+                r_fs, "lu_nb1024_native": r_nat}
+    del F, B
+
+    # geqrf at N_DDF, NB_DDF: chain (its square last panel a tree one)
+    # and tree panels
+    for kind in ("chain", "tree"):
+        with cfg.override_scope(dict(dd, **{"panel.kernel": kind})):
+            (Af, Tf), c = counted(lambda: qr.geqrf(A))
+            Q = qr.ungqr(Af, Tf).to_dense()
+            R = torch.triu(Af.to_dense())
+            rq, okq = checks.check_qr(A, Q, R)
+            ro, oko = checks.check_orthogonality(Q)
+        want = dd_qr_k2(kt, 4, kind)
+        log(f"[dgeqrf-dd] geqrf N={N_DDF} nb={NB_DDF} {kind} panels: "
+            f"{c['s']:.3f} s, K2 {c['k2']} (want {want}), K1 {c['k1']} "
+            f"(want {qr_k1}), unfused {c['unfused']}; |A-QR| {rq:.3e}, "
+            f"|I-Q'Q| {ro:.3e}")
+        check(c["k2"] == want and c["k1"] == qr_k1 and c["k3"] == 0,
+              f"dd geqrf ({kind}) launches {c}")
+        check(c["unfused"] == 0, f"dd geqrf: {c['unfused']} unfused")
+        check(okq and oko, f"dd geqrf ({kind}) checks {rq:.3e} {ro:.3e}")
+        direct[f"geqrf nb={NB_DDF} {kind}"] = dict(
+            c, k2_want=want, k1_want=qr_k1, qr=rq, orth=ro)
+        del Af, Tf, Q, R
+    del A
+
+    # small factorizations on the card against numpy float64: LU, QR on
+    # the tree panels, and on the chain panels square (its last panel a
+    # tree one) and tall (its panels all tall)
+    small = {}
+    A = generators.plrnt(1024, 1024, 256, 256, seed=7, dtype=torch.float64)
+    a = A.to_dense().cpu().numpy()
+    with cfg.override_scope(dd):
+        F, perm = lu.getrf_1d(A)
+    f = F.to_dense().cpu().numpy()
+    p = perm.cpu().numpy()
+    check(sorted(p.tolist()) == list(range(1024)), "dd perm is no "
+          "permutation")
+    want = np_lu_nopiv(a[p])
+    small["lu_factor"] = float(np.abs(f - want).max() / np.abs(want).max())
+    L = np.tril(f, -1) + np.eye(1024)
+    small["lu_backward"] = float(np.abs(a[p] - L @ np.triu(f)).max()
+                                 / np.abs(a).max())
+    for kind, M in (("tree", 1024), ("chain", 1024), ("chain", 2048)):
+        A = generators.plrnt(M, 1024, 256, 256, seed=7, dtype=torch.float64)
+        a = A.to_dense().cpu().numpy()
+        with cfg.override_scope(dict(dd, **{"panel.kernel": kind})):
+            Af, Tf = qr.geqrf(A)
+            Q = qr.ungqr(Af, Tf).to_dense().cpu().numpy()
+        R = np.triu(Af.to_dense().cpu().numpy()[:1024])
+        R64 = np.linalg.qr(a, mode="r")
+        sgn = np.sign(np.diag(R)) * np.sign(np.diag(R64))
+        small[f"qr_{kind}_{M}_r"] = float(
+            np.abs(R - sgn[:, None] * R64).max() / np.abs(R64).max())
+        small[f"qr_{kind}_{M}_backward"] = float(
+            np.abs(a - Q @ R).max() / np.abs(a).max())
+        small[f"qr_{kind}_{M}_orth"] = float(
+            np.abs(Q.T @ Q - np.eye(1024)).max())
+    log("[dd-lu-qr] N=1024 nb=256 against numpy float64 (LU: the factor of "
+        "A[perm] and max|A[perm]-LU|/max|A|; QR: R with row signs matched, "
+        "max|A-QR|/max|A|, max|Q'Q-I|; chain on M=1024 and 2048): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in small.items())
+        + f" (tol {DD_TOL:.0e})")
+    check(max(small.values()) <= DD_TOL,
+          "the dd LU/QR factors disagree with float64")
+    record["dd_lu_qr"] = {"drivers": drivers, "direct": direct,
+                          "agg_equal": same, "envelope": envelope,
+                          "small": small}
+    return {
+        "k2": {"dgetrf_dd": direct[f"getrf_1d nb={NB_DDK3} agg=4"]["k2"],
+               "dgeqrf_dd": sum(direct[f"geqrf nb={NB_DDF} {k}"]["k2"]
+                                for k in ("chain", "tree"))},
+        "k3": {"dgetrf_dd": direct[f"getrf_1d nb={NB_DDK3} agg=4"]["k3"]},
+        "k1": {"dgeqrf_dd": sum(direct[f"geqrf nb={NB_DDF} {k}"]["k1"]
+                                for k in ("chain", "tree"))}}
+
+
+def phase_dd_lu_qr_profile(torch, record):
+    """One dd LU (N_DDF at NB_DDF, cuSOLVER seeds, and at NB_DDK3 with K3
+    seeds) and one dd QR factorization (tree panels) under
+    torch.profiler: K2 in each, no cuBLAS int8 GEMM."""
+    from dplasma_tpu_torch.ops import generators, lu, qr
+    from dplasma_tpu_torch.utils import config as cfg
+    for key, nb, kind, fn in (
+            ("dgetrf_dd_profile", NB_DDF, "chain", lu.getrf_1d),
+            ("dgetrf_dd_k3_profile", NB_DDK3, "pallas", lu.getrf_1d),
+            ("dgeqrf_dd_profile", NB_DDF, "tree", qr.geqrf)):
+        A = generators.plrnt(N_DDF, N_DDF, nb, nb, seed=3872,
+                             dtype=torch.float64)
+        with cfg.override_scope({"dd_gemm": "always",
+                                 "panel.kernel": kind}):
+            _profile(torch, record, key, f"N={N_DDF} nb={nb} dd {kind}",
+                     lambda: fn(A))
+        prof = record[key]
+        if prof["busy_ms"] is None:
+            continue
+        names = prof["all_kernels_ms"]
+        lib = sorted(n for n in names if any(k in n for k in INT8_LIBRARY))
+        check(not lib, f"{key} ran cuBLAS int8 GEMMs: {lib[:3]}")
+        check(any("k2_" in n for n in names), f"{key} shows no K2")
+        del A
 
 
 def ring_counts():
@@ -2020,6 +2465,7 @@ def main() -> int:
     k3tot, npan = phase_k3(torch, plu, record)
     k4tot, nqpan = phase_k4(torch, pqr, record)
     k2tot, nk2 = phase_k2(torch, dd, pdd, record)
+    k2luqr = phase_k2_lu_qr(torch, dd, pdd, pk, record)
     phase_int_mm_layouts(torch, record)
     k5tot = phase_k5(torch, pring, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
@@ -2034,6 +2480,8 @@ def main() -> int:
     _, k5b_gt, k5s_gt, k1_gt = phase_getrf_ptgpanel(torch, pk, pring,
                                                     record)
     k5b_pc, k1_pc = phase_potrf_cyclic(torch, pk, pring, record)
+    ddf = phase_dd_lu_qr(torch, pk, plu, pdd, record)
+    phase_dd_lu_qr_profile(torch, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
@@ -2070,10 +2518,12 @@ def main() -> int:
         {"name": "k1_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
-         "launches": k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc,
+         "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
+                      + ddf["k1"]["dgeqrf_dd"]),
          "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                               "sgeqrf": k1_sgeqrf, "sgetrf_ptgpanel": k1_gt,
-                              "potrf_cyclic": k1_pc},
+                              "potrf_cyclic": k1_pc,
+                              "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]),
@@ -2083,9 +2533,9 @@ def main() -> int:
         {"name": "k2_limb_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
-         "launches": k2_dpotrf + k2_dgemm,
-         "launches_by_path": {"dpotrf_dd": k2_dpotrf,
-                              "dgemm_dd": k2_dgemm},
+         "launches": k2_dpotrf + k2_dgemm + sum(ddf["k2"].values()),
+         "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
+                                   "dgemm_dd": k2_dgemm}, **ddf["k2"]),
          "max_abs_err": k2tot["max_abs_err"],
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
          "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
@@ -2093,12 +2543,17 @@ def main() -> int:
          "limb_levels_ms": k2tot["limb_levels_ms"],
          "dgemm": {k: record["k2_main_path"]["dgemm"][k]
                    for k in ("ms", "limb_levels_ms", "plain_ms",
-                             "bound_ms", "library_ms")}},
+                             "bound_ms", "library_ms")},
+         "by_path": {path: dict({k: t[k] for k in (
+             "ms", "limb_levels_ms", "plain_ms", "bound_ms", "library_ms",
+             "max_abs_err", "bound_by")}, launches=t["launches"],
+             shapes=len(t["shapes"])) for path, t in k2luqr.items()}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
-         "launches": k3_sgetrf,
-         "launches_by_path": {"sgetrf": k3_sgetrf},
+         "launches": k3_sgetrf + ddf["k3"]["dgetrf_dd"],
+         "launches_by_path": {"sgetrf": k3_sgetrf,
+                              "dgetrf_dd": ddf["k3"]["dgetrf_dd"]},
          "max_abs_err": k3tot["max_abs_err"],
          "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
          "bound_ms": k3tot["bound_ms"],
@@ -2134,9 +2589,15 @@ def main() -> int:
         f"limb_levels_ms = the unfused route's int8 products and level "
         f"sums on torch._int_mm; bound = max(int8 operations at "
         f"{INT8_OPS / 1e12:.0f} TOP/s, bytes at HBM rate); dgemm = one "
-        f"dd product at {N_DD}^3); launches "
+        f"dd product at {N_DD}^3; by_path: the launches of one dgetrf dd "
+        f"(N={N_DDF}, nb={NB_DDF}, and nb={NB_DDK3}) and one dgeqrf dd "
+        f"(nb={NB_DDF}, chain and tree panels) factorization, each distinct "
+        f"shape timed on random operands times its count); launches "
         f"count each main-path driver run (warm-up, timed run, -x check), "
-        f"K2's the direct dpotrf call and the dgemm driver run; K1's "
+        f"K2's the direct dpotrf call, the dgemm driver run and phase "
+        f"11's direct dgetrf (nb={NB_DDK3}, lu.agg_depth 4) and dgeqrf "
+        f"(chain and tree) calls, K3's also that dgetrf's f32 seeds, K1's "
+        f"also those dgeqrf calls' f32 seed LUs; K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "
         f"tensor-core peak), bound_ffma_ms the FP32 FFMA one; by_path "
         f"gives K1's sums over one factorization of spotrf, sgetrf and "

@@ -14,9 +14,10 @@ The f64-equivalent limb route (MCA ``dd_gemm``) is active only under
 the port is one. There, as in the reference, ``dot`` (and ``gemm``
 through it) goes to ``dd.mm``, ``potrf`` to ``dd.potrf_f64``, ``trsm``
 to ``dd.trsm_f64`` and ``trtri`` to ``dd.trtri_f64``: exact int8 limb
-products closed by kernel K2. The dd LU and QR panels are not ported
-yet (ROADMAP queue 1 item 6); their entry points raise
-(:func:`_dd_unported`) rather than silently taking native FP64.
+products closed by kernel K2. The LU and QR sweeps take the dd panels
+themselves (``ops.lu._panel_lu_dd``, ``dd.geqrt_f64``); complex128
+products raise (``dd._real_only``) rather than silently taking native
+FP64.
 """
 from __future__ import annotations
 
@@ -34,13 +35,6 @@ def _dd_active(dtype) -> bool:
     if dtype not in (torch.float64, torch.complex128):
         return False
     return (_cfg.mca_get("dd_gemm") or "auto").lower() == "always"
-
-
-def _dd_unported(what: str, missing: str):
-    return NotImplementedError(
-        f"{what} under dd_gemm=always needs {missing}, which is not "
-        "ported yet (ROADMAP queue 1 item 6); use dd_gemm=auto for "
-        "native FP64")
 
 
 def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,

@@ -1,7 +1,10 @@
-"""FP64-equivalent products and Cholesky from exact int8 limb splitting.
+"""FP64-equivalent products, Cholesky, and the LU and QR panels, from
+exact int8 limb splitting.
 
-Ports the Cholesky/GEMM part of ``dplasma_tpu/kernels/dd.py`` (:1-331,
-:333-454, :456-541, :591-701, :782-889). Each f64 operand is scaled
+Ports ``dplasma_tpu/kernels/dd.py`` but for complex products and the
+float-float split (:1-331, :333-454, :456-541, :591-701, :782-889, and
+the LU/QR panels :892-1045: ``lu_ir``, ``geqrt_f64``, ``_tsqrhr_f64``,
+``geqrt_f64_tree``). Each f64 operand is scaled
 (per A-row / per B-column, by a power of two read from the exponent
 field) and split EXACTLY into ``nl`` limbs of ``w = 7`` bits stored as
 int8 digits. Limb-pair products accumulate exactly in int32 (chunk bound
@@ -557,3 +560,136 @@ def potrf_f64_blocked(A, nb: int = 512, lower: bool = True,
                 _split_fixed(out[s:, s:s + nb], scale[s:], w, nl,
                              out=W[:, s:, s:s + nb])
     return out
+
+
+# ---------------------------------------------------------------------
+# LU and QR panels at f64-equivalent accuracy: f32 seeds refined on
+# exact residuals, the d-precision analogues of CORE_zgetrf_rectil and
+# CORE_zgeqrt for the blocked sweeps of ops.lu and ops.qr. Only the
+# residuals and the heavy products are limb products (K2); every
+# correction solve and product is f32.
+# ---------------------------------------------------------------------
+
+
+def lu_ir(pp, L, U, refine: int = 4, bits: int | None = None):
+    """Refine a seed factorization ``pp ≈ L U`` to f64-equivalent
+    accuracy for its FIXED permutation: ``pp`` the row-permuted (m, nb)
+    panel, ``L`` (m, nb) unit lower trapezoidal, ``U`` (nb, nb) upper.
+    ``bits`` pins every residual to one rung of the limb ladder; None
+    keeps the 32, 32, 53, 53 ladder (the first two steps on the cheap
+    rung, whose 2^-32 floor lies below the corrections they drive).
+
+    One step: with the exact E = pp − L U, G = L1^-1 E1 U^-1 gives
+    dU = triu(G) U and dL1 = L1 stril(G), and dL2 = (E2 − L2 dU) U^-1
+    for the rows below. Only E is a limb product (one K2 launch a step);
+    the solves are against the f32 SEED inverses and the products f32.
+    A zero diagonal of U (an exactly singular panel) is replaced by 1 in
+    the inverse only: the singular column's residual is zero, so its
+    correction vanishes and the zero diagonal survives for INFO.
+    Returns (L, U). Real f64 only."""
+    _real_only("lu_ir", pp, L, U)
+    nb = U.shape[0]
+    dev = U.device
+    L1_32 = _take_triangle(L[:nb].to(_F32), True, True)
+    U32 = torch.triu(U).to(_F32)
+    eye = torch.eye(nb, dtype=_F32, device=dev)
+    L1i = torch.linalg.solve_triangular(L1_32, eye, upper=False,
+                                        left=True, unitriangular=True)
+    Ug = U32.clone()
+    dg = Ug.diagonal()
+    dg.copy_(torch.where(dg == 0, torch.ones_like(dg), dg))
+    Ui = torch.linalg.solve_triangular(Ug, eye, upper=True, left=True)
+    for r in range(refine):
+        rbits = bits if bits is not None \
+            else (32 if (r < 2 and refine > 2) else 53)
+        E32 = gemm_residual(pp, L, U, bits=rbits).to(_F32)
+        G = torch.matmul(torch.matmul(L1i, E32[:nb]), Ui)
+        dU = torch.matmul(torch.triu(G), U32)
+        dL = torch.matmul(L1_32, torch.tril(G, -1))
+        if L.shape[0] > nb:
+            dL2 = torch.matmul(
+                E32[nb:] - torch.matmul(L[nb:].to(_F32), dU), Ui)
+            dL = torch.cat([dL, dL2], dim=0)
+        L = torch.tril(L + dL.to(_F64), -1)
+        L.diagonal().fill_(1)
+        U = torch.triu(U + dU.to(_F64))
+    return L, U
+
+
+def geqrt_f64(panel):
+    """Panel QR at f64-equivalent accuracy: shifted, then unshifted,
+    CholeskyQR in limb arithmetic, then Householder reconstruction
+    (:func:`_tsqrhr_f64`). Returns (packed, V, T) in the CORE_zgeqrt
+    layout. Needs a numerically full-rank panel with cond below ~1e5
+    (the Gram matrix squares it and its Cholesky seeds in f32); MCA
+    ``qr_panel=lapack`` keeps the vendor panel for harder ones. Real f64
+    only."""
+    _real_only("geqrt", panel)
+    m, nb = panel.shape
+    eps32 = torch.finfo(_F32).eps
+
+    def cholqr_pass(x, shift):
+        G = gemm_f64(x.T, x)
+        if shift:
+            s = (11.0 * (m * nb + nb * (nb + 1))) * eps32
+            G = G + (s * torch.trace(G)) * torch.eye(
+                nb, dtype=_F64, device=G.device)
+        Lg, Xg = _potrf_tile_ir(G)
+        return gemm_f64(x, Xg.T), Lg.T          # (q, r), r = Lgᵀ
+
+    q, r1 = cholqr_pass(panel, True)
+    q, r2 = cholqr_pass(q, False)
+    return _tsqrhr_f64(q, gemm_f64(r2, r1))
+
+
+def _tsqrhr_f64(q, r):
+    """The TSQR-HR tail of both dd QR panels: compact-WY (packed, V, T)
+    from a dd-accurate thin (q, r), with the sign/shift convention and
+    packed layout of ``kernels.householder`` (shared with the f32 path)
+    and every product, LU and inverse refined by limb residuals."""
+    from dplasma_tpu_torch.kernels import blas as _kb
+    from dplasma_tpu_torch.kernels import householder as _hh
+    m, nb = q.shape
+    s, b = _hh.reconstruct_sign_shift(q)
+    p32 = _kb.getrf_nopiv_blocked(b[:nb].to(_F32))
+    V1 = _take_triangle(p32.to(_F64), True, True)
+    Ub = torch.triu(p32).to(_F64)
+    V1, Ub = lu_ir(b[:nb], V1, Ub)
+    if m > nb:
+        # V2 Ub = b2: a right IR solve
+        V2 = trsm_f64(Ub, b[nb:], side="R", lower=False)
+        v = torch.cat([V1, V2], dim=0)
+    else:
+        v = V1
+    # T = −(Ub S^-1) V1^-T (S^-1 = S): t V1ᵀ = −(Ub S), a right
+    # transposed IR solve
+    t = trsm_f64(V1, -(Ub * s[None, :]), side="R", lower=True, trans="T",
+                 unit=True)
+    packed = _hh.reconstruct_pack(s, r, v, nb)
+    return packed, v, t
+
+
+def geqrt_f64_tree(panel, solve_iters: int = 3):
+    """The tree-seeded dd panel QR (MCA ``panel.kernel`` tree or pallas
+    on the dd route): an R-only f32 TSQR tree
+    (``panels.tsqr(..., need_q=False)``) on the power-of-two column
+    prescaled panel conditions one exact-residual IR right-solve
+    ``q1 R32 = panel`` in place of the shifted CholeskyQR pass; one
+    unshifted limb CholeskyQR pass restores orthogonality, R unscales
+    exactly, and :func:`_tsqrhr_f64` recovers (packed, V, T). Same
+    envelope as :func:`geqrt_f64`. Real f64 only."""
+    from dplasma_tpu_torch.kernels import panels as _panels
+    _real_only("geqrt", panel)
+    # column scaling leaves Q invariant: only R unscales, exactly
+    m_ = torch.amax(torch.abs(panel), dim=0, keepdim=True)
+    one = torch.ones((), dtype=_F64, device=panel.device)
+    d = 4.0 / _pow2_scale_bits(torch.where(m_ > 0, m_, one))
+    As = panel * d
+    _, r32 = _panels.tsqr(As.to(_F32), need_q=False)
+    r1 = torch.triu(r32).to(_F64)
+    q1 = trsm_f64(r1, As, side="R", lower=False, iters=solve_iters)
+    G = gemm_f64(q1.T, q1)
+    Lg, Xg = _potrf_tile_ir(G)
+    q = gemm_f64(q1, Xg.T)
+    r = gemm_f64(Lg.T, r1) / d
+    return _tsqrhr_f64(q, r)

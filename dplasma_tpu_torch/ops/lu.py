@@ -1,11 +1,11 @@
 """LU factorization: partial pivoting (getrf_1d), no pivoting, solvers.
 
-Ports ``dplasma_tpu/ops/lu.py`` (:51-151, :168-333, :365-389,
-:432-525). Pivoting is a global row permutation vector with the
-semantics ``A[perm] = L U`` (int64, on the factor's device), not
-LAPACK's swap-format IPIV: :func:`laswp` applies it as one gather, and
-:func:`perm_to_ipiv` / :func:`ipiv_to_perm` convert to and from the
-reference's format on the host.
+Ports ``dplasma_tpu/ops/lu.py`` (:51-151, :168-525). Pivoting is a
+global row permutation vector with the semantics ``A[perm] = L U``
+(int64, on the factor's device), not LAPACK's swap-format IPIV:
+:func:`laswp` applies it as one gather, and :func:`perm_to_ipiv` /
+:func:`ipiv_to_perm` convert to and from the reference's format on the
+host.
 
 ``getrf_1d`` is a right-looking shrinking-window sweep over nb-wide
 panels (``ops._sweep.pipelined_sweep``, lookahead from MCA
@@ -22,13 +22,25 @@ step while a lookahead column remains and one far product while far
 columns remain: 2·KT − 3 products per square factorization. The pivot
 bookkeeping never leaves the device.
 
-The f64-equivalent (dd) LU route — ``lu_ir``, the dd panel
-``_panel_lu_dd`` and the eager ``jit_steps`` sweep with
-``lu.agg_depth`` — is not ported yet (ROADMAP queue 1 item 6): under
-``dd_gemm=always`` the f64 entry points raise. :func:`getrf_ptgpanel`
-runs the distributed panel of ``parallel/cyclic.py`` under an active
-P×Q grid. Incpiv, qrf, the lowmem tier and ``dag`` wait for later
-slices.
+Under MCA ``dd_gemm=always`` (the f64-equivalent limb route) every f64
+panel is :func:`_panel_lu_dd`: an f32 seed by the panel kernel above
+(K3 under ``pallas``), refined by ``dd.lu_ir``; the U solve is
+``dd.trsm_f64`` and the Schur product ``dd.gemm_f64``, each limb product
+one K2 launch. The sweep is the per-step one whatever MCA
+``lu.agg_depth`` says: the reference's eager ``jit_steps`` route flushes
+the far updates every ``lu.agg_depth`` panels to fuse their dispatch on
+the TPU, in the same op order, and eager torch has nothing to fuse. K2
+launches per square factorization with KT panels at lookahead 1, from
+the code: 4 per panel (``lu_ir``'s residuals) and 3 per block apply (the
+U solve's 2 residuals and the Schur product), 2·KT − 3 applies:
+10·KT − 9 (71 at N = 8192, nb = 1024; 311 at nb = 256, with 32 K3
+launches under ``pallas``). No K1 launch: the seed panels' f32 work is
+cuSOLVER's or K3's.
+
+:func:`getrf_ptgpanel` runs the distributed panel of
+``parallel/cyclic.py`` under an active P×Q grid (not yet under dd,
+ROADMAP item 11). Incpiv, qrf, the lowmem tier and ``dag`` wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ import torch
 
 from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
@@ -266,18 +279,39 @@ def _lu_sweep(X, bw: int, panel_fn, lookahead=None):
     return _lu_finish(packs, urows, step_ids, ids_cell[0], Mp, KT, NT, bw)
 
 
-#: what the dd LU route still needs
-_DD_MISSING = ("the dd LU panels (lu_ir, _panel_lu_dd and the eager "
-               "jit_steps sweep)")
+def _panel_lu_dd(panel, ib: int | None = None, kind: str | None = None):
+    """The dd panel LU: an f32 seed by the f32 pivoted panel machinery
+    (:func:`_panel_lu` with ``ib`` and ``kind``, so K3, the recursive
+    panel and the cuSOLVER chain with its CALU fall-back all stay
+    reachable), then ``dd.lu_ir`` refines L and U to f64-equivalent
+    accuracy for that FIXED permutation.
+
+    A power-of-two column prescale comes before the f32 cast, so f64
+    magnitudes outside f32's range cannot overflow or flush the seed.
+    Column scaling changes neither the pivot choice nor L, only U, and
+    that exactly: panel·D = L·(U·D), so U = U_scaled / d."""
+    nb = panel.shape[1]
+    m_ = torch.amax(torch.abs(panel), dim=0, keepdim=True)
+    d = 4.0 / _dd._pow2_scale_bits(m_)      # 2^-floor(log2 colmax)
+    pan32, perm = _panel_lu((panel * d).to(torch.float32), ib, kind)
+    # refine in the scaled coordinates (everything O(growth) there, so
+    # the refinement's own f32 seeds stay in range); unscale U after
+    L = k.tri(pan32.to(panel.dtype), lower=True, unit=True)
+    Us = torch.triu(pan32[:nb]).to(panel.dtype)
+    L, Us = _dd.lu_ir(panel[perm] * d, L, Us)
+    U = Us / d
+    return torch.cat([torch.triu(U) + torch.tril(L[:nb], -1)]
+                     + ([L[nb:]] if L.shape[0] > nb else []), dim=0), perm
 
 
 def _panel_lu(panel, ib: int | None = None, kind: str | None = None):
     """Pivoted LU of one nb-wide tall panel: a nested ib-wide
     shrinking-window sweep (full-height pivot search per sub-panel)
     whose base case is :func:`_base_lu`; ``ib`` from MCA
-    ``lu.panel_ib`` (0: the whole panel is one base case)."""
-    if k._dd_active(panel.dtype):
-        raise k._dd_unported("the LU panel", _DD_MISSING)
+    ``lu.panel_ib`` (0: the whole panel is one base case). f64 panels
+    on the dd route take :func:`_panel_lu_dd`."""
+    if panel.dtype == torch.float64 and k._dd_active(panel.dtype):
+        return _panel_lu_dd(panel, ib, kind)
     m, nb = panel.shape
     if ib is None:
         ib = _cfg.mca_get_int("lu.panel_ib", 0)
@@ -292,8 +326,6 @@ def _panel_lu(panel, ib: int | None = None, kind: str | None = None):
 def _getrf(A: TileMatrix, panel_fn):
     if A.desc.mb != A.desc.nb:
         raise ValueError(f"getrf needs square tiles, got {A.desc}")
-    if k._dd_active(A.dtype):
-        raise k._dd_unported("getrf", _DD_MISSING)
     full, final_ids = _lu_sweep(A.pad_diag().data, A.desc.nb, panel_fn)
     return TileMatrix(full, A.desc), final_ids
 

@@ -1,6 +1,6 @@
 """QR / LQ factorization family (flat tile algorithm).
 
-Ports ``dplasma_tpu/ops/qr.py`` (:39-50, :84-420): ``geqrf`` (with
+Ports ``dplasma_tpu/ops/qr.py`` (:39-81, :84-420): ``geqrf`` (with
 ``geqrt_rec``/``geqrf_rec``, the -z/--HNB variant), ``unmqr`` in its
 four side×trans cases, ``ungqr``, ``geqrs``, and the LQ duals
 ``gelqf``/``unmlq``/``unglq``/``gelqs``, and the ``gels`` driver. The
@@ -33,11 +33,38 @@ Count per square factorization with KT panels, lookahead 1 and
 For KT a multiple of 4 that is KT + 3·(KT − 1 + 1.5·KT − 3) +
 12·(KT − 4)/4 = 11.5·KT − 24 products: 344 at N = 8192, nb = 256.
 
-The f64-equivalent (dd) QR route — ``geqrt_f64``, ``_tsqrhr_f64``,
-``geqrt_f64_tree`` and the dd branch of ``geqrf`` — is not ported yet
-(ROADMAP queue 1 item 6): under ``dd_gemm=always`` the f64 entry points
-raise. ``geqrf_lowmem`` and ``dag`` wait for later slices; the phase
-spans and the 2-D sharding constraint have no counterpart yet.
+Under MCA ``dd_gemm=always`` an f64 ``geqrf`` takes the dd panels
+(unless MCA ``qr_panel=lapack``, which keeps the vendor panel): the
+tree-seeded ``dd.geqrt_f64_tree`` under ``panel.kernel`` tree and
+pallas (K4 is an f32 kernel) and under auto on the card (the
+reference's auto on its accelerator), the limb CholeskyQR2
+``dd.geqrt_f64`` under chain and under auto on the CPU (the reference's
+auto there). A square panel (nb rows: a square matrix's last) takes the
+tree panel whatever the kind: CholeskyQR2 seeds its Cholesky in f32 from
+the Gram matrix, whose condition is the square of the panel's, and on a
+square panel its Q falls far outside the -x orthogonality threshold, in
+the reference's algorithm as here (PERF.md). An explicit
+``panel_kernel`` (``geqrf_rec``) bypasses the dd panels. The trailing
+applies are the same calls, their products limb products through
+``blas.dot``. K2 launches per square factorization with KT panels at
+lookahead 1 and ``qr.agg_depth`` d, from the code: 27 per chain panel
+(two CholeskyQR passes of 9 — the Gram product, 3 refinement residuals
+and 4 Newton products of the tile Cholesky, the Q product — the R
+product, and the reconstruction's 4 ``lu_ir`` residuals and 2 + 2
+``trsm_f64`` residuals), 21 per tree panel (the 3-step IR solve, one
+CholeskyQR pass of 9, the R product, the reconstruction's 8), 19 for
+the last (a tree panel of nb rows: no V2 solve); 3 per ``apply_q``,
+KT − 1 narrow applies, and at steps k <= KT − 3 the catch-up of
+k mod d + 1 held panels or a flush whose d − 1 ``wy_merge``s and one
+apply make 3·d: P·(KT − 1) + 19 + 3·(KT − 1 + Σ_{k=0}^{KT−3}
+(k mod d + 1)), P = 27 (chain) or 21 (tree). For d = 4 and KT a
+multiple of 4: 37.5·KT − 32 (chain) and 31.5·KT − 26 (tree), 268 and
+226 at N = 8192, nb = 1024. K1 takes only the reconstruction's f32
+``getrf_nopiv_blocked`` products with every dimension >= 256: 3 per
+panel at nb = 1024.
+
+``geqrf_lowmem`` and ``dag`` wait for later slices; the phase spans and
+the 2-D sharding constraint have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -45,10 +72,12 @@ import torch
 
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
+from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import _sweep, blas3
+from dplasma_tpu_torch.utils import config as _cfg
 
 
 def _quant_apply_q(v, T, c):
@@ -123,9 +152,6 @@ def geqrf(A: TileMatrix, *, panel_kernel=None, lookahead=None,
     The explicit ``panel_kernel`` callable (``geqrf_rec``) bypasses the
     panel engine."""
     _check_square_tiles(A, "geqrf")
-    if k._dd_active(A.dtype):
-        raise k._dd_unported("geqrf", "the dd QR panels (geqrt_f64, "
-                             "_tsqrhr_f64, geqrt_f64_tree)")
     la, agg = _sweep.sweep_params(lookahead, agg_depth)
     nb = A.desc.nb
     KT = A.desc.KT
@@ -140,10 +166,20 @@ def geqrf(A: TileMatrix, *, panel_kernel=None, lookahead=None,
         rest[idx, idx] = 1
     Ts = []       # T triangle per finished panel
     pk = _panels.panel_kernel("qr")
+    # the dd route's panels (module docstring); MCA qr_panel=lapack keeps
+    # the vendor panel, with dd trailing products
+    use_dd = (A.dtype == torch.float64 and k._dd_active(A.dtype)
+              and (_cfg.mca_get("qr_panel") or "auto").lower() != "lapack")
+    dd_tree = pk in ("tree", "pallas") or (
+        _panels.panel_kernel_config() == "auto" and rest.is_cuda)
 
     def panel(col):
         if panel_kernel is not None:
             packed, v, T = panel_kernel(col)
+        elif use_dd:
+            packed, v, T = (_dd.geqrt_f64_tree(col)
+                            if dd_tree or col.shape[0] <= nb
+                            else _dd.geqrt_f64(col))
         else:
             packed, v, T = _panels.qr_panel(col, pk)
         Ts.append(T)

@@ -260,6 +260,8 @@ mca_register("lu.panel_chunk", "8192",
              "panel; panels taller than this elect pivot candidates "
              "per chunk.")
 mca_register("lu.agg_depth", "4",
-             "Fused far-flush depth of the eager dd LU sweep (the dd "
-             "route is not ported yet; registered so a reference "
-             "snapshot replays).")
+             "Fused far-flush depth of the reference's eager dd LU "
+             "sweep. The port's eager sweep applies per step whatever "
+             "it says (the flush keeps the same op order, and eager "
+             "torch has nothing to fuse); registered so a reference "
+             "snapshot replays.")

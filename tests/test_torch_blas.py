@@ -100,8 +100,8 @@ def test_tile_potrf_not_spd_gives_nan_triangle(tiles, lower):
 def test_dd_route_raises_rather_than_going_native(tiles):
     """Under dd_gemm=always the f64 tile kernels take the limb route
     (every product closed by K2's route), never native FP64; f32 and
-    dd_gemm=never stay native. Only the dd LU/QR entry points still
-    raise (tests/test_torch_lu.py, test_torch_qr.py)."""
+    dd_gemm=never stay native. The LU and QR sweeps take the dd panels
+    (tests/test_torch_dd_lu.py, test_torch_dd_qr*.py)."""
     a, b, _ = tiles
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     with cfg.override_scope({"dd_gemm": "always"}):

@@ -123,18 +123,24 @@ def test_geqrf_driver_counts_k4_routes(capsys):
     (["testing_dpotrf", "-N", "192", "-t", "64", "-x"], 12),
     (["testing_dposv", "-N", "192", "-t", "64", "-K", "3", "-x"], None),
     (["testing_dgemm", "-N", "96", "-K", "64", "-t", "32", "-x"], 1),
+    (["testing_dgetrf", "-N", "96", "-t", "32", "-x"], 21),
+    (["testing_dgetrf_1d", "-N", "90", "-t", "32", "-z", "8", "-x"], None),
+    (["testing_dgesv", "-N", "96", "-t", "32", "-K", "2", "-x"], None),
 ])
-def test_dd_drivers_route_k2_on_the_cpu(argv, k2_per_run, capsys):
+def test_dd_drivers_route_k2_on_the_cpu(argv, k2_per_run, capsys,
+                                        mca=None):
     """dd_gemm=always end to end on the CPU: the checks pass and every
     limb product takes K2's route (5·3 − 3 = 12 per dpotrf at N=192,
-    nb=64; one per dgemm), none of them a CUDA launch."""
+    nb=64; one per dgemm; 21 per dgetrf factorization at N=96, nb=32, the
+    ops/lu.py count), none of them a CUDA launch."""
     common.RUNS.clear()
-    with cfg.override_scope({"dd_gemm": "always"}):
+    with cfg.override_scope(dict(mca or {}, dd_gemm="always")):
         routed = pdd.ROUTED
         assert main(argv + ["--device", "cpu", "--nowarmup", "-v"]) == 0
         routed = pdd.ROUTED - routed
     run = common.RUNS[-1]
-    assert run["checks"] and all(c["ok"] for c in run["checks"])
+    assert ("-x" not in argv or run["checks"]) and all(
+        c["ok"] for c in run["checks"])
     op = run["ops"][0]
     assert op["k2_launches"] == [0] and op["k1_launches"] == [0]
     assert routed >= (k2_per_run or 12)
@@ -144,12 +150,39 @@ def test_dd_drivers_route_k2_on_the_cpu(argv, k2_per_run, capsys):
     assert "K2 launches per run = [0]" in out and "FAILED" not in out
 
 
+@pytest.mark.parametrize("argv,kind,k2_per_run", [
+    (["testing_dgeqrf", "-N", "96", "-t", "32", "-x"], "tree", 70),
+    (["testing_dgeqrf", "-N", "96", "-t", "32", "-x"], "chain", 82),
+    (["testing_dgeqrf", "-N", "96", "-M", "160", "-t", "32", "-x"], "chain",
+     None),
+    (["testing_dgelqf", "-N", "96", "-t", "32", "-x"], "tree", None),
+    (["testing_dunmqr", "-N", "64", "-M", "96", "-t", "32"], "chain", None),
+    (["testing_dgels", "-N", "96", "-t", "32", "-K", "4", "-x"], "tree",
+     None),
+    (["testing_dgels", "-N", "96", "-M", "160", "-t", "32", "-K", "4",
+      "-x"], "chain", None),
+])
+def test_dd_qr_drivers_route_k2_on_the_cpu(argv, kind, k2_per_run, capsys):
+    """The QR drivers on the dd route, end to end on the CPU, on the tree
+    and the chain panels: 70 and 82 limb products per dgeqrf
+    factorization at N=96, nb=32 (the ops/qr.py count; the chain route's
+    last panel, square, is a tree panel)."""
+    test_dd_drivers_route_k2_on_the_cpu(argv, k2_per_run, capsys,
+                                        {"panel.kernel": kind})
+
+
 def test_dd_lu_and_qr_drivers_name_what_is_missing(capsys):
+    """Under dd_gemm=always the f64 LU and QR drivers run (the cases of
+    test_dd_drivers_route_k2_on_the_cpu); what the dd LU route still
+    lacks is a process grid, and its driver says so, naming ROADMAP
+    item 11."""
     with cfg.override_scope({"dd_gemm": "always"}):
-        for prog, what in (("testing_dgetrf", "dd LU panels"),
-                           ("testing_dgeqrf", "dd QR panels")):
-            with pytest.raises(NotImplementedError, match=what):
-                main([prog, "-N", "64", "-t", "32", "--device", "cpu"])
+        assert main(["testing_dgetrf", "-N", "64", "-t", "32", "-x",
+                     "--device", "cpu"]) == 0
+        with pytest.raises(NotImplementedError,
+                           match="dd route under a grid.*item 11"):
+            main(["testing_dgetrf_ptgpanel", "-N", "64", "-t", "16", "-p",
+                  "2", "-q", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("prog", ["testing_sgetrf_ptgpanel",

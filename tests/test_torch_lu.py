@@ -26,6 +26,7 @@ from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu.ops import lu as ref_lu
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.ops import _sweep, checks, generators
@@ -233,15 +234,26 @@ def test_perm_ipiv_round_trips_match_reference(rng):
 
 
 def test_dd_route_raises_for_f64():
+    """Under dd_gemm=always every f64 LU entry point takes the limb route
+    (each routes limb products to K2; parity with the reference is
+    tests/test_torch_dd_lu.py); complex128, whose limb products are not
+    ported, still raises naming ROADMAP item 6; f32 never takes the limb
+    route."""
     _, T = _pair(48, 16, jnp.float64)
     with cfg.override_scope({"dd_gemm": "always"}):
         for fn in (port_lu.getrf_1d, lambda a: port_lu.getrf_rec(a, 8),
                    lambda a: port_lu.gesv_1d(a, a),
                    lambda a: port_lu._panel_lu(a.data[:, :16])):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                fn(T)
+            routed = pdd.ROUTED
+            fn(T)
+            assert pdd.ROUTED > routed
+        with pytest.raises(NotImplementedError, match="item 6"):
+            port_lu.getrf_1d(TileMatrix(T.data.to(torch.complex128),
+                                        T.desc))
         _, T32 = _pair(48, 16, jnp.float32)
+        routed = pdd.ROUTED
         port_lu.getrf_1d(T32)          # f32 never takes the limb route
+        assert pdd.ROUTED == routed
 
 
 def test_against_reference_k3_route(monkeypatch):

@@ -30,6 +30,7 @@ from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu.ops import qr as ref_qr
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
+from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.ops import checks, generators
@@ -289,14 +290,24 @@ def test_t_desc_and_square_tile_rule():
 
 
 def test_dd_route_raises_for_f64():
+    """Under dd_gemm=always every f64 QR entry point takes the limb route
+    (each routes limb products to K2; parity with the reference is
+    tests/test_torch_dd_qr*.py); complex128, whose limb products are not
+    ported, still raises naming ROADMAP item 6; f32 never takes the limb
+    route."""
     _, T = _pair(64, 64, 32, jnp.float64)
     with cfg.override_scope({"dd_gemm": "always"}):
         for fn in (qr.geqrf, qr.gelqf, lambda a: qr.geqrf_rec(a, 8),
                    lambda a: qr.gels(a, a)):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                fn(T)
+            routed = pdd.ROUTED
+            fn(T)
+            assert pdd.ROUTED > routed
+        with pytest.raises(NotImplementedError, match="item 6"):
+            qr.geqrf(TileMatrix(T.data.to(torch.complex128), T.desc))
         _, T32 = _pair(64, 64, 32, jnp.float32)
+        routed = pdd.ROUTED
         qr.geqrf(T32)                  # f32 never takes the limb route
+        assert pdd.ROUTED == routed
 
 
 def test_qr_panel_cholqr_route_matches_reference():
