@@ -102,7 +102,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``torch.equal`` to the same call under ``lu.agg_depth=1``; direct
    ``geqrf`` calls at nb=1024 on the chain and tree panels with their K2
    and K1 counts and the -x checks; small factorizations against numpy
-   float64; three factorizations under ``torch.profiler``.
+   float64; three factorizations under ``torch.profiler``;
+12. the mixed-precision IR solvers (``ir.precision`` int8, bf16, f32 and
+   f32x2): ``testing_dposv_ir -N 8192 -t 512 -K 4 -x``, ``testing_dgesv_ir
+   -N 8192 -t 256 -K 4 -x`` (K3 panels) and ``testing_dgels_ir -M 8192 -N
+   4096 -t 256 -K 4 -x`` (K4 panels) at every rung with K1 enabled, each
+   beside native FP64 at its size: -x must pass on every run (an
+   escalated solve too), f32 and f32x2 converge without escalation on
+   all three, posv_ir on all four rungs, the int8 rung's guard is
+   positive, every converged run's K2 launches are the ops/refine.py
+   count and no limb product is unfused; the ladder's ``dposv_ir`` /
+   ``dgesv_ir`` configuration (N=4096, nb=512, 4 right-hand sides) as
+   direct calls at every rung, with the factor's time, share and K1
+   launches (none under int8, whose updates ride the block-scaled int8
+   GEMM; gels_ir at the driver's size keeps its narrow QR products on
+   K1, fewer than at f32); one posv_ir f32x2 and one gesv_ir f32 solve
+   under ``torch.profiler``.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -118,8 +133,12 @@ its plain version, bitwise, on ragged shapes, a strided base, extreme levels
 and every shape that one dpotrf factorization and one dgemm product give
 it, and on every distinct limb product of one dgetrf dd and one dgeqrf dd
 factorization at N=8192 (recorded through the wrapper, held on the path's
-own operands, timed times its count), and times ``torch._int_mm`` (the dd route's int8 products) in its
-four operand layouts.
+own operands, timed times its count), and every distinct limb product of
+one f32x2 posv_ir, gesv_ir and gels_ir solve at phase 12's sizes (the
+skinny residuals b − A x and projections Aᵀr, the nl = 5 whole-matrix
+refinements at K = 8192: one fused launch each, none copied), and times
+``torch._int_mm`` (the dd route's int8 products) in its four operand
+layouts.
 
 It prints the card's name and power limit, one JSON line describing
 every kernel, and as its last line ``{"ok": true, "device": {...}}``.
@@ -155,6 +174,14 @@ NB_DDK3 = 256             # the dd getrf whose f32 seeds all pass K3's gate
 GRID = (2, 2)             # the distributed paths' P x Q virtual mesh
 N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
 N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
+# the IR drivers: posv_ir at the dpotrf_f64equiv size, gesv_ir at the
+# widest nb K3's gate admits at M = 8192, gels_ir on an 8192 x 4096 matrix
+# (K4), each with 4 right-hand sides (bench.py:230)
+IR_RUNGS = ("int8", "bf16", "f32", "f32x2")
+N_IR, NB_IR_POSV, NB_IR, M_IR_GELS, N_IR_GELS, NRHS_IR = (8192, 512, 256,
+                                                          8192, 4096, 4)
+# the ladder's dposv_ir / dgesv_ir configuration (bench.py:516-521)
+N_LAD, NB_LAD = 4096, 512
 DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
 K3_REPEATS = 100    # back-to-back K3 launches, each bitwise checked
 K2_REPEATS = 1000   # back-to-back split K2 launches, each bitwise checked
@@ -1184,6 +1211,59 @@ def recorded_k2_products(torch, pdd, run):
     return seen
 
 
+def k2_path_sum(torch, dd, pdd, g, path, seen, n):
+    """Each distinct K2 shape one run of ``path`` recorded (``seen``,
+    :func:`recorded_k2_products`), held bitwise on the path's own
+    operands, then timed on split random operands of its shape, times
+    its count, beside its int8 bound, ``dd._limb_levels`` alone and FP64
+    addmm. Returns the sums with the per-shape rows."""
+    got = sum(r["count"] for r in seen.values())
+    tot = dict.fromkeys(("ms", "limb_levels_ms", "plain_ms",
+                         "library_ms", "bound_ms", "ops_bound_ms"), 0.0)
+    tot["max_abs_err"] = 0.0
+    bound_by = {"operations": 0.0, "bytes": 0.0}
+    rows = []
+    for (nl, M, N, K, form), row in sorted(seen.items()):
+        label = f"{path} nl={nl} M={M} N={N} K={K} {form}"
+        check(row["bitwise"], f"K2 differs from its plain version on "
+                              f"{label}: max abs err "
+                              f"{row['max_abs_err']:.3e}")
+        al, bl, sa, sb, a64, b64 = k2_operands(torch, dd, g, nl, M, N,
+                                               K)
+        base = None if form == "no base" else torch.randn(
+            M, N, device="cuda", generator=g, dtype=torch.float64)
+        if base is None:
+            sa = -sa
+        t = k2_times(torch, dd, pdd, al, bl, base, sa, sb, a64, b64)
+        b_ms, b_by = k2_bound_ms(nl, M, N, K, base is not None)
+        t_ops = nl * (nl + 1) // 2 * 2.0 * M * N * K / INT8_OPS * 1e3
+        c = row["count"]
+        for k in ("ms", "limb_levels_ms", "plain_ms", "library_ms"):
+            tot[k] += c * t[k]
+        tot["bound_ms"] += c * b_ms
+        tot["ops_bound_ms"] += c * t_ops
+        bound_by[b_by] += c * b_ms
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
+        log(f"[k2] {label:48s} x{c:3d} splits={row['splits']} copy="
+            f"{int(row['a_copy'])}{int(row['b_copy'])} bitwise: kernel "
+            f"{t['ms']:8.4f} ms  _limb_levels {t['limb_levels_ms']:8.4f}"
+            f" ms  plain {t['plain_ms']:8.4f} ms  addmm "
+            f"{t['library_ms']:8.4f} ms  bound {b_ms:8.4f} ms ({b_by})")
+        rows.append(dict(row, **t, nl=nl, M=M, N=N, K=K, form=form,
+                         bound_ms=b_ms, bound_by=b_by))
+        del al, bl, a64, b64, base
+    tot["bound_by"] = max(bound_by, key=bound_by.get)
+    copies = [r for r in rows if r["a_copy"] or r["b_copy"]]
+    log(f"[k2] one {path}'s {got} launches ({len(rows)} shapes, N="
+        f"{n}), all bitwise equal: kernel "
+        f"{tot['ms']:.3f} ms  _limb_levels {tot['limb_levels_ms']:.3f} "
+        f"ms  plain {tot['plain_ms']:.3f} ms  bound {tot['bound_ms']:.3f}"
+        f" ms (int8 operations {tot['ops_bound_ms']:.3f} ms)  FP64 addmm "
+        f"{tot['library_ms']:.3f} ms; shapes with an aligned copy: "
+        f"{len(copies)}")
+    return dict(tot, launches=got, shapes=rows)
+
+
 def phase_k2_lu_qr(torch, dd, pdd, pk, record):
     """K2 on every distinct limb product of one dgetrf dd and one dgeqrf
     dd factorization (N_DDF, NB_DDF): each recorded through the wrapper
@@ -1215,50 +1295,7 @@ def phase_k2_lu_qr(torch, dd, pdd, pk, record):
         got = sum(r["count"] for r in seen.values())
         check(got == want, f"{path}: {got} K2 launches recorded, want "
                            f"{want}")
-        tot = dict.fromkeys(("ms", "limb_levels_ms", "plain_ms",
-                             "library_ms", "bound_ms", "ops_bound_ms"), 0.0)
-        tot["max_abs_err"] = 0.0
-        bound_by = {"operations": 0.0, "bytes": 0.0}
-        rows = []
-        for (nl, M, N, K, form), row in sorted(seen.items()):
-            label = f"{path} nl={nl} M={M} N={N} K={K} {form}"
-            check(row["bitwise"], f"K2 differs from its plain version on "
-                                  f"{label}: max abs err "
-                                  f"{row['max_abs_err']:.3e}")
-            al, bl, sa, sb, a64, b64 = k2_operands(torch, dd, g, nl, M, N,
-                                                   K)
-            base = None if form == "no base" else torch.randn(
-                M, N, device="cuda", generator=g, dtype=torch.float64)
-            if base is None:
-                sa = -sa
-            t = k2_times(torch, dd, pdd, al, bl, base, sa, sb, a64, b64)
-            b_ms, b_by = k2_bound_ms(nl, M, N, K, base is not None)
-            t_ops = nl * (nl + 1) // 2 * 2.0 * M * N * K / INT8_OPS * 1e3
-            c = row["count"]
-            for k in ("ms", "limb_levels_ms", "plain_ms", "library_ms"):
-                tot[k] += c * t[k]
-            tot["bound_ms"] += c * b_ms
-            tot["ops_bound_ms"] += c * t_ops
-            bound_by[b_by] += c * b_ms
-            tot["max_abs_err"] = max(tot["max_abs_err"], row["max_abs_err"])
-            log(f"[k2] {label:48s} x{c:3d} splits={row['splits']} copy="
-                f"{int(row['a_copy'])}{int(row['b_copy'])} bitwise: kernel "
-                f"{t['ms']:8.4f} ms  _limb_levels {t['limb_levels_ms']:8.4f}"
-                f" ms  plain {t['plain_ms']:8.4f} ms  addmm "
-                f"{t['library_ms']:8.4f} ms  bound {b_ms:8.4f} ms ({b_by})")
-            rows.append(dict(row, **t, nl=nl, M=M, N=N, K=K, form=form,
-                             bound_ms=b_ms, bound_by=b_by))
-            del al, bl, a64, b64, base
-        tot["bound_by"] = max(bound_by, key=bound_by.get)
-        copies = [r for r in rows if r["a_copy"] or r["b_copy"]]
-        log(f"[k2] one {path}'s {got} launches ({len(rows)} shapes, N="
-            f"{N_DDF}), all bitwise equal: kernel "
-            f"{tot['ms']:.3f} ms  _limb_levels {tot['limb_levels_ms']:.3f} "
-            f"ms  plain {tot['plain_ms']:.3f} ms  bound {tot['bound_ms']:.3f}"
-            f" ms (int8 operations {tot['ops_bound_ms']:.3f} ms)  FP64 addmm "
-            f"{tot['library_ms']:.3f} ms; shapes with an aligned copy: "
-            f"{len(copies)}")
-        out[path] = dict(tot, launches=got, shapes=rows)
+        out[path] = k2_path_sum(torch, dd, pdd, g, path, seen, N_DDF)
     del A, A3
     record["k2_lu_qr_paths"] = out
     return out
@@ -2079,6 +2116,295 @@ def phase_dd_lu_qr_profile(torch, record):
         del A
 
 
+def ir_k2_want(solver, prec, residuals):
+    """K2 launches of one IR solve that evaluated ``residuals`` residuals,
+    from ops/refine.py: one per residual (gels: the residual and its
+    projection Aᵀr), gels' Aᵀb, and the f32x2 rung's whole-matrix
+    refinement (posv: E = A − L Lᵀ; gesv: one ``lu_ir`` step; gels: the
+    Gram AᵀA and E = G − RᵀR). Escalation adds none under the default
+    ``dd_gemm=auto`` (native FP64)."""
+    per = 2 if solver == "gels" else 1
+    extra = {"posv": 1, "gesv": 1, "gels": 2}[solver] if prec == "f32x2" \
+        else 0
+    return per * residuals + extra + (1 if solver == "gels" else 0)
+
+
+def ir_operands(torch, solver, n=None, nb=None):
+    """The IR drivers' inputs (their generators and seeds): A and B."""
+    from dplasma_tpu_torch.ops import generators
+    f64 = torch.float64
+    n = n or N_IR
+    if solver == "posv":
+        nb = nb or NB_IR_POSV
+        A = generators.plghe(float(n), n, nb, seed=3872, dtype=f64)
+        return A, generators.plrnt(n, NRHS_IR, nb, nb, seed=3873, dtype=f64)
+    nb = nb or NB_IR
+    m, k = (M_IR_GELS, N_IR_GELS) if solver == "gels" else (n, n)
+    A = generators.plrnt(m, k, nb, nb, seed=3872, dtype=f64)
+    return A, generators.plrnt(m, NRHS_IR, nb, nb, seed=3873, dtype=f64)
+
+
+def ir_mca(solver, prec):
+    """MCA of an IR run: the rung, and K3/K4 on the LU/QR f32 panels."""
+    mca = {"ir.precision": prec}
+    if solver != "posv":
+        mca["panel.kernel"] = "pallas"
+    return mca
+
+
+def ir_residuals(info):
+    """Residuals an IR solve evaluated: its backward-error history less
+    the "no verdict" padding."""
+    return sum(1 for v in info["backward_errors"].tolist() if v != -1.0)
+
+
+def phase_k2_ir(torch, dd, pdd, pk, record):
+    """K2 on every distinct limb product of the IR solvers at the drivers'
+    sizes: one f32x2 solve of each (its shapes include every other
+    rung's: the nl = 8 residuals b − A x with nrhs = 4 and K = N, gels'
+    projections Aᵀr and Aᵀb with K = M, and the nl = 5 whole-matrix
+    products E = A − L Lᵀ, the ``lu_ir`` step and the Gram AᵀA at K =
+    8192), recorded through the wrapper and held bitwise to the plain
+    version on the path's own operands, then timed times its count."""
+    from dplasma_tpu_torch.ops import refine
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    g = torch.Generator(device="cuda").manual_seed(800)
+    out = {}
+    for solver, fn in (("posv", lambda a, b: refine.posv_ir(a, b, "L")),
+                       ("gesv", refine.gesv_ir), ("gels", refine.gels_ir)):
+        path = f"{solver}_ir_f32x2"
+        A, B = ir_operands(torch, solver)
+        res = {}
+        with cfg.override_scope(ir_mca(solver, "f32x2")):
+            seen = recorded_k2_products(
+                torch, pdd, lambda: res.update(info=fn(A, B)[1]))
+        info = res["info"]
+        want = ir_k2_want(solver, "f32x2", ir_residuals(info))
+        got = sum(r["count"] for r in seen.values())
+        check(bool(info["converged"]) and not bool(info["escalated"]),
+              f"{path} did not converge: {info}")
+        check(got == want, f"{path}: {got} K2 launches recorded, want "
+                           f"{want}")
+        check(not any(r["a_copy"] or r["b_copy"] for r in seen.values()),
+              f"{path}: a K2 operand needed an aligned copy")
+        out[path] = k2_path_sum(torch, dd, pdd, g, path, seen, N_IR)
+        del A, B
+    record["k2_ir_paths"] = out
+    return out
+
+
+def ir_driver(torch, pdd, solver, prec, argv, mca):
+    """One IR driver run with -x -v under ``mca``: its record, the
+    refine summary of its timed run, and the gates of every rung (-x
+    passes, no unfused limb product, the timed run's K2 launches equal
+    to :func:`ir_k2_want`)."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.utils import config as cfg
+    with cfg.override_scope(mca):
+        pdd.reset_counts()
+        counts0 = {lab: mod.LAUNCHES for lab, mod in common.KERNELS}
+        t0 = time.perf_counter()
+        rc = main(argv + ["-x", "-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        unfused = pdd.UNFUSED
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    s = run["refine"][-1] if run["refine"] else {}
+    verdict = ("escalated" if s.get("escalated") else "converged"
+               if s.get("converged") else "exhausted")
+    tag = " ".join(f"{k}={v}" for k, v in mca.items())
+    log(f"[{argv[0]}] {' '.join(argv[1:])} {tag}: best {op['best_s']:.5f} s "
+        f"(warm-up {op['warmup_s']:.3f} s, driver wall {wall:.1f} s), "
+        f"{verdict} after {s.get('iterations')} corrections, bwd "
+        f"{s.get('backward_errors', [None])[-1]}, guard "
+        f"{s.get('quant_guard_max')}; per run K1 {op['k1_launches']} K2 "
+        f"{op['k2_launches']} K3 {op['k3_launches']} K4 "
+        f"{op['k4_launches']}; checks " + ", ".join(
+            f"{c['check']}={c['residual']:.3e}" for c in run["checks"]))
+    check(rc == 0, f"{argv[0]} ({tag}) exited {rc}")
+    check(run["checks"] and all(c["ok"] for c in run["checks"]),
+          f"{argv[0]} ({tag}): checks {run['checks']}")
+    check(unfused == 0, f"{argv[0]} ({tag}): {unfused} limb products took "
+                        f"the unfused route")
+    if s.get("converged"):      # every residual it evaluated is finite
+        want = ir_k2_want(solver, prec, len(s["backward_errors"]))
+        check(op["k2_launches"][-1] == want,
+              f"{argv[0]} ({tag}): K2 launches {op['k2_launches']} (want "
+              f"{want})")
+    return {"argv": argv[1:], "mca": mca, "best_s": op["best_s"],
+            "warmup_s": op["warmup_s"], "wall_s": wall, "refine": s,
+            "verdict": verdict,
+            **{f"{lab}_launches": op[f"{lab}_launches"]
+               for lab, _ in common.KERNELS},
+            "launches_run": {lab: mod.LAUNCHES - counts0[lab]
+                             for lab, mod in common.KERNELS},
+            "checks": run["checks"]}
+
+
+def ir_factor_stages(torch, refine, pk, run):
+    """(seconds, K1 launches) of each factor stage of one IR solve
+    ``run()``, in call order: the working factorization
+    (``refine._factor``), then the f32x2 step (``_factor_refine_chol``,
+    ``dd.lu_ir`` or ``_factor_refine_r``), each between two
+    synchronizations."""
+    stages = []
+
+    def timed(f):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            k1, t0 = pk.LAUNCHES, time.perf_counter()
+            res = f(*a, **kw)
+            torch.cuda.synchronize()
+            stages.append((time.perf_counter() - t0, pk.LAUNCHES - k1))
+            return res
+        return call
+
+    hooks = [(refine, name) for name in ("_factor", "_factor_refine_chol",
+                                         "_factor_refine_r")]
+    hooks.append((refine._dd, "lu_ir"))
+    saved = [getattr(mod, name) for mod, name in hooks]
+    try:
+        for (mod, name), f in zip(hooks, saved):
+            setattr(mod, name, timed(f))
+        run()
+    finally:
+        for (mod, name), f in zip(hooks, saved):
+            setattr(mod, name, f)
+    return stages
+
+
+def phase_ir(torch, pk, pdd, record):
+    """Phase 12, the mixed-precision IR solvers: the three drivers at
+    every rung beside native FP64 at the same size, the ladder's
+    configuration as direct calls with the factor's share, and two
+    profiles. Returns the drivers' launches {kernel: {path: n}}."""
+    from dplasma_tpu_torch.ops import refine
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    n, nrhs = str(N_IR), str(NRHS_IR)
+    argvs = {
+        "posv": ["testing_dposv_ir", "-N", n, "-t", str(NB_IR_POSV), "-K",
+                 nrhs],
+        "gesv": ["testing_dgesv_ir", "-N", n, "-t", str(NB_IR), "-K", nrhs],
+        "gels": ["testing_dgels_ir", "-M", str(M_IR_GELS), "-N",
+                 str(N_IR_GELS), "-t", str(NB_IR), "-K", nrhs]}
+    kt = {"gesv": N_IR // NB_IR, "gels": N_IR_GELS // NB_IR}
+    drivers = {}
+    launches = {lab: {} for lab in ("k1", "k2", "k3", "k4")}
+    for solver, argv in argvs.items():
+        for prec in IR_RUNGS:
+            r = ir_driver(torch, pdd, solver, prec, argv,
+                          ir_mca(solver, prec))
+            drivers[f"{solver}_ir {prec}"] = r
+            s = r["refine"]
+            if prec in ("f32", "f32x2") or solver == "posv":
+                check(s["converged"] and not s["escalated"],
+                      f"{solver}_ir {prec} did not converge: {s}")
+            if prec == "int8":
+                check(s.get("quant_guard_max", 0.0) > 0,
+                      f"{solver}_ir int8: guard {s.get('quant_guard_max')}"
+                      f" (0: the int8 route did not run)")
+            if solver in kt:
+                lab = "k3" if solver == "gesv" else "k4"
+                check(all(c == kt[solver] for c in r[f"{lab}_launches"]),
+                      f"{solver}_ir {prec}: {lab.upper()} launches "
+                      f"{r[f'{lab}_launches']} (want {kt[solver]})")
+            for lab in launches:
+                launches[lab][f"{solver}_ir"] = launches[lab].get(
+                    f"{solver}_ir", 0) + r["launches_run"][lab]
+        # native FP64 at the same size, the IR drivers' reference point
+        nat = [a for a in argv]
+        nat[0] = nat[0].replace("_ir", "")
+        drivers[f"{solver} native"] = dd_driver(torch, pdd, nat + ["-x"], {},
+                                                0, 0, False)
+
+    # the ladder's configuration as direct calls (and gels_ir at the
+    # driver's size): wall (host clock around the synchronized solve,
+    # after a warm call), the factor's time and its K1 launches: none
+    # under int8, whose routed updates ride qgemm (gels keeps its narrow
+    # compact-WY products on K1, fewer than at f32)
+    ladder = {}
+    lad_kt = N_LAD // NB_LAD
+    for solver, rungs, size in (("posv", IR_RUNGS, (N_LAD, NB_LAD)),
+                                ("gesv", IR_RUNGS, (N_LAD, NB_LAD)),
+                                ("gels", ("int8", "f32"), (None, None))):
+        A, B = ir_operands(torch, solver, *size)
+        fn = (lambda a, b: refine.posv_ir(a, b, "L")) if solver == "posv" \
+            else getattr(refine, f"{solver}_ir")
+        for prec in rungs:
+            # the ladder's default panels; gels_ir as its driver runs
+            mca = ir_mca(solver, prec) if solver == "gels" \
+                else {"ir.precision": prec}
+            with cfg.override_scope(mca):
+                fn(A, B)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                X, info = fn(A, B)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                stages = ir_factor_stages(torch, refine, pk,
+                                          lambda: fn(A, B))
+            s = refine.summarize(info, op=f"{solver}_ir", precision=prec)
+            # the factor: the working factorization and the f32x2 step
+            # (an escalated solve's own factorization is not the IR's)
+            fac = stages[0][0] + (stages[1][0] if prec == "f32x2" else 0.0)
+            key = f"{solver}_ir {prec}" + (" (driver size)"
+                                           if solver == "gels" else "")
+            ladder[key] = dict(s, wall_s=wall, factor_s=fac,
+                               factor_share=fac / wall,
+                               factor_k1_launches=stages[0][1])
+            verdict = ("escalated" if s["escalated"] else "converged"
+                       if s["converged"] else "exhausted")
+            log(f"[ir-ladder] {key} {tuple(A.shape)} nb={A.desc.nb} nrhs="
+                f"{NRHS_IR}: wall {1e3 * wall:.2f} ms, factor "
+                f"{1e3 * fac:.2f} ms ({100 * fac / wall:.1f}%, K1 "
+                f"{stages[0][1]}), {verdict} after {s['iterations']} "
+                f"corrections, bwd {s['backward_errors'][-1]:.3e}")
+            check(X.device.type == "cuda", "the IR solve left the card")
+            if solver == "posv" or prec in ("f32", "f32x2"):
+                check(s["converged"] and not s["escalated"],
+                      f"ladder {solver}_ir {prec}: {s}")
+            if solver != "gels" and prec in ("int8", "f32"):
+                want = 0 if prec == "int8" else 2 * lad_kt - 3
+                check(stages[0][1] == want,
+                      f"{key}: the factor launched K1 {stages[0][1]} times "
+                      f"(want {want})")
+        if solver == "gels":
+            k1 = {p: ladder[f"gels_ir {p} (driver size)"][
+                "factor_k1_launches"] for p in ("int8", "f32")}
+            check(0 < k1["int8"] < k1["f32"], f"gels_ir factor K1 {k1}")
+        del A, B
+
+    record["ir"] = {"drivers": drivers, "ladder": ladder}
+    return launches
+
+
+def phase_ir_profile(torch, pk, record):
+    """One posv_ir f32x2 and one gesv_ir f32 solve at the drivers' sizes
+    under torch.profiler: the factor's kernels, the residuals' digit
+    splits and K2, the solves, and the idle share."""
+    from dplasma_tpu_torch.ops import refine
+    from dplasma_tpu_torch.utils import config as cfg
+    pk.enable(True)
+    for key, solver, prec, fn in (
+            ("posv_ir_f32x2_profile", "posv", "f32x2",
+             lambda a, b: refine.posv_ir(a, b, "L")),
+            ("gesv_ir_f32_profile", "gesv", "f32", refine.gesv_ir)):
+        A, B = ir_operands(torch, solver)
+        with cfg.override_scope(ir_mca(solver, prec)):
+            _profile(torch, record, key, f"{solver}_ir {prec} N={N_IR}",
+                     lambda: fn(A, B))
+        prof = record[key]
+        if prof["busy_ms"] is not None:
+            check(any("k2_" in k for k in prof["all_kernels_ms"]),
+                  f"{key} shows no K2")
+        del A, B
+
+
 def ring_counts():
     """(bcast, shift) launches of K5 per factorization on a P×Q grid:
     one broadcast per process row and step (the lookahead carry issues
@@ -2466,6 +2792,7 @@ def main() -> int:
     k4tot, nqpan = phase_k4(torch, pqr, record)
     k2tot, nk2 = phase_k2(torch, dd, pdd, record)
     k2luqr = phase_k2_lu_qr(torch, dd, pdd, pk, record)
+    k2ir = phase_k2_ir(torch, dd, pdd, pk, record)
     phase_int_mm_layouts(torch, record)
     k5tot = phase_k5(torch, pring, record)
     k1_spotrf = phase_spotrf(torch, pk, record)
@@ -2482,6 +2809,8 @@ def main() -> int:
     k5b_pc, k1_pc = phase_potrf_cyclic(torch, pk, pring, record)
     ddf = phase_dd_lu_qr(torch, pk, plu, pdd, record)
     phase_dd_lu_qr_profile(torch, record)
+    ir = phase_ir(torch, pk, pdd, record)
+    phase_ir_profile(torch, pk, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
@@ -2519,11 +2848,13 @@ def main() -> int:
          "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
          "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
-                      + ddf["k1"]["dgeqrf_dd"]),
-         "launches_by_path": {"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
-                              "sgeqrf": k1_sgeqrf, "sgetrf_ptgpanel": k1_gt,
-                              "potrf_cyclic": k1_pc,
-                              "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
+                      + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())),
+         "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
+                                   "sgeqrf": k1_sgeqrf,
+                                   "sgetrf_ptgpanel": k1_gt,
+                                   "potrf_cyclic": k1_pc,
+                                   "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
+                                  **ir["k1"]),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]),
@@ -2533,9 +2864,11 @@ def main() -> int:
         {"name": "k2_limb_gemm", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
-         "launches": k2_dpotrf + k2_dgemm + sum(ddf["k2"].values()),
+         "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
+                      + sum(ir["k2"].values())),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
-                                   "dgemm_dd": k2_dgemm}, **ddf["k2"]),
+                                   "dgemm_dd": k2_dgemm}, **ddf["k2"],
+                                  **ir["k2"]),
          "max_abs_err": k2tot["max_abs_err"],
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
          "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
@@ -2547,13 +2880,16 @@ def main() -> int:
          "by_path": {path: dict({k: t[k] for k in (
              "ms", "limb_levels_ms", "plain_ms", "bound_ms", "library_ms",
              "max_abs_err", "bound_by")}, launches=t["launches"],
-             shapes=len(t["shapes"])) for path, t in k2luqr.items()}},
+             shapes=len(t["shapes"])) for path, t in (*k2luqr.items(),
+                                                      *k2ir.items())}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
-         "launches": k3_sgetrf + ddf["k3"]["dgetrf_dd"],
+         "launches": (k3_sgetrf + ddf["k3"]["dgetrf_dd"]
+                      + ir["k3"]["gesv_ir"]),
          "launches_by_path": {"sgetrf": k3_sgetrf,
-                              "dgetrf_dd": ddf["k3"]["dgetrf_dd"]},
+                              "dgetrf_dd": ddf["k3"]["dgetrf_dd"],
+                              "gesv_ir": ir["k3"]["gesv_ir"]},
          "max_abs_err": k3tot["max_abs_err"],
          "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
          "bound_ms": k3tot["bound_ms"],
@@ -2562,8 +2898,9 @@ def main() -> int:
         {"name": "k4_geqrt_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/geqrt_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_qr.py:123",
-         "launches": k4_sgeqrf,
-         "launches_by_path": {"sgeqrf": k4_sgeqrf},
+         "launches": k4_sgeqrf + ir["k4"]["gels_ir"],
+         "launches_by_path": {"sgeqrf": k4_sgeqrf,
+                              "gels_ir": ir["k4"]["gels_ir"]},
          "max_abs_err": k4tot["max_abs_err"],
          "ms": k4tot["ms"], "plain_ms": k4tot["plain_ms"],
          "bound_ms": k4tot["bound_ms"],
@@ -2597,7 +2934,12 @@ def main() -> int:
         f"K2's the direct dpotrf call, the dgemm driver run and phase "
         f"11's direct dgetrf (nb={NB_DDK3}, lu.agg_depth 4) and dgeqrf "
         f"(chain and tree) calls, K3's also that dgetrf's f32 seeds, K1's "
-        f"also those dgeqrf calls' f32 seed LUs; K1's "
+        f"also those dgeqrf calls' f32 seed LUs; the *_ir paths count "
+        f"phase 12's driver runs (warm-up, timed run, -x check) at every "
+        f"rung: K2 every residual and f32x2 step, K1 the f32 factors' "
+        f"products, K3 gesv_ir's panels, K4 gels_ir's; K2's *_ir_f32x2 "
+        f"by_path entries time each shape of one f32x2 solve (N={N_IR}); "
+        f"K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "
         f"tensor-core peak), bound_ffma_ms the FP32 FFMA one; by_path "
         f"gives K1's sums over one factorization of spotrf, sgetrf and "

@@ -1,6 +1,6 @@
 """Shared driver harness — the part of ``dplasma_tpu/drivers/common.py``
-that the ``potrf``, ``potrs``, ``posv``, ``gemm``, ``getrf``, ``gesv``
-and QR-family drivers need.
+that the ``potrf``, ``potrs``, ``posv``, ``gemm``, ``getrf``, ``gesv``,
+QR-family and IR-solver drivers need.
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
 ``-N -M -K -t -T -x -v --nruns -z/--HNB --seed -p -q -g``, plus
@@ -18,7 +18,8 @@ device (``parallel.mesh``) for the run: the distributed drivers
 Every driver run is recorded in :data:`RUNS` (newest last): per op the
 run times, GFLOP/s and the launches of each hand-written kernel
 (:data:`KERNELS`) in each timed run; per ``-x`` check its residual and
-verdict.
+verdict; per mixed-precision IR solve its ``"refine"`` summary
+(:meth:`Driver.report_refine`).
 """
 from __future__ import annotations
 
@@ -99,8 +100,9 @@ Optional arguments:
  -v --verbose[=n]  : verbosity ladder
  -h --help         : this message
 MCA knobs come from the environment, DPLASMA_MCA_<NAME> (dots as
-underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision potrf,
-potrs, posv and gemm drivers on the f64-equivalent limb route.
+underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision drivers
+on the f64-equivalent limb route; DPLASMA_MCA_IR_PRECISION=int8|bf16|
+f32|f32x2 picks the working precision of posv_ir, gesv_ir and gels_ir.
 """
 
 
@@ -227,7 +229,7 @@ class Driver:
                        "M": ip.M, "K": ip.K, "NB": ip.NB,
                        "grid": [ip.P, ip.Q],
                        "device": str(self.device), "ops": [],
-                       "checks": []}
+                       "checks": [], "refine": []}
         RUNS.append(self.record)
         self._frames = []
         self._grid = None
@@ -320,6 +322,24 @@ class Driver:
                  gflops, total, (flops / 1e9) / total, enq, dest))
         sys.stdout.flush()
         return out, gflops
+
+    def report_refine(self, summary: dict) -> dict:
+        """Record one mixed-precision IR solve (``ops.refine.summarize``)
+        in the record's ``"refine"`` list, and at -v >= 2 print the
+        ``#+ refine[op]:`` line."""
+        self.record["refine"].append(summary)
+        if self.ip.loud >= 2:
+            hist = summary.get("backward_errors") or []
+            tail = f" bwd={hist[-1]:.3e}" if hist else ""
+            print("#+ refine[%s]: precision=%s iters=%d %s%s"
+                  % (summary.get("op", self.name),
+                     summary.get("precision", "?"),
+                     summary.get("iterations", 0),
+                     ("escalated" if summary.get("escalated") else
+                      "converged" if summary.get("converged") else
+                      "exhausted"), tail))
+            sys.stdout.flush()
+        return summary
 
     def report_check(self, what: str, residual, ok) -> int:
         res = float(residual)

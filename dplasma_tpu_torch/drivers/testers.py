@@ -1,12 +1,16 @@
 """The testing_* driver bodies of the ported slices: ``potrf``,
 ``potrs``, ``posv``, ``gemm``, ``getrf`` (= ``getrf_1d``), ``gesv``,
-``getrf_ptgpanel`` (the distributed panel under ``-p P -q Q``), and
-the QR family ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``,
-``unmlq`` and ``gels``. Under MCA ``dd_gemm=always`` the d-precision
-Cholesky and GEMM drivers take the f64-equivalent limb route.
+``getrf_ptgpanel`` (the distributed panel under ``-p P -q Q``), the
+QR family ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``,
+``unmlq`` and ``gels``, and the mixed-precision IR solvers ``posv_ir``,
+``gesv_ir`` and ``gels_ir`` (working precision from MCA
+``ir.precision``). Under MCA ``dd_gemm=always`` the d-precision drivers
+take the f64-equivalent limb route.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-246, :290-381,
-:454-455, :510-545, :577-589): seeded
+:454-455, :510-545, :577-589, :609-713; the IR drivers without the
+autopilot and the ladder's fallback rung, whose escape the solvers'
+own escalation already takes): seeded
 generation → timed run with the GFLOPS print → optional ``-x`` residual
 verification against the regenerated input.
 """
@@ -16,6 +20,7 @@ import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
 from dplasma_tpu_torch.ops import blas3, checks, generators, lu, qr
+from dplasma_tpu_torch.ops import refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
@@ -229,9 +234,77 @@ def gels(drv: Driver):
     return 0
 
 
+# ------------------------------------------- mixed-precision IR solves
+
+def _refine_flops(ip, kind: str) -> float:
+    """Advertised flop model of an IR solve: the factorization + one
+    solve (the LAWN-41 counts of the op the IR route replaces; the
+    O(n^2) refinement steps are not counted, as the reference leaves
+    gerfs-style refinement unpriced)."""
+    cplx = ip.prec_dtype.is_complex
+    if kind == "posv":
+        return lawn41.potrf(ip.N, cplx) + lawn41.potrs(ip.N, ip.K, cplx)
+    if kind == "gesv":
+        return lawn41.getrf(ip.N, ip.N, cplx) + lawn41.getrs(ip.N, ip.K,
+                                                             cplx)
+    return lawn41.geqrf(ip.M, ip.N, cplx) + lawn41.unmqr(
+        "L", ip.M, ip.K, ip.N, cplx)
+
+
+def posv_ir(drv: Driver):
+    """testing_dposv_ir: SPD solve, factored in the MCA ``ir.precision``
+    working precision and refined to f64-equivalent backward error
+    (ops.refine); divergence escalates to the full-precision posv."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    B = _gen(drv, ip.N, ip.K, 1)
+    (X, info), _ = drv.progress(lambda a, b: refine.posv_ir(a, b, "L"),
+                                (A0, B), _refine_flops(ip, "posv"))
+    drv.report_refine(refine.summarize(info, op=drv.name))
+    if ip.check:
+        r, ok = checks.check_solve(A0, B, X, uplo="L")
+        return drv.report_check("POSV_IR backward error", r, ok)
+    return 0
+
+
+def gesv_ir(drv: Driver):
+    """testing_dgesv_ir: general solve by low-precision pivoted LU +
+    iterative refinement (see posv_ir)."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    B = _gen(drv, ip.N, ip.K, 1)
+    (X, info), _ = drv.progress(refine.gesv_ir, (A0, B),
+                                _refine_flops(ip, "gesv"))
+    drv.report_refine(refine.summarize(info, op=drv.name))
+    if ip.check:
+        r, ok = checks.check_solve(A0, B, X)
+        return drv.report_check("GESV_IR backward error", r, ok)
+    return 0
+
+
+def gels_ir(drv: Driver):
+    """testing_dgels_ir: overdetermined least squares by low-precision
+    QR + semi-normal-equation refinement on the R factor (see
+    posv_ir)."""
+    ip = drv.ip
+    if ip.M < ip.N:
+        raise SystemExit("gels_ir: overdetermined (M >= N) only; use "
+                         "testing_?gels for the minimum-norm path")
+    A0 = _gen(drv, ip.M, ip.N)
+    B = _gen(drv, ip.M, ip.K, 1)
+    (X, info), _ = drv.progress(refine.gels_ir, (A0, B),
+                                _refine_flops(ip, "gels"))
+    drv.report_refine(refine.summarize(info, op=drv.name))
+    if ip.check:
+        r, ok = checks.check_gels(A0, B, X.to_dense())
+        return drv.report_check("GELS_IR normal eq", r, ok)
+    return 0
+
+
 DRIVERS = {"gemm": gemm, "potrf": potrf, "potrs": potrs, "posv": posv,
            "getrf": getrf_1d,
            "getrf_1d": getrf_1d, "getrf_ptgpanel": getrf_ptgpanel,
            "gesv": gesv,
            "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
-           "unmqr": unmqr, "unmlq": unmlq, "gels": gels}
+           "unmqr": unmqr, "unmlq": unmlq, "gels": gels,
+           "posv_ir": posv_ir, "gesv_ir": gesv_ir, "gels_ir": gels_ir}

@@ -1,10 +1,11 @@
 """Norm-based residual verification (the ``-x`` self-checks).
 
-Ports ``check_potrf``, ``check_axmb``, ``check_gels``, ``check_qr`` and
-``check_orthogonality`` of ``dplasma_tpu/ops/checks.py`` (:16-68,
-:94-138): regenerate from the seed, compute an analytic residual, pass
+Ports ``check_potrf``, ``check_axmb``, ``check_solve``, ``check_gels``,
+``check_qr`` and ``check_orthogonality`` of ``dplasma_tpu/ops/checks.py``
+(:16-138): regenerate from the seed, compute an analytic residual, pass
 iff residual < 60 after scaling by eps·N (ref src/dplasma_zcheck.c,
-tests/testing_zpotrf.c:86-121). No golden files.
+tests/testing_zpotrf.c:86-121); ``check_solve``'s normwise backward
+error passes below ``scale·eps``. No golden files.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas
+from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.ops import norms
 
 THRESHOLD = 60.0
@@ -64,6 +66,32 @@ def check_axmb(A0: TileMatrix, b: TileMatrix, x: TileMatrix,
            * _eps(A0.dtype) * N)
     val = float(num / torch.clamp(den, min=_tiny(A0.dtype)))
     return val, val < THRESHOLD
+
+
+def check_solve(A0: TileMatrix, b: TileMatrix, x: TileMatrix,
+                uplo: str | None = None, scale: float = 100.0):
+    """Normwise backward error ``||b - A x|| / (||A|| ||x|| + ||b||)``
+    against ``scale·eps`` (default the 100·u floor the mixed-precision
+    IR solvers converge to): the measure the IR convergence test itself
+    uses, residual included. For real f64 the residual is the exact limb
+    product ``dd.gemm_residual`` (K2 on the card), as the IR loop's and
+    as the reference's ``blas.dot`` on its TPU: an FP64 product rounds
+    at ~sqrt(N)·u of ||A|| ||x||, which at N = 8192 is above the
+    100·u gate itself. ``uplo`` set means A0 stores a Hermitian
+    triangle. Max-norms throughout; the ``_tiny`` clamp keeps a
+    zero-norm system finite."""
+    a = norms._sym_full(A0, uplo, conj=True) if uplo else A0.to_dense()
+    bd = b.to_dense()
+    xd = x.to_dense()
+    if a.dtype == torch.float64 and xd.dtype == torch.float64:
+        r = _dd.gemm_residual(bd, a, xd)
+    else:
+        r = bd - blas.dot(a, xd)
+    den = (torch.max(torch.abs(a)) * torch.max(torch.abs(xd))
+           + torch.max(torch.abs(bd)))
+    val = float(torch.max(torch.abs(r))
+                / torch.clamp(den, min=_tiny(A0.dtype)))
+    return val, val < scale * _eps(A0.dtype)
 
 
 def check_gels(A0: TileMatrix, b: TileMatrix, xd):

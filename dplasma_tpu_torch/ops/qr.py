@@ -81,9 +81,11 @@ from dplasma_tpu_torch.utils import config as _cfg
 
 
 def _quant_apply_q(v, T, c):
-    """Compact-WY trailing apply Q^H C; the wide outer product goes
-    through ``quant.update_dot`` (which raises under the unported int8
-    rung), and the rest is ``householder.apply_q`` verbatim."""
+    """Compact-WY trailing apply Q^H C with the wide outer product
+    ``V @ (T^H (V^H C))`` through ``quant.update_dot``, hence the
+    block-scaled int8 GEMM under the ``ir.precision=int8`` rung; the two
+    narrow inner products stay f32. ``householder.apply_q`` verbatim
+    when the int8 route is inactive."""
     if not _quant.updates_active(v.dtype, c.dtype):
         return hh.apply_q(v, T, c, trans="C")
     w = k.dot(T.mH, k.dot(v, c, ta=True, conj_a=True))

@@ -231,9 +231,8 @@ mca_register("dd_gemm", "auto",
              "FP64-equivalent limb GEMM for f64 matmuls: auto (native "
              "FP64 on the GPU), always (the exact int8 limb route, each "
              "product closed by kernel K2: the tile dot/gemm, potrf, "
-             "trsm and trtri, so ops.potrf/potrs/posv and blas3.gemm/"
-             "trsm; the f64 LU and QR entry points raise until their dd "
-             "panels are ported), never.")
+             "trsm and trtri, so ops.potrf/potrs/posv, blas3.gemm/"
+             "trsm and the f64 LU and QR entry points), never.")
 mca_register("dd_epilogue", "auto",
              "Recombine epilogue of the dd limb route: auto (unchunked "
              "products through kernel K2), off (the plain PyTorch "
@@ -243,8 +242,8 @@ mca_register("quant.tile", "128",
              "updates")
 mca_register("quant.updates", "off",
              "route factorization trailing updates through the "
-             "block-scaled int8 GEMM: off | int8 (not ported yet, "
-             "raises)")
+             "block-scaled int8 GEMM: off | int8 (set by the "
+             "ir.precision=int8 rung)")
 mca_register("quant.guard", "probe",
              "per-update ABFT ones-probe divergence guard on quantized "
              "updates: probe | off")
@@ -265,3 +264,19 @@ mca_register("lu.agg_depth", "4",
              "it says (the flush keeps the same op order, and eager "
              "torch has nothing to fuse); registered so a reference "
              "snapshot replays.")
+mca_register("ir.precision", "f32",
+             "Working precision of the mixed-precision IR solvers "
+             "(posv_ir/gesv_ir/gels_ir): int8 (f32 factor whose trailing "
+             "updates ride the block-scaled int8 GEMM, kernels.quant), "
+             "bf16 (operands/factors rounded through bf16 storage), f32, "
+             "or f32x2 (double-single: the f32 factor takes one extra "
+             "refinement step on the kernels.dd bits=32 limb ladder "
+             "rung).")
+mca_register("ir.max_iters", "10",
+             "Refinement-iteration budget of the IR solvers; a solve that "
+             "has not reached ir.tol within the budget escalates to the "
+             "full-precision factorization route.")
+mca_register("ir.tol", "0",
+             "Normwise-backward-error convergence target of the IR "
+             "solvers (||b-Ax|| / (||A|| ||x|| + ||b||)); 0 = auto, 100x "
+             "the f64 unit roundoff (the check_solve acceptance floor).")

@@ -170,9 +170,13 @@ def test_update_dot_falls_through_and_int8_raises(tiles):
     with cfg.override_scope({"quant.updates": "int8"}):
         assert quant.updates_active(torch.float32, torch.float32)
         assert not quant.updates_active(torch.float64)
-        quant.update_dot(ta, tb)     # f64 falls through, as in the ref
-        with pytest.raises(NotImplementedError, match="item 9"):
-            quant.update_dot(ta.float(), tb.float())
+        # f64 falls through bit-identically, as in the ref
+        assert torch.equal(quant.update_dot(ta, tb), k.dot(ta, tb))
+        # f32 takes the block-scaled int8 GEMM (ported: no longer raises)
+        a32, b32 = ta.float(), tb.float()
+        assert torch.equal(quant.update_dot(a32, b32),
+                           quant.qgemm(a32, b32))
+        assert not torch.equal(quant.update_dot(a32, b32), k.dot(a32, b32))
     assert quant.quant_params() == (128, "off", "probe")
 
 

@@ -7,6 +7,7 @@ import pytest
 
 import dplasma_tpu.kernels.panels  # noqa: F401  (registers panel.*)
 import dplasma_tpu.kernels.quant  # noqa: F401  (registers quant.*)
+import dplasma_tpu.ops.refine  # noqa: F401  (registers ir.*)
 import dplasma_tpu_torch.kernels.panels  # noqa: F401  (registers panel.*)
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu.utils import flops as ref_flops
@@ -17,7 +18,8 @@ SLICE_KNOBS = ["sweep.lookahead", "qr.agg_depth", "trsm_inv", "dd_gemm",
                "quant.updates", "quant.tile", "quant.guard",
                "lu.pallas_panel", "lu.panel_ib", "lu.panel_chunk",
                "lu.agg_depth", "panel.kernel", "panel.tree_leaf",
-               "panel.rec_base", "qr_panel"]
+               "panel.rec_base", "qr_panel", "ir.precision",
+               "ir.max_iters", "ir.tol"]
 
 
 @pytest.fixture

@@ -27,7 +27,10 @@ products it closes are therefore bitwise equal on the card and on the
 CPU. K5, bitwise equal to
 its plain version (it moves bytes), also over many launches on one flag
 buffer (flags are never reset), and the cyclic factorizations' ring
-route ``torch.equal`` to their psum route.
+route ``torch.equal`` to their psum route. The IR slice's K2 shapes
+(the skinny residual, the nl = 5 square product) bitwise as above; the
+block-scaled int8 GEMM's int8 parts bitwise against the CPU, its f32
+sum within 1e-6; ``posv_ir`` converging with every residual on K2.
 """
 import pytest
 import torch
@@ -524,6 +527,95 @@ def test_dpotrf_dd_on_card_routes_every_product(card):
     L64 = torch.linalg.cholesky(A.to_dense().cpu())
     err = (L.to_dense().cpu() - L64).abs().max() / L64.abs().max()
     assert float(err) <= 1e-11
+
+
+@pytest.mark.parametrize("nl,nrhs", [(8, 1), (8, 4), (5, 4)])
+def test_k2_skinny_residual_matches_plain_version(card, nl, nrhs):
+    """The IR residual b − A x: an N×nrhs output with K = N, one 64-wide
+    tile column whose B box TMA zero-fills past nrhs; one fused launch,
+    bitwise to its plain version, and the whole ``gemm_residual`` the
+    same bits as on the CPU."""
+    N = 2048
+    g = torch.Generator(device=card).manual_seed(nrhs + nl)
+    a = torch.randn(N, N, device=card, generator=g, dtype=torch.float64)
+    x = torch.randn(N, nrhs, device=card, generator=g, dtype=torch.float64)
+    b = torch.randn(N, nrhs, device=card, generator=g, dtype=torch.float64)
+    al, sa, _ = dd._split_rows(a, 7, nl)
+    bl, sb, _ = dd._split_rows(x.T, 7, nl)
+    _k2_check(al, bl, b, sa, sb.T)
+    _k2_check(al, bl, b[:, :nrhs].T.contiguous().T, sa, sb.T)
+    bits = 53 if nl == 8 else 32
+    launches, unfused = pdd.LAUNCHES, pdd.UNFUSED
+    got = dd.gemm_residual(b, a, x, bits=bits)
+    torch.cuda.synchronize()
+    assert (pdd.LAUNCHES - launches, pdd.UNFUSED - unfused) == (1, 0)
+    want = dd.gemm_residual(b.cpu(), a.cpu(), x.cpu(), bits=bits)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+
+
+def test_k2_nl5_square_product_matches_plain_version(card):
+    """The f32x2 rung's whole-matrix products at bits=32 (nl = 5): E = A
+    − L Lᵀ at K = N in one launch, bitwise."""
+    N = 2048
+    g = torch.Generator(device=card).manual_seed(5)
+    a = torch.randn(N, N, device=card, generator=g, dtype=torch.float64)
+    L = torch.tril(torch.randn(N, N, device=card, generator=g,
+                               dtype=torch.float64))
+    w, nl, kc = dd._plan(N, 32)
+    assert nl == 5 and kc == N
+    al, sa, _ = dd._split_rows(L, w, nl)
+    bl, sb, _ = dd._split_rows(L, w, nl)           # (Lᵀ)ᵀ = L
+    _k2_check(al, bl, a, sa, sb.T)
+    launches = pdd.LAUNCHES
+    dd.gemm_residual(a, L, L.T, bits=32)
+    torch.cuda.synchronize()
+    assert pdd.LAUNCHES == launches + 1
+
+
+@pytest.mark.parametrize("m,kk,n,tile", [(700, 1024, 300, 128),
+                                         (5, 100, 3, 32),
+                                         (1030, 520, 770, 64)])
+def test_qgemm_on_card_matches_the_cpu(card, m, kk, n, tile):
+    """The block-scaled int8 GEMM: quantization and every int32 block
+    product the same bits on the card as on the CPU; the f32 dequantized
+    sum within 1e-6·max|C| (each pass is one IEEE multiply or add on
+    both, so it is bitwise too unless a device contracts them)."""
+    from dplasma_tpu_torch.kernels import quant
+    rng = torch.Generator().manual_seed(m + n)
+    a = torch.randn(m, kk, generator=rng) * 3.0
+    b = torch.randn(kk, n, generator=rng)
+    qa, sa = quant.quantize(a.to(card), tile)
+    qa0, sa0 = quant.quantize(a, tile)
+    assert torch.equal(qa.cpu(), qa0) and torch.equal(sa.cpu(), sa0)
+    qb, _ = quant.quantize(b.T.to(card), tile)
+    p = dd._imm(qa[:, :tile], qb[:, :tile].T)
+    assert torch.equal(p.cpu(), dd._imm(qa0[:, :tile],
+                                        quant.quantize(b.T, tile)[0][
+                                            :, :tile].T))
+    got = quant.qgemm(a.to(card), b.to(card), tile)
+    want = quant.qgemm(a, b, tile)
+    assert got.shape == (m, n) and got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-6 * float(want.abs().max())
+
+
+def test_posv_ir_f32_on_card_converges_through_k2(card):
+    """posv_ir at the f32 rung, N=1024: converged without escalation,
+    every residual one fused K2 launch (none unfused), and the -x check
+    of the solution."""
+    from dplasma_tpu_torch.ops import checks, generators, refine
+    A = generators.plghe(1024.0, 1024, 256, seed=3, dtype=torch.float64)
+    B = generators.plrnt(1024, 4, 256, 256, seed=4, dtype=torch.float64)
+    launches, unfused = pdd.LAUNCHES, pdd.UNFUSED
+    X, info = refine.posv_ir(A, B, precision="f32")
+    torch.cuda.synchronize()
+    s = refine.summarize(info, op="posv_ir", precision="f32")
+    assert s["converged"] and not s["escalated"]
+    assert X.device.type == "cuda" and X.dtype == torch.float64
+    assert pdd.LAUNCHES - launches == len(s["backward_errors"])
+    assert pdd.UNFUSED == unfused
+    r, ok = checks.check_solve(A, B, X, uplo="L")
+    assert ok, r
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -261,3 +261,55 @@ def test_lookahead_flag_is_scoped():
     assert main(["testing_dpotrf", "-N", "40", "-t", "8", "-x",
                  "--lookahead", "2", "--device", "cpu"]) == 0
     assert cfg.mca_snapshot() == before
+
+
+@pytest.mark.parametrize("argv,prec,outcome", [
+    (["testing_dposv_ir", "-N", "100", "-t", "32", "-K", "3"], "int8",
+     "converged"),
+    (["testing_dposv_ir", "-N", "100", "-t", "32", "-K", "3"], "bf16",
+     "converged"),
+    (["testing_dposv_ir", "-N", "100", "-t", "32", "-K", "3"], "f32",
+     "converged"),
+    (["testing_dposv_ir", "-N", "100", "-t", "32", "-K", "3"], "f32x2",
+     "converged"),
+    (["testing_dgesv_ir", "-N", "90", "-t", "32", "-K", "2"], "f32",
+     "converged"),
+    (["testing_dgesv_ir", "-N", "90", "-t", "32", "-K", "2"], "f32x2",
+     "converged"),
+    # plain plrnt: the int8 rung diverges and escalates, -x still passes
+    (["testing_dgesv_ir", "-N", "90", "-t", "32", "-K", "2"], "int8",
+     "escalated"),
+    (["testing_dgels_ir", "-M", "130", "-N", "70", "-t", "32", "-K", "2"],
+     "f32x2", "converged"),
+    (["testing_dgels_ir", "-M", "130", "-N", "70", "-t", "32", "-K", "2"],
+     "bf16", "converged"),
+])
+def test_ir_drivers_refine_and_check(argv, prec, outcome, capsys):
+    """The IR drivers end to end on the CPU: the working precision from
+    MCA ``ir.precision`` (as DPLASMA_MCA_IR_PRECISION sets it), the
+    record's ``"refine"`` entry per run, the ``#+ refine`` line at -v 2,
+    and the -x backward-error check."""
+    from dplasma_tpu_torch.utils import config as cfg
+    common.RUNS.clear()
+    with cfg.override_scope({"ir.precision": prec}):
+        assert main(argv + ["-x", "-v", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[****] TIME(s)" in out and "FAILED" not in out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith(f"#+ refine[{argv[0]}]"))
+    assert f"precision={prec} " in line and f" {outcome} bwd=" in line
+    run = common.RUNS[-1]
+    assert run["checks"] and all(c["ok"] for c in run["checks"])
+    # one entry: the last timed run's solve
+    assert len(run["refine"]) == 1
+    s = run["refine"][-1]
+    assert s["precision"] == prec and s[outcome]
+    assert ("quant_guard_max" in s) == (prec == "int8")
+    if prec == "int8":
+        assert s["quant_guard_max"] > 0
+
+
+def test_gels_ir_driver_refuses_underdetermined():
+    with pytest.raises(SystemExit, match="M >= N"):
+        main(["testing_dgels_ir", "-M", "40", "-N", "64", "-t", "16",
+              "--device", "cpu"])

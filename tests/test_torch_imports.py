@@ -43,7 +43,8 @@ def test_sweep_finds_the_package():
     for mod in ("kernels/householder.py", "kernels/pallas_qr.py",
                 "kernels/panels.py", "ops/qr.py", "ops/checks.py",
                 "kernels/pallas_ring.py", "parallel/layout.py",
-                "parallel/mesh.py", "parallel/cyclic.py"):
+                "parallel/mesh.py", "parallel/cyclic.py",
+                "kernels/quant.py", "ops/refine.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
