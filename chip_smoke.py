@@ -117,7 +117,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches (none under int8, whose updates ride the block-scaled int8
    GEMM; gels_ir at the driver's size keeps its narrow QR products on
    K1, fewer than at f32); one posv_ir f32x2 and one gesv_ir f32 solve
-   under ``torch.profiler``.
+   under ``torch.profiler``;
+13. the Cholesky inverse family and the Level-3 BLAS, norm and dd
+   inverse drivers through ``drivers.main`` with K1 enabled, every
+   kernel count zeroed just before each run and read just after:
+   ``testing_spotri`` and ``testing_spoinv -N 16384 -t 1024 -x``,
+   ``testing_strtri`` and ``testing_slauum`` at the same size (K1 per
+   timed run: 31, 60, 30 and 1, ``ops/potrf.py``'s count),
+   ``testing_ssymm``/``shemm``, ``ssyrk``/``sherk``,
+   ``ssyr2k``/``sher2k``, ``strmm`` (1, 1, 2, 1) and ``testing_strsm
+   -x`` (KT − 1 = 15) at M = N = K = 8192, nb = 512, ``testing_slange``,
+   ``slanhe``, ``slansy``, ``slantr``, ``testing_slanm2`` (its -x
+   residual against the SVD logged, not gated: the reference's 20 fixed
+   power iterations miss its 1e-2 gate there), ``sgeadd``, ``stradd``
+   and ``sprint`` at 8192, and ``testing_dpotri`` / ``testing_dpoinv -N
+   8192 -t 512 -x`` under ``dd_gemm=always`` (K2 per timed run 95 and 172, no K1,
+   none unfused) each beside native FP64; every -x check must pass and
+   no K1 product may take the FFMA kernel; one library call beside each
+   driver where there is one (``torch.cholesky_inverse``,
+   ``torch.linalg.inv``, ``solve_triangular`` against I, ``matmul``,
+   ``addmm``, ``matrix_norm``); every distinct K1 product of one direct
+   trtri, lauum, symm, syrk, syr2k, trmm and trsm call recorded through
+   the wrapper, held to ``gemm_reference`` on the tensor-core kernel
+   and timed times its count beside ``torch.matmul`` and the 3xTF32
+   bound; every distinct K2 product of one dd poinv held bitwise on its
+   own operands and timed; one spoinv and one dd poinv under
+   ``torch.profiler``.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -2768,6 +2793,320 @@ def phase_potrf_cyclic(torch, pk, pring, record):
     return b, k1
 
 
+# phase 13: the Cholesky inverse family at the spotrf ladder's size, the
+# Level-3 BLAS and norm drivers at 8192, the dd inverses at the
+# dpotrf_f64equiv size
+N_INV, NB_INV = N_MAIN, NB_MAIN
+N_B3, NB_B3 = 8192, 512
+N_LANM2 = 8192
+
+
+def inv_k1(kt):
+    """K1 products per call of each inverse-family op at KT diagonal
+    tiles (ops/potrf.py): trtri's recursion 2·(KT − 1), lauum 1, potri
+    both, poinv potrf's 2·KT − 3 more."""
+    trtri = 2 * (kt - 1)
+    return {"trtri": trtri, "lauum": 1, "potri": trtri + 1,
+            "poinv": 2 * kt - 3 + trtri + 1}
+
+
+def inv_k2(kt):
+    """K2 launches per call under dd_gemm=always: trtri's 2·(KT − 1)
+    products and two Newton steps of two products on each of its KT
+    leaves (dd.trtri_f64), lauum 1, poinv potrf's 5·KT − 3 more."""
+    trtri = 2 * (kt - 1) + 4 * kt
+    return {"trtri": trtri, "potri": trtri + 1,
+            "poinv": 5 * kt - 3 + trtri + 1}
+
+
+def blas3_driver(torch, pk, pdd, argv, mca, k1_want, k2_want):
+    """One driver run (with ``-v``), every kernel count zeroed just
+    before and read just after: rc 0, every -x check passing, each timed
+    run's K1 and K2 launches equal to the wants, no K1 product on the
+    FFMA kernel, no limb product unfused. Returns its record."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.utils import config as cfg
+    with cfg.override_scope(mca):
+        pk.reset_counts()
+        pdd.reset_counts()
+        t0 = time.perf_counter()
+        rc = main(argv + ["-v"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1_run, k2_run = pk.LAUNCHES, pdd.LAUNCHES
+        ffma, unfused = pk.FFMA_LAUNCHES, pdd.UNFUSED
+    run = common.RUNS[-1]
+    tag = " ".join(f"{k}={v}" for k, v in mca.items()) or (
+        "native FP64" if argv[0][8] == "d" else "K1 on")
+    for op in run["ops"]:
+        log(f"[{argv[0]}] {' '.join(argv[1:])} {tag}: {op['op']} best "
+            f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s (warm-up "
+            f"{op['warmup_s']:.3f} s), per run K1 {op['k1_launches']} K2 "
+            f"{op['k2_launches']}")
+    log(f"[{argv[0]}] driver wall {wall:.1f} s, launches in the run K1 "
+        f"{k1_run} K2 {k2_run}, checks " + (", ".join(
+            f"{c['check']}={c['residual']:.3e}" for c in run["checks"])
+            or "none"))
+    check(rc == 0, f"{argv[0]} ({tag}) exited {rc}")
+    if "-x" in argv:
+        check(run["checks"] and all(c["ok"] for c in run["checks"]),
+              f"{argv[0]} ({tag}): checks {run['checks']}")
+    for op in run["ops"]:
+        check(all(n == k1_want for n in op["k1_launches"]),
+              f"{argv[0]} ({tag}): K1 launches {op['k1_launches']} (want "
+              f"{k1_want})")
+        check(all(n == k2_want for n in op["k2_launches"]),
+              f"{argv[0]} ({tag}): K2 launches {op['k2_launches']} (want "
+              f"{k2_want})")
+    check(ffma == 0, f"{argv[0]}: {ffma} K1 products took the FFMA kernel")
+    check(unfused == 0, f"{argv[0]}: {unfused} limb products unfused")
+    return {"argv": argv[1:], "mca": mca,
+            "ops": {op["op"]: {"best_s": op["best_s"],
+                               "gflops": op["gflops"],
+                               "warmup_s": op["warmup_s"],
+                               "k1_launches": op["k1_launches"],
+                               "k2_launches": op["k2_launches"]}
+                    for op in run["ops"]},
+            "best_s": run["ops"][0]["best_s"],
+            "gflops": run["ops"][0]["gflops"],
+            "k1_launches_run": k1_run, "k2_launches_run": k2_run,
+            "checks": run["checks"], "wall_s": wall}
+
+
+def library_calls(torch):
+    """{driver: (label, fn)}: one PyTorch call computing the same
+    function on the same kind of input, where there is one (context for
+    the drivers' times, never called by the port)."""
+    from dplasma_tpu_torch.ops import generators
+
+    n, m = N_INV, N_B3
+    A = generators.plghe(float(n), n, NB_INV, seed=3872).to_dense()
+    L = torch.linalg.cholesky(A)
+    Lt = torch.tril(A)
+    eye = torch.eye(n, device="cuda")
+    B = generators.plrnt(m, m, NB_B3, NB_B3, seed=3873).to_dense()
+    # testing_slanm2's own matrix
+    Bl = generators.plrnt(N_LANM2, N_LANM2, NB_B3, NB_B3,
+                          seed=3872).to_dense()
+    C = generators.plrnt(m, m, NB_B3, NB_B3, seed=3874).to_dense()
+    S = generators.plghe(float(m), m, NB_B3, seed=3872).to_dense()
+    St = torch.tril(S)
+    A64 = generators.plghe(float(N_DD), N_DD, NB_DD, seed=3872,
+                           dtype=torch.float64).to_dense()
+    L64 = torch.linalg.cholesky(A64)
+    return {
+        "testing_spotri": ("torch.cholesky_inverse",
+                           lambda: torch.cholesky_inverse(L)),
+        "testing_spoinv": ("torch.linalg.inv", lambda: torch.linalg.inv(A)),
+        "testing_strtri": ("torch.linalg.solve_triangular against I",
+                           lambda: torch.linalg.solve_triangular(
+                               Lt, eye, upper=False)),
+        "testing_slauum": ("torch.matmul(L.T, L)",
+                           lambda: torch.matmul(Lt.T, Lt)),
+        "testing_ssymm": ("torch.addmm", lambda: torch.addmm(
+            C, S, B, beta=0.3, alpha=0.7)),
+        "testing_shemm": ("torch.addmm", lambda: torch.addmm(
+            C, S, B, beta=0.3, alpha=0.7)),
+        "testing_ssyrk": ("torch.matmul(a, a.T)",
+                          lambda: torch.matmul(B, B.T)),
+        "testing_sherk": ("torch.matmul(a, a.T)",
+                          lambda: torch.matmul(B, B.T)),
+        "testing_strmm": ("torch.matmul(tril(A), B)",
+                          lambda: torch.matmul(St, B)),
+        "testing_strsm": ("torch.linalg.solve_triangular",
+                          lambda: torch.linalg.solve_triangular(
+                              St, B, upper=False)),
+        "testing_slange": ("torch.linalg.matrix_norm(fro)",
+                           lambda: torch.linalg.matrix_norm(B, "fro")),
+        "testing_slanhe": ("torch.linalg.matrix_norm(fro)",
+                           lambda: torch.linalg.matrix_norm(S, "fro")),
+        "testing_slansy": ("torch.linalg.matrix_norm(fro)",
+                           lambda: torch.linalg.matrix_norm(S, "fro")),
+        "testing_slantr": ("torch.linalg.matrix_norm(fro)",
+                           lambda: torch.linalg.matrix_norm(St, "fro")),
+        "testing_slanm2": ("torch.linalg.matrix_norm(2)",
+                           lambda: torch.linalg.matrix_norm(Bl, 2)),
+        "testing_dpotri": ("torch.cholesky_inverse (FP64)",
+                           lambda: torch.cholesky_inverse(L64)),
+        "testing_dpoinv": ("torch.linalg.inv (FP64)",
+                           lambda: torch.linalg.inv(A64))}
+
+
+def phase_blas3_inverse(torch, pk, pdd, dd, record):
+    """Phase 13: the Cholesky inverse family and the Level-3 BLAS and
+    norm drivers through ``drivers.main`` with K1 on, the dd inverses
+    beside native FP64, one library call beside each driver where there
+    is one, every distinct K1 product of the new ops and every distinct
+    K2 product of one dd poinv recorded through the wrappers and held to
+    their plain versions, and two profiles. Returns ({path: K1 sums},
+    {path: K2 sums}, K1 driver launches by path, K2 by path)."""
+    from dplasma_tpu_torch.drivers import main as driver_main
+    from dplasma_tpu_torch.ops import blas3, generators, norms
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    kt, kb, kd = N_INV // NB_INV, N_B3 // NB_B3, N_DD // NB_DD
+    k1n, k2n = inv_k1(kt), inv_k2(kd)
+    n, t = str(N_INV), str(NB_INV)
+    m, tb = str(N_B3), str(NB_B3)
+    nd, td = str(N_DD), str(NB_DD)
+    dd_on = {"dd_gemm": "always"}
+    runs = [
+        (["testing_spotri", "-N", n, "-t", t, "-x"], {}, k1n["potri"], 0),
+        (["testing_spoinv", "-N", n, "-t", t, "-x"], {}, k1n["poinv"], 0),
+        (["testing_strtri", "-N", n, "-t", t], {}, k1n["trtri"], 0),
+        (["testing_slauum", "-N", n, "-t", t], {}, k1n["lauum"], 0),
+        (["testing_ssymm", "-M", m, "-N", m, "-t", tb], {}, 1, 0),
+        (["testing_shemm", "-M", m, "-N", m, "-t", tb], {}, 1, 0),
+        (["testing_ssyrk", "-N", m, "-K", m, "-t", tb], {}, 1, 0),
+        (["testing_sherk", "-N", m, "-K", m, "-t", tb], {}, 1, 0),
+        (["testing_ssyr2k", "-N", m, "-K", m, "-t", tb], {}, 2, 0),
+        (["testing_sher2k", "-N", m, "-K", m, "-t", tb], {}, 2, 0),
+        (["testing_strmm", "-M", m, "-N", m, "-t", tb], {}, 1, 0),
+        (["testing_strsm", "-M", m, "-N", m, "-t", tb, "-x"], {}, kb - 1,
+         0),
+        (["testing_slange", "-M", m, "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_slanhe", "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_slansy", "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_slantr", "-M", m, "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_slanm2", "-M", str(N_LANM2), "-N", str(N_LANM2), "-t",
+          tb], {}, 0, 0),
+        (["testing_sgeadd", "-M", m, "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_stradd", "-M", m, "-N", m, "-t", tb], {}, 0, 0),
+        (["testing_dpotri", "-N", nd, "-t", td, "-x"], dd_on, 0,
+         k2n["potri"]),
+        (["testing_dpotri", "-N", nd, "-t", td, "-x"], {}, 0, 0),
+        (["testing_dpoinv", "-N", nd, "-t", td, "-x"], dd_on, 0,
+         k2n["poinv"]),
+        (["testing_dpoinv", "-N", nd, "-t", td, "-x"], {}, 0, 0)]
+    drivers = {}
+    k1_by, k2_by = {}, {}
+    for argv, mca, k1w, k2w in runs:
+        r = blas3_driver(torch, pk, pdd, argv, mca, k1w, k2w)
+        key = f"{argv[0]} {' '.join(argv[1:])}" + (" dd" if mca else "")
+        drivers[key] = r
+        path = argv[0][8:] + ("_dd" if mca else "")
+        if r["k1_launches_run"]:
+            k1_by[path] = r["k1_launches_run"]
+        if r["k2_launches_run"]:
+            k2_by[path] = r["k2_launches_run"]
+    # the print driver times nothing: it prints the descriptor
+    rc = driver_main(["testing_sprint", "-M", m, "-N", m, "-t", tb])
+    check(rc == 0, f"testing_sprint exited {rc}")
+    for a, b in (("testing_dpotri", "potri"), ("testing_dpoinv", "poinv")):
+        dd_s = drivers[f"{a} -N {nd} -t {td} -x dd"]["best_s"]
+        fp64 = drivers[f"{a} -N {nd} -t {td} -x"]["best_s"]
+        log(f"[{a}] N={N_DD} nb={NB_DD}: dd {dd_s:.5f} s, native FP64 "
+            f"{fp64:.5f} s, dd / FP64 {dd_s / fp64:.1f}x")
+
+    # one library call beside each driver that has one
+    lib = {}
+    for prog, (label, fn) in library_calls(torch).items():
+        if prog == "testing_slanm2":
+            # the 2-norm is a full SVD (seconds): one timed call, its
+            # value lanm2's -x yardstick below
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sigma = float(fn())
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            ms = time_ms(torch, fn)
+        ops = next(r["ops"] for k, r in drivers.items()
+                   if k.startswith(prog + " ") and not k.endswith(" dd"))
+        best = ops.get(prog + ":F", next(iter(ops.values())))["best_s"]
+        log(f"[library] {prog}: {label} {ms:.3f} ms (the driver's best "
+            f"{1e3 * best:.3f} ms)")
+        lib[prog] = {"call": label, "ms": ms, "driver_ms": 1e3 * best}
+    torch.cuda.empty_cache()
+
+    # lanm2's -x check (|estimate − σ1| / σ1 < 1e-2 against the SVD) on
+    # the driver's matrix, logged: the reference's fixed 20 power
+    # iterations do not reach it at this size (ROADMAP queue 3)
+    est = float(norms.lanm2(generators.plrnt(N_LANM2, N_LANM2, NB_B3, NB_B3,
+                                             seed=3872)))
+    lanm2_r = abs(est - sigma) / sigma
+    log(f"[testing_slanm2] N={N_LANM2}: 20 power iterations {est:.6f}, "
+        f"SVD 2-norm {sigma:.6f}, |Δ|/σ1 {lanm2_r:.3e} (the -x gate 1e-2 "
+        f"is not gated here: the reference's algorithm misses it too)")
+
+    # every distinct K1 product of the new ops, recorded through the
+    # wrapper on one direct call each, held and timed as phase 2 does
+    A = generators.plghe(float(N_INV), N_INV, NB_INV, seed=3872)
+    Ab = generators.plrnt(N_B3, N_B3, NB_B3, NB_B3, seed=3873)
+    Bb = generators.plrnt(N_B3, N_B3, NB_B3, NB_B3, seed=3874)
+    Cb = generators.plghe(float(N_B3), N_B3, NB_B3, seed=3875)
+    calls = {
+        "strtri": (lambda: potrf_mod.trtri(A, "L"), k1n["trtri"]),
+        "slauum": (lambda: potrf_mod.lauum(A, "L"), 1),
+        "ssymm": (lambda: blas3.symm(0.7, Cb, Ab, 0.3, Bb), 1),
+        "ssyrk": (lambda: blas3.syrk(0.7, Ab, 0.3, Cb), 1),
+        "ssyr2k": (lambda: blas3.syr2k(0.7, Ab, Bb, 0.3, Cb), 2),
+        "strmm": (lambda: blas3.trmm(1.0, Cb, Ab), 1),
+        "strsm": (lambda: blas3.trsm(1.0, Cb, Ab), kb - 1)}
+    k1_paths = {}
+    for j, (path, (run, want)) in enumerate(calls.items()):
+        prods = recorded_k1_products(torch, pk, run)
+        got = sum(p[-1] for p in prods)
+        check(got == want, f"{path}: {got} K1 products recorded, want "
+                           f"{want}")
+        k1_paths[path] = k1_path_sum(torch, pk, record, path, prods,
+                                     1300 + 20 * j)
+    del A, Ab, Bb, Cb
+    spotrf = record["k1_main_path"]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ffma_ms",
+            "products")
+    k1_paths["spotri"] = {k: k1_paths["strtri"][k] + k1_paths["slauum"][k]
+                          for k in keys}
+    k1_paths["spotri"]["max_abs_err"] = max(
+        k1_paths["strtri"]["max_abs_err"], k1_paths["slauum"]["max_abs_err"])
+    k1_paths["spoinv"] = dict(
+        {k: k1_paths["spotri"][k] + spotrf[k] for k in keys},
+        max_abs_err=max(k1_paths["spotri"]["max_abs_err"],
+                        spotrf["max_abs_err"]))
+    for path in ("spotri", "spoinv"):
+        t_ = k1_paths[path]
+        log(f"[k1] one {path}'s {t_['products']} products: kernel "
+            f"{t_['ms']:.3f} ms  plain {t_['plain_ms']:.3f} ms  torch "
+            f"{t_['library_ms']:.3f} ms  bound {t_['bound_ms']:.3f} ms "
+            f"(3xTF32)")
+
+    # every distinct K2 product of one dd poinv, held bitwise on the
+    # path's own operands, then timed times its count
+    A64 = generators.plghe(float(N_DD), N_DD, NB_DD, seed=3872,
+                           dtype=torch.float64)
+    pdd.reset_counts()
+    with cfg.override_scope(dd_on):
+        seen = recorded_k2_products(torch, pdd,
+                                    lambda: potrf_mod.poinv(A64, "L"))
+    got = sum(r["count"] for r in seen.values())
+    check(got == k2n["poinv"] and pdd.UNFUSED == 0,
+          f"dpoinv dd: {got} K2 launches recorded (want {k2n['poinv']}), "
+          f"{pdd.UNFUSED} unfused")
+    g = torch.Generator(device="cuda").manual_seed(1400)
+    k2_paths = {"dpoinv_dd": k2_path_sum(torch, dd, pdd, g, "dpoinv_dd",
+                                         seen, N_DD)}
+
+    # where the time goes: one spoinv and one dd poinv
+    A = generators.plghe(float(N_INV), N_INV, NB_INV, seed=3872)
+    _profile(torch, record, "spoinv_profile", f"N={N_INV} nb={NB_INV}",
+             lambda: potrf_mod.poinv(A, "L"))
+    del A
+    with cfg.override_scope(dd_on):
+        _profile(torch, record, "dpoinv_dd_profile",
+                 f"N={N_DD} nb={NB_DD}", lambda: potrf_mod.poinv(A64, "L"))
+    record["blas3_inverse"] = {"drivers": drivers, "library": lib,
+                               "lanm2_vs_svd": {"N": N_LANM2, "est": est,
+                                                "svd": sigma,
+                                                "residual": lanm2_r},
+                               "k1_paths": k1_paths,
+                               "k2_paths": k2_paths}
+    return k1_paths, k2_paths, k1_by, k2_by
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2811,12 +3150,14 @@ def main() -> int:
     phase_dd_lu_qr_profile(torch, record)
     ir = phase_ir(torch, pk, pdd, record)
     phase_ir_profile(torch, pk, record)
+    k1inv, k2inv, k1inv_by, k2inv_by = phase_blas3_inverse(torch, pk, pdd,
+                                                           dd, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
                              products=t["products"])
                   for path, t in (("spotrf", k1tot), *k1luqr.items(),
-                                  *k1cyc.items())}
+                                  *k1cyc.items(), *k1inv.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
@@ -2848,16 +3189,18 @@ def main() -> int:
          "source": "dplasma_tpu_torch/kernels/csrc/gemm.cu",
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
          "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
-                      + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())),
+                      + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
+                      + sum(k1inv_by.values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
                                    "potrf_cyclic": k1_pc,
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
-                                  **ir["k1"]),
+                                  **ir["k1"], **k1inv_by),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
-                            + [t["max_abs_err"] for t in k1luqr.values()]),
+                            + [t["max_abs_err"] for t in k1luqr.values()]
+                            + [t["max_abs_err"] for t in k1inv.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -2865,10 +3208,10 @@ def main() -> int:
          "source": "dplasma_tpu_torch/kernels/csrc/recombine.cu",
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
          "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
-                      + sum(ir["k2"].values())),
+                      + sum(ir["k2"].values()) + sum(k2inv_by.values())),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
                                    "dgemm_dd": k2_dgemm}, **ddf["k2"],
-                                  **ir["k2"]),
+                                  **ir["k2"], **k2inv_by),
          "max_abs_err": k2tot["max_abs_err"],
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
          "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
@@ -2881,7 +3224,8 @@ def main() -> int:
              "ms", "limb_levels_ms", "plain_ms", "bound_ms", "library_ms",
              "max_abs_err", "bound_by")}, launches=t["launches"],
              shapes=len(t["shapes"])) for path, t in (*k2luqr.items(),
-                                                      *k2ir.items())}},
+                                                      *k2ir.items(),
+                                                      *k2inv.items())}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
@@ -2939,6 +3283,15 @@ def main() -> int:
         f"rung: K2 every residual and f32x2 step, K1 the f32 factors' "
         f"products, K3 gesv_ir's panels, K4 gels_ir's; K2's *_ir_f32x2 "
         f"by_path entries time each shape of one f32x2 solve (N={N_IR}); "
+        f"phase 13: K1's by_path strtri, slauum, ssymm, ssyrk, ssyr2k, "
+        f"strmm and strsm sum each distinct product of one direct call "
+        f"(trtri/lauum N={N_INV}, nb={NB_INV}; BLAS-3 {N_B3}, nb={NB_B3}) "
+        f"times its count, spotri = strtri + slauum, spoinv = spotri + "
+        f"spotrf; its launches_by_path count each phase 13 driver run "
+        f"(warm-up, timed run, -x check, and potri's untimed potrf); K2's "
+        f"dpoinv_dd by_path times each shape of one dd poinv (N={N_DD}, "
+        f"nb={NB_DD}), its launches_by_path the dd dpotri and dpoinv "
+        f"driver runs; "
         f"K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "
         f"tensor-core peak), bound_ffma_ms the FP32 FFMA one; by_path "

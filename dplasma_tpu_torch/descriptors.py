@@ -183,6 +183,30 @@ class TileMatrix:
         mb, nb = self.desc.mb, self.desc.nb
         return self.data[i * mb:(i + 1) * mb, j * nb:(j + 1) * nb]
 
+    # The writers below are functional, as the reference's ``.at[]``
+    # updates are: each returns a new matrix on a copy of the storage and
+    # never writes into ``self.data``.
+    def set_tile(self, i: int, j: int, val) -> "TileMatrix":
+        return self.set_block(i, i + 1, j, j + 1, val)
+
+    def block(self, i0: int, i1: int, j0: int, j1: int) -> torch.Tensor:
+        """Rows of tiles [i0, i1) × cols of tiles [j0, j1) as a 2-D
+        view."""
+        mb, nb = self.desc.mb, self.desc.nb
+        return self.data[i0 * mb: i1 * mb, j0 * nb: j1 * nb]
+
+    def set_block(self, i0: int, i1: int, j0: int, j1: int,
+                  val) -> "TileMatrix":
+        out = self.like(self.data.clone())
+        out.block(i0, i1, j0, j1)[...] = val
+        return out
+
+    def add_block(self, i0: int, i1: int, j0: int, j1: int,
+                  val) -> "TileMatrix":
+        out = self.like(self.data.clone())
+        out.block(i0, i1, j0, j1)[...] += val
+        return out
+
     # -- padding management -------------------------------------------
     def zero_pad(self) -> "TileMatrix":
         """Force the padding region to zero (a copy when there is
@@ -215,6 +239,27 @@ class TileMatrix:
         """Tile (i, j) as its own TileMatrix with finer mb2×nb2 tiling
         (the ``subtile_desc_create`` analogue backing -z/--HNB)."""
         return TileMatrix.from_dense(self.tile(i, j), mb2, nb2)
+
+    def sym_mirror(self, uplo: str = "L", conj: bool = True) \
+            -> "TileMatrix":
+        """Both triangles materialized from the stored ``uplo`` one (the
+        access path the reference's symmetric block-cyclic descriptor
+        provides implicitly); under ``conj`` the diagonal is its real
+        part, as a Hermitian matrix's is."""
+        x = self.zero_pad().data
+        if uplo.upper() == "L":
+            lo = torch.tril(x)
+        else:
+            lo = torch.triu(x).mH if conj else torch.triu(x).T
+        full = lo + (lo.mH if conj else lo.T)
+        # lo's diagonal is x's (conjugated for a mirrored U)
+        diag = x.diagonal()
+        full.diagonal().copy_(diag.real if conj and diag.is_complex()
+                              else diag)
+        return self.like(full.to(self.dtype))
+
+    def astype(self, dtype) -> "TileMatrix":
+        return self.like(self.data.to(dtype, copy=True))
 
     def __repr__(self):
         d = self.desc

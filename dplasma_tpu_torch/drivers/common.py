@@ -1,9 +1,8 @@
 """Shared driver harness — the part of ``dplasma_tpu/drivers/common.py``
-that the ``potrf``, ``potrs``, ``posv``, ``gemm``, ``getrf``, ``gesv``,
-QR-family and IR-solver drivers need.
+that the ported drivers need (``testers.DRIVERS``).
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
-``-N -M -K -t -T -x -v --nruns -z/--HNB --seed -p -q -g``, plus
+``-N -M -K -t -T -x -X -v --nruns -z/--HNB --seed -p -q -g``, plus
 ``--nowarmup``, ``--lookahead`` and the port's ``--device`` (``cuda``
 by default; ``--device cpu`` runs on the CPU). Each timed op runs once
 untimed (the warm-up: kernel builds, allocator growth), then ``--nruns``
@@ -65,6 +64,7 @@ class IParam:
     HMB: int = 0        # recursive inner blocking (-z/--HNB)
     HNB: int = 0
     check: bool = False
+    check_inv: bool = False
     loud: int = 1       # verbosity ladder (-v[=n])
     seed: int = 3872
     nruns: int = 1
@@ -89,6 +89,7 @@ Optional arguments:
  -T --NB           : columns in a tile (default: MB)
  -z --HNB --HMB    : inner NB/MB for recursive algorithms
  -x --check        : verify the results
+ -X --check_inv    : verify against the inverse
  -p -q             : process grid P x Q (a virtual mesh on the device)
  -g --gpus         : accepted and recorded
  --lookahead       : pipelined-sweep lookahead (default: MCA
@@ -124,7 +125,7 @@ _LONG = {
     "NRHS": ("K", _int),
     "MB": ("MB", _int), "NB": ("NB", _int),
     "HNB": ("HNB", _int), "HMB": ("HMB", _int),
-    "check": ("check", None),
+    "check": ("check", None), "check_inv": ("check_inv", None),
     "lookahead": ("lookahead", _int),
     "seed": ("seed", _int),
     "nruns": ("nruns", _int),
@@ -137,7 +138,7 @@ _SHORT = {
     "N": "N", "M": "M", "K": "NRHS", "t": "MB", "T": "NB", "z": "HNB",
     "g": "gpus",
 }
-_SHORT_FLAGS = {"x": "check"}
+_SHORT_FLAGS = {"x": "check", "X": "check_inv"}
 
 
 def _usage_exit(msg: str):

@@ -1,36 +1,42 @@
-"""The testing_* driver bodies of the ported slices: ``potrf``,
-``potrs``, ``posv``, ``gemm``, ``getrf`` (= ``getrf_1d``), ``gesv``,
-``getrf_ptgpanel`` (the distributed panel under ``-p P -q Q``), the
-QR family ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``,
-``unmlq`` and ``gels``, and the mixed-precision IR solvers ``posv_ir``,
-``gesv_ir`` and ``gels_ir`` (working precision from MCA
-``ir.precision``). Under MCA ``dd_gemm=always`` the d-precision drivers
-take the f64-equivalent limb route.
+"""The testing_* driver bodies of the ported slices: the Level-3 BLAS
+``gemm``, ``symm``, ``hemm``, ``syrk``, ``herk``, ``syr2k``, ``her2k``,
+``trmm`` and ``trsm``; the Cholesky family ``potrf``, ``potrs``,
+``posv``, ``potri``, ``poinv``, ``trtri`` and ``lauum``; ``getrf`` (=
+``getrf_1d``), ``gesv``, ``getrf_ptgpanel`` (the distributed panel
+under ``-p P -q Q``); the QR family ``geqrf``, ``gelqf``, ``ungqr``,
+``unglq``, ``unmqr``, ``unmlq`` and ``gels``; the mixed-precision IR
+solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
+from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
+``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``.
+Under MCA ``dd_gemm=always`` the d-precision drivers take the
+f64-equivalent limb route.
 
-Ports ``dplasma_tpu/drivers/testers.py`` (:68-93, :191-246, :290-381,
-:454-455, :510-545, :577-589, :609-713; the IR drivers without the
-autopilot and the ladder's fallback rung, whose escape the solvers'
-own escalation already takes): seeded
-generation → timed run with the GFLOPS print → optional ``-x`` residual
-verification against the regenerated input.
+Ports ``dplasma_tpu/drivers/testers.py`` (:31-41, :68-287, :290-381,
+:454-455, :510-545, :577-589, :609-713, :801-868; the IR drivers
+without the autopilot and the ladder's fallback rung, whose escape the
+solvers' own escalation already takes): seeded generation → timed run
+with the GFLOPS print → optional ``-x`` residual verification against
+the regenerated input, with the reference's flop counts and
+thresholds.
 """
 from __future__ import annotations
 
 import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
-from dplasma_tpu_torch.ops import blas3, checks, generators, lu, qr
-from dplasma_tpu_torch.ops import refine
+from dplasma_tpu_torch.ops import aux, blas3, checks, generators, lu, norms
+from dplasma_tpu_torch.ops import qr, refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
 
-def _gen(drv: Driver, M, N, seed_off=0, kind="rnt"):
+def _gen(drv: Driver, M, N, seed_off=0, kind="rnt", bump=None):
     ip = drv.ip
     dt = ip.prec_dtype
-    if kind == "he":
-        return generators.plghe(float(N), N, ip.NB, seed=ip.seed + seed_off,
-                                dtype=dt, device=drv.device)
+    if kind in ("he", "sy"):
+        gen = generators.plghe if kind == "he" else generators.plgsy
+        return gen(float(N) if bump is None else bump, N, ip.NB,
+                   seed=ip.seed + seed_off, dtype=dt, device=drv.device)
     return generators.plrnt(M, N, ip.MB, ip.NB, seed=ip.seed + seed_off,
                             dtype=dt, device=drv.device)
 
@@ -51,6 +57,85 @@ def gemm(drv: Driver):
         r = float(torch.max(torch.abs(ref - got))
                   / (torch.max(torch.abs(ref)) + 1.0))
         return drv.report_check("GEMM", r, r < 60 * eps * ip.K)
+    return 0
+
+
+def _sym_update(drv: Driver, op, flops, rank2: bool):
+    """syrk/herk (rank2 False) and syr2k/her2k: ``flops`` is the LAWN-41
+    count's function of (K, N, complex)."""
+    ip = drv.ip
+    A = _gen(drv, ip.N, ip.K)
+    C = _gen(drv, ip.N, ip.N, 2,
+             kind="he" if op in (blas3.herk, blas3.her2k) else "sy")
+    if rank2:
+        B = _gen(drv, ip.N, ip.K, 1)
+        args, fn = (A, B, C), lambda a, b, c: op(0.7, a, b, 0.3, c,
+                                                uplo="L", trans="N")
+    else:
+        args, fn = (A, C), lambda a, c: op(0.7, a, 0.3, c,
+                                           uplo="L", trans="N")
+    drv.progress(fn, args, flops(ip.K, ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def syrk(drv):
+    return _sym_update(drv, blas3.syrk, lawn41.syrk, False)
+
+
+def herk(drv):
+    return _sym_update(drv, blas3.herk, lawn41.syrk, False)
+
+
+def syr2k(drv):
+    return _sym_update(drv, blas3.syr2k, lawn41.syr2k, True)
+
+
+def her2k(drv):
+    return _sym_update(drv, blas3.her2k, lawn41.syr2k, True)
+
+
+def _symm_like(drv: Driver, op):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.M, 0, kind="he" if op is blas3.hemm else "sy")
+    B = _gen(drv, ip.M, ip.N, 1)
+    C = _gen(drv, ip.M, ip.N, 2)
+    drv.progress(lambda a, b, c: op(0.7, a, b, 0.3, c, side="L", uplo="L"),
+                 (A, B, C),
+                 lawn41.symm("L", ip.M, ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def symm(drv):
+    return _symm_like(drv, blas3.symm)
+
+
+def hemm(drv):
+    return _symm_like(drv, blas3.hemm)
+
+
+def trmm(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.M, 0, kind="he")
+    B = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(
+        lambda a, b: blas3.trmm(1.0, a, b, side="L", uplo="L"), (A, B),
+        lawn41.trmm("L", ip.M, ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def trsm(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.M, 0, kind="he")
+    B = _gen(drv, ip.M, ip.N, 1)
+    X, _ = drv.progress(
+        lambda a, b: blas3.trsm(1.0, a, b, side="L", uplo="L"), (A, B),
+        lawn41.trsm("L", ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        R = blas3.trmm(1.0, A, X, side="L", uplo="L")
+        r = float(norms.lange(aux.geadd(R, B, -1.0, 1.0), "F")
+                  / norms.lange(B, "F"))
+        return drv.report_check("TRSM", r,
+                                r < 60 * checks._eps(ip.prec_dtype) * ip.M)
     return 0
 
 
@@ -96,6 +181,47 @@ def posv(drv: Driver):
         _, X = out
         r, ok = checks.check_axmb(A0, B, X, uplo="L")
         return drv.report_check("POSV |b-Ax|", r, ok)
+    return 0
+
+
+def potri(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    L = potrf_mod.potrf(A0, "L")
+    Ainv, _ = drv.progress(lambda l: potrf_mod.potri(l, "L"), (L,),
+                           lawn41.potri(ip.N, ip.prec_dtype.is_complex))
+    if ip.check or ip.check_inv:
+        r, ok = checks.check_inverse(A0, Ainv, uplo="L")
+        return drv.report_check("POTRI", r, ok)
+    return 0
+
+
+def poinv(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    cplx = ip.prec_dtype.is_complex
+    Ainv, _ = drv.progress(lambda a: potrf_mod.poinv(a, "L"), (A0,),
+                           lawn41.potri(ip.N, cplx)
+                           + lawn41.potrf(ip.N, cplx))
+    if ip.check or ip.check_inv:
+        r, ok = checks.check_inverse(A0, Ainv, uplo="L")
+        return drv.report_check("POINV", r, ok)
+    return 0
+
+
+def trtri(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.N, ip.N, 0, kind="he")
+    drv.progress(lambda a: potrf_mod.trtri(a, "L", "N"), (A,),
+                 lawn41.trtri(ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def lauum(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.N, ip.N, 0, kind="he")
+    drv.progress(lambda a: potrf_mod.lauum(a, "L"), (A,),
+                 lawn41.lauum(ip.N, ip.prec_dtype.is_complex))
     return 0
 
 
@@ -301,10 +427,85 @@ def gels_ir(drv: Driver):
     return 0
 
 
-DRIVERS = {"gemm": gemm, "potrf": potrf, "potrs": potrs, "posv": posv,
-           "getrf": getrf_1d,
-           "getrf_1d": getrf_1d, "getrf_ptgpanel": getrf_ptgpanel,
-           "gesv": gesv,
-           "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
-           "unmqr": unmqr, "unmlq": unmlq, "gels": gels,
-           "posv_ir": posv_ir, "gesv_ir": gesv_ir, "gels_ir": gels_ir}
+# -------------------------------------------------------------- norms/aux
+
+def _norm_driver(drv: Driver, fn, kind="rnt"):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.N, 0, kind=kind)
+    for nrm in ("M", "1", "I", "F"):
+        val, _ = drv.progress(lambda a, n=nrm: fn(a, n), (A,),
+                              float(ip.M) * ip.N, label=f"{drv.name}:{nrm}")
+        if ip.loud >= 2:
+            print(f"  ||A||_{nrm} = {float(val):e}")
+    return 0
+
+
+def lange(drv):
+    return _norm_driver(drv, norms.lange)
+
+
+def lanhe(drv):
+    return _norm_driver(drv, lambda a, n: norms.lanhe(a, n, "L"), kind="he")
+
+
+def lansy(drv):
+    return _norm_driver(drv, lambda a, n: norms.lansy(a, n, "L"), kind="sy")
+
+
+def lantr(drv):
+    return _norm_driver(drv, lambda a, n: norms.lantr(a, n, "L", "N"))
+
+
+def lanm2(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.N)
+    val, _ = drv.progress(norms.lanm2, (A,), 2.0 * ip.M * ip.N * 20)
+    if ip.check:
+        ref = torch.linalg.matrix_norm(A.to_dense(), ord=2)
+        r = float(torch.abs(val - ref) / ref)
+        return drv.report_check("LANM2 vs SVD", r, r < 1e-2)
+    return 0
+
+
+def geadd(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.N)
+    B = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(lambda a, b: aux.geadd(a, b, 0.7, 0.3), (A, B),
+                 2.0 * ip.M * ip.N)
+    return 0
+
+
+def tradd(drv: Driver):
+    ip = drv.ip
+    A = _gen(drv, ip.M, ip.N)
+    B = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(lambda a, b: aux.tradd(a, b, 0.7, 0.3, uplo="L"), (A, B),
+                 1.0 * ip.M * ip.N)
+    return 0
+
+
+def print_matrix(drv: Driver):
+    A = _gen(drv, drv.ip.M, drv.ip.N)
+    print(A)
+    if drv.ip.loud >= 3:
+        print(A.to_dense())
+    return 0
+
+
+#: registry: algo name (precision-less) -> driver body
+DRIVERS = {
+    "gemm": gemm, "symm": symm, "hemm": hemm,
+    "syrk": syrk, "herk": herk, "syr2k": syr2k, "her2k": her2k,
+    "trmm": trmm, "trsm": trsm,
+    "potrf": potrf, "potrs": potrs, "posv": posv,
+    "potri": potri, "poinv": poinv, "trtri": trtri, "lauum": lauum,
+    "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
+    "unmqr": unmqr, "unmlq": unmlq, "gels": gels,
+    "getrf": getrf_1d, "getrf_1d": getrf_1d,
+    "getrf_ptgpanel": getrf_ptgpanel, "gesv": gesv,
+    "posv_ir": posv_ir, "gesv_ir": gesv_ir, "gels_ir": gels_ir,
+    "lange": lange, "lanhe": lanhe, "lansy": lansy, "lantr": lantr,
+    "lanm2": lanm2,
+    "geadd": geadd, "tradd": tradd, "print": print_matrix,
+}

@@ -1,8 +1,6 @@
 """Norm-based residual verification (the ``-x`` self-checks).
 
-Ports ``check_potrf``, ``check_axmb``, ``check_solve``, ``check_gels``,
-``check_qr`` and ``check_orthogonality`` of ``dplasma_tpu/ops/checks.py``
-(:16-138): regenerate from the seed, compute an analytic residual, pass
+Ports ``dplasma_tpu/ops/checks.py``: regenerate from the seed, compute an analytic residual, pass
 iff residual < 60 after scaling by eps·N (ref src/dplasma_zcheck.c,
 tests/testing_zpotrf.c:86-121); ``check_solve``'s normwise backward
 error passes below ``scale·eps``. No golden files.
@@ -127,3 +125,29 @@ def check_orthogonality(Q):
     eye = torch.eye(n, dtype=Q.dtype, device=Q.device)
     r = float(torch.max(torch.abs(g - eye)) / (_eps(Q.dtype) * n))
     return r, r < THRESHOLD
+
+
+def check_gemm(Cref, C):
+    """Relative max-norm discrepancy between two tile matrices."""
+    a = Cref.to_dense()
+    b = C.to_dense()
+    scale = torch.clamp(torch.max(torch.abs(a)), min=1.0)
+    r = float(torch.max(torch.abs(a - b))
+              / (scale * _eps(C.dtype) * max(C.desc.N, 1)))
+    return r, r < THRESHOLD
+
+
+def check_inverse(A0: TileMatrix, Ainv: TileMatrix, uplo: str | None = None):
+    """||I - A A^{-1}|| / (N ||A|| ||A^{-1}|| eps) — check_zpoinv. ``uplo``
+    set means both matrices store a Hermitian triangle. The product goes
+    through ``blas.dot`` (K1 in f32, K2 under the dd route)."""
+    N = A0.desc.N
+    a = norms._sym_full(A0, uplo, conj=True) if uplo else A0.to_dense()
+    ai = norms._sym_full(Ainv, uplo, conj=True) if uplo \
+        else Ainv.to_dense()
+    eye = torch.eye(N, dtype=a.dtype, device=a.device)
+    r = torch.max(torch.abs(eye - blas.dot(a, ai)))
+    den = torch.max(torch.abs(a)) * torch.max(torch.abs(ai)) \
+        * _eps(A0.dtype) * N
+    val = float(r / torch.clamp(den, min=_tiny(A0.dtype)))
+    return val, val < THRESHOLD

@@ -1,5 +1,5 @@
-"""Seeded matrix generators: ``plrnt`` (random) and ``plghe`` (Hermitian,
-diagonally bumped → SPD).
+"""Seeded matrix generators: ``plrnt`` (random), ``plghe`` (Hermitian,
+diagonally bumped → SPD) and ``plgsy`` (symmetric, diagonally bumped).
 
 Ports ``dplasma_tpu/ops/generators.py`` bit for bit: every element is
 an avalanche hash of (seed, global row, global col), so the values do
@@ -13,7 +13,9 @@ to the real dtype through float64 (exact below 2^53), whose rounding to
 float32 is round-to-nearest-even — what XLA's uint32 → float32
 conversion does.
 
-Complex dtypes wait for the complex slice of the port.
+Complex dtypes wait for the complex slice of the port (ROADMAP queue 1
+item 4). For the real dtypes ``plghe`` and ``plgsy`` are the same
+matrix, as in the reference.
 """
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ def _hash_grid(seed: int, desc: TileDesc, dtype, device) -> torch.Tensor:
     if dtype.is_complex:
         raise NotImplementedError(
             "complex generators wait for the complex slice of the port "
-            "(ROADMAP queue 1)")
+            "(ROADMAP queue 1 item 4)")
     out = torch.empty((desc.Mp, desc.Np), dtype=dtype, device=device)
     step = max(1, _CHUNK_ELEMS // max(desc.Np, 1))
     for r0 in range(0, desc.Mp, step):
@@ -100,19 +102,32 @@ def plrnt(M: int, N: int, mb: int, nb: int, seed: int = 3872,
     return TileMatrix(_mask_mn(desc, v), desc)
 
 
-def plghe(bump: float, N: int, nb: int, seed: int = 3872,
-          dtype=torch.float32, mb: int | None = None,
-          dist: Dist = Dist(), device=None) -> TileMatrix:
-    """Symmetric matrix + ``bump`` on the diagonal (dplasma_zplghe for
-    real dtypes). ``bump >= N`` yields a positive-definite matrix."""
+def _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device):
+    """Element (r, c) takes the hash of the unordered pair (max, min),
+    plus ``bump`` on the diagonal: the real plghe and plgsy matrix."""
     dev = resolve_device(device)
     mb = mb or nb
     desc = TileDesc(N, N, mb, nb, dist)
     g = _hash_grid(seed, desc, dtype, dev)
-    # element (r, c) takes the hash of the unordered pair (max, min):
     # the lower triangle of g as it is, the upper mirrored from it
     v = torch.tril(g)
     v += torch.triu(g.T, 1)
     del g
     _bump_diag(v, bump)
     return TileMatrix(_mask_mn(desc, v), desc)
+
+
+def plghe(bump: float, N: int, nb: int, seed: int = 3872,
+          dtype=torch.float32, mb: int | None = None,
+          dist: Dist = Dist(), device=None) -> TileMatrix:
+    """Symmetric matrix + ``bump`` on the diagonal (dplasma_zplghe for
+    real dtypes). ``bump >= N`` yields a positive-definite matrix."""
+    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device)
+
+
+def plgsy(bump: float, N: int, nb: int, seed: int = 3872,
+          dtype=torch.float32, mb: int | None = None,
+          dist: Dist = Dist(), device=None) -> TileMatrix:
+    """Symmetric (for complex dtypes: complex-symmetric, not Hermitian)
+    matrix + ``bump`` on the diagonal (dplasma_zplgsy)."""
+    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device)

@@ -1,6 +1,7 @@
-"""Cholesky factorization: POTRF / POTRS / POSV.
+"""Cholesky factorization family: POTRF / POTRS / POSV / TRTRI / LAUUM /
+POTRI / POINV.
 
-Ports ``dplasma_tpu/ops/potrf.py`` (:44-184, :352-365): the LEFT-looking
+Ports ``dplasma_tpu/ops/potrf.py`` (:44-184, :352-431): the LEFT-looking
 block-column sweep. Step k gathers the update of column k from the
 finished panels — the ``la`` freshest as individual narrow products
 (lookahead), every older one folded into ONE aggregated product over
@@ -22,8 +23,15 @@ reference within rounding. Only the ``uplo`` triangle of the input is
 read; the opposite triangle of the result is zero. INFO (non-SPD input)
 surfaces as NaNs in the factor.
 
-``dag``, the lowmem tier and trtri/lauum/potri/poinv wait for later
-slices.
+The inverse family: ``trtri`` is a blocked recursion split on a tile
+boundary — two half-size inverses and two products per level, the
+leaves one tile inverse each (``kernels.blas.trtri``, ``dd.trtri_f64``
+under ``dd_gemm=always``). At KT diagonal tiles that is 2·(KT − 1)
+products (30 at KT = 16). ``lauum`` is one product, ``potri`` =
+``lauum ∘ trtri`` and ``poinv`` = ``potri ∘ potrf``. Every product goes
+through ``kernels.blas.dot``: K1 in f32, K2 under the dd route.
+
+``dag`` and the lowmem tier wait for later slices.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import blas3
 from dplasma_tpu_torch.ops._sweep import sweep_params
+from dplasma_tpu_torch.ops.aux import _tri_mask
 
 
 def potrf(A: TileMatrix, uplo: str = "L", *, diag_kernel=None,
@@ -147,3 +156,62 @@ def posv(A: TileMatrix, B: TileMatrix, uplo: str = "L"):
     """Factor + solve (dplasma_zposv). Returns (factor, X)."""
     L = potrf(A, uplo)
     return L, potrs(L, B, uplo)
+
+
+def _trtri_rec(x, lower: bool, unit: bool, base: int):
+    """Blocked-recursive triangular inverse: inv([[A, 0], [C, B]]) =
+    [[inv A, 0], [−inv B · C · inv A, inv B]] (and its upper mirror),
+    split on a tile boundary, leaves of at most ``base`` rows."""
+    n = x.shape[0]
+    if n <= base:
+        return k.trtri(x, lower=lower, unit=unit)
+    h = (n // 2 + base - 1) // base * base  # split on a tile boundary
+    h = min(max(h, base), n - base)
+    zeros = x.new_zeros
+    if lower:
+        a, c, b = x[:h, :h], x[h:, :h], x[h:, h:]
+        ia = _trtri_rec(a, lower, unit, base)
+        ib = _trtri_rec(b, lower, unit, base)
+        off = -k.dot(k.dot(ib, c), ia)
+        return torch.cat([torch.cat([ia, zeros((h, n - h))], dim=1),
+                          torch.cat([off, ib], dim=1)], dim=0)
+    a, c, b = x[:h, :h], x[:h, h:], x[h:, h:]
+    ia = _trtri_rec(a, lower, unit, base)
+    ib = _trtri_rec(b, lower, unit, base)
+    off = -k.dot(k.dot(ia, c), ib)
+    return torch.cat([torch.cat([ia, off], dim=1),
+                      torch.cat([zeros((n - h, h)), ib], dim=1)], dim=0)
+
+
+def trtri(A: TileMatrix, uplo: str = "L", diag: str = "N") -> TileMatrix:
+    """Triangular inverse (dplasma_ztrtri) of the ``uplo`` triangle, on
+    the padded matrix with an identity pad diagonal; the opposite
+    triangle of the result is zero."""
+    lower = uplo.upper() == "L"
+    unit = diag.upper() == "U"
+    X = A.pad_diag().data
+    inv = _trtri_rec(X, lower, unit, max(A.desc.nb, 1))
+    m = _tri_mask(A.desc.Mp, A.desc.Np, uplo, A.device)
+    return TileMatrix(torch.where(m, inv, inv.new_zeros(())), A.desc)
+
+
+def lauum(A: TileMatrix, uplo: str = "L") -> TileMatrix:
+    """L^H L (lower) or U U^H (upper) of a triangular factor
+    (dplasma_zlauum): one product, stored in the ``uplo`` triangle; the
+    opposite triangle keeps A's."""
+    x = A.to_dense()
+    prod = k.lauum(x, lower=(uplo.upper() == "L"))
+    m = _tri_mask(A.desc.M, A.desc.N, uplo, A.device)
+    out = torch.where(m, prod, x)
+    return TileMatrix.from_dense(out, A.desc.mb, A.desc.nb, A.desc.dist)
+
+
+def potri(A: TileMatrix, uplo: str = "L") -> TileMatrix:
+    """A^{-1} from the Cholesky factor (dplasma_zpotri = trtri ∘ lauum),
+    in the ``uplo`` triangle."""
+    return lauum(trtri(A, uplo), uplo)
+
+
+def poinv(A: TileMatrix, uplo: str = "L") -> TileMatrix:
+    """Direct SPD inverse (dplasma_zpoinv): potrf, trtri and lauum."""
+    return potri(potrf(A, uplo), uplo)

@@ -30,7 +30,14 @@ buffer (flags are never reset), and the cyclic factorizations' ring
 route ``torch.equal`` to their psum route. The IR slice's K2 shapes
 (the skinny residual, the nl = 5 square product) bitwise as above; the
 block-scaled int8 GEMM's int8 parts bitwise against the CPU, its f32
-sum within 1e-6; ``posv_ir`` converging with every residual on K2.
+sum within 1e-6; ``posv_ir`` converging with every residual on K2. The
+Cholesky inverse family and the symmetric Level-3 BLAS: every K1
+product of trtri, lauum, syrk and syr2k (two views of one buffer, one
+transposed) on the tensor-core kernel within 1e-5 of gemm_reference
+(or, where the f32 summation order itself moves the result more, with
+an error against float64 within twice torch.matmul's),
+the launch counts the ops' k.dot sites give, and every K2 product of a
+dd poinv bitwise equal to its plain version.
 """
 import pytest
 import torch
@@ -710,3 +717,97 @@ def test_cyclic_ring_route_equals_psum_route_on_card(card, op):
         assert all(torch.equal(a, b) for a, b in zip(r0, r1))
     if op == "getrf":
         assert torch.equal(p0, p1)
+
+
+def _record_k1(monkeypatch, rows):
+    """Hold every K1 product, as it launches, against gemm_reference
+    and a float64 product: (shapes, strides, kernel, ok). A product
+    passes within 1e-5 of gemm_reference or, where the two f32
+    summation orders differ more (a triangular factor with an N-sized
+    diagonal: the small terms fall below the diagonal's f32 spacing, so
+    the order decides which are lost), with an error against float64
+    no worse than twice torch.matmul's, phase 2's yardstick."""
+    orig = pk.gemm
+
+    def spy(a, b, c=None, **kw):
+        out = orig(a, b, c, **kw)
+        ok = _rel(out, pk.gemm_reference(a, b, c, **kw)) <= 1e-5
+        if not ok:
+            exact = a.double() @ b.double()
+            ok = _rel(out, exact) <= 2 * _rel(torch.matmul(a, b), exact)
+        rows.append((tuple(a.shape), tuple(b.shape), a.stride(), b.stride(),
+                     pk.plan_for(a, b).kernel, ok))
+        return out
+
+    monkeypatch.setattr(pk, "gemm", spy)
+
+
+@pytest.mark.parametrize("op,want", [("trtri", 2 * 7), ("lauum", 1),
+                                     ("poinv", 13 + 2 * 7 + 1),
+                                     ("syrk", 1), ("syr2k", 2)])
+def test_inverse_family_and_syrk_products_on_k1(card, k1_on, monkeypatch,
+                                                op, want):
+    """N=2048, nb=256 (KT = 8): trtri 2·(KT − 1) products, lauum 1,
+    poinv potrf's 2·KT − 3 more, syrk 1 (A·Aᵀ from one buffer), syr2k
+    2; each on the tensor-core kernel and held as ``_record_k1`` says,
+    and the result within 1e-4 of the CPU's."""
+    from dplasma_tpu_torch.ops import blas3, generators, potrf
+    n, nb = 2048, 256
+    calls = {
+        "trtri": lambda dev: potrf.trtri(
+            generators.plghe(float(n), n, nb, seed=3, device=dev), "L"),
+        "lauum": lambda dev: potrf.lauum(
+            generators.plghe(float(n), n, nb, seed=3, device=dev), "L"),
+        "poinv": lambda dev: potrf.poinv(
+            generators.plghe(float(n), n, nb, seed=3, device=dev), "L"),
+        "syrk": lambda dev: blas3.syrk(
+            0.7, generators.plrnt(n, 1024, nb, nb, seed=4, device=dev),
+            0.3, generators.plghe(float(n), n, nb, seed=5, device=dev)),
+        "syr2k": lambda dev: blas3.syr2k(
+            0.7, generators.plrnt(n, 1024, nb, nb, seed=4, device=dev),
+            generators.plrnt(n, 1024, nb, nb, seed=6, device=dev),
+            0.3, generators.plghe(float(n), n, nb, seed=5, device=dev))}
+    rows = []
+    _record_k1(monkeypatch, rows)
+    launches = pk.LAUNCHES
+    got = calls[op](None)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES - launches == want == len(rows)
+    bad = [r for r in rows if r[4] != "wgmma" or not r[5]]
+    assert not bad, bad
+    if op in ("lauum", "syrk"):
+        # one operand a transposed view of the other's buffer
+        assert any(1 in (sa[0], sb[0]) for _, _, sa, sb, *_ in rows)
+    want_cpu = calls[op]("cpu")
+    scale = float(want_cpu.data.abs().max())
+    assert float((got.data.cpu() - want_cpu.data).abs().max()) \
+        <= 1e-4 * scale
+
+
+def test_dd_poinv_products_on_k2_bitwise(card, k1_on, monkeypatch):
+    """poinv at N=2048, nb=512 under dd_gemm=always: potrf's 5·4 − 3 =
+    17, trtri's 2·3 products and 4·4 Newton products, lauum's 1; every
+    launch bitwise equal to limb_product_base_reference on its own
+    operands; no K1, none unfused; the inverse passes check_inverse."""
+    from dplasma_tpu_torch.ops import checks, generators, potrf
+    from dplasma_tpu_torch.utils import config as cfg
+    orig = pdd.limb_product_base
+    same = []
+
+    def spy(al, bl, base, sa, sb, w):
+        out = orig(al, bl, base, sa, sb, w)
+        want = pdd.limb_product_base_reference(al, bl, base, sa, sb, w)
+        same.append(torch.equal(out.view(torch.int64),
+                                want.view(torch.int64)))
+        return out
+
+    monkeypatch.setattr(pdd, "limb_product_base", spy)
+    A = generators.plghe(2048.0, 2048, 512, seed=3, dtype=torch.float64)
+    k1, k2, unfused = pk.LAUNCHES, pdd.LAUNCHES, pdd.UNFUSED
+    with cfg.override_scope({"dd_gemm": "always"}):
+        Ai = potrf.poinv(A, "L")
+        torch.cuda.synchronize()
+        assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 17 + 22 + 1)
+        assert pdd.UNFUSED == unfused and len(same) == 40 and all(same)
+        r, ok = checks.check_inverse(A, Ai, uplo="L")
+    assert ok, r

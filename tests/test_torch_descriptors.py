@@ -93,3 +93,75 @@ def test_transposed_and_with_shape_match_reference(M, N, mb, nb):
     assert b.transposed().transposed() == b
     assert dataclasses.asdict(a.with_shape(N + 1, M)) == \
         b.with_shape(N + 1, M).to_dict()
+
+
+def _both(seed=3):
+    A = ref_gen.plrnt(37, 30, 8, 8, seed=seed, dtype=jnp.float64)
+    T = port.TileMatrix.from_reference(np.asarray(A.data),
+                                       dataclasses.asdict(A.desc),
+                                       device="cpu")
+    return A, T
+
+
+@pytest.mark.parametrize("method,args", [
+    ("set_tile", (1, 2, 3.5)),
+    ("set_block", (1, 3, 0, 2, -1.25)),
+    ("add_block", (0, 2, 1, 4, 0.5)),
+    ("astype", (np.float32,)),
+])
+def test_functional_writers_match_reference(method, args):
+    """set_tile / set_block / add_block / astype are bitwise the
+    reference's, and the source matrix is unchanged afterwards."""
+    A, T = _both()
+    before = T.data.clone()
+    targs = tuple(torch.float32 if a is np.float32 else a for a in args)
+    want = getattr(A, method)(*args)
+    got = getattr(T, method)(*targs)
+    assert got.desc == T.desc and got.data.data_ptr() != T.data.data_ptr()
+    np.testing.assert_array_equal(np.asarray(want.data), got.data.numpy())
+    assert torch.equal(T.data, before)
+    # a write into the result does not reach the source either
+    got.data.fill_(7.0)
+    assert torch.equal(T.data, before)
+
+
+def test_set_block_with_a_tensor_and_block_view():
+    A, T = _both()
+    val = np.arange(16 * 24, dtype=np.float64).reshape(16, 24)
+    want = A.set_block(2, 4, 0, 3, jnp.asarray(val))
+    got = T.set_block(2, 4, 0, 3, torch.from_numpy(val))
+    np.testing.assert_array_equal(np.asarray(want.data), got.data.numpy())
+    np.testing.assert_array_equal(np.asarray(A.block(1, 3, 2, 4)),
+                                  T.block(1, 3, 2, 4).numpy())
+    assert T.block(0, 1, 0, 1).data_ptr() == T.data.data_ptr()
+    np.testing.assert_array_equal(np.asarray(want.tile(3, 2)),
+                                  got.tile(3, 2).numpy())
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+@pytest.mark.parametrize("conj", [True, False])
+def test_sym_mirror_matches_reference(uplo, conj):
+    A = ref_gen.plrnt(37, 37, 8, 8, seed=4, dtype=jnp.float64)
+    T = port.TileMatrix.from_reference(np.asarray(A.data),
+                                       dataclasses.asdict(A.desc),
+                                       device="cpu")
+    before = T.data.clone()
+    want = A.sym_mirror(uplo, conj)
+    got = T.sym_mirror(uplo, conj)
+    np.testing.assert_array_equal(np.asarray(want.data), got.data.numpy())
+    assert torch.equal(got.data, got.data.T)
+    assert torch.equal(T.data, before)
+
+
+def test_sym_mirror_keeps_a_real_diagonal_under_conj():
+    x = torch.tensor([[1 + 2j, 0], [3 - 1j, 4 + 5j]], dtype=torch.complex128)
+    T = port.TileMatrix.from_dense(x, 2, 2)
+    h = T.sym_mirror("L", conj=True).data
+    assert torch.equal(h.diagonal(), torch.tensor([1, 4],
+                                                  dtype=torch.complex128))
+    assert h[0, 1] == 3 + 1j and h[1, 0] == 3 - 1j
+    s = T.sym_mirror("L", conj=False).data
+    assert torch.equal(s.diagonal(), x.diagonal()) and s[0, 1] == 3 - 1j
+    u = T.sym_mirror("U", conj=True).data
+    assert torch.equal(u.diagonal(), torch.tensor([1, 4],
+                                                  dtype=torch.complex128))

@@ -313,3 +313,151 @@ def test_gels_ir_driver_refuses_underdetermined():
     with pytest.raises(SystemExit, match="M >= N"):
         main(["testing_dgels_ir", "-M", "40", "-N", "64", "-t", "16",
               "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,checked", [
+    (["testing_ssymm", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_dhemm", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_ssyrk", "-N", "100", "-K", "60", "-t", "32"], False),
+    (["testing_dherk", "-N", "100", "-K", "60", "-t", "32"], False),
+    (["testing_dsyr2k", "-N", "100", "-K", "60", "-t", "32"], False),
+    (["testing_sher2k", "-N", "100", "-K", "60", "-t", "32"], False),
+    (["testing_dtrmm", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_strsm", "-M", "100", "-N", "70", "-t", "32", "-x"], True),
+    (["testing_dtrsm", "-M", "100", "-N", "70", "-t", "32", "-x"], True),
+    (["testing_spotri", "-N", "100", "-t", "32", "-x"], True),
+    (["testing_dpotri", "-N", "100", "-t", "32", "-X"], True),
+    (["testing_spoinv", "-N", "100", "-t", "32", "-x"], True),
+    (["testing_dpoinv", "-N", "100", "-t", "32", "-X", "--nruns", "2"],
+     True),
+    (["testing_strtri", "-N", "100", "-t", "32"], False),
+    (["testing_dlauum", "-N", "100", "-t", "32"], False),
+    (["testing_slange", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_dlanhe", "-N", "100", "-t", "32"], False),
+    (["testing_slansy", "-N", "100", "-t", "32"], False),
+    (["testing_dlantr", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_slanm2", "-M", "100", "-N", "70", "-t", "32", "-x"], True),
+    (["testing_dgeadd", "-M", "100", "-N", "70", "-t", "32"], False),
+    (["testing_stradd", "-M", "100", "-N", "70", "-t", "32"], False),
+])
+def test_blas3_inverse_norm_aux_drivers(argv, checked, capsys):
+    """Each driver of this family times its op with the reference's
+    flop count and prints the perf line (the norm drivers one per norm);
+    -x / -X run the reference's checks where it has one."""
+    common.RUNS.clear()
+    assert main(argv + ["--device", "cpu", "-v"]) == 0
+    out = capsys.readouterr().out
+    assert "[****] TIME(s)" in out and "FAILED" not in out
+    run = common.RUNS[-1]
+    assert all(c["ok"] for c in run["checks"])
+    assert bool(run["checks"]) == checked
+    ops = run["ops"]
+    assert len(ops) == (4 if argv[0][9:12] == "lan" and "lanm2" not in
+                        argv[0] else 1)
+    assert all(op["gflops"] > 0 for op in ops)
+
+
+def test_print_driver(capsys):
+    assert main(["testing_dprint", "-M", "10", "-N", "7", "-t", "4",
+                 "-v=3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "TileMatrix(10x7, tiles 4x4 [3x2]" in out and "tensor(" in out
+
+
+def test_flop_counts_are_the_references():
+    """symm/syrk/syr2k/trmm/trsm/trtri/lauum/potri drivers advertise the
+    reference's LAWN-41 counts."""
+    from dplasma_tpu.utils import flops as ref_flops
+    from dplasma_tpu_torch.utils import flops
+    common.RUNS.clear()
+    for prog, want in (
+            ("testing_ssymm", ref_flops.symm("L", 96, 64)),
+            ("testing_ssyrk", ref_flops.syrk(40, 64)),
+            ("testing_ssyr2k", ref_flops.syr2k(40, 64)),
+            ("testing_strmm", ref_flops.trmm("L", 96, 64)),
+            ("testing_strsm", ref_flops.trsm("L", 96, 64)),
+            ("testing_strtri", ref_flops.trtri(64)),
+            ("testing_slauum", ref_flops.lauum(64)),
+            ("testing_spotri", ref_flops.potri(64)),
+            ("testing_spoinv", ref_flops.potri(64) + ref_flops.potrf(64))):
+        assert main([prog, "-M", "96", "-N", "64", "-K", "40", "-t", "32",
+                     "--nowarmup", "--device", "cpu"]) == 0
+        assert common.RUNS[-1]["ops"][0]["flops"] == pytest.approx(want)
+    assert flops.potri(64) == ref_flops.potri(64)
+
+
+@pytest.mark.parametrize("prog,want", [
+    # the untimed potrf's 2·KT − 3, then trtri's 2·(KT − 1) and lauum's 1
+    ("testing_spotri", 5 + 2 * 3 + 1),
+    ("testing_spoinv", 5 + 2 * 3 + 1),    # + potrf's 2·KT − 3
+    ("testing_strtri", 2 * 3),
+    ("testing_slauum", 1),
+    ("testing_ssyrk", 1),
+    ("testing_ssyr2k", 2),
+    ("testing_ssymm", 1),
+    ("testing_strmm", 1),
+    ("testing_strsm", 3),                  # KT − 1 panel products
+])
+def test_drivers_route_k1_per_timed_run(prog, want):
+    """With K1 on, each driver run routes the products the ops' k.dot
+    sites make (N=1024, nb=256: KT = 4), no -x check. On the CPU none is
+    a CUDA launch."""
+    pk.enable(True)
+    try:
+        common.RUNS.clear()
+        routed = pk.ROUTED
+        assert main([prog, "-N", "1024", "-M", "1024", "-K", "512", "-t",
+                     "256", "--nowarmup", "--device", "cpu"]) == 0
+        assert pk.ROUTED - routed == want
+        assert common.RUNS[-1]["ops"][0]["k1_launches"] == [0]
+    finally:
+        pk.enable(False)
+
+
+@pytest.mark.parametrize("prog,want", [
+    ("testing_dpotri", 2 * 3 + 4 * 4 + 1),     # trtri, its leaves, lauum
+    ("testing_dpoinv", 17 + 2 * 3 + 4 * 4 + 1),  # + potrf's 5·KT − 3
+])
+def test_dd_inverse_drivers_route_k2(prog, want, capsys):
+    """Under dd_gemm=always every product of the timed run takes the K2
+    route (N=128, nb=32: KT = 4; two Newton steps of two products per
+    trtri leaf), none K1's; -x passes."""
+    pk.enable(True)
+    try:
+        with cfg.override_scope({"dd_gemm": "always"}):
+            common.RUNS.clear()
+            assert main([prog, "-N", "128", "-t", "32", "--nowarmup",
+                         "--device", "cpu"]) == 0
+            routed = pdd.ROUTED
+            assert main([prog, "-N", "128", "-t", "32", "-x", "--nowarmup",
+                         "--device", "cpu"]) == 0
+            routed = pdd.ROUTED - routed
+    finally:
+        pk.enable(False)
+    run = common.RUNS[-1]
+    assert run["checks"] and all(c["ok"] for c in run["checks"])
+    # the timed run, plus the driver's potrf (potri) and the check's
+    # product
+    assert routed == want + (17 if prog.endswith("potri") else 0) + 1
+    assert run["ops"][0]["k1_launches"] == [0]
+
+
+def test_registry_has_38_drivers_and_check_inv_parses():
+    from dplasma_tpu.drivers import testers as ref_testers
+    from dplasma_tpu_torch.drivers import testers
+    assert len(testers.DRIVERS) == 38
+    assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
+    for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
+                 ["-N", "8", "-xX"]):
+        ip, rp = common.parse_arguments(argv), \
+            ref_common.parse_arguments(argv)
+        assert ip.check_inv and ip.check_inv == rp.check_inv
+        assert ip.check == rp.check
+
+
+@pytest.mark.parametrize("prog", ["testing_csyrk", "testing_zpotri",
+                                  "testing_cherk", "testing_zlansy",
+                                  "testing_ctrsm", "testing_zgeadd"])
+def test_complex_drivers_raise(prog):
+    with pytest.raises(NotImplementedError, match="complex"):
+        main([prog, "-N", "16", "-t", "8", "--device", "cpu"])

@@ -64,3 +64,24 @@ def test_generator_chunking_is_invisible(monkeypatch):
 def test_complex_waits_for_its_slice():
     with pytest.raises(NotImplementedError):
         port.plrnt(8, 8, 4, 4, dtype=torch.complex64, device="cpu")
+
+
+@pytest.mark.parametrize("dts", DTYPES, ids=["s", "d"])
+@pytest.mark.parametrize("N,nb,seed", [(37, 8, 3872), (96, 32, 0),
+                                       (50, 16, 2**31 + 17)])
+def test_plgsy_bitwise(dts, N, nb, seed):
+    jdt, tdt, view = dts
+    a = ref.plgsy(float(N) + 0.5, N, nb, seed=seed, dtype=jdt)
+    b = port.plgsy(float(N) + 0.5, N, nb, seed=seed, dtype=tdt,
+                   device="cpu")
+    assert dataclasses.asdict(a.desc) == b.desc.to_dict()
+    np.testing.assert_array_equal(_bits(a.data, view),
+                                  _bits(b.data.numpy(), view))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128],
+                         ids=["c", "z"])
+@pytest.mark.parametrize("gen", ["plgsy", "plghe"])
+def test_complex_symmetric_generators_name_their_slice(dtype, gen):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        getattr(port, gen)(8.0, 8, 4, dtype=dtype, device="cpu")

@@ -44,7 +44,8 @@ def test_sweep_finds_the_package():
                 "kernels/panels.py", "ops/qr.py", "ops/checks.py",
                 "kernels/pallas_ring.py", "parallel/layout.py",
                 "parallel/mesh.py", "parallel/cyclic.py",
-                "kernels/quant.py", "ops/refine.py"):
+                "kernels/quant.py", "ops/refine.py", "ops/aux.py",
+                "ops/norms.py", "ops/blas3.py", "ops/potrf.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
