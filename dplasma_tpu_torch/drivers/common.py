@@ -2,7 +2,8 @@
 that the ported drivers need (``testers.DRIVERS``).
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
-``-N -M -K -t -T -x -X -v --nruns -z/--HNB --seed -p -q -g``, plus
+``-N -M -K -t -T -x -X -v --nruns -z/--HNB --seed -p -q -g
+--criteria -a/--alpha``, plus
 ``--nowarmup``, ``--lookahead`` and the port's ``--device`` (``cuda``
 by default; ``--device cpu`` runs on the CPU). Each timed op runs once
 untimed (the warm-up: kernel builds, allocator growth), then ``--nruns``
@@ -70,6 +71,9 @@ class IParam:
     nruns: int = 1
     warmup: bool = True
     lookahead: int = -1  # -1 = MCA sweep.lookahead
+    # LU/QR hybrid (--criteria, -a/--alpha)
+    criteria: int = 0
+    alpha: float = -1.0
     gpus: int = 0
     device: str = "cuda"
     prec: str = "d"
@@ -92,6 +96,7 @@ Optional arguments:
  -X --check_inv    : verify against the inverse
  -p -q             : process grid P x Q (a virtual mesh on the device)
  -g --gpus         : accepted and recorded
+ --criteria -a --alpha : LU/QR switch criteria and threshold
  --lookahead       : pipelined-sweep lookahead (default: MCA
                      sweep.lookahead, 1)
  --seed            : generator seed
@@ -126,6 +131,7 @@ _LONG = {
     "MB": ("MB", _int), "NB": ("NB", _int),
     "HNB": ("HNB", _int), "HMB": ("HMB", _int),
     "check": ("check", None), "check_inv": ("check_inv", None),
+    "criteria": ("criteria", _int), "alpha": ("alpha", float),
     "lookahead": ("lookahead", _int),
     "seed": ("seed", _int),
     "nruns": ("nruns", _int),
@@ -136,7 +142,7 @@ _LONG = {
 _SHORT = {
     "p": "grid-rows", "P": "grid-rows", "q": "grid-cols", "Q": "grid-cols",
     "N": "N", "M": "M", "K": "NRHS", "t": "MB", "T": "NB", "z": "HNB",
-    "g": "gpus",
+    "a": "alpha", "g": "gpus",
 }
 _SHORT_FLAGS = {"x": "check", "X": "check_inv"}
 

@@ -3,16 +3,19 @@
 ``trmm`` and ``trsm``; the Cholesky family ``potrf``, ``potrs``,
 ``posv``, ``potri``, ``poinv``, ``trtri`` and ``lauum``; ``getrf`` (=
 ``getrf_1d``), ``gesv``, ``getrf_ptgpanel`` (the distributed panel
-under ``-p P -q Q``); the QR family ``geqrf``, ``gelqf``, ``ungqr``,
-``unglq``, ``unmqr``, ``unmlq`` and ``gels``; the mixed-precision IR
+under ``-p P -q Q``), ``getrf_incpiv``, ``gesv_incpiv`` and
+``getrf_qrf`` (``--criteria`` and ``-a/--alpha``); the QR family
+``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``, ``unmlq`` and
+``gels``; the mixed-precision IR
 solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
 from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
 ``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``.
 Under MCA ``dd_gemm=always`` the d-precision drivers take the
-f64-equivalent limb route.
+f64-equivalent limb route. Every driver but the IR solvers (float64
+only, as in the reference) runs in all four precisions s, d, c and z.
 
-Ports ``dplasma_tpu/drivers/testers.py`` (:31-41, :68-287, :290-381,
-:454-455, :510-545, :577-589, :609-713, :801-868; the IR drivers
+Ports ``dplasma_tpu/drivers/testers.py`` (:24, :31-41, :68-287,
+:290-381, :454-455, :510-607, :609-713, :801-868; the IR drivers
 without the autopilot and the ladder's fallback rung, whose escape the
 solvers' own escalation already takes): seeded generation → timed run
 with the GFLOPS print → optional ``-x`` residual verification against
@@ -28,6 +31,8 @@ from dplasma_tpu_torch.ops import aux, blas3, checks, generators, lu, norms
 from dplasma_tpu_torch.ops import qr, refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
+
+CRITERIA = {0: "alternating", 1: "higham_sum", 2: "mumps", 3: "random"}
 
 
 def _gen(drv: Driver, M, N, seed_off=0, kind="rnt", bump=None):
@@ -255,6 +260,39 @@ def getrf_ptgpanel(drv: Driver):
     return 0
 
 
+def getrf_incpiv(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    (LU, Lc, piv), _ = drv.progress(
+        lu.getrf_incpiv, (A0,),
+        lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = lu.getrs_incpiv(LU, Lc, piv, B)
+        r, ok = checks.check_axmb(A0, B, X)
+        return drv.report_check("GETRF_INCPIV |b-Ax|", r, ok)
+    return 0
+
+
+def getrf_qrf(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    crit = CRITERIA.get(ip.criteria, "higham_sum")
+    alpha = ip.alpha if ip.alpha > 0 else 100.0
+    (LU, Tm, lu_tab), _ = drv.progress(
+        lambda a: lu.getrf_qrf(a, criterion=crit, alpha=alpha), (A0,),
+        lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.loud >= 2:
+        print(f"#+ getrf_qrf: criterion={crit} alpha={alpha} lu_tab="
+              f"{lu_tab.tolist()}")
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = lu.getrs_qrf(LU, Tm, lu_tab, B)
+        r, ok = checks.check_axmb(A0, B, X)
+        return drv.report_check("GETRF_QRF |b-Ax|", r, ok)
+    return 0
+
+
 def gesv(drv: Driver):
     ip = drv.ip
     A0 = _gen(drv, ip.N, ip.N)
@@ -266,6 +304,20 @@ def gesv(drv: Driver):
     if ip.check:
         r, ok = checks.check_axmb(A0, B, X)
         return drv.report_check("GESV |b-Ax|", r, ok)
+    return 0
+
+
+def gesv_incpiv(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N)
+    B = _gen(drv, ip.N, ip.K, 1)
+    cplx = ip.prec_dtype.is_complex
+    out, _ = drv.progress(
+        lu.gesv_incpiv, (A0, B),
+        lawn41.getrf(ip.N, ip.N, cplx) + lawn41.getrs(ip.N, ip.K, cplx))
+    if ip.check:
+        r, ok = checks.check_axmb(A0, B, out[-1])
+        return drv.report_check("GESV_INCPIV |b-Ax|", r, ok)
     return 0
 
 
@@ -504,6 +556,8 @@ DRIVERS = {
     "unmqr": unmqr, "unmlq": unmlq, "gels": gels,
     "getrf": getrf_1d, "getrf_1d": getrf_1d,
     "getrf_ptgpanel": getrf_ptgpanel, "gesv": gesv,
+    "getrf_incpiv": getrf_incpiv, "getrf_qrf": getrf_qrf,
+    "gesv_incpiv": gesv_incpiv,
     "posv_ir": posv_ir, "gesv_ir": gesv_ir, "gels_ir": gels_ir,
     "lange": lange, "lanhe": lanhe, "lansy": lansy, "lantr": lantr,
     "lanm2": lanm2,

@@ -15,9 +15,9 @@ the port is one. There, as in the reference, ``dot`` (and ``gemm``
 through it) goes to ``dd.mm``, ``potrf`` to ``dd.potrf_f64``, ``trsm``
 to ``dd.trsm_f64`` and ``trtri`` to ``dd.trtri_f64``: exact int8 limb
 products closed by kernel K2. The LU and QR sweeps take the dd panels
-themselves (``ops.lu._panel_lu_dd``, ``dd.geqrt_f64``); complex128
-products raise (``dd._real_only``) rather than silently taking native
-FP64.
+themselves (``ops.lu._panel_lu_dd``, ``dd.geqrt_f64``) for float64;
+complex128 factorizations keep the plain sweeps, every product a pair of
+2K-deep limb products (``dd.mm``).
 """
 from __future__ import annotations
 

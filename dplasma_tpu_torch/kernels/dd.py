@@ -1,9 +1,9 @@
 """FP64-equivalent products, Cholesky, and the LU and QR panels, from
 exact int8 limb splitting.
 
-Ports ``dplasma_tpu/kernels/dd.py`` but for complex products and the
-float-float split (:1-331, :333-454, :456-541, :591-701, :782-889, and
-the LU/QR panels :892-1045: ``lu_ir``, ``geqrt_f64``, ``_tsqrhr_f64``,
+Ports ``dplasma_tpu/kernels/dd.py`` but for the float-float split
+(:1-331, :333-454, :456-541, :591-701, :782-889, :1047-1074, and the
+LU/QR panels :892-1045: ``lu_ir``, ``geqrt_f64``, ``_tsqrhr_f64``,
 ``geqrt_f64_tree``). Each f64 operand is scaled
 (per A-row / per B-column, by a power of two read from the exponent
 field) and split EXACTLY into ``nl`` limbs of ``w = 7`` bits stored as
@@ -34,7 +34,10 @@ changes a number:
   XLA's compile cache).
 * ``_pin_cat_axis`` has no counterpart: it only matters under a device
   mesh, which waits for the distribution slice.
-* Complex ``mm`` raises, as complex does everywhere in the port.
+* Complex128 ``mm`` is the reference's two 2K-deep real limb products
+  (two K2 launches); ``trtri_f64``, ``trsm_f64`` and ``potrf_f64`` take
+  c64 seeds. ``lu_ir`` and the geqrt panels stay real-only, as the
+  reference calls them only for float64.
 """
 from __future__ import annotations
 
@@ -278,9 +281,21 @@ def gemm_dd(alpha, a, b, beta, c, bits: int = 53):
 
 
 def mm(a, b, bits: int = 53):
-    """Exact f64 matmul via :func:`gemm_f64`. Complex (the reference's
-    two 2K-deep real products) is not ported yet."""
-    _real_only("products", a, b)
+    """Complex-aware exact matmul: f64 via :func:`gemm_f64`; complex128
+    as two 2K-deep real limb products, [re(a) | im(a)] against
+    [re(b); −im(b)] and [im(b); re(b)] (the flops of the four-product
+    form). Conjugate views (``.mH``) are read through ``.real`` and
+    ``.imag``."""
+    if a.is_complex() or b.is_complex():
+        a = a.to(torch.complex128)
+        b = b.to(torch.complex128)
+        lhs = torch.cat([a.real, a.imag], dim=1)
+        re = gemm_f64(lhs, torch.cat([b.real, -b.imag], dim=0), bits=bits)
+        im = gemm_f64(lhs, torch.cat([b.imag, b.real], dim=0), bits=bits)
+        # the reference's re + 1j·im, part by part: its real part is
+        # re + 0·im (NaN where im is not finite), its imaginary part
+        # 0 + im (−0 becomes +0)
+        return torch.complex(re + 0.0 * im, 0.0 + im)
     return gemm_f64(a, b, bits=bits)
 
 
@@ -309,16 +324,25 @@ def _take_triangle(T, lower: bool, unit: bool):
 
 
 def _inv32(t, lower: bool):
-    """The f32 seed inverse of the named triangle of ``t`` (f32)."""
-    eye = torch.eye(t.shape[0], dtype=_F32, device=t.device)
+    """The f32 (c64) seed inverse of the named triangle of ``t`` (f32 or
+    c64)."""
+    eye = torch.eye(t.shape[0], dtype=t.dtype, device=t.device)
     return torch.linalg.solve_triangular(t, eye, upper=not lower, left=True)
 
 
+def _seed_dtype(x):
+    """The seed precision of a working dtype: c64 for complex, f32."""
+    return torch.complex64 if x.is_complex() else _F32
+
+
 def _real_only(what: str, *xs):
+    """The routes the reference runs on real f64 only (``lu_ir``, the
+    geqrt panels): complex raises rather than silently taking native
+    complex128."""
     if any(x.is_complex() for x in xs):
         raise NotImplementedError(
-            f"complex dd {what} is not ported yet (ROADMAP queue 1 item "
-            "6); use dd_gemm=auto for native complex128")
+            f"dd {what} is real f64 only, as in the reference; complex "
+            "factorizations take the plain sweeps with dd products")
 
 
 def _chol32(a):
@@ -331,8 +355,7 @@ def _chol32(a):
 def trtri_f64(T, lower: bool = True, unit: bool = False, iters: int = 2):
     """Inverse of a triangular tile at f64-equivalent accuracy: an f32
     solve seeds X; Newton steps X <- X(2I − TX), every product exact.
-    Reads only the named triangle. Real f64 only."""
-    _real_only("trtri", T)
+    Reads only the named triangle; complex128 takes a c64 seed."""
     T = _take_triangle(T.to(_wdtype(T)), lower, unit)
     n = T.shape[0]
     if not unit:
@@ -340,8 +363,8 @@ def trtri_f64(T, lower: bool = True, unit: bool = False, iters: int = 2):
         s = 0.25 * _pow2_scale_bits(
             torch.amax(torch.abs(T), dim=1, keepdim=True))
         T = T / s
-    X = _inv32(T.to(_F32), lower).to(_F64)
-    eye2 = 2.0 * torch.eye(n, dtype=_F64, device=T.device)
+    X = _inv32(T.to(_seed_dtype(T)), lower).to(T.dtype)
+    eye2 = 2.0 * torch.eye(n, dtype=T.dtype, device=T.device)
     tri = torch.tril if lower else torch.triu
     for _ in range(iters):
         R = mm(T, X)
@@ -356,9 +379,17 @@ def trsm_f64(T, B, *, side="L", lower=True, trans="N", unit=False,
     """Triangular solve at f64-equivalent accuracy: an f32-inverse seed,
     then iterative refinement on exact residuals (the first at
     ``bits=32``). Power-of-two prescales on both operands keep the f32
-    seed in range. Reads only the named triangle of T. Real f64 only."""
-    _real_only("trsm", T, B)
+    seed in range. Reads only the named triangle of T. Complex operands
+    take the Newton inverse (:func:`trtri_f64`) times one exact product,
+    as in the reference."""
     T = T.to(_wdtype(T))
+    if T.is_complex() or B.is_complex():
+        X = trtri_f64(T, lower=lower, unit=unit)
+        if trans == "T":
+            X = X.T
+        elif trans == "C":
+            X = X.mH
+        return alpha * (mm(X, B) if side == "L" else mm(B, X))
     B = B.to(_F64)
     Tm = _take_triangle(T, lower, unit)
     if trans in ("T", "C"):
@@ -399,13 +430,13 @@ def potrf_f64(A, lower: bool = True, refine: int = 3):
     """Cholesky of one tile at f64-equivalent accuracy: an f32 seed, then
     ``refine`` first-order corrections L <- L(I + Φ(L^-1 E L^-T)) on the
     exact residual E = A − L Lᵀ. Reads only the named triangle; NaN
-    when the seed fails (not positive definite). Real f64 only."""
-    _real_only("potrf", A)
+    when the seed fails (not positive definite). Complex128 takes a c64
+    seed and L^H."""
     A = A.to(_wdtype(A))
     if not lower:
         return _ct(potrf_f64(_ct(A), lower=True, refine=refine))
     Afull = torch.tril(A) + _ct(torch.tril(A, -1))
-    L = _chol32(Afull.to(_F32)).to(_F64)
+    L = _chol32(Afull.to(_seed_dtype(A))).to(A.dtype)
     X = trtri_f64(L, lower=True)
     for _ in range(refine):
         E = Afull - mm(L, _ct(L))

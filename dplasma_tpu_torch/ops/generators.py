@@ -13,9 +13,10 @@ to the real dtype through float64 (exact below 2^53), whose rounding to
 float32 is round-to-nearest-even — what XLA's uint32 → float32
 conversion does.
 
-Complex dtypes wait for the complex slice of the port (ROADMAP queue 1
-item 4). For the real dtypes ``plghe`` and ``plgsy`` are the same
-matrix, as in the reference.
+A complex element takes its real part from the hash of ``seed`` and its
+imaginary part from the hash of ``seed + 1`` (wrapped to 32 bits), both
+in the real dtype. For the real dtypes ``plghe`` and ``plgsy`` are the
+same matrix, as in the reference.
 """
 from __future__ import annotations
 
@@ -65,16 +66,18 @@ def _uniform_rows(seed: int, r0: int, r1: int, ncols: int, dtype,
 
 
 def _hash_grid(seed: int, desc: TileDesc, dtype, device) -> torch.Tensor:
-    """The uniform value at every (row, col) of the padded grid."""
-    if dtype.is_complex:
-        raise NotImplementedError(
-            "complex generators wait for the complex slice of the port "
-            "(ROADMAP queue 1 item 4)")
+    """The uniform value at every (row, col) of the padded grid; for a
+    complex dtype the real part from ``seed``, the imaginary part from
+    ``seed + 1``."""
     out = torch.empty((desc.Mp, desc.Np), dtype=dtype, device=device)
+    parts = ((out.real, seed), (out.imag, seed + 1)) if dtype.is_complex \
+        else ((out, seed),)
     step = max(1, _CHUNK_ELEMS // max(desc.Np, 1))
     for r0 in range(0, desc.Mp, step):
         r1 = min(r0 + step, desc.Mp)
-        out[r0:r1] = _uniform_rows(seed, r0, r1, desc.Np, dtype, device)
+        for dst, sd in parts:
+            dst[r0:r1] = _uniform_rows(sd, r0, r1, desc.Np, dst.dtype,
+                                       device)
     return out
 
 
@@ -102,17 +105,22 @@ def plrnt(M: int, N: int, mb: int, nb: int, seed: int = 3872,
     return TileMatrix(_mask_mn(desc, v), desc)
 
 
-def _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device):
+def _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device,
+                      hermitian: bool):
     """Element (r, c) takes the hash of the unordered pair (max, min),
-    plus ``bump`` on the diagonal: the real plghe and plgsy matrix."""
+    plus ``bump`` on the diagonal. ``hermitian`` (plghe) conjugates the
+    upper triangle and keeps only the real part of the diagonal; for
+    real dtypes it changes nothing."""
     dev = resolve_device(device)
     mb = mb or nb
     desc = TileDesc(N, N, mb, nb, dist)
     g = _hash_grid(seed, desc, dtype, dev)
     # the lower triangle of g as it is, the upper mirrored from it
     v = torch.tril(g)
-    v += torch.triu(g.T, 1)
+    v += torch.triu(g.T.conj() if hermitian else g.T, 1)
     del g
+    if hermitian and dtype.is_complex:
+        v.diagonal().imag.zero_()
     _bump_diag(v, bump)
     return TileMatrix(_mask_mn(desc, v), desc)
 
@@ -120,9 +128,11 @@ def _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device):
 def plghe(bump: float, N: int, nb: int, seed: int = 3872,
           dtype=torch.float32, mb: int | None = None,
           dist: Dist = Dist(), device=None) -> TileMatrix:
-    """Symmetric matrix + ``bump`` on the diagonal (dplasma_zplghe for
-    real dtypes). ``bump >= N`` yields a positive-definite matrix."""
-    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device)
+    """Hermitian matrix with a real diagonal + ``bump`` on it
+    (dplasma_zplghe). ``bump >= N`` yields a positive-definite
+    matrix."""
+    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device,
+                             hermitian=True)
 
 
 def plgsy(bump: float, N: int, nb: int, seed: int = 3872,
@@ -130,4 +140,5 @@ def plgsy(bump: float, N: int, nb: int, seed: int = 3872,
           dist: Dist = Dist(), device=None) -> TileMatrix:
     """Symmetric (for complex dtypes: complex-symmetric, not Hermitian)
     matrix + ``bump`` on the diagonal (dplasma_zplgsy)."""
-    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device)
+    return _bumped_symmetric(bump, N, nb, seed, dtype, mb, dist, device,
+                             hermitian=False)

@@ -39,8 +39,23 @@ cuSOLVER's or K3's.
 
 :func:`getrf_ptgpanel` runs the distributed panel of
 ``parallel/cyclic.py`` under an active P×Q grid (not yet under dd,
-ROADMAP item 11). Incpiv, qrf, the lowmem tier and ``dag`` wait for
-later slices.
+ROADMAP item 11).
+
+:func:`getrf_incpiv` (tile-incremental pivoting on [U_kk; A_mk]
+couples), :func:`getrf_qrf` (the LU/QR hybrid, an LU or a QR panel per
+step by a data-dependent criterion), their solvers and :func:`gerfs`
+port ``lu.py:527-781``. Their products go through ``blas.dot``, so K1
+takes the f32 ones and K2 the dd ones. Per square factorization with KT
+tiles: ``getrf_incpiv`` makes KT·(KT − 1)/2 couple products (one per
+``_ssssm`` with a trailing block); ``getrs_incpiv`` as many on the
+right-hand side and the upper solve's KT − 1 (``blas3.trsm``);
+``getrf_qrf`` one per LU panel with a trailing block, and per QR panel
+its ``larft`` Gram and three per ``apply_q`` on a trailing block. Under
+``dd_gemm=always`` a complex product is two limb products and a complex
+``trsm_f64`` five products (the Newton inverse's four and one apply); a
+real one is two limb residuals. The reference's ``lax.cond`` on the
+criterion is a host ``bool`` per panel here. The lowmem tier and
+``dag`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -50,6 +65,7 @@ import torch
 from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
@@ -391,3 +407,204 @@ def gesv_1d(A: TileMatrix, B: TileMatrix):
     """Factor + solve (dplasma_zgesv_1d). Returns (LU, perm, X)."""
     LU, perm = getrf_1d(A)
     return LU, perm, getrs("N", LU, perm, B)
+
+
+# -- incremental pivoting ----------------------------------------------
+
+def getrf_incpiv(A: TileMatrix):
+    """Tile-incremental-pivoting LU (dplasma_zgetrf_incpiv): pivoting is
+    confined to [U_kk; A_mk] couples, each a pivoted LU of 2·nb rows.
+
+    Returns (factored, Lc, piv): ``factored`` holds U on and above the
+    diagonal and the couples' L21 blocks below it; ``Lc`` holds the
+    couples' L11 blocks at tile (m, k) (the reference's separate L
+    descriptor); ``piv[k, m]`` is the couple's 2·nb-row permutation (row
+    k of ``piv`` holds the diagonal tile's in its first nb entries)."""
+    if A.desc.mb != A.desc.nb:
+        raise ValueError(f"getrf needs square tiles, got {A.desc}")
+    nb = A.desc.nb
+    MT, KT, Np = A.desc.MT, A.desc.KT, A.desc.Np
+    X = A.pad_diag().data.clone()
+    Lc = torch.zeros_like(X)
+    piv = torch.arange(2 * nb, device=X.device).repeat(KT, MT, 1)
+    for kk in range(KT):
+        s, e = kk * nb, (kk + 1) * nb
+        lu, perm = _lu_chain(X[s:e, s:e])
+        X[s:e, s:e] = lu
+        piv[kk, kk, :nb] = perm
+        if e < Np:
+            X[s:e, e:] = k.trsm(lu, X[s:e, e:][perm], side="L", lower=True,
+                                unit=True)
+        for m in range(kk + 1, MT):
+            r0, r1 = m * nb, (m + 1) * nb
+            lu2, perm2 = _lu_chain(torch.cat([torch.triu(X[s:e, s:e]),
+                                              X[r0:r1, s:e]], dim=0))
+            l11c = torch.tril(lu2[:nb], -1)
+            l21c = lu2[nb:]
+            X[s:e, s:e] = torch.tril(X[s:e, s:e], -1) + torch.triu(lu2[:nb])
+            X[r0:r1, s:e] = l21c
+            Lc[r0:r1, s:e] = l11c
+            piv[kk, m] = perm2
+            if e < Np:
+                X[s:e, e:], X[r0:r1, e:] = _ssssm(l11c, l21c, perm2,
+                                                  X[s:e, e:], X[r0:r1, e:])
+    return TileMatrix(X, A.desc), TileMatrix(Lc, A.desc), piv
+
+
+def _ssssm(l11c, l21c, perm, c_top, c_bot):
+    """Apply a couple's L^-1 P to the vertical pair (CORE_zssssm):
+    y1 = L11c^-1 (P c)[:nb]; y2 = (P c)[nb:] − L21c y1."""
+    nb = l11c.shape[0]
+    cstack = torch.cat([c_top, c_bot], dim=0)[perm]
+    y1 = k.trsm(l11c, cstack[:nb], side="L", lower=True, unit=True)
+    return y1, cstack[nb:] - k.dot(l21c, y1)
+
+
+def trsmpl_incpiv(LU: TileMatrix, Lc: TileMatrix, piv,
+                  B: TileMatrix) -> TileMatrix:
+    """Replay the incpiv panel transformations on B
+    (dplasma_ztrsmpl_incpiv)."""
+    nb = LU.desc.nb
+    MT, KT = LU.desc.MT, LU.desc.KT
+    Y = B.zero_pad().data.clone()
+    for kk in range(KT):
+        s, e = kk * nb, (kk + 1) * nb
+        Y[s:e] = k.trsm(LU.data[s:e, s:e], Y[s:e][piv[kk, kk, :nb]],
+                        side="L", lower=True, unit=True)
+        for m in range(kk + 1, MT):
+            r0, r1 = m * nb, (m + 1) * nb
+            Y[s:e], Y[r0:r1] = _ssssm(Lc.data[r0:r1, s:e],
+                                      LU.data[r0:r1, s:e], piv[kk, m],
+                                      Y[s:e], Y[r0:r1])
+    return TileMatrix(Y, B.desc)
+
+
+def getrs_incpiv(LU: TileMatrix, Lc: TileMatrix, piv,
+                 B: TileMatrix) -> TileMatrix:
+    """Solve from an incpiv factorization (dplasma_zgetrs_incpiv)."""
+    Y = trsmpl_incpiv(LU, Lc, piv, B)
+    return blas3.trsm(1.0, LU, Y, side="L", uplo="U", trans="N")
+
+
+def gesv_incpiv(A: TileMatrix, B: TileMatrix):
+    """dplasma_zgesv_incpiv. Returns (LU, Lc, piv, X)."""
+    LU, Lc, piv = getrf_incpiv(A)
+    return LU, Lc, piv, getrs_incpiv(LU, Lc, piv, B)
+
+
+# -- hybrid LU/QR ------------------------------------------------------
+
+CRITERIA = ("higham_sum", "higham_max", "higham_moy", "mumps",
+            "random", "alternating")
+
+
+def _panel_criterion(criterion: str, panel, nb: int, alpha: float) -> bool:
+    """Data-dependent LU-acceptability test for one panel (the
+    reference's Higham and MUMPS criteria, zgetrf_qrf_wrapper.c:115-201):
+    True when the unpivoted LU panel is numerically acceptable."""
+    d = torch.abs(torch.diagonal(panel[:nb]))
+    col = torch.abs(panel)
+    if criterion == "higham_sum":
+        growth = torch.sum(col, dim=0)
+    elif criterion == "higham_max":
+        growth = torch.amax(col, dim=0)
+    elif criterion == "higham_moy":
+        growth = torch.mean(col, dim=0) * panel.shape[0]
+    elif criterion == "mumps":
+        # diagonal dominance within the diagonal block
+        off = torch.sum(torch.abs(panel[:nb]), dim=0) - d
+        return bool(torch.all(d >= alpha * off))
+    else:
+        raise ValueError(criterion)
+    safe = torch.where(d > 0, d, torch.finfo(col.dtype).tiny)
+    return bool(torch.all(growth <= alpha * safe))
+
+
+def getrf_qrf(A: TileMatrix, criterion: str = "higham_sum",
+              alpha: float | None = None, seed: int = 3872):
+    """Hybrid LU/QR factorization (dplasma_zgetrf_qrf): per panel an
+    unpivoted LU panel when the criterion accepts it, else a Householder
+    QR panel (stability by orthogonality, without pivoting).
+
+    Returns (factored, T, lu_tab): ``lu_tab[k]`` is 1 for an LU panel, 0
+    for a QR panel (the reference's ``lu_tab``); T holds the
+    compact-WY triangles of the QR panels. Solve with
+    :func:`trsmpl_qrf` and an upper trsm (:func:`getrs_qrf`)."""
+    if A.desc.mb != A.desc.nb:
+        raise ValueError(f"getrf needs square tiles, got {A.desc}")
+    if criterion not in CRITERIA:
+        raise ValueError(f"unknown criterion {criterion!r}")
+    nb = A.desc.nb
+    KT = A.desc.KT
+    X = A.pad_diag().data.clone()
+    Mp, Np = X.shape
+    if alpha is None:
+        # the Higham criteria accept LU when growth <= alpha·|diag|
+        # (larger alpha, more LU); mumps when the diagonal dominates
+        # alpha·|offdiag| (larger alpha, less LU)
+        alpha = 0.5 if criterion == "mumps" else float(Mp)
+    Tm = torch.zeros_like(X)
+    lu_tab = torch.zeros(KT, dtype=torch.int32)
+    for kk in range(KT):
+        s, e = kk * nb, (kk + 1) * nb
+        if criterion == "random":
+            use_lu = hash((seed, kk)) % 2 == 0
+        elif criterion == "alternating":
+            use_lu = kk % 2 == 0
+        else:
+            use_lu = _panel_criterion(criterion, X[s:, s:e], nb, alpha)
+        if use_lu:
+            d = k.getrf_nopiv(X[s:e, s:e])
+            l21 = k.trsm(d, X[e:, s:e], side="R", lower=False)
+            X[s:e, s:e] = d
+            X[e:, s:e] = l21
+            if e < Np:
+                u12 = k.trsm(d, X[s:e, e:], side="L", lower=True, unit=True)
+                X[s:e, e:] = u12
+                X[e:, e:] -= k.dot(l21, u12)
+        else:
+            packed, v, T = hh.geqrt(X[s:, s:e])
+            X[s:, s:e] = packed
+            if e < Np:
+                X[s:, e:] = hh.apply_q(v, T, X[s:, e:], trans="C")
+            Tm[s:e, s:e] = T
+        lu_tab[kk] = int(use_lu)
+    return TileMatrix(X, A.desc), TileMatrix(Tm, A.desc), lu_tab
+
+
+def trsmpl_qrf(LU: TileMatrix, Tm: TileMatrix, lu_tab,
+               B: TileMatrix) -> TileMatrix:
+    """Apply the qrf panel transformations to B (dplasma_ztrsmpl_qrf):
+    L^-1 for LU panels, Q^H for QR panels, as ``lu_tab`` says."""
+    nb = LU.desc.nb
+    Y = B.zero_pad().data.clone()
+    for kk in range(LU.desc.KT):
+        s, e = kk * nb, (kk + 1) * nb
+        pan = LU.data[s:, s:e]
+        if int(lu_tab[kk]) == 1:
+            y1 = k.trsm(pan[:nb], Y[s:e], side="L", lower=True, unit=True)
+            Y[e:] -= k.dot(pan[nb:], y1)
+            Y[s:e] = y1
+        else:
+            Y[s:] = hh.apply_q(k.tri(pan, lower=True, unit=True),
+                               Tm.data[s:e, s:e], Y[s:], trans="C")
+    return TileMatrix(Y, B.desc)
+
+
+def getrs_qrf(LU: TileMatrix, Tm: TileMatrix, lu_tab,
+              B: TileMatrix) -> TileMatrix:
+    """Solve from a qrf factorization."""
+    Y = trsmpl_qrf(LU, Tm, lu_tab, B)
+    return blas3.trsm(1.0, LU, Y, side="L", uplo="U", trans="N")
+
+
+def gerfs(A: TileMatrix, LU: TileMatrix, perm, B: TileMatrix,
+          X: TileMatrix, iters: int = 1) -> TileMatrix:
+    """Iterative refinement of a getrf_1d solve (dplasma_zgerfs):
+    r = B − A X; X += A^-1 r, ``iters`` times."""
+    for _ in range(iters):
+        R = B.like(B.zero_pad().data
+                   - k.dot(A.zero_pad().data, X.zero_pad().data))
+        D = getrs("N", LU, perm, R)
+        X = X.like(X.data + D.data)
+    return X

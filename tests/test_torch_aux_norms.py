@@ -21,6 +21,7 @@ from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu.ops import norms as ref_norms
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.ops import aux, norms
+from torch_threads import one_torch_thread  # noqa: F401
 
 M, N, NB = 100, 70, 32
 JDT = {"s": jnp.float32, "d": jnp.float64}

@@ -20,6 +20,7 @@ from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.kernels import quant
 from dplasma_tpu_torch.ops import blas3
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 

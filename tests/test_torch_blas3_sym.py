@@ -21,6 +21,7 @@ from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.ops import blas3
+from torch_threads import one_torch_thread  # noqa: F401
 
 M, N, K, NB = 100, 70, 60, 32
 TOL = {"s": 1e-5, "d": 1e-13}

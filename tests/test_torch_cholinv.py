@@ -30,6 +30,7 @@ from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.ops import checks, generators
 from dplasma_tpu_torch.ops import potrf as port_potrf
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, NB = 100, 32
 TOL = {"s": 1e-5, "d": 1e-12}

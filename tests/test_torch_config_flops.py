@@ -13,6 +13,7 @@ from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu.utils import flops as ref_flops
 from dplasma_tpu_torch.utils import config as cfg
 from dplasma_tpu_torch.utils import flops as port_flops
+from torch_threads import one_torch_thread  # noqa: F401
 
 SLICE_KNOBS = ["sweep.lookahead", "qr.agg_depth", "trsm_inv", "dd_gemm",
                "quant.updates", "quant.tile", "quant.guard",

@@ -37,7 +37,11 @@ transposed) on the tensor-core kernel within 1e-5 of gemm_reference
 (or, where the f32 summation order itself moves the result more, with
 an error against float64 within twice torch.matmul's),
 the launch counts the ops' k.dot sites give, and every K2 product of a
-dd poinv bitwise equal to its plain version.
+dd poinv bitwise equal to its plain version. The complex slice: the c
+and z generators bitwise equal on the card and the CPU; a complex dd
+product two 2K-deep K2 launches, each bitwise, the whole product the
+CPU's bits; zpotrf under dd with its derived launch count; the
+incpiv/qrf K1 products held as the inverse family's.
 """
 import pytest
 import torch
@@ -810,4 +814,123 @@ def test_dd_poinv_products_on_k2_bitwise(card, k1_on, monkeypatch):
         assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 17 + 22 + 1)
         assert pdd.UNFUSED == unfused and len(same) == 40 and all(same)
         r, ok = checks.check_inverse(A, Ai, uplo="L")
+    assert ok, r
+
+
+# ---------------------------------------------------------------------
+# the complex dtypes and the rest of the pivoted-LU family
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("seed", [3872, 2**32 - 1])
+def test_complex_generators_on_card_match_the_cpu_bitwise(card, dtype,
+                                                          seed):
+    from dplasma_tpu_torch.ops import generators
+    for gen in (lambda dev: generators.plrnt(301, 290, 64, 64, seed=seed,
+                                             dtype=dtype, diagdom=True,
+                                             device=dev),
+                lambda dev: generators.plghe(290.0, 290, 64, seed=seed,
+                                             dtype=dtype, device=dev),
+                lambda dev: generators.plgsy(290.0, 290, 64, seed=seed,
+                                             dtype=dtype, device=dev)):
+        got, want = gen(card).data.cpu(), gen("cpu").data
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+
+
+def _record_k2(monkeypatch, rows):
+    """Hold every K2 launch, as it happens, bitwise against
+    limb_product_base_reference on its own operands: (K, bitwise)."""
+    orig = pdd.limb_product_base
+
+    def spy(al, bl, base, sa, sb, w):
+        out = orig(al, bl, base, sa, sb, w)
+        want = pdd.limb_product_base_reference(al, bl, base, sa, sb, w)
+        rows.append((al.shape[2], torch.equal(out.view(torch.int64),
+                                              want.view(torch.int64))))
+        return out
+
+    monkeypatch.setattr(pdd, "limb_product_base", spy)
+
+
+@pytest.mark.parametrize("M,K,N", [(300, 200, 100), (512, 1024, 512)])
+def test_k2_complex_mm_matches_the_cpu_bitwise(card, monkeypatch, M, K, N):
+    """A complex dd product is two 2K-deep limb products, each one K2
+    launch bitwise equal to its plain version, and, the whole product
+    being exact, the card's bits are the CPU's; a ``.mH`` operand
+    included."""
+    g = torch.Generator().manual_seed(K)
+    a = torch.randn(M, K, generator=g, dtype=torch.complex128)
+    bt = torch.randn(N, K, generator=g, dtype=torch.complex128)
+    rows = []
+    _record_k2(monkeypatch, rows)
+    launches = pdd.LAUNCHES
+    got = dd.mm(a.to(card), bt.to(card).mH)
+    torch.cuda.synchronize()
+    assert pdd.LAUNCHES - launches == 2
+    assert rows == [(2 * K, True), (2 * K, True)]
+    want = dd.mm(a, bt.mH)
+    assert torch.equal(torch.view_as_real(got.cpu()),
+                       torch.view_as_real(want))
+
+
+def test_zpotrf_dd_on_card_routes_every_product(card, monkeypatch):
+    """zpotrf at N=1024, nb=256 (nt = 4) under dd_gemm=always: the tile
+    sweep, 46·nt − 16 = 168 K2 launches (per tile potrf_f64's 16 complex
+    products, per panel trsm_f64's 5, 2·nt − 3 updates, two limb products
+    each), each bitwise; no K1, none unfused; -x's check passes."""
+    from dplasma_tpu_torch.ops import checks, generators, potrf
+    from dplasma_tpu_torch.utils import config as cfg
+    A = generators.plghe(1024.0, 1024, 256, seed=3,
+                         dtype=torch.complex128)
+    rows = []
+    _record_k2(monkeypatch, rows)
+    k1, k2, unfused = pk.LAUNCHES, pdd.LAUNCHES, pdd.UNFUSED
+    with cfg.override_scope({"dd_gemm": "always"}):
+        L = potrf.potrf(A, "L")
+        torch.cuda.synchronize()
+        assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 168)
+        assert pdd.UNFUSED == unfused and all(ok for _, ok in rows)
+        r, ok = checks.check_potrf(A, L, "L")
+    assert ok, r
+    L64 = torch.linalg.cholesky(A.to_dense().cpu())
+    err = (L.to_dense().cpu() - L64).abs().max() / L64.abs().max()
+    assert float(err) <= 1e-11
+
+
+@pytest.mark.parametrize("op,want", [("getrf_incpiv", 28),
+                                     ("getrs_incpiv", 28 + 7),
+                                     ("getrf_qrf", 8 + 3 * 7)])
+def test_incpiv_and_qrf_products_on_k1(card, k1_on, monkeypatch, op, want):
+    """N=2048, nb=256 (KT = 8): getrf_incpiv's KT·(KT − 1)/2 couple
+    products, getrs_incpiv as many and its upper solve's KT − 1,
+    getrf_qrf (higham_sum: every panel QR on this random matrix) one
+    larft Gram per panel and three per apply, getrs_qrf three per panel
+    and the upper solve's KT − 1; each on the tensor-core
+    kernel and held as ``_record_k1`` says; the solve passes -x's
+    check."""
+    from dplasma_tpu_torch.ops import checks, generators, lu
+    n, nb = 2048, 256
+    A = generators.plrnt(n, n, nb, nb, seed=3)
+    B = generators.plrnt(n, 4, nb, nb, seed=4)
+    F = lu.getrf_incpiv(A) if op == "getrs_incpiv" else None
+    rows = []
+    _record_k1(monkeypatch, rows)
+    launches = pk.LAUNCHES
+    if op == "getrf_incpiv":
+        LU, Lc, piv = lu.getrf_incpiv(A)
+        X = lu.getrs_incpiv(LU, Lc, piv, B)
+        want_run = want + 28 + 7
+    elif op == "getrs_incpiv":
+        X = lu.getrs_incpiv(*F, B)
+        want_run = want
+    else:
+        LU, Tm, tab = lu.getrf_qrf(A)
+        assert tab.tolist() == [0] * 8
+        X = lu.getrs_qrf(LU, Tm, tab, B)
+        want_run = want + 3 * 8 + 7
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES - launches == want_run == len(rows)
+    bad = [r for r in rows if r[4] != "wgmma" or not r[5]]
+    assert not bad, bad
+    r, ok = checks.check_axmb(A, B, X)
     assert ok, r

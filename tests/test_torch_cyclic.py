@@ -34,6 +34,7 @@ from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import pallas_ring as pring
 from dplasma_tpu_torch.parallel import cyclic, layout, mesh
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 DISTS = [
     dict(P=2, Q=4),

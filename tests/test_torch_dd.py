@@ -15,12 +15,15 @@ from dplasma_tpu.kernels import dd as ref_dd
 from dplasma_tpu_torch.kernels import dd
 from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 M, K, N = 40, 48, 32
 
 
 def _bits(x):
     x = np.asarray(x.numpy() if torch.is_tensor(x) else x)
+    if x.dtype.kind == "c":      # (re, im) pairs
+        x = np.ascontiguousarray(x).view(f"f{x.dtype.itemsize // 2}")
     return x if x.dtype.kind in "iu" else x.view(f"i{x.dtype.itemsize}")
 
 
@@ -186,9 +189,11 @@ def test_gemm_dd_and_mm(ops):
     a32 = a.astype(np.float32)
     assert_bitwise(ref_dd.mm(jnp.asarray(a32), jnp.asarray(b)),
                    dd.mm(torch.from_numpy(a32), torch.from_numpy(b)))
-    with pytest.raises(NotImplementedError, match="complex"):
-        dd.mm(torch.from_numpy(a).to(torch.complex128),
-              torch.from_numpy(b))
+    # complex128 against a real operand: two 2K-deep limb products
+    assert_bitwise(ref_dd.mm(jnp.asarray(a).astype(jnp.complex128),
+                             jnp.asarray(b)),
+                   dd.mm(torch.from_numpy(a).to(torch.complex128),
+                         torch.from_numpy(b)))
 
 
 def test_gemm_f64_beats_f32(ops):

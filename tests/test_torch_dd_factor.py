@@ -16,6 +16,7 @@ import torch
 
 from dplasma_tpu.kernels import dd as ref_dd
 from dplasma_tpu_torch.kernels import dd
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 n, m = 48, 24

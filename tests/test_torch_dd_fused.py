@@ -28,6 +28,7 @@ from dplasma_tpu.kernels import dd as ref_dd
 from dplasma_tpu_torch.kernels import dd
 from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 W = 7
 

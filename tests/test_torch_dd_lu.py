@@ -32,6 +32,7 @@ from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.ops import checks
 from dplasma_tpu_torch.ops import lu
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 DD = {"dd_gemm": "always", "lu.agg_depth": "1"}

@@ -35,6 +35,7 @@ from dplasma_tpu_torch.kernels import dd
 from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.ops import checks, qr
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-12
 DD = {"dd_gemm": "always"}

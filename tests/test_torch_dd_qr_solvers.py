@@ -12,6 +12,7 @@ from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.ops import checks, qr
 from dplasma_tpu_torch.utils import config as cfg
 from test_torch_dd_qr import DD, ROUTES, TOL, _pair, _rel
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.ops import checks, qr
 from dplasma_tpu_torch.utils import config as cfg
 from test_torch_dd_qr import DD, TOL, _pair, _rel, check_panel
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROUTES = {"tree": {"panel.kernel": "tree", "qr.agg_depth": "1"},
           "tree_agg2": {"panel.kernel": "tree", "qr.agg_depth": "2"},

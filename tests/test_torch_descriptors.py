@@ -10,6 +10,7 @@ import torch
 from dplasma_tpu import descriptors as ref
 from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu_torch import descriptors as port
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(37, 37, 8, 8), (96, 40, 32, 16), (1, 5, 4, 4), (0, 3, 2, 2),
           (100, 100, 16, 16)]

@@ -12,6 +12,7 @@ from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.kernels import pallas_ring as pring
 from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("argv", [
@@ -445,7 +446,7 @@ def test_dd_inverse_drivers_route_k2(prog, want, capsys):
 def test_registry_has_38_drivers_and_check_inv_parses():
     from dplasma_tpu.drivers import testers as ref_testers
     from dplasma_tpu_torch.drivers import testers
-    assert len(testers.DRIVERS) == 38
+    assert len(testers.DRIVERS) == 41
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
     for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
                  ["-N", "8", "-xX"]):
@@ -459,5 +460,8 @@ def test_registry_has_38_drivers_and_check_inv_parses():
                                   "testing_cherk", "testing_zlansy",
                                   "testing_ctrsm", "testing_zgeadd"])
 def test_complex_drivers_raise(prog):
-    with pytest.raises(NotImplementedError, match="complex"):
-        main([prog, "-N", "16", "-t", "8", "--device", "cpu"])
+    """The complex drivers run (every one of them with its -x check:
+    tests/test_torch_complex_drivers.py)."""
+    assert main([prog, "-N", "16", "-t", "8", "-x", "--device", "cpu"]) == 0
+    run = common.RUNS[-1]
+    assert run["prec"] == prog[8] and all(c["ok"] for c in run["checks"])

@@ -1,5 +1,6 @@
 """Port parity: ``dplasma_tpu_torch.ops.generators`` against the JAX
-generators — bitwise, s and d, ragged sizes, several seeds."""
+generators — bitwise, s and d, ragged sizes, several seeds (c and z:
+tests/test_torch_complex.py, and the two complex cases here)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -9,6 +10,7 @@ import torch
 
 from dplasma_tpu.ops import generators as ref
 from dplasma_tpu_torch.ops import generators as port
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = [(jnp.float32, torch.float32, np.uint32),
           (jnp.float64, torch.float64, np.uint64)]
@@ -62,8 +64,11 @@ def test_generator_chunking_is_invisible(monkeypatch):
 
 
 def test_complex_waits_for_its_slice():
-    with pytest.raises(NotImplementedError):
-        port.plrnt(8, 8, 4, 4, dtype=torch.complex64, device="cpu")
+    """c is in: plrnt's complex64 matrix is the reference's, bitwise."""
+    a = ref.plrnt(8, 8, 4, 4, dtype=jnp.complex64)
+    b = port.plrnt(8, 8, 4, 4, dtype=torch.complex64, device="cpu")
+    np.testing.assert_array_equal(_bits(a.data, np.uint32),
+                                  _bits(b.data.numpy(), np.uint32))
 
 
 @pytest.mark.parametrize("dts", DTYPES, ids=["s", "d"])
@@ -83,5 +88,11 @@ def test_plgsy_bitwise(dts, N, nb, seed):
                          ids=["c", "z"])
 @pytest.mark.parametrize("gen", ["plgsy", "plghe"])
 def test_complex_symmetric_generators_name_their_slice(dtype, gen):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        getattr(port, gen)(8.0, 8, 4, dtype=dtype, device="cpu")
+    """plgsy (complex-symmetric) and plghe (Hermitian) in c and z: the
+    reference's bits."""
+    jdt = jnp.complex64 if dtype == torch.complex64 else jnp.complex128
+    view = np.uint32 if dtype == torch.complex64 else np.uint64
+    a = getattr(ref, gen)(8.0, 8, 4, dtype=jdt)
+    b = getattr(port, gen)(8.0, 8, 4, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(_bits(a.data, view),
+                                  _bits(b.data.numpy(), view))

@@ -16,6 +16,7 @@ from dplasma_tpu.kernels import householder as ref_hh
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 DTYPES = [np.float32, np.float64]

@@ -11,6 +11,7 @@ import pytest
 from dplasma_tpu.parallel import layout as ref
 from dplasma_tpu.parallel import mesh as ref_mesh
 from dplasma_tpu_torch.parallel import layout, mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 SWEEP = [(P, kp, ip) for P in (1, 2, 3, 4) for kp in (1, 2, 3)
          for ip in range(P)]

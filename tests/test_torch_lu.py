@@ -32,6 +32,7 @@ from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.ops import _sweep, checks, generators
 from dplasma_tpu_torch.ops import lu as port_lu
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"s": (jnp.float32, 1e-4), "d": (jnp.float64, 1e-12)}
 
@@ -236,9 +237,11 @@ def test_perm_ipiv_round_trips_match_reference(rng):
 def test_dd_route_raises_for_f64():
     """Under dd_gemm=always every f64 LU entry point takes the limb route
     (each routes limb products to K2; parity with the reference is
-    tests/test_torch_dd_lu.py); complex128, whose limb products are not
-    ported, still raises naming ROADMAP item 6; f32 never takes the limb
-    route."""
+    tests/test_torch_dd_lu.py); complex128 takes the plain pivoted sweep
+    with its trsm and update products on the limb route (parity with the
+    reference: tests/test_torch_complex_dd.py), agreeing with the native
+    complex128 factorization, while the real-only ``lu_ir`` still
+    raises; f32 never takes the limb route."""
     _, T = _pair(48, 16, jnp.float64)
     with cfg.override_scope({"dd_gemm": "always"}):
         for fn in (port_lu.getrf_1d, lambda a: port_lu.getrf_rec(a, 8),
@@ -247,9 +250,18 @@ def test_dd_route_raises_for_f64():
             routed = pdd.ROUTED
             fn(T)
             assert pdd.ROUTED > routed
-        with pytest.raises(NotImplementedError, match="item 6"):
-            port_lu.getrf_1d(TileMatrix(T.data.to(torch.complex128),
-                                        T.desc))
+        Z = TileMatrix(T.data.to(torch.complex128)
+                       + 0.5j * T.data.flip(0), T.desc)
+        routed = pdd.ROUTED
+        F, perm = port_lu.getrf_1d(Z)
+        assert pdd.ROUTED - routed == 12 * (2 * Z.desc.KT - 3)
+        with pytest.raises(NotImplementedError, match="real f64 only"):
+            port_lu._dd.lu_ir(Z.data[:, :16], Z.data[:, :16],
+                              Z.data[:16, :16])
+    Fn, permn = port_lu.getrf_1d(Z)
+    assert torch.equal(perm, permn)
+    assert (F.data - Fn.data).abs().max() <= 1e-12 * Fn.data.abs().max()
+    with cfg.override_scope({"dd_gemm": "always"}):
         _, T32 = _pair(48, 16, jnp.float32)
         routed = pdd.ROUTED
         port_lu.getrf_1d(T32)          # f32 never takes the limb route

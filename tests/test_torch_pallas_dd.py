@@ -18,6 +18,7 @@ from dplasma_tpu.kernels import dd as ref_dd
 from dplasma_tpu.kernels import pallas_dd as ref_pdd
 from dplasma_tpu_torch.kernels import pallas_dd as pdd
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(nl, M, N, seed, lo=-2 ** 30, hi=2 ** 30):

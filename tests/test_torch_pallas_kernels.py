@@ -21,6 +21,7 @@ import torch
 from conftest import requires_pallas
 from dplasma_tpu.kernels import pallas_kernels as ref_pk
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS32 = float(np.finfo(np.float32).eps)
 SHAPES = [(300, 260, 270), (257, 384, 300)]

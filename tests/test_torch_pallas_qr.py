@@ -26,6 +26,7 @@ from dplasma_tpu.kernels import householder as ref_hh
 from dplasma_tpu.kernels import pallas_qr as ref_pqr
 from dplasma_tpu_torch.kernels import pallas_lu as plu
 from dplasma_tpu_torch.kernels import pallas_qr as pqr
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

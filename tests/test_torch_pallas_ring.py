@@ -18,6 +18,7 @@ from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.kernels import pallas_ring as pring
 from dplasma_tpu_torch.parallel import mesh
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [(n, root, chunks) for n in (2, 3, 4) for root in range(n)
          for chunks in (1, 3, 4)]

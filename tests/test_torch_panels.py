@@ -32,6 +32,7 @@ from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.kernels import panels
 from dplasma_tpu_torch.ops import lu as port_lu
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(want, got):

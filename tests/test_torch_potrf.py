@@ -25,6 +25,7 @@ from dplasma_tpu_torch.kernels import pallas_kernels as pk
 from dplasma_tpu_torch.ops import checks, generators
 from dplasma_tpu_torch.ops import potrf as port_potrf
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"s": (jnp.float32, 1e-4), "d": (jnp.float64, 1e-12)}
 

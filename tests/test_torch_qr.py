@@ -36,6 +36,7 @@ from dplasma_tpu_torch.kernels import pallas_qr as pqr
 from dplasma_tpu_torch.ops import checks, generators
 from dplasma_tpu_torch.ops import qr
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"s": (jnp.float32, 1e-4), "d": (jnp.float64, 1e-10)}
 
@@ -292,9 +293,11 @@ def test_t_desc_and_square_tile_rule():
 def test_dd_route_raises_for_f64():
     """Under dd_gemm=always every f64 QR entry point takes the limb route
     (each routes limb products to K2; parity with the reference is
-    tests/test_torch_dd_qr*.py); complex128, whose limb products are not
-    ported, still raises naming ROADMAP item 6; f32 never takes the limb
-    route."""
+    tests/test_torch_dd_qr*.py); complex128 takes the Householder sweep
+    on vendor panels with its products on the limb route (parity with the
+    reference: tests/test_torch_complex_dd.py), agreeing with the native
+    complex128 factorization, while the real-only dd panel still raises;
+    f32 never takes the limb route."""
     _, T = _pair(64, 64, 32, jnp.float64)
     with cfg.override_scope({"dd_gemm": "always"}):
         for fn in (qr.geqrf, qr.gelqf, lambda a: qr.geqrf_rec(a, 8),
@@ -302,8 +305,17 @@ def test_dd_route_raises_for_f64():
             routed = pdd.ROUTED
             fn(T)
             assert pdd.ROUTED > routed
-        with pytest.raises(NotImplementedError, match="item 6"):
-            qr.geqrf(TileMatrix(T.data.to(torch.complex128), T.desc))
+        Z = TileMatrix(T.data.to(torch.complex128)
+                       + 0.5j * T.data.flip(0), T.desc)
+        routed = pdd.ROUTED
+        F, Tf = qr.geqrf(Z)
+        assert pdd.ROUTED > routed
+        with pytest.raises(NotImplementedError, match="real f64 only"):
+            qr._dd.geqrt_f64(Z.data[:, :32])
+    Fn, Tn = qr.geqrf(Z)
+    assert (F.data - Fn.data).abs().max() <= 1e-12 * Fn.data.abs().max()
+    assert (Tf.data - Tn.data).abs().max() <= 1e-12 * Tn.data.abs().max()
+    with cfg.override_scope({"dd_gemm": "always"}):
         _, T32 = _pair(64, 64, 32, jnp.float32)
         routed = pdd.ROUTED
         qr.geqrf(T32)                  # f32 never takes the limb route

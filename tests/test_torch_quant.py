@@ -31,6 +31,7 @@ from dplasma_tpu_torch.kernels import quant
 from dplasma_tpu_torch.ops import lu, qr
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 QTOL = 1e-6
 FTOL = 1e-5

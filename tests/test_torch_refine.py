@@ -29,6 +29,7 @@ from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.ops import checks, refine
 from dplasma_tpu_torch.utils import config as cfg
+from torch_threads import one_torch_thread  # noqa: F401
 
 XTOL = 1e-11
 EPS = 2.0 ** -52

@@ -15,6 +15,7 @@ from dplasma_tpu.ops import generators as ref_gen
 from dplasma_tpu.ops import refine as ref_refine
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.ops import checks, refine
+from torch_threads import one_torch_thread  # noqa: F401
 
 XTOL = 1e-11
 M, N, NB = 128, 64, 32
