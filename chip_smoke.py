@@ -170,6 +170,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    every distinct K1 shape of one direct sgetrf_incpiv, getrs_incpiv and
    getrf_qrf call held within 1e-5 of ``gemm_reference`` on the
    tensor-core kernel and timed.
+15. the hierarchical QR trees and the LDLᴴ / butterfly solvers through
+   ``drivers.main`` with K1 enabled, every kernel count zeroed just
+   before each run and read just after and each timed run's launches
+   equal to the count derived from the trees (``ops/hqr.py``):
+   ``testing_sgeqrf_hqr -N 8192 -t 512 -x`` with the default tree
+   (greedy, a = 1: 1021 K1) and with ``--qr_a 4 --treeh 1`` (637),
+   ``sgeqrf_systolic -x`` (1021), ``sgeqrf_rd -x`` (765), ``sgelqf_hqr``
+   and ``sgelqf_systolic`` (1021), the four ``sunm*`` appliers at M = N
+   = 8192 (768 each), ``testing_spivgen`` (94 trees checked),
+   ``shetrf -x`` (15) and ``shebut -x`` (107); ``testing_zgeqrf_hqr`` and
+   ``zhetrf -N 4096 -x`` (no kernel); under ``dd_gemm=always``
+   ``testing_dgeqrf_hqr -x`` (253 K2) and ``dhetrf -x`` (21) at N = 4096
+   (cut for time) beside native FP64; one library call beside each
+   (``torch.geqrf``, ``ormqr``, ``linalg.ldl_factor`` — pivoted, not the
+   same bits — and ``linalg.solve``); every distinct K1 product of one
+   direct geqrf_param (both trees and the rd tree), gelqf_param,
+   unmqr_param, unmlq_param, hetrf and hesv_rbt call held within 1e-5
+   of ``gemm_reference`` on the tensor-core kernel and timed once,
+   summed per path; every K2 launch of one dd geqrf_param and hetrf held
+   bitwise and timed; hetrf's host share (its diagonal tiles' rank-1
+   loops) and one shetrf under ``torch.profiler``.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -529,38 +550,46 @@ def k1_ptxas(record, plan, dtype="float32", has_c=False):
                  if k.startswith(want)), "not in the log")
 
 
-def k1_path_sum(torch, pk, record, path, products, seed):
+def k1_path_sum(torch, pk, record, path, products, seed, cache=None):
     """Every distinct K1 product of one factorization of ``path`` (label,
     M, K, N, b_view, a_strides, b_strides, count), each held to
     gemm_reference and to the tensor-core kernel, timed, times its count:
     kernel, plain version, torch.matmul and both bounds (FP32 FFMA and
-    3xTF32 operations)."""
+    3xTF32 operations). A product already in ``cache`` (a dict shared by
+    several paths) is held and timed only the first time."""
     t = {"products": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
          "bound_ms": 0.0, "bound_ffma_ms": 0.0, "max_abs_err": 0.0,
          "rel_fro": 0.0, "rows": []}
+    cache = {} if cache is None else cache
     for i, (label, M, K, N, view, a_s, b_s, cnt) in enumerate(products):
-        rel, mabs, k_ms, p_ms, l_ms, _, plan = k1_case(
-            torch, pk, M, K, N, torch.float32, 0.0, view, seed=seed + i,
-            a_strides=a_s, b_strides=b_s)
-        b_ffma, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
-        b_tc, _ = gemm_bound_ms(M, N, K, 4, False, TF32_FLOPS / 3)
-        ptx = k1_ptxas(record, plan)
-        log(f"[k1] {path} {label:12s} M={M:5d} K={K:5d} N={N:5d} "
-            f"a{tuple(a_s) if a_s else ''} b={b_s or view} x{cnt}: "
-            f"{plan.kernel} splits={plan.splits} "
-            f"({plan.work_units} work units) rel_fro={rel:.3e} kernel "
-            f"{k_ms:8.4f} ms  plain {p_ms:8.4f} ms  torch {l_ms:8.4f} ms  "
-            f"bound {b_tc:7.4f} (3xTF32) / {b_ffma:7.4f} (FFMA) ms; {ptx}")
-        check(rel <= TOL["float32"],
-              f"K1 disagrees with gemm_reference on {path}'s {label} "
-              f"product {(M, K, N)}: rel_fro {rel:.3e}")
-        check(plan.kernel == "wgmma",
-              f"{path}'s {label} product {(M, K, N)} would take the "
-              f"{plan.kernel} kernel, not the tensor-core kernel")
+        key = (M, K, N, view, a_s and tuple(a_s), b_s and tuple(b_s))
+        if key not in cache:
+            rel, mabs, k_ms, p_ms, l_ms, _, plan = k1_case(
+                torch, pk, M, K, N, torch.float32, 0.0, view,
+                seed=seed + i, a_strides=a_s, b_strides=b_s)
+            b_ffma, _ = gemm_bound_ms(M, N, K, 4, False, FP32_FLOPS)
+            b_tc, _ = gemm_bound_ms(M, N, K, 4, False, TF32_FLOPS / 3)
+            ptx = k1_ptxas(record, plan)
+            log(f"[k1] {path} {label:12s} M={M:5d} K={K:5d} N={N:5d} "
+                f"a{tuple(a_s) if a_s else ''} b={b_s or view} x{cnt}: "
+                f"{plan.kernel} splits={plan.splits} "
+                f"({plan.work_units} work units) rel_fro={rel:.3e} kernel "
+                f"{k_ms:8.4f} ms  plain {p_ms:8.4f} ms  torch {l_ms:8.4f} "
+                f"ms  bound {b_tc:7.4f} (3xTF32) / {b_ffma:7.4f} (FFMA) "
+                f"ms; {ptx}")
+            check(rel <= TOL["float32"],
+                  f"K1 disagrees with gemm_reference on {path}'s {label} "
+                  f"product {(M, K, N)}: rel_fro {rel:.3e}")
+            check(plan.kernel == "wgmma",
+                  f"{path}'s {label} product {(M, K, N)} would take the "
+                  f"{plan.kernel} kernel, not the tensor-core kernel")
+            cache[key] = (rel, mabs, k_ms, p_ms, l_ms, b_tc, b_ffma, plan,
+                          ptx)
+        rel, mabs, k_ms, p_ms, l_ms, b_tc, b_ffma, plan, ptx = cache[key]
         t["products"] += cnt
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                       ("bound_ms", b_tc), ("bound_ffma_ms", b_ffma)):
-            t[key] += cnt * v
+        for k_, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                      ("bound_ms", b_tc), ("bound_ffma_ms", b_ffma)):
+            t[k_] += cnt * v
         t["max_abs_err"] = max(t["max_abs_err"], mabs)
         t["rel_fro"] = max(t["rel_fro"], rel)
         t["rows"].append({"label": label, "M": M, "K": K, "N": N,
@@ -3430,6 +3459,289 @@ def phase_complex_lu_family(torch, pk, pdd, dd, record):
     return k1_paths, k2_paths, k1_by, k2_by
 
 
+# phase 15: the hierarchical QR trees and the LDLᴴ / butterfly solvers at
+# the Level-3 BLAS size; z natively and d under dd at 4096, cut for time
+N_HQR, NB_HQR = 8192, 512
+N_HQR_SMALL = 4096
+
+
+def hqr_products(tree, kt):
+    """Products of one square geqrf_param (ops/hqr.py): a larft Gram per
+    GEQRT leader and per couple of every panel, 3 per apply in every
+    panel with a trailing slab. Every one has all three dimensions >= nb
+    (512 here), above K1's _MIN_DIM of 256."""
+    return sum((len(tree.leaders(k)) + len(tree.schedule(k)))
+               * (4 if k < kt - 1 else 1) for k in range(kt))
+
+
+def unm_products(tree, kt):
+    """Products of one unmqr_param / unmlq_param: 3 per operation."""
+    return 3 * sum(len(tree.leaders(k)) + len(tree.schedule(k))
+                   for k in range(kt))
+
+
+def hetrf_products(kt):
+    """ldl.hetrf: one HEDRK product per panel with a trailing block (its
+    trsm is cuBLAS's); under dd the trsm_f64's two limb residuals
+    more."""
+    return kt - 1, 3 * (kt - 1)
+
+
+def hebut_products(kt, refine=2):
+    """rbt.hesv_rbt: hetrf, then 1 + refine hetrs solves of two blocked
+    trsm's (kt − 1 products each: the right-hand side is padded to one
+    nb-wide tile) and refine residual products A·X."""
+    return (kt - 1) + (1 + refine) * 2 * (kt - 1) + refine
+
+
+def hqr_library_calls(torch):
+    """{driver: (label, fn)}: one PyTorch call computing the same function
+    on the driver's own matrix (context only: cuSOLVER's geqrf is the
+    flat-tree QR, ldl_factor pivots, so neither gives the same bits)."""
+    from dplasma_tpu_torch.ops import generators
+    n, nb, ns = N_HQR, NB_HQR, N_HQR_SMALL
+    A = generators.plrnt(n, n, nb, nb, seed=3872).to_dense()
+    At = A.mH.contiguous()
+    C = generators.plrnt(n, n, nb, nb, seed=3873).to_dense()
+    H = generators.plghe(float(n), n, nb, seed=3872).to_dense()
+    B = generators.plrnt(n, 1, nb, nb, seed=3873).to_dense()
+    fa, tau = torch.geqrf(A)
+    out = {}
+    for p in ("geqrf_hqr", "geqrf_systolic", "geqrf_rd"):
+        out[f"testing_s{p}"] = ("torch.geqrf", lambda: torch.geqrf(A))
+    for p in ("gelqf_hqr", "gelqf_systolic"):
+        out[f"testing_s{p}"] = ("torch.geqrf(A^H)",
+                                lambda: torch.geqrf(At))
+    for p in ("unmqr_hqr", "unmlq_hqr", "unmqr_systolic", "unmlq_systolic"):
+        out[f"testing_s{p}"] = ("torch.ormqr",
+                                lambda: torch.ormqr(fa, tau, C))
+    out["testing_shetrf"] = ("torch.linalg.ldl_factor (pivoted)",
+                             lambda: torch.linalg.ldl_factor(H))
+    out["testing_shebut"] = ("torch.linalg.solve",
+                             lambda: torch.linalg.solve(H, B))
+    for p, dt in (("z", torch.complex128), ("d", torch.float64)):
+        As = generators.plrnt(ns, ns, nb, nb, seed=3872, dtype=dt).to_dense()
+        Hs = generators.plghe(float(ns), ns, nb, seed=3872,
+                              dtype=dt).to_dense()
+        out[f"testing_{p}geqrf_hqr"] = ("torch.geqrf",
+                                        lambda As=As: torch.geqrf(As))
+        out[f"testing_{p}hetrf"] = (
+            "torch.linalg.ldl_factor (pivoted)",
+            lambda Hs=Hs: torch.linalg.ldl_factor(Hs, hermitian=True))
+    return out
+
+
+def phase_hqr_ldl(torch, pk, pdd, dd, record):
+    """Phase 15: the hierarchical QR trees, their appliers, pivgen and the
+    LDLᴴ / butterfly solvers through ``drivers.main`` with K1 on, every
+    count zeroed just before each run and read just after and each timed
+    run's K1 / K2 launches held to the ops' derived counts; zgeqrf_hqr,
+    zhetrf and the dd dgeqrf_hqr / dhetrf at 4096 (dd beside native
+    FP64); one library call beside each driver; every distinct K1
+    product of one direct call of each path held to gemm_reference on
+    the tensor-core kernel and timed; every K2 launch of one dd
+    geqrf_param and hetrf held bitwise and timed; hetrf's host share
+    (the diagonal tiles' rank-1 loops) and one shetrf under
+    ``torch.profiler``. Returns ({path: K1 sums}, {path: K2 sums}, K1
+    driver launches by path, K2 by path)."""
+    import contextlib
+    import io
+    from dplasma_tpu_torch.drivers import main as driver_main
+    from dplasma_tpu_torch.ops import generators, hqr, ldl, rbt
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    kt, ks = N_HQR // NB_HQR, N_HQR_SMALL // NB_HQR
+    n, t, ns = str(N_HQR), str(NB_HQR), str(N_HQR_SMALL)
+    dflt = hqr.hqr_tree(kt, a=1)          # the drivers' default tree
+    a4 = hqr.hqr_tree(kt, a=4, hlvl="greedy")
+    rd = hqr.svd_tree(kt)
+    dd_on = {"dd_gemm": "always"}
+    he1, he2 = hetrf_products(kt)
+    hs1, hs2 = hetrf_products(ks)
+    # (argv, mca, K1 per timed run, K2 per timed run)
+    runs = [
+        (["testing_sgeqrf_hqr", "-N", n, "-t", t, "-x"], {},
+         hqr_products(dflt, kt), 0),
+        (["testing_sgeqrf_hqr", "-N", n, "-t", t, "-x", "--qr_a", "4",
+          "--treeh", "1"], {}, hqr_products(a4, kt), 0),
+        (["testing_sgeqrf_systolic", "-N", n, "-t", t, "-x"], {},
+         hqr_products(hqr.systolic_tree(kt), kt), 0),
+        (["testing_sgeqrf_rd", "-N", n, "-t", t, "-x"], {},
+         hqr_products(rd, kt), 0),
+        (["testing_sgelqf_hqr", "-N", n, "-t", t], {},
+         hqr_products(dflt, kt), 0),
+        (["testing_sgelqf_systolic", "-N", n, "-t", t], {},
+         hqr_products(hqr.systolic_tree(kt), kt), 0)]
+    for p in ("unmqr_hqr", "unmlq_hqr", "unmqr_systolic", "unmlq_systolic"):
+        runs.append(([f"testing_s{p}", "-M", n, "-N", n, "-t", t], {},
+                     unm_products(dflt, kt), 0))
+    runs += [
+        (["testing_shetrf", "-N", n, "-t", t, "-x"], {}, he1, 0),
+        (["testing_shebut", "-N", n, "-t", t, "-x"], {},
+         hebut_products(kt), 0),
+        (["testing_zgeqrf_hqr", "-N", ns, "-t", t, "-x"], {}, 0, 0),
+        (["testing_zhetrf", "-N", ns, "-t", t, "-x"], {}, 0, 0),
+        (["testing_dgeqrf_hqr", "-N", ns, "-t", t, "-x"], dd_on, 0,
+         hqr_products(hqr.hqr_tree(ks, a=1), ks)),
+        (["testing_dgeqrf_hqr", "-N", ns, "-t", t, "-x"], {}, 0, 0),
+        (["testing_dhetrf", "-N", ns, "-t", t, "-x"], dd_on, 0, hs2),
+        (["testing_dhetrf", "-N", ns, "-t", t, "-x"], {}, 0, 0)]
+    drivers = {}
+    k1_by, k2_by = {}, {}
+    for argv, mca, k1w, k2w in runs:
+        r = blas3_driver(torch, pk, pdd, argv, mca, k1w, k2w)
+        key = f"{argv[0]} {' '.join(argv[1:])}" + (" dd" if mca else "")
+        drivers[key] = r
+        path = argv[0][8:] + ("_dd" if mca else "")
+        k1_by[path] = k1_by.get(path, 0) + r["k1_launches_run"]
+        k2_by[path] = k2_by.get(path, 0) + r["k2_launches_run"]
+        torch.cuda.empty_cache()
+    k1_by = {k: v for k, v in k1_by.items() if v}
+    k2_by = {k: v for k, v in k2_by.items() if v}
+    for prog in ("testing_dgeqrf_hqr", "testing_dhetrf"):
+        dd_r = drivers[f"{prog} -N {ns} -t {t} -x dd"]
+        nat = drivers[f"{prog} -N {ns} -t {t} -x"]
+        log(f"[{prog}] N={ns}: dd {dd_r['best_s']:.5f} s, native FP64 "
+            f"{nat['best_s']:.5f} s, dd / FP64 "
+            f"{dd_r['best_s'] / nat['best_s']:.1f}x")
+    # pivgen times nothing: it checks the 94 trees of its grid
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = driver_main(["testing_spivgen", "-N", n, "-t", t])
+    line = next((ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("#+ pivgen:")), "")
+    log(f"[testing_spivgen] -N {n} -t {t}: {line}")
+    check(rc == 0 and line.startswith(f"#+ pivgen: 94 trees checked OK "
+                                      f"(MT={kt})"),
+          f"testing_spivgen exited {rc}: {line!r}")
+
+    lib = {}
+    for prog, (label, fn) in hqr_library_calls(torch).items():
+        ms = time_ms(torch, fn, reps=1 if "ldl" in label else 3)
+        r = next(r for k, r in drivers.items()
+                 if k.startswith(prog + " ") and not k.endswith(" dd"))
+        best = r["best_s"]
+        log(f"[library] {prog}: {label} {ms:.3f} ms (the driver's best "
+            f"{1e3 * best:.3f} ms)")
+        lib[prog] = {"call": label, "ms": ms, "driver_ms": 1e3 * best}
+    torch.cuda.empty_cache()
+
+    # every distinct K1 product of one direct call of each path, recorded
+    # through the wrapper, held and timed once, summed per path
+    A = generators.plrnt(N_HQR, N_HQR, NB_HQR, NB_HQR, seed=3872)
+    C = generators.plrnt(N_HQR, N_HQR, NB_HQR, NB_HQR, seed=3873)
+    H = generators.plghe(float(N_HQR), N_HQR, NB_HQR, seed=3872)
+    B = generators.plrnt(N_HQR, 1, NB_HQR, NB_HQR, seed=3873)
+    Fq = hqr.geqrf_param(dflt, A)
+    Fl = hqr.gelqf_param(dflt, A)
+    calls = {
+        "sgeqrf_hqr": (lambda: hqr.geqrf_param(dflt, A),
+                       hqr_products(dflt, kt)),
+        "sgeqrf_hqr_a4": (lambda: hqr.geqrf_param(a4, A),
+                          hqr_products(a4, kt)),
+        "sgeqrf_rd": (lambda: hqr.geqrf_param(rd, A), hqr_products(rd, kt)),
+        "sgelqf_hqr": (lambda: hqr.gelqf_param(dflt, A),
+                       hqr_products(dflt, kt)),
+        "sunmqr_hqr": (lambda: hqr.unmqr_param(dflt, "L", "N", *Fq, C),
+                       unm_products(dflt, kt)),
+        "sunmlq_hqr": (lambda: hqr.unmlq_param(dflt, "L", "N", *Fl, C),
+                       unm_products(dflt, kt)),
+        "shetrf": (lambda: ldl.hetrf(H), he1),
+        "shebut": (lambda: rbt.hesv_rbt(H, B, "L", seed=3872, depth=1),
+                   hebut_products(kt))}
+    recorded = {}
+    for path, (run, want) in calls.items():
+        prods = recorded_k1_products(torch, pk, run)
+        got = sum(p[-1] for p in prods)
+        check(got == want, f"{path}: {got} K1 products recorded, want "
+                           f"{want}")
+        recorded[path] = prods
+    shared = {}
+    k1_paths = {path: k1_path_sum(torch, pk, record, path, prods, 1600,
+                                  cache=shared)
+                for path, prods in recorded.items()}
+    log(f"[k1] phase 15: {len(shared)} distinct K1 products held and "
+        f"timed")
+    del A, C, Fq, Fl
+    torch.cuda.empty_cache()
+
+    # every K2 launch of one dd geqrf_param and one dd hetrf at 4096,
+    # bitwise on its own operands, then timed times its count
+    A64 = generators.plrnt(N_HQR_SMALL, N_HQR_SMALL, NB_HQR, NB_HQR,
+                           seed=3872, dtype=torch.float64)
+    H64 = generators.plghe(float(N_HQR_SMALL), N_HQR_SMALL, NB_HQR,
+                           seed=3872, dtype=torch.float64)
+    ts = hqr.hqr_tree(ks, a=1)
+    g = torch.Generator(device="cuda").manual_seed(1600)
+    k2_paths = {}
+    for path, (run, want) in {
+            "dgeqrf_hqr_dd": (lambda: hqr.geqrf_param(ts, A64),
+                              hqr_products(ts, ks)),
+            "dhetrf_dd": (lambda: ldl.hetrf(H64), hs2)}.items():
+        pdd.reset_counts()
+        pk.reset_counts()
+        with cfg.override_scope(dd_on):
+            seen = recorded_k2_products(torch, pdd, run)
+        got = sum(r["count"] for r in seen.values())
+        check(got == want == pdd.LAUNCHES and pdd.UNFUSED == 0
+              and pk.LAUNCHES == 0,
+              f"{path}: {got} K2 launches recorded ({pdd.LAUNCHES} "
+              f"counted, want {want}), {pdd.UNFUSED} unfused, "
+              f"{pk.LAUNCHES} K1")
+        k2_paths[path] = k2_path_sum(torch, dd, pdd, g, path, seen,
+                                     N_HQR_SMALL)
+        torch.cuda.empty_cache()
+    del A64, H64
+
+    # hetrf's host share: the diagonal tiles' nb-step rank-1 loops, each
+    # timed with a synchronize around it, against the whole call timed
+    # the same way (and, apart, the call without the synchronizes)
+    orig = ldl.hetrf_tile
+    tile_s = []
+
+    def timed_tile(a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(a)
+        torch.cuda.synchronize()
+        tile_s.append(time.perf_counter() - t0)
+        return out
+
+    ldl.hetrf(H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ldl.hetrf(H)
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    ldl.hetrf_tile = timed_tile
+    try:
+        t0 = time.perf_counter()
+        ldl.hetrf(H)
+        torch.cuda.synchronize()
+        synced = time.perf_counter() - t0
+    finally:
+        ldl.hetrf_tile = orig
+    tiles = sum(tile_s)
+    log(f"[shetrf] N={N_HQR} nb={NB_HQR}: one hetrf {1e3 * whole:.2f} ms "
+        f"({1e3 * synced:.2f} ms with a synchronize around each diagonal "
+        f"tile); its {len(tile_s)} tiles' rank-1 loops "
+        f"({len(tile_s) * (NB_HQR - 1)} steps) {1e3 * tiles:.2f} ms of "
+        f"that, {100 * tiles / synced:.1f}%")
+    _profile(torch, record, "shetrf_profile", f"N={N_HQR} nb={NB_HQR}",
+             lambda: ldl.hetrf(H))
+    del H, B
+    torch.cuda.empty_cache()
+    record["hqr_ldl"] = {"drivers": drivers, "library": lib,
+                         "k1_paths": k1_paths, "k2_paths": k2_paths,
+                         "pivgen": line,
+                         "hetrf_host": {"whole_ms": 1e3 * whole,
+                                        "synced_ms": 1e3 * synced,
+                                        "tile_loops_ms": 1e3 * tiles,
+                                        "tiles": len(tile_s)}}
+    return k1_paths, k2_paths, k1_by, k2_by
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3477,13 +3789,14 @@ def main() -> int:
                                                            dd, record)
     k1cx, k2cx, k1cx_by, k2cx_by = phase_complex_lu_family(torch, pk, pdd,
                                                            dd, record)
+    k1hq, k2hq, k1hq_by, k2hq_by = phase_hqr_ldl(torch, pk, pdd, dd, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
                              products=t["products"])
                   for path, t in (("spotrf", k1tot), *k1luqr.items(),
                                   *k1cyc.items(), *k1inv.items(),
-                                  *k1cx.items())}
+                                  *k1cx.items(), *k1hq.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
@@ -3516,18 +3829,21 @@ def main() -> int:
          "replaces": "dplasma_tpu/kernels/pallas_kernels.py:139",
          "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
                       + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
-                      + sum(k1inv_by.values()) + sum(k1cx_by.values())),
+                      + sum(k1inv_by.values()) + sum(k1cx_by.values())
+                      + sum(k1hq_by.values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
                                    "potrf_cyclic": k1_pc,
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
-                                  **ir["k1"], **k1inv_by, **k1cx_by),
+                                  **ir["k1"], **k1inv_by, **k1cx_by,
+                                  **k1hq_by),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
                             + [t["max_abs_err"] for t in k1inv.values()]
-                            + [t["max_abs_err"] for t in k1cx.values()]),
+                            + [t["max_abs_err"] for t in k1cx.values()]
+                            + [t["max_abs_err"] for t in k1hq.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -3536,12 +3852,14 @@ def main() -> int:
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
          "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
                       + sum(ir["k2"].values()) + sum(k2inv_by.values())
-                      + sum(k2cx_by.values())),
+                      + sum(k2cx_by.values()) + sum(k2hq_by.values())),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
                                    "dgemm_dd": k2_dgemm}, **ddf["k2"],
-                                  **ir["k2"], **k2inv_by, **k2cx_by),
+                                  **ir["k2"], **k2inv_by, **k2cx_by,
+                                  **k2hq_by),
          "max_abs_err": max([k2tot["max_abs_err"]]
-                            + [t["max_abs_err"] for t in k2cx.values()]),
+                            + [t["max_abs_err"] for t in k2cx.values()]
+                            + [t["max_abs_err"] for t in k2hq.values()]),
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
          "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
          "library_ms": k2tot["library_ms"],
@@ -3555,7 +3873,8 @@ def main() -> int:
              shapes=len(t["shapes"])) for path, t in (*k2luqr.items(),
                                                       *k2ir.items(),
                                                       *k2inv.items(),
-                                                      *k2cx.items())}},
+                                                      *k2cx.items(),
+                                                      *k2hq.items())}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
@@ -3629,6 +3948,13 @@ def main() -> int:
         f"(sgesv_incpiv = both) and sgetrf_qrf (N={N_LUF}, nb={NB_LUF}) "
         f"each distinct product of one direct call; their "
         f"launches_by_path count each phase 14 driver run (warm-up, timed "
+        f"run, -x check); phase 15: K1's by_path sgeqrf_hqr (the "
+        f"default tree), sgeqrf_hqr_a4 (--qr_a 4 --treeh 1), sgeqrf_rd, "
+        f"sgelqf_hqr, sunmqr_hqr, sunmlq_hqr, shetrf and shebut (N={N_HQR},"
+        f" nb={NB_HQR}) each distinct product of one direct call (each "
+        f"shape held and timed once), K2's dgeqrf_hqr_dd and dhetrf_dd "
+        f"(N={N_HQR_SMALL}) each shape of one direct call; their "
+        f"launches_by_path count each phase 15 driver run (warm-up, timed "
         f"run, -x check); "
         f"K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "

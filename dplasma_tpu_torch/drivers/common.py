@@ -3,7 +3,9 @@ that the ported drivers need (``testers.DRIVERS``).
 
 The CLI vocabulary is the reference's (ref tests/common.c:73-259):
 ``-N -M -K -t -T -x -X -v --nruns -z/--HNB --seed -p -q -g
---criteria -a/--alpha``, plus
+--criteria -a/--alpha``, the HQR tree flags ``--qr_a --qr_p --treel
+--treeh -d/--domino -r/--tsrr`` and the butterfly depth ``-y/--butlvl``,
+plus
 ``--nowarmup``, ``--lookahead`` and the port's ``--device`` (``cuda``
 by default; ``--device cpu`` runs on the CPU). Each timed op runs once
 untimed (the warm-up: kernel builds, allocator growth), then ``--nruns``
@@ -71,6 +73,15 @@ class IParam:
     nruns: int = 1
     warmup: bool = True
     lookahead: int = -1  # -1 = MCA sweep.lookahead
+    # HQR trees (--qr_a/--qr_p/--treel/--treeh/-d/-r)
+    qr_a: int = -1
+    qr_p: int = -1
+    lowlvl_tree: int = -1
+    highlvl_tree: int = -1
+    qr_domino: int = -1
+    qr_tsrr: int = 0
+    # butterfly (-y)
+    butterfly_level: int = 0
     # LU/QR hybrid (--criteria, -a/--alpha)
     criteria: int = 0
     alpha: float = -1.0
@@ -96,6 +107,11 @@ Optional arguments:
  -X --check_inv    : verify against the inverse
  -p -q             : process grid P x Q (a virtual mesh on the device)
  -g --gpus         : accepted and recorded
+ --qr_a --qr_p     : HQR TS-domain size / high-level tree size
+ -d --domino -r --tsrr : HQR domino / TS round-robin toggles
+ --treel --treeh   : HQR low/high level tree (0 flat 1 greedy
+                     2 fibonacci 3 binary 4 greedy1p)
+ -y --butlvl       : butterfly level
  --criteria -a --alpha : LU/QR switch criteria and threshold
  --lookahead       : pipelined-sweep lookahead (default: MCA
                      sweep.lookahead, 1)
@@ -131,9 +147,13 @@ _LONG = {
     "MB": ("MB", _int), "NB": ("NB", _int),
     "HNB": ("HNB", _int), "HMB": ("HMB", _int),
     "check": ("check", None), "check_inv": ("check_inv", None),
+    "qr_a": ("qr_a", _int), "qr_p": ("qr_p", _int),
+    "treel": ("lowlvl_tree", _int), "treeh": ("highlvl_tree", _int),
+    "domino": ("qr_domino", _int), "tsrr": ("qr_tsrr", _int),
     "criteria": ("criteria", _int), "alpha": ("alpha", float),
     "lookahead": ("lookahead", _int),
     "seed": ("seed", _int),
+    "butlvl": ("butterfly_level", _int),
     "nruns": ("nruns", _int),
     "gpus": ("gpus", _int),
     "device": ("device", str),
@@ -142,7 +162,7 @@ _LONG = {
 _SHORT = {
     "p": "grid-rows", "P": "grid-rows", "q": "grid-cols", "Q": "grid-cols",
     "N": "N", "M": "M", "K": "NRHS", "t": "MB", "T": "NB", "z": "HNB",
-    "a": "alpha", "g": "gpus",
+    "a": "alpha", "y": "butlvl", "g": "gpus", "d": "domino", "r": "tsrr",
 }
 _SHORT_FLAGS = {"x": "check", "X": "check_inv"}
 

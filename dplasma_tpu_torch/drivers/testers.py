@@ -6,7 +6,11 @@
 under ``-p P -q Q``), ``getrf_incpiv``, ``gesv_incpiv`` and
 ``getrf_qrf`` (``--criteria`` and ``-a/--alpha``); the QR family
 ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``, ``unmlq`` and
-``gels``; the mixed-precision IR
+``gels``; the hierarchical QR trees ``geqrf_hqr``, ``gelqf_hqr``,
+``geqrf_systolic``, ``gelqf_systolic``, ``geqrf_rd``, their appliers
+``unmqr_hqr``, ``unmlq_hqr``, ``unmqr_systolic``, ``unmlq_systolic``
+and the tree checker ``pivgen``; the LDLᴴ and butterfly solvers
+``hetrf`` and ``hebut`` (``-y/--butlvl``); the mixed-precision IR
 solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
 from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
 ``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``.
@@ -15,7 +19,8 @@ f64-equivalent limb route. Every driver but the IR solvers (float64
 only, as in the reference) runs in all four precisions s, d, c and z.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:24, :31-41, :68-287,
-:290-381, :454-455, :510-607, :609-713, :801-868; the IR drivers
+:290-381, :395-450, :454-455, :510-607, :609-713, :771-798,
+:801-868, :980-1067; the IR drivers
 without the autopilot and the ladder's fallback rung, whose escape the
 solvers' own escalation already takes): seeded generation → timed run
 with the GFLOPS print → optional ``-x`` residual verification against
@@ -27,11 +32,13 @@ from __future__ import annotations
 import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
-from dplasma_tpu_torch.ops import aux, blas3, checks, generators, lu, norms
-from dplasma_tpu_torch.ops import qr, refine
+from dplasma_tpu_torch.ops import aux, blas3, checks, generators, hqr, ldl
+from dplasma_tpu_torch.ops import lu, norms, qr, rbt, refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
+TREE_NAMES = {0: "flat", 1: "greedy", 2: "fibonacci", 3: "binary",
+              4: "greedy1p"}
 CRITERIA = {0: "alternating", 1: "higham_sum", 2: "mumps", 3: "random"}
 
 
@@ -412,6 +419,171 @@ def gels(drv: Driver):
     return 0
 
 
+# ------------------------------------------------- hierarchical QR trees
+
+def _hqr_tree_from_ip(drv: Driver, MT: int):
+    """The tree of ``--treel --treeh --qr_a --qr_p``; as in the
+    reference, ``-d/--domino`` and ``-r/--tsrr`` parse but do not reach
+    the tree."""
+    ip = drv.ip
+    return hqr.hqr_tree(
+        MT,
+        llvl=TREE_NAMES.get(ip.lowlvl_tree, "greedy"),
+        hlvl=TREE_NAMES.get(ip.highlvl_tree, "flat"),
+        a=ip.qr_a if ip.qr_a > 0 else 1,
+        p=ip.qr_p if ip.qr_p > 0 else max(ip.P, 1),
+    )
+
+
+def _systolic_from_ip(drv: Driver, MT: int):
+    ip = drv.ip
+    return hqr.systolic_tree(MT, p=max(ip.qr_p, 1), q=max(ip.qr_a, 1))
+
+
+def _geqrf_param_driver(drv: Driver, make_tree, orthogonality: bool):
+    """Factor with the tree ``make_tree(MT)``; -x: |A−QR| on
+    ``ungqr_param``'s Q, and |I−Q'Q| where ``orthogonality``."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    tree = make_tree(A0.desc.MT)
+    out, _ = drv.progress(
+        lambda a: hqr.geqrf_param(tree, a), (A0,),
+        lawn41.geqrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        Af, Tts, Ttt = out
+        Q = hqr.ungqr_param(tree, Af, Tts, Ttt).to_dense()
+        R = torch.triu(Af.to_dense()[:min(ip.M, ip.N), :])
+        r, ok = checks.check_qr(A0, Q, R)
+        ret = drv.report_check("|A-QR|", r, ok)
+        if orthogonality:
+            r, ok = checks.check_orthogonality(Q)
+            ret |= drv.report_check("|I-Q'Q|", r, ok)
+        return ret
+    return 0
+
+
+def geqrf_hqr(drv: Driver):
+    return _geqrf_param_driver(
+        drv, lambda MT: _hqr_tree_from_ip(drv, MT), True)
+
+
+def geqrf_systolic(drv: Driver):
+    return _geqrf_param_driver(
+        drv, lambda MT: _systolic_from_ip(drv, MT), False)
+
+
+def geqrf_rd(drv: Driver):
+    """testing_zgeqrf_rd: reduction-domain QR — the svd-ratio tree."""
+    return _geqrf_param_driver(
+        drv, lambda MT: hqr.svd_tree(MT, p=max(drv.ip.qr_p, 1)), False)
+
+
+def _gelqf_param_driver(drv: Driver, make_tree):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    tree = make_tree(A0.desc.NT)
+    drv.progress(lambda a: hqr.gelqf_param(tree, a), (A0,),
+                 lawn41.gelqf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def gelqf_hqr(drv: Driver):
+    return _gelqf_param_driver(drv, lambda MT: _hqr_tree_from_ip(drv, MT))
+
+
+def gelqf_systolic(drv: Driver):
+    return _gelqf_param_driver(drv, lambda MT: _systolic_from_ip(drv, MT))
+
+
+def _unm_hqr(drv: Driver, kind: str, make_tree):
+    """Factor an M×M matrix untimed, then time the apply of Q (``qr``)
+    or of the LQ's Q (``lq``) to an M×N matrix from the left."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.M)
+    if kind == "qr":
+        tree = make_tree(A0.desc.MT)
+        factor, apply = hqr.geqrf_param, hqr.unmqr_param
+    else:
+        tree = make_tree(A0.desc.NT)
+        factor, apply = hqr.gelqf_param, hqr.unmlq_param
+    Af, Tts, Ttt = factor(tree, A0)
+    C = _gen(drv, ip.M, ip.N, 1)
+    drv.progress(lambda c: apply(tree, "L", "N", Af, Tts, Ttt, c), (C,),
+                 lawn41.unmqr("L", ip.M, ip.N, ip.M,
+                              ip.prec_dtype.is_complex))
+    return 0
+
+
+def unmqr_hqr(drv: Driver):
+    return _unm_hqr(drv, "qr", lambda MT: _hqr_tree_from_ip(drv, MT))
+
+
+def unmlq_hqr(drv: Driver):
+    return _unm_hqr(drv, "lq", lambda MT: _hqr_tree_from_ip(drv, MT))
+
+
+def unmqr_systolic(drv: Driver):
+    return _unm_hqr(drv, "qr", lambda MT: _systolic_from_ip(drv, MT))
+
+
+def unmlq_systolic(drv: Driver):
+    return _unm_hqr(drv, "lq", lambda MT: _systolic_from_ip(drv, MT))
+
+
+def pivgen(drv: Driver):
+    """testing_zpivgen: combinatorial QR-tree checker over the full
+    generator grid (ref TestsQRPivgen.cmake, dplasma_qrtree_check)."""
+    ip = drv.ip
+    MT = max(-(-ip.M // max(ip.MB, 1)), 1)
+    n_ok = 0
+    for llvl in ("flat", "greedy", "fibonacci", "binary", "greedy1p"):
+        for hlvl in ("flat", "greedy"):
+            for a in (1, 2, 4):
+                for p in (1, 2, 4):
+                    tree = hqr.hqr_tree(MT, llvl=llvl, hlvl=hlvl,
+                                        a=a, p=p)
+                    hqr.check_tree(tree)
+                    n_ok += 1
+    for p in (1, 2, 3):
+        hqr.check_tree(hqr.systolic_tree(MT, p=p))
+        n_ok += 1
+    hqr.check_tree(hqr.svd_tree(MT))
+    n_ok += 1
+    if ip.loud >= 1:
+        print(f"#+ pivgen: {n_ok} trees checked OK (MT={MT})")
+    return 0
+
+
+# ------------------------------------------------- LDLᴴ and butterfly
+
+def hetrf(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    out, _ = drv.progress(lambda a: ldl.hetrf(a, "L"), (A0,),
+                          lawn41.hetrf(ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        X = ldl.hetrs(out, B)
+        r, ok = checks.check_axmb(A0, B, X, uplo="L")
+        return drv.report_check("HETRF |b-Ax|", r, ok)
+    return 0
+
+
+def hebut(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    B = _gen(drv, ip.N, ip.K, 1)
+    depth = max(ip.butterfly_level, 1)
+    out, _ = drv.progress(
+        lambda a, b: rbt.hesv_rbt(a, b, "L", seed=ip.seed, depth=depth),
+        (A0, B), lawn41.hetrf(ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        _, X = out
+        r, ok = checks.check_axmb(A0, B, X, uplo="L")
+        return drv.report_check("HESV_RBT |b-Ax|", r, ok)
+    return 0
+
+
 # ------------------------------------------- mixed-precision IR solves
 
 def _refine_flops(ip, kind: str) -> float:
@@ -554,6 +726,12 @@ DRIVERS = {
     "potri": potri, "poinv": poinv, "trtri": trtri, "lauum": lauum,
     "geqrf": geqrf, "gelqf": gelqf, "ungqr": ungqr, "unglq": unglq,
     "unmqr": unmqr, "unmlq": unmlq, "gels": gels,
+    "geqrf_hqr": geqrf_hqr, "gelqf_hqr": gelqf_hqr,
+    "geqrf_systolic": geqrf_systolic, "gelqf_systolic": gelqf_systolic,
+    "geqrf_rd": geqrf_rd,
+    "unmqr_hqr": unmqr_hqr, "unmlq_hqr": unmlq_hqr,
+    "unmqr_systolic": unmqr_systolic, "unmlq_systolic": unmlq_systolic,
+    "pivgen": pivgen, "hetrf": hetrf, "hebut": hebut,
     "getrf": getrf_1d, "getrf_1d": getrf_1d,
     "getrf_ptgpanel": getrf_ptgpanel, "gesv": gesv,
     "getrf_incpiv": getrf_incpiv, "getrf_qrf": getrf_qrf,

@@ -934,3 +934,92 @@ def test_incpiv_and_qrf_products_on_k1(card, k1_on, monkeypatch, op, want):
     assert not bad, bad
     r, ok = checks.check_axmb(A, B, X)
     assert ok, r
+
+
+# ---------------------------------------------------------------------
+# the hierarchical QR trees and the LDLᴴ / butterfly solvers
+# ---------------------------------------------------------------------
+
+def _hqr_counts(tree, kt):
+    """(geqrf_param, unmqr_param) products at KT = kt: a larft Gram per
+    leader and per couple, 3 per apply on a trailing slab; 3 per
+    operation of an apply."""
+    ops = [len(tree.leaders(k)) + len(tree.schedule(k)) for k in range(kt)]
+    return (sum(n * (4 if k < kt - 1 else 1) for k, n in enumerate(ops)),
+            3 * sum(ops))
+
+
+@pytest.mark.parametrize("llvl,a", [("greedy", 1), ("binary", 2)])
+def test_hqr_and_hetrf_products_on_k1(card, k1_on, monkeypatch, llvl, a):
+    """N=2048, nb=256 (MT = 8): geqrf_param and unmqr_param launch K1
+    on every product ops/hqr.py counts, hetrf its KT − 1 HEDRK
+    products; each on the tensor-core kernel within 1e-5 of
+    gemm_reference; R, Q·C and the LDLᴴ factor within 1e-4 of the
+    CPU's. The T factors are not compared entry by entry: the T of a
+    short reflector is ill-conditioned (the CPU's own f32 and f64 runs
+    part by 4.9e-4 there, against 6e-6 for Q·C)."""
+    from dplasma_tpu_torch.ops import generators, hqr, ldl
+    n, nb = 2048, 256
+    tree = hqr.hqr_tree(8, llvl=llvl, a=a)
+    want_f, want_q = _hqr_counts(tree, 8)
+    rows = []
+    orig = pk.gemm
+
+    def spy(a_, b_, c=None, **kw):
+        out = orig(a_, b_, c, **kw)
+        rows.append((tuple(a_.shape), tuple(b_.shape),
+                     pk.plan_for(a_, b_).kernel,
+                     _rel(out, pk.gemm_reference(a_, b_, c, **kw))))
+        return out
+
+    monkeypatch.setattr(pk, "gemm", spy)
+
+    def run(dev):
+        A = generators.plrnt(n, n, nb, nb, seed=3, device=dev)
+        C = generators.plrnt(n, 512, nb, nb, seed=4, device=dev)
+        H = generators.plghe(float(n), n, nb, seed=5, device=dev)
+        F = hqr.geqrf_param(tree, A)
+        return F, hqr.unmqr_param(tree, "L", "N", *F, C), ldl.hetrf(H)
+
+    launches = pk.LAUNCHES
+    got = run(None)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES - launches == want_f + want_q + 7 == len(rows)
+    bad = [r for r in rows if r[2] != "wgmma" or r[3] > 1e-5]
+    assert not bad, bad
+    want = run("cpu")
+    for g, w in ((torch.triu(got[0][0].data), torch.triu(want[0][0].data)),
+                 (got[1].data, want[1].data), (got[2].data, want[2].data)):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+def test_dd_hqr_and_hetrf_products_on_k2_bitwise(card, k1_on, monkeypatch):
+    """N=1024, nb=256 under dd_gemm=always: geqrf_param's 61 limb
+    products (MT = 4, the greedy a = 1 tree) and hetrf's 3·(KT − 1) = 9,
+    each K2 launch bitwise equal to its plain version; no K1, none
+    unfused; both within 1e-12 of the CPU's dd run."""
+    from dplasma_tpu_torch.ops import generators, hqr, ldl
+    from dplasma_tpu_torch.utils import config as cfg
+    tree = hqr.hqr_tree(4, a=1)
+    rows = []
+    _record_k2(monkeypatch, rows)
+
+    def run(dev):
+        A = generators.plrnt(1024, 1024, 256, 256, seed=3,
+                             dtype=torch.float64, device=dev)
+        H = generators.plghe(1024.0, 1024, 256, seed=5,
+                             dtype=torch.float64, device=dev)
+        return (*hqr.geqrf_param(tree, A), ldl.hetrf(H))
+
+    k1, k2, unfused = pk.LAUNCHES, pdd.LAUNCHES, pdd.UNFUSED
+    with cfg.override_scope({"dd_gemm": "always"}):
+        got = run(None)
+        torch.cuda.synchronize()
+        assert (pk.LAUNCHES - k1, pdd.LAUNCHES - k2) == (0, 61 + 9)
+        assert pdd.UNFUSED == unfused and len(rows) == 70
+        assert all(ok for _, ok in rows)
+        want = run("cpu")
+    for g, w in zip(got, want):
+        scale = float(w.data.abs().max())
+        assert float((g.data.cpu() - w.data).abs().max()) <= 1e-12 * scale

@@ -242,7 +242,7 @@ def test_parse_matches_reference_defaults():
 
 def test_bad_invocations(capsys):
     with pytest.raises(SystemExit) as e:
-        common.parse_arguments(["-N", "8", "--qr_a", "2"])
+        common.parse_arguments(["-N", "8", "--mtx", "2"])
     assert e.value.code == 2
     assert main(["testing_sheev", "-N", "8"]) == 2
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
@@ -446,7 +446,7 @@ def test_dd_inverse_drivers_route_k2(prog, want, capsys):
 def test_registry_has_38_drivers_and_check_inv_parses():
     from dplasma_tpu.drivers import testers as ref_testers
     from dplasma_tpu_torch.drivers import testers
-    assert len(testers.DRIVERS) == 41
+    assert len(testers.DRIVERS) == 53
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
     for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
                  ["-N", "8", "-xX"]):
