@@ -191,6 +191,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
    summed per path; every K2 launch of one dd geqrf_param and hetrf held
    bitwise and timed; hetrf's host share (its diagonal tiles' rank-1
    loops) and one shetrf under ``torch.profiler``.
+16. the eigen/SVD chain with the port's two kernels of its own, KT (the
+   tridiagonal eigenvalues by bisection) and KW (one step of a narrow
+   SBR sweep): KT against its plain version on the (d, e) of an shetrd
+   at N=8192 (the plain version on the card, timed) and a dhetrd at
+   N=4096 (on the host) and on edge cases (n = 1 and 2, e = 0,
+   Wilkinson's W₂₁⁺, a Jordan–Wielandt zero diagonal), within
+   2·eps·t_norm and ascending, timed beside ``torch.linalg.eigvalsh`` of
+   the dense tridiagonal; KW replayed over every narrow sweep of one
+   shetrd and one sgebrd at N=8192 and of c and z at 4096 on random
+   storage of that geometry, the plain version running the same step on
+   the same input at the first, the last and every 97th step (c128
+   within 1e-11; f32/c64 a median distance to the step in twice the
+   precision at most 4× the plain version's), the f32 sweeps timed
+   through KW; the narrow sweeps of an shetrd and an sgebrd at N=512
+   on real data through KW and through the plain version, their spectra
+   held to each other and the dense solver's and both timed (KW's ms
+   and plain_ms); the six drivers through ``drivers.main`` with K1 on,
+   one timed run each after their schedules are built (no warm-up run),
+   every count zeroed just before each run and read just after and
+   each timed run's K1 / K2 / KW / KT launches held to the counts
+   derived from ops/eig.py and the schedules: ``testing_sheev -x`` (the
+   dense solver, no kernel),
+   ``shetrd``, ``shbrdt -x``, ``sgebrd``, ``sgesvd -x``,
+   ``sgebrd_ge2gb -x`` at N=8192 nb=256 and ``sgesvd -x`` on 8192×4096
+   and 4096×8192, ``{d,c,z}hetrd`` and ``{d,c,z}gesvd -x`` at 4096,
+   ``dhetrd`` / ``dgesvd -x`` under ``dd_gemm=always`` beside native
+   FP64; two direct ``eig.heev(method="2stage")`` calls at 8192, their
+   launches and spectrum held beside ``eigvalsh``, every distinct K1
+   window product of the first held and timed; one shetrd at N=2048
+   under ``torch.profiler``; the band-storage Givens chase (``hbrdt`` on a
+   ``BandMatrix``) at N=128, b=32, logged.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -1543,7 +1574,7 @@ def _device_ms(ev) -> float:
 
 # name pieces of the hand-written kernels, each kept apart in a profile
 PORT_KERNELS = ("k1_gemm", "k2_", "k3_lu_panel", "k4_geqrt_panel",
-                "k5_ring")
+                "k5_ring", "kt_bisect", "kw_herm", "kw_bidiag")
 
 # name pieces of cuBLAS's int8 GEMMs (torch._int_mm): none may run on the
 # dd route's main path, whose limb products are K2's
@@ -1555,7 +1586,9 @@ INT8_LIBRARY = ("gemm_s8", "imma")
 # element type in their name: the dd route's int64 elementwise work is
 # its digit splits and scales (shifts, ands, ors, wheres, clamps,
 # negations, scalar arithmetic on the f64 bit patterns)
-_CATEGORIES = (("K5 (k5_ring)", ("k5_ring",)),
+_CATEGORIES = (("KW (kw_herm, kw_bidiag)", ("kw_herm", "kw_bidiag")),
+               ("KT (kt_bisect)", ("kt_bisect",)),
+               ("K5 (k5_ring)", ("k5_ring",)),
                ("K2 (k2_limb_gemm)", ("k2_",)),
                ("K3 (k3_lu_panel)", ("k3_lu_panel",)),
                ("K4 (k4_geqrt_panel)", ("k4_geqrt_panel",)),
@@ -2898,9 +2931,11 @@ def blas3_driver(torch, pk, pdd, argv, mca, k1_want, k2_want,
     tag = " ".join(f"{k}={v}" for k, v in mca.items()) or (
         "native FP64" if argv[0][8] == "d" else "K1 on")
     for op in run["ops"]:
+        warm = ("none" if op["warmup_s"] is None
+                else f"{op['warmup_s']:.3f} s")
         log(f"[{argv[0]}] {' '.join(argv[1:])} {tag}: {op['op']} best "
             f"{op['best_s']:.5f} s {op['gflops']:.1f} GFLOP/s (warm-up "
-            f"{op['warmup_s']:.3f} s), per run K1 {op['k1_launches']} K2 "
+            f"{warm}), per run K1 {op['k1_launches']} K2 "
             f"{op['k2_launches']}")
     log(f"[{argv[0]}] driver wall {wall:.1f} s, launches in the run K1 "
         f"{k1_run} K2 {k2_run}, checks " + (", ".join(
@@ -3742,6 +3777,932 @@ def phase_hqr_ldl(torch, pk, pdd, dd, record):
     return k1_paths, k2_paths, k1_by, k2_by
 
 
+# ---------------------------------------------------------------------
+# phase 16: the eigen/SVD chain (herbt, hbrdt, hetrd, heev, gebrd_ge2gb,
+# gebrd, gesvd) with kernels KT (tridiagonal bisection) and KW (the
+# narrow SBR window step)
+N_EIG, NB_EIG = 8192, 256
+N_EIG_SMALL = 4096       # d, c, z and the dd route, cut for time
+N_EIG_ROUTES = 512       # both routes of every narrow sweep on real data
+# the Givens chase, logged: ~800 us a rotation on the card (eager, ~30
+# launches each), so N=512's 126480 rotations took 107 s in this phase
+# (PERF.md §6): cut to N=128 (7812 rotations) for the script's time
+N_CHASE, B_CHASE = 128, 32
+KW_EVERY = 97            # the replay holds KW at t = 0, T - 1 and t % 97 == 0
+KW_TOL64 = 1e-11         # KW vs plain in f64 / c128, max|Δ| / max|plain|
+# every held window slot: max|KW − reference| over its strips at most
+# KW_COND · eps · κ · max|reference|, κ the condition of its QR block. A
+# block close to rank deficiency leaves its last reflectors to rounding
+# noise (in complex a tiny last pivot sets a row's phase), so the step's
+# forward error grows with κ in any precision and any route. Measured
+# on an H100 over every replay: KW at most 4.6, the f32/c64 plain
+# version 3.1 (PERF.md §6)
+KW_COND = 16.0
+KW_RANK = 1e-10          # singular values below this share: exact zeros
+# f32 / c64 also: over the held steps of a sweep, the median of KW's
+# distance to the step in twice the precision over the plain version's
+KW_RATIO = 4.0
+FP64_FLOPS = 34e12       # CUDA-core FP64 (H100 SXM data sheet)
+
+
+def _eig_ok(*dims):
+    return int(min(dims) >= 256)
+
+
+def herbt_products(n, nb, gated=True):
+    """Products of one herbt (ops/eig.py): larft and the two applies, 7 a
+    panel; with ``gated`` only those with every dimension >= 256 (K1's
+    gate), else all (the dd route takes every f64 product)."""
+    mp = -(-n // nb) * nb
+    return sum(7 * (_eig_ok(nb, mp - s - nb) if gated else 1)
+               for s in range(0, n - nb - 1, nb) if s + nb < mp)
+
+
+def ge2gb_products(m, n, nb, gated=True):
+    """Products of one gebrd_ge2gb: per panel the QR's larft and its
+    3-product apply to the columns right of it, the LQ's larft and its
+    apply to the rows below."""
+    mp, np_ = -(-m // nb) * nb, -(-n // nb) * nb
+    ok = _eig_ok if gated else (lambda *d: 1)
+    tot = 0
+    for kk in range(min(mp, np_) // nb):
+        s, e = kk * nb, (kk + 1) * nb
+        tot += ok(nb, mp - s)
+        if e < np_:
+            tot += 3 * ok(nb, mp - s, np_ - e) + ok(nb, np_ - e)
+            if e < mp:
+                tot += 3 * ok(mp - e, np_ - e, nb)
+    return tot
+
+
+def herm_chain_counts(band, n, b, dtype):
+    """(K1, KW) launches of one herm_band_to_tridiag_scan from band b:
+    KW one a step of a sweep with b <= 32, K1 seven a live window of a
+    sweep whose window products pass K1's gate."""
+    k1 = kw = 0
+    b = min(b, max(n - 1, 1))
+    if n <= 2 or b <= 1:
+        return 0, 0
+    for bb, w in band.sweep_ladder(b):
+        sch = band._sbr_banded_schedule(n, bb, w)
+        if sch is None:
+            continue
+        route = band._route("auto", bb, dtype, 3 * bb + w)
+        kw += sch[2] if route == "kw" else 0
+        k1 += 7 * int((sch[1] > 0).sum()) if route == "k1" else 0
+    return k1, kw
+
+
+def bidiag_chain_counts(band, m, n, nb, dtype):
+    """(K1, KW) launches of one bidiag_band_to_bidiag_scan of gebrd's
+    band (2nb − 1): KW one a step of a narrow sweep, K1 four a live
+    window of a sweep whose window products pass the gate."""
+    k1 = kw = 0
+    b = min(2 * nb - 1, max(n - 1, 1))
+    K = min(m, n)
+    for bb, w in band.sweep_ladder(b):
+        sch = band._sbr_schedule_bidiag(K, bb, w, m < n)
+        if sch is None or K <= 1:
+            continue
+        route = band._route("auto", bb, dtype, 3 * bb + w)
+        kw += sch[3] if route == "kw" else 0
+        k1 += 4 * int((sch[1] > 0).sum()) if route == "k1" else 0
+    return k1, kw
+
+
+def eig_wants(torch, band, algo, m, n, nb, dtype, dd=False):
+    """{k1, k2, kw, kt} launches of one timed run of ``algo``, derived
+    from ops/eig.py and the sweep schedules (K1 on, f32 only; K2 under
+    dd, every f64 stage-1 product)."""
+    f32 = dtype == torch.float32
+    w = {"k1": 0, "k2": 0, "kw": 0, "kt": 0}
+    if algo == "heev":
+        return w
+    if algo in ("hetrd", "hbrdt", "heev2"):
+        b = nb if algo != "hbrdt" else 2 * nb - 1
+        k1, kw = herm_chain_counts(band, n, b, dtype)
+        stage1 = 0 if algo == "hbrdt" else 1
+        w["k1"] = (k1 + stage1 * herbt_products(n, nb)) if f32 else 0
+        w["k2"] = stage1 * herbt_products(n, nb, gated=False) if dd else 0
+        w["kw"] = kw
+        w["kt"] = int(algo == "heev2")
+        return w
+    g1 = ge2gb_products(m, n, nb) if f32 else 0
+    w["k2"] = ge2gb_products(m, n, nb, gated=False) if dd else 0
+    if algo == "gebrd_ge2gb":
+        w["k1"] = g1
+        return w
+    k1, kw = bidiag_chain_counts(band, m, n, nb, dtype)
+    w["k1"] = (g1 + k1) if f32 else 0
+    w["kw"] = kw
+    w["kt"] = int(algo == "gesvd")
+    return w
+
+
+def eig_driver(torch, pk, pdd, argv, mca, want):
+    """One eig driver run through ``blas3_driver`` (K1/K2 held, -x gated;
+    the KW and KT counts, too, zeroed just before and read just after),
+    then each timed run's KW and KT launches held to ``want``."""
+    from dplasma_tpu_torch.drivers import common
+    from dplasma_tpu_torch.kernels import sbr, tridiag
+    sbr.reset_counts()
+    tridiag.reset_counts()
+    r = blas3_driver(torch, pk, pdd, argv, mca, want["k1"], want["k2"])
+    kw_run, kt_run = sbr.LAUNCHES, tridiag.LAUNCHES
+    op = common.RUNS[-1]["ops"][0]
+    for lab in ("kw", "kt"):
+        check(all(x == want[lab] for x in op[f"{lab}_launches"]),
+              f"{argv[0]}: {lab.upper()} launches {op[f'{lab}_launches']} "
+              f"(want {want[lab]})")
+    log(f"[{argv[0]}] {' '.join(argv[1:])}: per timed run K1 "
+        f"{op['k1_launches']} K2 {op['k2_launches']} KW {op['kw_launches']}"
+        f" KT {op['kt_launches']} (derived {want}); in the run KW {kw_run} "
+        f"KT {kt_run}")
+    r.update(kw_launches=op["kw_launches"], kt_launches=op["kt_launches"],
+             kw_launches_run=kw_run, kt_launches_run=kt_run, want=want)
+    return r
+
+
+def _t_norm(torch, d, e):
+    a = e.abs().double()
+    row = torch.cat([a[:1], a[:-1] + a[1:], a[-1:]]) if a.numel() else 0
+    dd = d.double()
+    return float(torch.maximum((dd + row).abs().max(),
+                               (dd - row).abs().max()))
+
+
+def kt_bound_ms(n, dtype, iters):
+    """n Sturm sequences of n steps per iteration, four operations each
+    (a division, two subtractions, a comparison) at the CUDA-core rate
+    of the type; the inputs (2n values) and the output are bytes."""
+    isz = 4 if dtype == "float32" else 8
+    t_ops = 4.0 * n * n * iters / (FP32_FLOPS if isz == 4 else FP64_FLOPS)
+    t_bytes = 3.0 * n * isz / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+KT_SAMPLE = 64           # indices the host's plain version bisects for
+
+
+def kt_targets(torch, n):
+    """The eigenvalue indices a sampled check holds: KT_SAMPLE spread
+    over [0, n) and the five around the middle (a Jordan–Wielandt
+    tridiagonal's zero eigenvalue and its smallest ± pairs)."""
+    k = torch.linspace(0, n - 1, KT_SAMPLE).round().to(torch.int32)
+    mid = torch.arange(n // 2 - 2, n // 2 + 3, dtype=torch.int32)
+    return torch.unique(torch.cat([k, mid.clamp(0, n - 1)]))
+
+
+def kt_case(torch, tridiag, key, d, e, plain_on, library=True):
+    """KT on (d, e) on the card, held within 2·eps·t_norm of its plain
+    version (on the card over every index, or ``plain_on`` "host": on
+    the host over kt_targets' sample) and ascending; KT timed beside its
+    operations bound and (``library``) torch.linalg.eigvalsh of the
+    dense tridiagonal. Returns the case's record."""
+    n, dt = d.shape[0], d.dtype
+    tridiag.reset_counts()
+    got = tridiag.eigh_tridiagonal(d, e)
+    torch.cuda.synchronize()
+    check(tridiag.LAUNCHES == 1, f"KT: {tridiag.LAUNCHES} launches")
+    ks = None if plain_on == "card" else kt_targets(torch, n)
+    dev = "cuda" if plain_on == "card" else "cpu"
+    t0 = time.perf_counter()
+    want = tridiag.eigh_tridiagonal_reference(d.to(dev), e.to(dev),
+                                              targets=ks)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    tn = _t_norm(torch, d, e)
+    eps = torch.finfo(dt).eps
+    held = got.cpu() if ks is None else got.cpu()[ks.long()]
+    err = float((held - want.cpu()).abs().max())
+    asc = bool((got[1:] >= got[:-1]).all())
+    check(err <= 2 * eps * tn and asc,
+          f"KT {key}: |kernel - plain| {err:.3e} > 2 eps t_norm "
+          f"{2 * eps * tn:.3e} or not ascending ({asc})")
+    ms = time_ms(torch, lambda: tridiag.eigh_tridiagonal(d, e), reps=5)
+    iters = {torch.float32: 24, torch.float64: 53}[dt]   # nmant + 1
+    bound, by = kt_bound_ms(n, str(dt).split(".")[-1], iters)
+    rec = {"n": n, "max_abs_err": err, "eps_t_norm": eps * tn,
+           "ascending": asc, "ms": ms, "plain_ms": 1e3 * plain_s,
+           "plain_on": plain_on,
+           "plain_indices": n if ks is None else int(ks.numel()),
+           "library_ms": None, "bound_ms": bound, "bound_by": by}
+    lib_txt = "not timed"
+    if library:
+        T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+        rec["library_ms"] = time_ms(torch, lambda: torch.linalg.eigvalsh(T),
+                                    reps=1)
+        lib = torch.linalg.eigvalsh(T.double())
+        del T
+        rec["vs_eigvalsh64"] = float((got.double() - lib).abs().max())
+        lib_txt = (f"{rec['library_ms']:.3f} ms, |kernel - eigvalsh f64| "
+                   f"{rec['vs_eigvalsh64']:.3e}")
+    log(f"[kt] {key}: |kernel - plain| {err:.3e} ({err / (eps * tn):.2f} "
+        f"eps t_norm) over {rec['plain_indices']} of {n} indices, "
+        f"ascending {asc}; kernel {ms:.3f} ms, plain {1e3 * plain_s:.1f} ms"
+        f" (on the {plain_on}), bound {bound:.3f} ms ({by}); eigvalsh of "
+        f"the dense tridiagonal {lib_txt}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kt(torch, tridiag, eig, generators, record):
+    """KT against its plain version on the (d, e) of one s hetrd at
+    N=8192 (the plain version on the card over every index, timed: the
+    kernel line's shape, heev 2stage's) and one d hetrd at N=4096 (the
+    plain version on the host over a sample of indices: over all of
+    them its 53 iterations of n sequential vector steps take tens of
+    seconds), and on edge cases, within 2·eps·t_norm, its results
+    ascending; timed beside torch.linalg.eigvalsh of the dense
+    tridiagonal and its operations bound. gesvd's Jordan–Wielandt
+    tridiagonals are held after the drivers (:func:`phase_kt_jw`)."""
+    out = {"cases": {}}
+    for prec, dt, where, n in (("s", torch.float32, "card", N_EIG),
+                               ("d", torch.float64, "host", N_EIG_SMALL)):
+        A = generators.plghe(0.0, n, NB_EIG, seed=3872, dtype=dt)
+        d, e = eig.hetrd(A)
+        del A
+        torch.cuda.empty_cache()
+        out["cases"][f"{prec}hetrd_{n}"] = kt_case(
+            torch, tridiag, f"{prec}hetrd_{n}", d, e, where)
+    rng = torch.Generator().manual_seed(1601)
+    m = 10
+    edge = {
+        "n1": (torch.tensor([2.5]), torch.zeros(0)),
+        "n2": (torch.tensor([1.0, -3.0]), torch.tensor([0.75])),
+        "e0": (torch.randn(64, generator=rng), torch.zeros(63)),
+        "wilkinson21": (torch.arange(-m, m + 1).abs().double(),
+                        torch.ones(2 * m)),
+        "jordan_wielandt": (torch.zeros(301),
+                            torch.rand(300, generator=rng) + 0.1)}
+    for name, (d0, e0) in edge.items():
+        for dt in (torch.float32, torch.float64):
+            d, e = d0.to(dt).cuda(), e0.to(dt).cuda()
+            got = tridiag.eigh_tridiagonal(d, e)
+            want = tridiag.eigh_tridiagonal_reference(d, e)
+            tn = _t_norm(torch, d, e) if d.numel() > 1 else abs(float(d[0]))
+            eps = torch.finfo(dt).eps
+            err = float((got - want).abs().max())
+            asc = bool((got[1:] >= got[:-1]).all()) if got.numel() > 1 \
+                else True
+            check(err <= 2 * eps * max(tn, 1e-30) and asc,
+                  f"KT edge case {name} {dt}: {err:.3e}, ascending {asc}")
+            out["cases"][f"{name}_{str(dt)[-7:]}"] = {
+                "n": d.numel(), "max_abs_err": err}
+            log(f"[kt] {name} {str(dt)[6:]} n={d.numel()}: |kernel - plain| "
+                f"{err:.3e}, ascending {asc}")
+    return out
+
+
+def phase_kt_jw(torch, tridiag, jw):
+    """KT on the Jordan–Wielandt tridiagonals that gesvd driver runs of
+    phase 16 handed it (captured from those runs: a zero diagonal of
+    length 2K and the interleaved [d1, e1, d2, ...]), held against
+    the plain version on the host over a sample of indices and timed
+    beside its bound (eigvalsh of the dense tridiagonal, 1-2 GB at these
+    sizes, not timed)."""
+    return {key: kt_case(torch, tridiag, key, d, e, "host", library=False)
+            for key, (d, e) in jw.items()}
+
+
+def _rand_like_storage(torch, shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, dtype=dtype, device="cuda", generator=g)
+
+
+def _wide(torch, dt):
+    return {torch.float32: torch.float64,
+            torch.complex64: torch.complex128}.get(dt)
+
+
+def _kw_compare(torch, got, plain, plain_wide):
+    """Whole-storage distances of one replayed step: f64/c128 |KW −
+    plain| relative; f32/c64 KW's distance to the step in twice the
+    precision, beside the plain version's own distance to it."""
+    if plain_wide is None:
+        scale = float(plain.abs().max())
+        kw = float((got - plain).abs().max())
+        return kw / scale, 0.0, kw
+    scale = float(plain_wide.abs().max())
+    kw = float((got.to(plain_wide.dtype) - plain_wide).abs().max())
+    pl = float((plain.to(plain_wide.dtype) - plain_wide).abs().max()) / scale
+    return kw / scale, pl, kw
+
+
+def _kw_strips(torch, sbr, kind, X, geom, bs, tabs, t, qr):
+    """(G, ·): the elements step t reads and writes, per window slot
+    (the herm step's row and column strips, the bidiag step's rows or
+    columns)."""
+    G = geom.G
+    if kind == "herm":
+        R, C = sbr.herm_views(X, bs, geom)
+        return torch.cat([R.reshape(G, -1), C.reshape(G, -1)], 1)
+    idx = sbr.bidiag_index(tabs[0][t], tabs[2][t], geom, qr)
+    return X.view(-1)[idx].reshape(G, -1)
+
+
+def _kw_kappa(torch, sbr, kind, X, geom, bs, tabs, t, qr):
+    """(G,) the condition of each slot's QR block in X before step t:
+    its largest singular value over its smallest above KW_RANK of it (a
+    masked column or a row past the matrix is an exact zero, which the
+    QR passes through with tau = 0, not a small pivot); 1 for an
+    all-zero block."""
+    b = geom.b
+    if kind == "herm":
+        R, _ = sbr.herm_views(X, bs, geom)
+        blk = sbr.masked_block(R, tabs[0][t], b)
+    else:
+        W = X.view(-1)[sbr.bidiag_index(tabs[0][t], tabs[2][t], geom, qr)]
+        if qr:
+            blk = W[:, :, :b]
+        else:
+            rows = torch.arange(b, device=X.device)
+            keep = (rows[None, :] < tabs[1][t][:, None])[:, :, None]
+            blk = torch.where(keep, W[:, :b, :], torch.zeros(
+                (), dtype=X.dtype, device=X.device)).conj().mT
+    sv = torch.linalg.svdvals(blk)
+    s0 = sv[:, 0]
+    smin = torch.where(sv > KW_RANK * s0[:, None], sv,
+                       torch.full_like(sv, float("inf"))).amin(1)
+    return torch.where(s0 > 0, s0 / smin, torch.ones_like(s0))
+
+
+def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
+    """Every step of one narrow sweep on random storage of the main
+    path's geometry through KW; at t = 0, T − 1 and every KW_EVERY-th
+    step the plain version runs the same step on a copy of the same
+    input (and, for f32/c64, in twice the precision: the reference) and
+    every window slot is held on its own: max|KW − reference| over the
+    slot's strips at most KW_COND · eps · κ · max|reference|, κ the
+    condition of the slot's QR block (:func:`_kw_kappa`). f64/c128 are
+    also held to KW_TOL64 over the whole storage. Then (``timed``) the
+    whole sweep once more through KW alone, timed."""
+    wide = _wide(torch, dtype)
+    eps = torch.finfo(dtype).eps
+    if kind == "herm":
+        base, us, T, G, S, V, L0, hi = band._sbr_banded_schedule(n, b, w)
+        D = 2 * b + w
+        H = 2 * D + 1
+        shape = (L0 + max(hi, n) + S, H)
+        geom = sbr.HermGeom(G, S, V, b, H, D)
+        tabs = band._to_device((us,), "cuda")
+        bases = (base + L0).tolist()
+
+        def kernel(X, t):
+            sbr.herm_step(X, bases[t], tabs[0], t, geom)
+
+        def plain(X, t):
+            sbr.herm_step_reference(X, bases[t], tabs[0][t], geom)
+    else:
+        K = min(m, n)
+        c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(
+            K, b, w, m < n)
+        lim = park0 + G * V
+        shape = (max(lim, m), max(lim, n))
+        geom = sbr.BidiagGeom(G, V, b, shape[1])
+        tabs = band._to_device((c0s, us, offs), "cuda")
+        bases = [0] * T
+
+        def kernel(X, t):
+            sbr.bidiag_step(X, tabs, t, geom, t % 2 == 1)
+
+        def plain(X, t):
+            sbr.bidiag_step_reference(X, tabs[0][t], tabs[1][t], tabs[2][t],
+                                      geom, t % 2 == 1)
+
+    def storage():
+        X = _rand_like_storage(torch, shape, dtype, seed)
+        if kind == "bidiag":
+            X[m:] = 0
+            X[:, n:] = 0
+        return X
+
+    def strips(X, t):
+        return _kw_strips(torch, sbr, kind, X, geom, bases[t], tabs, t,
+                          t % 2 == 1)
+
+    X = storage()
+    worst_kw = worst_pl = worst_abs = 0.0
+    checked = windows = 0
+    ratios = []
+    cond = {"kw": 0.0, "plain": 0.0, "kappa_at_kw": 1.0, "kappa_max": 1.0}
+    worst_step = {}
+    for t in range(T):
+        held = t in (0, T - 1) or t % KW_EVERY == 0
+        if held:
+            Xp = X.clone()
+            plain(Xp, t)
+            Xw = ref = None
+            if wide is not None:
+                Xw = X.to(wide)
+                kappa = _kw_kappa(torch, sbr, kind, Xw, geom, bases[t], tabs,
+                                  t, t % 2 == 1)
+                plain(Xw, t)
+                ref = Xw
+            else:
+                kappa = _kw_kappa(torch, sbr, kind, X, geom, bases[t], tabs,
+                                  t, t % 2 == 1)
+                ref = Xp
+        kernel(X, t)
+        if held:
+            e_kw, e_pl, a_kw = _kw_compare(torch, X, Xp, Xw)
+            worst_kw, worst_pl = max(worst_kw, e_kw), max(worst_pl, e_pl)
+            worst_abs = max(worst_abs, a_kw)
+            checked += 1
+            sr = strips(ref, t)
+            den = torch.clamp(eps * kappa * sr.abs().amax(1),
+                              min=torch.finfo(kappa.dtype).tiny)
+            d_kw = (strips(X, t).to(sr.dtype) - sr).abs().amax(1)
+            r_kw = d_kw / den
+            r_pl = ((strips(Xp, t).to(sr.dtype) - sr).abs().amax(1) / den
+                    if wide is not None else torch.zeros_like(r_kw))
+            g = int(r_kw.argmax())
+            step_max = float(r_kw[g])
+            windows += int((kappa < float("inf")).sum())
+            if step_max > cond["kw"]:
+                cond.update(kw=step_max, kappa_at_kw=float(kappa[g]))
+            cond["plain"] = max(cond["plain"], float(r_pl.max()))
+            fin = kappa[kappa < float("inf")]
+            if fin.numel():
+                cond["kappa_max"] = max(cond["kappa_max"], float(fin.max()))
+            if e_kw >= worst_step.get("rel", -1.0):
+                gd = int(d_kw.argmax())
+                worst_step = {"t": t, "rel": e_kw, "plain_rel": e_pl,
+                              "kappa": float(kappa[gd]),
+                              "ratio": float(r_kw[gd])}
+            ok = (step_max <= KW_COND
+                  and bool(torch.isfinite(X).all())
+                  and (wide is not None or e_kw <= KW_TOL64))
+            check(ok, f"KW {kind} {dtype} {m}x{n} {b}->{w} step {t}: slot "
+                      f"{g} max|KW - reference| / (eps kappa max|reference|)"
+                      f" {step_max:.3g} (kappa {float(kappa[g]):.3g}, "
+                      f"bound {KW_COND:g}); storage |KW - reference| "
+                      f"{e_kw:.3e} (plain {e_pl:.3e})")
+            if wide is not None:
+                ratios.append(e_kw / max(e_pl, eps))
+            del Xp, Xw, ref
+    median = sorted(ratios)[len(ratios) // 2] if ratios else 0.0
+    check(median <= KW_RATIO,
+          f"KW {kind} {dtype} {m}x{n} {b}->{w}: median of KW's distance "
+          f"to the {wide} step over the plain version's {median:.2f}")
+    del X
+    ms = float("nan")
+    if timed:
+        X = storage()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in range(T):
+            kernel(X, t)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        del X
+    del tabs
+    torch.cuda.empty_cache()
+    rec = {"kind": kind, "m": m, "n": n, "b": b, "w": w,
+           "dtype": str(dtype), "steps": T, "slots": G,
+           "live_windows": int((us > 0).sum()), "checked": checked,
+           "windows_held": windows,
+           "worst_kw": worst_kw, "worst_plain": worst_pl,
+           "median_ratio": median, "max_abs_err": worst_abs,
+           "worst_cond_kw": cond["kw"], "worst_cond_plain": cond["plain"],
+           "kappa_at_worst_cond": cond["kappa_at_kw"],
+           "kappa_max": cond["kappa_max"], "worst_step": worst_step,
+           "sweep_ms": ms, "step_us": 1e3 * ms / T}
+    ref_txt = "plain" if wide is None else str(wide)[6:] + " plain"
+    log(f"[kw] replay {kind} {str(dtype)[6:]} {m}x{n} {b}->{w}: T={T} "
+        f"G={G}, {checked} steps held, {windows} slots each within "
+        f"{KW_COND:g} eps kappa of the {ref_txt} step: worst KW "
+        f"{cond['kw']:.3g} (kappa {cond['kappa_at_kw']:.3g}), plain "
+        f"{cond['plain']:.3g}, largest kappa {cond['kappa_max']:.3g}; over "
+        f"the storage worst KW {worst_kw:.3e} plain {worst_pl:.3e} (median "
+        f"ratio {median:.2f} <= {KW_RATIO:g}), the worst step t="
+        f"{worst_step.get('t')}: slot kappa {worst_step.get('kappa', 0):.3g}"
+        f", {worst_step.get('ratio', 0):.3g} eps kappa; the sweep through "
+        f"KW {ms:.2f} ms, {rec['step_us']:.2f} us a step ({T} launches)")
+    return rec
+
+
+def kw_sweep_cost(band, kind, m, n, b, w, isz, cplx):
+    """(bytes, flops) one narrow sweep must move and do: per live window
+    the strips read once and written once (herm: the b×V row strip read,
+    it and the V×b column strip written; bidiag: one b×V strip each
+    way), and the reflectors' applies (~8·u·b·V real flops herm, 4·u·b·V
+    bidiag, x4 complex)."""
+    f = 4 if cplx else 1
+    if kind == "herm":
+        base, us, T, G, S, V, L0, hi = band._sbr_banded_schedule(n, b, w)
+        live = us[us > 0].astype(float)
+        return (3.0 * b * V * isz * live.size,
+                f * 8.0 * b * V * float(live.sum()))
+    K = min(m, n)
+    c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(K, b, w, m < n)
+    live = us[us > 0].astype(float)
+    return 2.0 * b * V * isz * live.size, f * 4.0 * b * V * float(live.sum())
+
+
+def phase_kw_routes(torch, band, sbr, eig, generators, record):
+    """The narrow sweeps of one shetrd and one sgebrd at N_EIG_ROUTES on
+    real data through KW and through the plain version: the spectra of
+    the two tridiagonals (bidiagonals) held to each other and to the
+    dense solver's; both routes' narrow sweeps timed (KW's ms and
+    plain_ms in the kernel line) beside their bound."""
+    n, nb = N_EIG_ROUTES, NB_EIG
+    A = generators.plghe(0.0, n, nb, seed=3872)
+    Bm, _, _ = eig.herbt(A)
+    G = generators.plrnt(n, n, nb, nb, seed=3872)
+    Bg = eig.gebrd_ge2gb(G)
+    times = {"kw": 0.0, "plain": 0.0}
+    cost = [0.0, 0.0]
+
+    def timed(route, sweep):
+        def run(*a):
+            if not sbr.eligible(a[3] if len(a) == 5 else a[2]):
+                return sweep(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sweep(*a, route=route)
+            torch.cuda.synchronize()
+            times[route] += time.perf_counter() - t0
+            return out
+        return run
+
+    spectra = {}
+    for route in ("kw", "plain"):
+        d, e = band.herm_band_to_tridiag_scan(
+            Bm.data, n, nb,
+            sweep=lambda F, N, b, w, D, L0: timed(
+                route, band.herm_sbr_sweep_banded)(F, N, b, w, D, L0))
+        T = (torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)).double()
+        spectra[("herm", route)] = torch.linalg.eigvalsh(T)
+        d, e = band.bidiag_band_to_bidiag_scan(
+            Bg.data, n, n, 2 * nb - 1,
+            sweep=lambda X, M, N, b, w: timed(
+                route, band.bidiag_sbr_sweep)(X, M, N, b, w))
+        Bb = (torch.diag(d) + torch.diag(e, 1)).double()
+        spectra[("bidiag", route)] = torch.linalg.svdvals(Bb)
+    ref_h = torch.linalg.eigvalsh(A.to_dense().double())
+    ref_b = torch.linalg.svdvals(G.to_dense().double())
+    out = {}
+    eps = torch.finfo(torch.float32).eps
+    for kind, ref in (("herm", ref_h), ("bidiag", ref_b)):
+        a = torch.sort(spectra[(kind, "kw")]).values
+        p = torch.sort(spectra[(kind, "plain")]).values
+        r = torch.sort(ref).values
+        scale = float(r.abs().max())
+        kw_p = float((a - p).abs().max()) / scale
+        kw_r = float((a - r).abs().max()) / scale
+        pl_r = float((p - r).abs().max()) / scale
+        check(kw_p <= 60 * eps * n and kw_r <= 60 * eps * n,
+              f"KW {kind} chain N={n}: spectrum vs plain route {kw_p:.3e}, "
+              f"vs the dense solver {kw_r:.3e}")
+        out[kind] = {"kw_vs_plain": kw_p, "kw_vs_dense": kw_r,
+                     "plain_vs_dense": pl_r}
+        log(f"[kw] real {kind} chain N={n}: spectrum through KW vs through "
+            f"the plain version {kw_p:.3e}, KW vs the f64 dense solver "
+            f"{kw_r:.3e}, plain vs it {pl_r:.3e} (relative to the largest)")
+    for kind, b0 in (("herm", nb), ("bidiag", 2 * nb - 1)):
+        for bb, w in band.sweep_ladder(b0):
+            if sbr.eligible(bb):
+                c = kw_sweep_cost(band, kind, n, n, bb, w, 4, False)
+                cost[0] += c[0]
+                cost[1] += c[1]
+    t_bytes, t_ops = cost[0] / HBM_BYTES_S, cost[1] / FP32_FLOPS
+    out.update(ms=1e3 * times["kw"], plain_ms=1e3 * times["plain"],
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=cost[0], flops=cost[1])
+    log(f"[kw] the narrow sweeps of one shetrd and one sgebrd (N={n}, "
+        f"nb={nb}): KW {out['ms']:.1f} ms, plain {out['plain_ms']:.1f} ms "
+        f"(host clock around each sweep, synchronized), bound "
+        f"{out['bound_ms']:.3f} ms ({out['bound_by']}: {cost[0] / 1e9:.2f} "
+        f"GB, {cost[1] / 1e9:.2f} GFLOP)")
+    return out
+
+
+def prebuild_schedules(band, algo, m, n, nb):
+    """Build on the host every sweep schedule of ``algo``'s chain at
+    (m, n, nb), as a driver's warm-up run would, so that its timed run
+    builds none (each sweep copies its tables to the card itself)."""
+    if algo in ("hetrd", "hbrdt", "heev2"):
+        b = nb if algo != "hbrdt" else 2 * nb - 1
+        for bb, w in band.sweep_ladder(min(b, n - 1)):
+            band._sbr_banded_schedule(n, bb, w)
+    elif algo in ("gebrd", "gesvd"):
+        for bb, w in band.sweep_ladder(min(2 * nb - 1, n - 1)):
+            band._sbr_schedule_bidiag(min(m, n), bb, w, m < n)
+
+
+def geqrf_batched_vs_loop(torch, band):
+    """The batched torch route's window QR (band._live_factor) at the
+    sweeps where the chains at N_EIG take that route, f32 / f64 / c128,
+    per step: one batched torch.geqrf over the G window slots against a
+    loop of 2-D calls over the step's mean number of live windows, each
+    timed by CUDA events (mean of 5 after a warm-up); the measurement
+    behind band.LOOP_QR_MIN_B."""
+    out = []
+    shapes = []
+    for kind, b0 in (("herm", NB_EIG), ("bidiag", 2 * NB_EIG - 1)):
+        for bb, w in band.sweep_ladder(b0):
+            if bb > 32:
+                us = (band._sbr_banded_schedule(N_EIG, bb, w)[1]
+                      if kind == "herm" else
+                      band._sbr_schedule_bidiag(N_EIG, bb, w, False)[1])
+                live = max(1, round(float((us > 0).sum(1).mean())))
+                shapes.append((kind, us.shape[1], live, bb))
+    g = torch.Generator(device="cuda").manual_seed(1690)
+    for dt in (torch.float32, torch.float64, torch.complex128):
+        for kind, G, live, b in shapes:
+            x = torch.randn(G, b, b, dtype=dt, device="cuda", generator=g)
+            t_b = time_ms(torch, lambda: torch.geqrf(x), reps=5)
+            t_l = time_ms(torch, lambda: [torch.geqrf(x[i])
+                                          for i in range(live)], reps=5)
+            takes = "loop" if b >= band.LOOP_QR_MIN_B else "batched"
+            out.append({"dtype": str(dt), "sweep": kind, "G": G,
+                        "live": live, "b": b, "batched_ms": t_b,
+                        "loop_ms": t_l, "takes": takes})
+            log(f"[geqrf] {str(dt)[6:]} {kind} b={b}, a step: batched over "
+                f"its G={G} slots {t_b:.3f} ms, loop of 2-D over its mean "
+                f"{live} live windows {t_l:.3f} ms; the route takes the "
+                f"{takes} form (LOOP_QR_MIN_B {band.LOOP_QR_MIN_B})")
+            del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_eig(torch, pk, pdd, record):
+    """Phase 16: the eigen/SVD chain. KT and KW against their plain
+    versions; the six drivers through ``drivers.main`` with K1 on, every
+    count zeroed just before each run and read just after and each timed
+    run's K1 / K2 / KW / KT launches held to the counts derived from
+    ops/eig.py and the sweep schedules; direct calls (heev 2stage beside
+    eigvalsh, the Givens chase, K1's window products held) and one
+    shetrd under torch.profiler. Returns its record."""
+    from dplasma_tpu_torch.descriptors import BandMatrix
+    from dplasma_tpu_torch.kernels import sbr, tridiag
+    from dplasma_tpu_torch.ops import band, eig, generators
+
+    pk.enable(True)
+    rec = {}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"[eig] {what}: {now - t0:.1f} s")
+        rec.setdefault("section_s", {})[what] = now - t0
+        t0 = now
+
+    rec["kt"] = phase_kt(torch, tridiag, eig, generators, record)
+    lap("KT against its plain version")
+    # KW replayed on random storage: every narrow sweep of one shetrd
+    # and one sgebrd at 8192 (each also timed alone), c, d and z at 4096
+    reps = []
+    for dt, n in ((torch.float32, N_EIG), (torch.complex64, N_EIG_SMALL),
+                  (torch.float64, N_EIG_SMALL),
+                  (torch.complex128, N_EIG_SMALL)):
+        for kind, b0, seed in (("herm", NB_EIG, 1700),
+                               ("bidiag", 2 * NB_EIG - 1, 1800)):
+            for bb, w in band.sweep_ladder(b0):
+                if sbr.eligible(bb):
+                    reps.append(kw_replay(torch, band, sbr, kind, n, n, bb,
+                                          w, dt, seed + bb,
+                                          timed=dt == torch.float32))
+    rec["kw_replay"] = reps
+    lap("KW replays")
+    rec["kw_routes"] = phase_kw_routes(torch, band, sbr, eig, generators,
+                                       record)
+    lap("KW and the plain route on real chains")
+    rec["geqrf"] = geqrf_batched_vs_loop(torch, band)
+    lap("batched geqrf against a loop of 2-D calls")
+
+    # the drivers, each one timed run: the schedules of its shape are
+    # built just before it (what its warm-up run would build), so no
+    # timed run builds one
+    n, t, ns = str(N_EIG), str(NB_EIG), str(N_EIG_SMALL)
+    f32 = torch.float32
+    dts = {"s": f32, "d": torch.float64, "c": torch.complex64,
+           "z": torch.complex128}
+    once = ["--nowarmup"]
+    runs = [
+        (["testing_sheev", "-N", n, "-t", t, "-x"] + once, {},
+         ("heev", N_EIG, N_EIG, f32)),
+        (["testing_shetrd", "-N", n, "-t", t] + once, {},
+         ("hetrd", N_EIG, N_EIG, f32)),
+        (["testing_shbrdt", "-N", n, "-t", t, "-x"] + once, {},
+         ("hbrdt", N_EIG, N_EIG, f32)),
+        (["testing_sgebrd", "-N", n, "-t", t] + once, {},
+         ("gebrd", N_EIG, N_EIG, f32)),
+        (["testing_sgesvd", "-N", n, "-t", t, "-x"] + once, {},
+         ("gesvd", N_EIG, N_EIG, f32)),
+        (["testing_sgebrd_ge2gb", "-N", n, "-t", t, "-x"] + once, {},
+         ("gebrd_ge2gb", N_EIG, N_EIG, f32)),
+        (["testing_sgesvd", "-M", n, "-N", ns, "-t", t, "-x"] + once, {},
+         ("gesvd", N_EIG, N_EIG_SMALL, f32)),
+        (["testing_sgesvd", "-M", ns, "-N", n, "-t", t, "-x"] + once, {},
+         ("gesvd", N_EIG_SMALL, N_EIG, f32))]
+    for p in ("d", "c", "z"):
+        runs += [
+            ([f"testing_{p}hetrd", "-N", ns, "-t", t] + once, {},
+             ("hetrd", N_EIG_SMALL, N_EIG_SMALL, dts[p])),
+            ([f"testing_{p}gesvd", "-N", ns, "-t", t, "-x"] + once, {},
+             ("gesvd", N_EIG_SMALL, N_EIG_SMALL, dts[p]))]
+    dd_on = {"dd_gemm": "always"}
+    runs += [
+        (["testing_dhetrd", "-N", ns, "-t", t] + once, dd_on,
+         ("hetrd", N_EIG_SMALL, N_EIG_SMALL, torch.float64)),
+        (["testing_dgesvd", "-N", ns, "-t", t, "-x"] + once, dd_on,
+         ("gesvd", N_EIG_SMALL, N_EIG_SMALL, torch.float64))]
+    # the Jordan–Wielandt tridiagonals KT gets in these runs, captured
+    jw_from = {("testing_sgesvd", "-N", n): "sgesvd_jw",
+               ("testing_dgesvd", "-N", ns): "dgesvd_jw"}
+    jw = {}
+    kt_wrapper = tridiag.eigh_tridiagonal
+
+    def kt_capture(label):
+        def capture(d, e):
+            jw[f"{label}_{d.shape[0]}"] = (d.clone(), e.clone())
+            return kt_wrapper(d, e)
+        return capture
+
+    drivers = {}
+    k1_by, k2_by = {}, {}
+    kw_total = kt_total = 0
+    for argv, mca, (algo, mm, nn, dt) in runs:
+        want = eig_wants(torch, band, algo, mm, nn, NB_EIG, dt, dd=bool(mca))
+        prebuild_schedules(band, algo, mm, nn, NB_EIG)
+        label = None if mca else jw_from.get(tuple(argv[:3]))
+        if label:
+            tridiag.eigh_tridiagonal = kt_capture(label)
+        try:
+            r = eig_driver(torch, pk, pdd, argv, mca, want)
+        finally:
+            tridiag.eigh_tridiagonal = kt_wrapper
+        key = f"{argv[0]} {' '.join(argv[1:])}" + (" dd" if mca else "")
+        drivers[key] = r
+        path = argv[0][8:] + ("_dd" if mca else "")
+        k1_by[path] = k1_by.get(path, 0) + r["k1_launches_run"]
+        k2_by[path] = k2_by.get(path, 0) + r["k2_launches_run"]
+        kw_total += r["kw_launches_run"]
+        kt_total += r["kt_launches_run"]
+        torch.cuda.empty_cache()
+    for prog in ("testing_dhetrd", "testing_dgesvd"):
+        x = " -x" if prog.endswith("gesvd") else ""
+        dd_r = drivers[f"{prog} -N {ns} -t {t}{x} --nowarmup dd"]
+        nat = drivers[f"{prog} -N {ns} -t {t}{x} --nowarmup"]
+        log(f"[{prog}] N={ns}: dd {dd_r['best_s']:.5f} s, native FP64 "
+            f"{nat['best_s']:.5f} s, dd / FP64 "
+            f"{dd_r['best_s'] / nat['best_s']:.2f}x")
+    rec["drivers"] = drivers
+    lap("the drivers")
+    check(sorted(jw) == [f"dgesvd_jw_{2 * N_EIG_SMALL}",
+                         f"sgesvd_jw_{2 * N_EIG}"],
+          f"KT: captured Jordan–Wielandt tridiagonals {sorted(jw)}")
+    rec["kt"]["cases"].update(phase_kt_jw(torch, tridiag, jw))
+    del jw
+    lap("KT on the gesvd drivers' Jordan–Wielandt tridiagonals")
+
+    # direct calls: heev 2stage, its K1 products recorded (the recorder
+    # calls the wrapper: the launches count), then timed beside eigvalsh
+    A = generators.plghe(0.0, N_EIG, NB_EIG, seed=3872)
+    want = eig_wants(torch, band, "heev2", N_EIG, N_EIG, NB_EIG, f32)
+
+    def counts():
+        return {"k1": pk.LAUNCHES, "kw": sbr.LAUNCHES, "kt": tridiag.LAUNCHES}
+
+    def zero():
+        for mod in (pk, sbr, tridiag):
+            mod.reset_counts()
+
+    zero()
+    prods = recorded_k1_products(torch, pk,
+                                 lambda: eig.heev(A, method="2stage"))
+    got = counts()
+    zero()
+    t1 = time.perf_counter()
+    w = eig.heev(A, method="2stage")
+    torch.cuda.synchronize()
+    two = time.perf_counter() - t1
+    got2 = counts()
+    for g in (got, got2):
+        check(g == {k: want[k] for k in g},
+              f"heev 2stage N={N_EIG}: launches {g}, want {want}")
+    kw_total += got["kw"] + got2["kw"]
+    kt_total += got["kt"] + got2["kt"]
+    k1_by["sheev_2stage"] = got["k1"] + got2["k1"]
+    H = A.to_dense()
+    ev_ms = time_ms(torch, lambda: torch.linalg.eigvalsh(H), reps=1)
+    ref = torch.linalg.eigvalsh(H.double())
+    rel = float((w.double() - ref).abs().max() / ref.abs().max())
+    eps = torch.finfo(f32).eps
+    check(rel < 60 * eps * N_EIG,
+          f"heev 2stage N={N_EIG}: spectrum {rel:.3e} off eigvalsh")
+    log(f"[sheev] 2stage N={N_EIG} nb={NB_EIG}: {two:.3f} s (launches "
+        f"{got}), torch.linalg.eigvalsh {ev_ms:.1f} ms; spectrum "
+        f"{rel:.3e} off the f64 solver's (relative to the largest)")
+    rec["heev_2stage"] = {"s": two, "launches": got, "eigvalsh_ms": ev_ms,
+                          "rel": rel}
+    del H
+    # heev 2stage's window products (every dimension at most the first
+    # sweep's window; sgesvd's take the same code path on 512-wide padded
+    # operands, their launches held by the drivers)
+    V = 3 * NB_EIG + NB_EIG // 4
+    k1_paths = {"sheev_2stage_windows": k1_path_sum(
+        torch, pk, record, "sheev_2stage_windows",
+        [p for p in prods if max(p[1:4]) <= V], 1650)}
+    rec["k1_paths"] = {k: {kk: v for kk, v in t_.items() if kk != "rows"}
+                       for k, t_ in k1_paths.items()}
+    lap("heev 2stage and its K1 products")
+    del A
+    # the profile at N/4: at 8192 the profiler's post-processing of an
+    # shetrd's ~60k launches took 130 s
+    n_prof = N_EIG // 4
+    Ap = generators.plghe(0.0, n_prof, NB_EIG, seed=3872)
+    _profile(torch, record, "shetrd_eig_profile",
+             f"N={n_prof} nb={NB_EIG}", lambda: eig.hetrd(Ap))
+    del Ap
+    torch.cuda.empty_cache()
+    lap("the shetrd profile")
+
+    # the Givens chase on band storage: hbrdt's route for a BandMatrix
+    g = torch.Generator(device="cuda").manual_seed(1660)
+    X = torch.randn(N_CHASE, N_CHASE, device="cuda", generator=g)
+    X = torch.tril(torch.triu(X, -B_CHASE))
+    X = X + X.T
+    Bb = BandMatrix.from_dense(X, B_CHASE, B_CHASE)
+    steps = band.herm_chase_schedule(N_CHASE, B_CHASE).shape[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    d, e = eig.hbrdt(Bb, B_CHASE)
+    torch.cuda.synchronize()
+    chase_s = time.perf_counter() - t2
+    T = (torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)).double()
+    ref = torch.linalg.eigvalsh(X.double())
+    rel = float((torch.linalg.eigvalsh(T) - ref).abs().max()
+                / ref.abs().max())
+    check(rel < 60 * eps * N_CHASE,
+          f"Givens chase N={N_CHASE} b={B_CHASE}: spectrum {rel:.3e} off")
+    log(f"[chase] hbrdt on a BandMatrix N={N_CHASE} b={B_CHASE} (the "
+        f"band-storage Givens chase, {steps} rotations, plain torch): "
+        f"{chase_s:.2f} s, {1e6 * chase_s / steps:.1f} us a rotation; "
+        f"spectrum {rel:.3e} off the f64 solver's")
+    rec["chase"] = {"n": N_CHASE, "b": B_CHASE, "rotations": steps,
+                    "s": chase_s, "rel": rel}
+    lap("the Givens chase")
+    rec["kw_launches"] = kw_total
+    rec["kt_launches"] = kt_total
+    rec["k1_by"] = {k: v for k, v in k1_by.items() if v}
+    rec["k2_by"] = {k: v for k, v in k2_by.items() if v}
+    record["eig"] = rec
+    return rec, k1_paths
+
+
+
+def kt_entry(eigr):
+    main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
+    return {"name": "kt_tridiag_bisect", "route": "cuda",
+            "source": "dplasma_tpu_torch/kernels/csrc/tridiag_bisect.cu",
+            "replaces": "dplasma_tpu/ops/eig.py:205",
+            "launches": eigr["kt_launches"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in eigr["kt"]["cases"].values()),
+            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "by_case": eigr["kt"]["cases"]}
+
+
+def kw_entry(eigr):
+    r = eigr["kw_routes"]
+    return {"name": "kw_sbr_window", "route": "cuda",
+            "source": "dplasma_tpu_torch/kernels/csrc/sbr_window.cu",
+            "replaces": "dplasma_tpu/ops/band.py:460",
+            "launches": eigr["kw_launches"],
+            # f64 / c128 replays against the plain version
+            "max_abs_err": max(x["max_abs_err"] for x in eigr["kw_replay"]
+                               if x["dtype"] in ("torch.float64",
+                                                 "torch.complex128")),
+            "max_rel_err_f32_c64": max(
+                x["worst_kw"] for x in eigr["kw_replay"]
+                if x["dtype"] in ("torch.float32", "torch.complex64")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "kw_cond": KW_COND,
+            "replays": [{k: x[k] for k in ("kind", "m", "n", "b", "w",
+                                           "dtype", "steps", "slots",
+                                           "checked", "windows_held",
+                                           "worst_cond_kw",
+                                           "worst_cond_plain",
+                                           "kappa_at_worst_cond",
+                                           "kappa_max", "worst_kw",
+                                           "worst_plain", "median_ratio",
+                                           "sweep_ms", "step_us")}
+                        for x in eigr["kw_replay"]]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3790,13 +4751,15 @@ def main() -> int:
     k1cx, k2cx, k1cx_by, k2cx_by = phase_complex_lu_family(torch, pk, pdd,
                                                            dd, record)
     k1hq, k2hq, k1hq_by, k2hq_by = phase_hqr_ldl(torch, pk, pdd, dd, record)
+    eigr, k1eig = phase_eig(torch, pk, pdd, record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
                              products=t["products"])
                   for path, t in (("spotrf", k1tot), *k1luqr.items(),
                                   *k1cyc.items(), *k1inv.items(),
-                                  *k1cx.items(), *k1hq.items())}
+                                  *k1cx.items(), *k1hq.items(),
+                                  *k1eig.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
@@ -3830,20 +4793,21 @@ def main() -> int:
          "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
                       + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
-                      + sum(k1hq_by.values())),
+                      + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
                                    "potrf_cyclic": k1_pc,
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
                                   **ir["k1"], **k1inv_by, **k1cx_by,
-                                  **k1hq_by),
+                                  **k1hq_by, **eigr["k1_by"]),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
                             + [t["max_abs_err"] for t in k1inv.values()]
                             + [t["max_abs_err"] for t in k1cx.values()]
-                            + [t["max_abs_err"] for t in k1hq.values()]),
+                            + [t["max_abs_err"] for t in k1hq.values()]
+                            + [t["max_abs_err"] for t in k1eig.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -3852,11 +4816,12 @@ def main() -> int:
          "replaces": "dplasma_tpu/kernels/pallas_dd.py:83",
          "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
                       + sum(ir["k2"].values()) + sum(k2inv_by.values())
-                      + sum(k2cx_by.values()) + sum(k2hq_by.values())),
+                      + sum(k2cx_by.values()) + sum(k2hq_by.values())
+                      + sum(eigr["k2_by"].values())),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
                                    "dgemm_dd": k2_dgemm}, **ddf["k2"],
                                   **ir["k2"], **k2inv_by, **k2cx_by,
-                                  **k2hq_by),
+                                  **k2hq_by, **eigr["k2_by"]),
          "max_abs_err": max([k2tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k2cx.values()]
                             + [t["max_abs_err"] for t in k2hq.values()]),
@@ -3899,7 +4864,8 @@ def main() -> int:
          "bound_ms": k4tot["bound_ms"],
          "bound_by": qr_bound_ms(N_QR, NB_QR)[1],
          "library_ms": k4tot["library_ms"]},
-        k5_entry("bcast", 321), k5_entry("shift", 357)]}
+        k5_entry("bcast", 321), k5_entry("shift", 357),
+        kt_entry(eigr), kw_entry(eigr)]}
     record.update(kernels)
     record["wall_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -3955,7 +4921,29 @@ def main() -> int:
         f"shape held and timed once), K2's dgeqrf_hqr_dd and dhetrf_dd "
         f"(N={N_HQR_SMALL}) each shape of one direct call; their "
         f"launches_by_path count each phase 15 driver run (warm-up, timed "
-        f"run, -x check); "
+        f"run, -x check); phase 16: K1's by_path sheev_2stage_windows (N="
+        f"{N_EIG}, nb={NB_EIG}) each distinct product of one direct call with "
+        f"every dimension at most the first sweep's window (its window "
+        f"products and the last stage-1 panels'), its "
+        f"launches_by_path and K2's (dhetrd_dd, dgesvd_dd at "
+        f"{N_EIG_SMALL}) each phase 16 driver run (one timed run, no "
+        f"warm-up) and the two direct heev 2stage calls; KT's ms/plain_ms/"
+        f"bound_ms/library_ms are one tridiagonal of an shetrd at N={N_EIG} "
+        f"(plain version on the card; library = torch.linalg.eigvalsh of "
+        f"the dense tridiagonal; by_case also a dhetrd's at {N_EIG_SMALL} and "
+        f"the sgesvd ({N_EIG}) and dgesvd ({N_EIG_SMALL}) driver runs' "
+        f"Jordan–Wielandt tridiagonals, their plain version on the host "
+        f"over {KT_SAMPLE} + 5 indices), KW's the narrow "
+        f"sweeps of one shetrd and one sgebrd at N={N_EIG_ROUTES} through "
+        f"KW and through the plain version (bound from the live windows' "
+        f"strips and applies; no library call computes a window step); "
+        f"their launches are counted in each phase 16 driver run and "
+        f"around each of the two direct heev 2stage calls; KW's "
+        f"max_abs_err is the f64/c128 replays' worst against the plain "
+        f"version on random storage (max_rel_err_f32_c64 the f32/c64 "
+        f"replays' worst distance to the step in twice the precision; "
+        f"every slot of every held step within kw_cond eps kappa of its "
+        f"reference); "
         f"K1's "
         f"bound_ms is the 3xTF32 bound (3 passes of 2MNK at the TF32 "
         f"tensor-core peak), bound_ffma_ms the FP32 FFMA one; by_path "

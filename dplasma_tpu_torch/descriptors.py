@@ -266,3 +266,48 @@ class TileMatrix:
         return (f"TileMatrix({d.M}x{d.N}, tiles {d.mb}x{d.nb} "
                 f"[{d.MT}x{d.NT}], dist P={d.dist.P} Q={d.dist.Q}, "
                 f"{self.data.dtype}, {self.data.device})")
+
+
+@dataclasses.dataclass
+class BandMatrix:
+    """LAPACK band storage: row ``d`` of ``data`` holds diagonal
+    ``ku - d`` (columns aligned with the global column index), shape
+    (kl+ku+1, N). Ports the reference's ``BandMatrix``
+    (dplasma_tpu/descriptors.py:260-308): O(N·band) storage for the band
+    stages of the eigen/SVD chains."""
+
+    data: torch.Tensor
+    M: int
+    N: int
+    kl: int
+    ku: int
+
+    @staticmethod
+    def from_dense(a: torch.Tensor, kl: int, ku: int) -> "BandMatrix":
+        M, N = a.shape
+        data = torch.zeros((kl + ku + 1, N), dtype=a.dtype, device=a.device)
+        for i, d in enumerate(range(ku, -kl - 1, -1)):   # diag ku .. -kl
+            diag = torch.diagonal(a, offset=d)
+            pre = max(d, 0)
+            data[i, pre:pre + diag.shape[0]] = diag
+        return BandMatrix(data, M, N, kl, ku)
+
+    @staticmethod
+    def from_tiles(A: TileMatrix, kl: int, ku: int) -> "BandMatrix":
+        return BandMatrix.from_dense(A.to_dense(), kl, ku)
+
+    def to_dense(self) -> torch.Tensor:
+        out = torch.zeros((self.M, self.N), dtype=self.data.dtype,
+                          device=self.data.device)
+        for i, d in enumerate(range(self.ku, -self.kl - 1, -1)):
+            n = torch.diagonal(out, offset=d).shape[0]
+            pre = max(d, 0)
+            torch.diagonal(out, offset=d).copy_(self.data[i, pre:pre + n])
+        return out
+
+    def diagonal(self, offset: int = 0) -> torch.Tensor:
+        assert -self.kl <= offset <= self.ku, offset
+        row = self.ku - offset
+        pre = max(offset, 0)
+        n = min(self.M + min(offset, 0), self.N - max(offset, 0))
+        return self.data[row, pre:pre + n]

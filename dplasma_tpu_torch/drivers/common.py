@@ -39,6 +39,8 @@ from dplasma_tpu_torch.kernels import pallas_lu as _plu
 from dplasma_tpu_torch.kernels import pallas_qr as _pqr
 from dplasma_tpu_torch.kernels import pallas_ring as _pring
 from dplasma_tpu_torch.kernels import panels as _panels
+from dplasma_tpu_torch.kernels import sbr as _sbr
+from dplasma_tpu_torch.kernels import tridiag as _tridiag
 from dplasma_tpu_torch.parallel import mesh as _pmesh
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -51,7 +53,7 @@ RUNS: list = []
 #: (label, wrapper module with a ``LAUNCHES`` counter) of every
 #: hand-written kernel; op records carry ``<label>_launches``
 KERNELS = (("k1", _pk), ("k2", _pdd), ("k3", _plu), ("k4", _pqr),
-           ("k5", _pring))
+           ("k5", _pring), ("kt", _tridiag), ("kw", _sbr))
 
 
 @dataclass

@@ -10,7 +10,9 @@ under ``-p P -q Q``), ``getrf_incpiv``, ``gesv_incpiv`` and
 ``geqrf_systolic``, ``gelqf_systolic``, ``geqrf_rd``, their appliers
 ``unmqr_hqr``, ``unmlq_hqr``, ``unmqr_systolic``, ``unmlq_systolic``
 and the tree checker ``pivgen``; the LDLᴴ and butterfly solvers
-``hetrf`` and ``hebut`` (``-y/--butlvl``); the mixed-precision IR
+``hetrf`` and ``hebut`` (``-y/--butlvl``); the eigen/SVD chain
+``heev``, ``hetrd``, ``gesvd``, ``gebrd`` and its stages ``hbrdt`` and
+``gebrd_ge2gb``; the mixed-precision IR
 solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
 from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
 ``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``.
@@ -20,7 +22,7 @@ only, as in the reference) runs in all four precisions s, d, c and z.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:24, :31-41, :68-287,
 :290-381, :395-450, :454-455, :510-607, :609-713, :771-798,
-:801-868, :980-1067; the IR drivers
+:720-768, :801-868, :932-975, :980-1067; the IR drivers
 without the autopilot and the ladder's fallback rung, whose escape the
 solvers' own escalation already takes): seeded generation → timed run
 with the GFLOPS print → optional ``-x`` residual verification against
@@ -32,8 +34,8 @@ from __future__ import annotations
 import torch
 
 from dplasma_tpu_torch.drivers.common import Driver
-from dplasma_tpu_torch.ops import aux, blas3, checks, generators, hqr, ldl
-from dplasma_tpu_torch.ops import lu, norms, qr, rbt, refine
+from dplasma_tpu_torch.ops import aux, blas3, checks, eig, generators, hqr
+from dplasma_tpu_torch.ops import ldl, lu, norms, qr, rbt, refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
 from dplasma_tpu_torch.utils import flops as lawn41
 
@@ -554,6 +556,110 @@ def pivgen(drv: Driver):
     return 0
 
 
+# ------------------------------------------------------- eigen and SVD
+
+def _eig_slack(ip) -> float:
+    """Spectrum-check slack. The reference widens its check 50x for d and
+    z on its TPU, whose f64 is emulated; the card computes f64 natively,
+    so the slack stays 1 (the reference's CPU value)."""
+    del ip
+    return 1.0
+
+
+def _spectrum_residual(got, want):
+    """max|sort(got) − sort(want)| / (max|want| + 1)."""
+    got = torch.sort(got.to(want.dtype)).values
+    want = torch.sort(want).values
+    return float(torch.max(torch.abs(got - want))
+                 / (torch.max(torch.abs(want)) + 1.0))
+
+
+def heev(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he", bump=0.0)
+    out, _ = drv.progress(lambda a: eig.heev(a, "L"), (A0,),
+                          lawn41.heev(ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        w = out[0] if isinstance(out, tuple) else out
+        r = _spectrum_residual(w, torch.linalg.eigvalsh(A0.to_dense()))
+        eps = checks._eps(ip.prec_dtype)
+        return drv.report_check("HEEV eigenvalues", r,
+                                r < 60 * eps * ip.N * _eig_slack(ip))
+    return 0
+
+
+def hetrd(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he", bump=0.0)
+    drv.progress(lambda a: eig.hetrd(a, "L"), (A0,),
+                 lawn41.heev(ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def gesvd(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    out, _ = drv.progress(eig.gesvd, (A0,),
+                          lawn41.gebrd(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        s = out[0] if isinstance(out, tuple) else out
+        ref = torch.linalg.svdvals(A0.to_dense())
+        k = min(s.reshape(-1).shape[0], ref.shape[0])
+        got = torch.sort(s.reshape(-1).to(ref.dtype)).values[-k:]
+        want = torch.sort(ref).values[-k:]
+        r = float(torch.max(torch.abs(got - want)) / (ref.max() + 1.0))
+        eps = checks._eps(ip.prec_dtype)
+        return drv.report_check("GESVD singular values", r,
+                                r < 60 * eps * max(ip.M, ip.N))
+    return 0
+
+
+def gebrd(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    drv.progress(eig.gebrd, (A0,),
+                 lawn41.gebrd(ip.M, ip.N, ip.prec_dtype.is_complex))
+    return 0
+
+
+def hbrdt(drv: Driver):
+    """testing_zhbrdt: the band → tridiagonal stage alone, on the band
+    herbt leaves (untimed), called with bw = 2nb − 1 as the reference's
+    driver does."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he", bump=0.0)
+    Bm, _, _ = eig.herbt(A0, "L")
+    bw = 2 * A0.desc.nb - 1
+    # band-stage work only: ~6 N^2 bw flops (not the full heev count)
+    stage_flops = 6.0 * float(ip.N) ** 2 * bw
+    out, _ = drv.progress(lambda b: eig.hbrdt(b, bw), (Bm,), stage_flops)
+    if ip.check:
+        d, e = out
+        t = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+        ref = torch.linalg.eigvalsh(norms._sym_full(A0, "L", conj=True))
+        r = _spectrum_residual(torch.linalg.eigvalsh(t), ref)
+        eps = checks._eps(ip.prec_dtype)
+        return drv.report_check("HBRDT spectrum", r,
+                                r < 60 * eps * ip.N * _eig_slack(ip))
+    return 0
+
+
+def gebrd_ge2gb(drv: Driver):
+    """testing_zgebrd_ge2gb: the dense → band bidiagonal stage alone."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.N)
+    out, _ = drv.progress(eig.gebrd_ge2gb, (A0,),
+                          lawn41.gebrd(ip.M, ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        sb = torch.linalg.svdvals(out.to_dense())
+        sa = torch.linalg.svdvals(A0.to_dense())
+        r = float(torch.max(torch.abs(sb - sa)) / (torch.max(sa) + 1.0))
+        eps = checks._eps(ip.prec_dtype)
+        return drv.report_check("GE2GB svals", r,
+                                r < 60 * eps * max(ip.M, ip.N))
+    return 0
+
+
 # ------------------------------------------------- LDLᴴ and butterfly
 
 def hetrf(drv: Driver):
@@ -732,6 +838,8 @@ DRIVERS = {
     "unmqr_hqr": unmqr_hqr, "unmlq_hqr": unmlq_hqr,
     "unmqr_systolic": unmqr_systolic, "unmlq_systolic": unmlq_systolic,
     "pivgen": pivgen, "hetrf": hetrf, "hebut": hebut,
+    "heev": heev, "hetrd": hetrd, "gesvd": gesvd, "gebrd": gebrd,
+    "hbrdt": hbrdt, "gebrd_ge2gb": gebrd_ge2gb,
     "getrf": getrf_1d, "getrf_1d": getrf_1d,
     "getrf_ptgpanel": getrf_ptgpanel, "gesv": gesv,
     "getrf_incpiv": getrf_incpiv, "getrf_qrf": getrf_qrf,

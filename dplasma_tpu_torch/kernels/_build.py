@@ -25,7 +25,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
 #: kernel name -> source file under csrc/
 SOURCES = {"gemm": "gemm.cu", "recombine": "recombine.cu",
            "lu_panel": "lu_panel.cu", "geqrt_panel": "geqrt_panel.cu",
-           "ring": "ring.cu"}
+           "ring": "ring.cu", "tridiag_bisect": "tridiag_bisect.cu",
+           "sbr_window": "sbr_window.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -41,7 +41,10 @@ def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
         conj_b: bool = False):
     """op(a) @ op(b): ``ta``/``tb`` transpose, ``conj_*`` conjugate.
 
-    Transposes are views; K1 reads them through its strides."""
+    Transposes are views of the last two axes; K1 reads them through its
+    strides. Operands with leading batch axes (the band sweeps' windows,
+    the reference's ``vmap``) go to ``torch.matmul`` in their own dtype:
+    K1 and the limb route take 2-D operands only."""
     res_dtype = torch.promote_types(a.dtype, b.dtype)
     a = a.to(res_dtype)
     b = b.to(res_dtype)
@@ -50,9 +53,11 @@ def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
     if conj_b:
         b = b.conj()
     if ta:
-        a = a.T
+        a = a.mT
     if tb:
-        b = b.T
+        b = b.mT
+    if a.ndim > 2 or b.ndim > 2:
+        return torch.matmul(a, b)
     if _dd_active(res_dtype):
         return _dd.mm(a, b)
     if _pk.eligible(a, b):
@@ -76,12 +81,12 @@ def gemm(alpha, a, b, beta, c, ta=False, tb=False, conj_a=False,
 
 
 def tri(x, lower: bool = True, unit: bool = False):
-    """The named triangle (optionally with unit diagonal), non-square
-    safe."""
+    """The named triangle (optionally with unit diagonal) of the last two
+    axes, non-square safe."""
     t = torch.tril(x) if lower else torch.triu(x)
     if unit:
         t = t.clone()
-        t.diagonal().fill_(1)
+        t.diagonal(dim1=-2, dim2=-1).fill_(1)
     return t
 
 

@@ -138,9 +138,10 @@ def geqrt_cholqr(a):
 
 def split_qr(packed):
     """Split a packed geqrf result into (V, R): V unit
-    lower-trapezoidal (m, n), R upper triangular (n, n), m >= n."""
-    n = packed.shape[1]
-    r = torch.triu(packed[:n, :])
+    lower-trapezoidal (m, n), R upper triangular (n, n), m >= n; leading
+    batch axes pass through."""
+    n = packed.shape[-1]
+    r = torch.triu(packed[..., :n, :])
     v = k.tri(packed, lower=True, unit=True)
     return v, r
 
@@ -148,13 +149,14 @@ def split_qr(packed):
 def larft(v, taus):
     """The upper-triangular T of the compact-WY form Q = I - V T V^H
     (CORE_zlarft): with B = strict_upper(V^H V) and D = diag(tau),
-    T = (I + D B)^{-1} D — one product and one triangular solve."""
-    n = taus.shape[0]
+    T = (I + D B)^{-1} D — one product and one triangular solve. Leading
+    batch axes of ``v`` and ``taus`` pass through."""
+    n = taus.shape[-1]
     s = k.dot(v, v, ta=True, conj_a=True)
     b = torch.triu(s, 1)
     taus = taus.to(v.dtype)
-    m = torch.eye(n, dtype=v.dtype, device=v.device) + taus[:, None] * b
-    rhs = torch.diag(taus)
+    m = torch.eye(n, dtype=v.dtype, device=v.device) + taus[..., :, None] * b
+    rhs = torch.diag_embed(taus)
     return torch.linalg.solve_triangular(m, rhs, upper=True, left=True,
                                          unitriangular=True)
 

@@ -107,3 +107,12 @@ def use_grid(mesh: Optional[Mesh]):
     finally:
         _ACTIVE = prev
 
+
+
+def constrain2d(x: torch.Tensor, mesh: Optional[Mesh] = None) \
+        -> torch.Tensor:
+    """The reference's (rows→'p', cols→'q') sharding constraint
+    (dplasma_tpu/parallel/mesh.py:74-85). Every rank of the port's mesh
+    lives on one device, so there is nothing to place: the identity."""
+    del mesh
+    return x

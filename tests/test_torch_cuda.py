@@ -41,7 +41,17 @@ dd poinv bitwise equal to its plain version. The complex slice: the c
 and z generators bitwise equal on the card and the CPU; a complex dd
 product two 2K-deep K2 launches, each bitwise, the whole product the
 CPU's bits; zpotrf under dd with its derived launch count; the
-incpiv/qrf K1 products held as the inverse family's.
+incpiv/qrf K1 products held as the inverse family's. The eigen/SVD
+slice: KT within 2·eps·t_norm of its plain version (random, clustered,
+zero-diagonal and n = 2 tridiagonals), ascending, one launch; KW step
+by step against its plain version on random storage of a herm and a
+bidiag sweep (f64/c128 within 1e-11 relative; f32/c64 finite and, over
+the sweep, a median distance to the step in twice the precision at most
+4x the plain version's: once a random block is close to rank-deficient
+its last reflectors come from rounding noise and both f32 routes land
+far from the wide step); an shetrd and an sgesvd
+on the card with the KW / KT / K1 launches the schedules give and the
+spectrum of the dense solver.
 """
 import pytest
 import torch
@@ -1023,3 +1033,151 @@ def test_dd_hqr_and_hetrf_products_on_k2_bitwise(card, k1_on, monkeypatch):
     for g, w in zip(got, want):
         scale = float(w.data.abs().max())
         assert float((g.data.cpu() - w.data).abs().max()) <= 1e-12 * scale
+
+
+# ------------------------------------------------------- KT and KW
+
+def _kt_cases():
+    g = torch.Generator().manual_seed(11)
+    m = 10
+    return {"random": (torch.randn(700, generator=g),
+                       torch.randn(699, generator=g)),
+            "wilkinson": (torch.arange(-m, m + 1).abs().double(),
+                          torch.ones(2 * m)),
+            "zero_diag": (torch.zeros(301), torch.rand(300, generator=g)),
+            "n2": (torch.tensor([1.0, -3.0]), torch.tensor([0.75]))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "wilkinson", "zero_diag", "n2"])
+def test_kt_matches_plain_version(card, dtype, case):
+    from dplasma_tpu_torch.kernels import tridiag
+    d, e = (x.to(dtype).to(card) for x in _kt_cases()[case])
+    n = tridiag.LAUNCHES
+    got = tridiag.eigh_tridiagonal(d, e)
+    torch.cuda.synchronize()
+    assert tridiag.LAUNCHES == n + 1
+    want = tridiag.eigh_tridiagonal_reference(d, e)
+    a = e.abs().double()
+    row = torch.cat([a[:1], a[:-1] + a[1:], a[-1:]])
+    tn = float(torch.maximum((d.double() + row).abs().max(),
+                             (d.double() - row).abs().max()))
+    assert float((got - want).abs().max()) <= 2 * torch.finfo(dtype).eps * tn
+    assert bool((got[1:] >= got[:-1]).all())
+
+
+def _kw_check(got, plain, wide_plain, dtype, ratios):
+    """f64/c128: KW within 1e-11 of the plain step. f32/c64: finite, and
+    KW's distance to the step in twice the precision over the plain
+    version's kept for the median over the sweep (a step whose block is
+    close to rank-deficient sends both f32 routes far from the wide step,
+    so no per-step bound)."""
+    if wide_plain is None:
+        assert float((got - plain).abs().max()) <= \
+            1e-11 * float(plain.abs().max())
+        return
+    assert bool(torch.isfinite(got).all())
+    scale = float(wide_plain.abs().max())
+    e_kw = float((got.to(wide_plain.dtype) - wide_plain).abs().max())
+    e_pl = float((plain.to(wide_plain.dtype) - wide_plain).abs().max())
+    ratios.append(e_kw / max(e_pl, torch.finfo(dtype).eps * scale))
+
+
+def _median_ok(ratios):
+    return not ratios or sorted(ratios)[len(ratios) // 2] <= 4.0
+
+
+_WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("b,w", [(32, 8), (4, 1)])
+def test_kw_herm_steps_match_plain_version(card, dtype, b, w):
+    from dplasma_tpu_torch.kernels import sbr
+    from dplasma_tpu_torch.ops import band
+    n = 400
+    base, us, T, G, S, V, L0, hi = band._sbr_banded_schedule(n, b, w)
+    D = 2 * b + w
+    H = 2 * D + 1
+    g = torch.Generator(device="cuda").manual_seed(b)
+    F = torch.randn((L0 + max(hi, n) + S, H), dtype=dtype, device=card,
+                    generator=g)
+    geom = sbr.HermGeom(G, S, V, b, H, D)
+    ud = torch.from_numpy(us).to(card)
+    ratios = []
+    for t in range(T):
+        bs = int(base[t]) + L0
+        P = F.clone()
+        sbr.herm_step_reference(P, bs, ud[t], geom)
+        W = None
+        if dtype in _WIDE:
+            W = F.to(_WIDE[dtype])
+            sbr.herm_step_reference(W, bs, ud[t], geom)
+        sbr.herm_step(F, bs, ud, t, geom)
+        _kw_check(F, P, W, dtype, ratios)
+    assert _median_ok(ratios)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("m,n", [(300, 300), (300, 200), (200, 300)])
+def test_kw_bidiag_steps_match_plain_version(card, dtype, m, n):
+    from dplasma_tpu_torch.kernels import sbr
+    from dplasma_tpu_torch.ops import band
+    b, w = 31, 7
+    K = min(m, n)
+    c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(K, b, w, m < n)
+    lim = park0 + G * V
+    X = torch.zeros((max(lim, m), max(lim, n)), dtype=dtype, device=card)
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    X[:m, :n] = torch.randn((m, n), dtype=dtype, device=card, generator=g)
+    geom = sbr.BidiagGeom(G, V, b, X.shape[1])
+    tabs = tuple(torch.from_numpy(a).to(card) for a in (c0s, us, offs))
+    ratios = []
+    for t in range(T):
+        qr = t % 2 == 1
+        P = X.clone()
+        sbr.bidiag_step_reference(P, tabs[0][t], tabs[1][t], tabs[2][t],
+                                  geom, qr)
+        W = None
+        if dtype in _WIDE:
+            W = X.to(_WIDE[dtype])
+            sbr.bidiag_step_reference(W, tabs[0][t], tabs[1][t],
+                                      tabs[2][t], geom, qr)
+        sbr.bidiag_step(X, tabs, t, geom, qr)
+        _kw_check(X, P, W, dtype, ratios)
+    assert _median_ok(ratios)
+
+
+def test_eig_chain_on_card_launches_the_counted_kernels(card, k1_on):
+    """shetrd / heev 2stage and sgesvd at N=1024, nb=256: KW once a step
+    of each narrow sweep, KT once per tridiagonal, K1 on herbt's and the
+    first sweep's window products; spectra within the drivers' -x
+    gates of the dense solver's."""
+    from dplasma_tpu_torch.kernels import sbr, tridiag
+    from dplasma_tpu_torch.ops import band, eig, generators
+    n, nb = 1024, 256
+    A = generators.plghe(0.0, n, nb, seed=3)
+    kw = sum(band._sbr_banded_schedule(n, b, w)[2]
+             for b, w in band.sweep_ladder(nb) if sbr.eligible(b))
+    before = (sbr.LAUNCHES, tridiag.LAUNCHES)
+    w_ = eig.heev(A, method="2stage")
+    torch.cuda.synchronize()
+    assert (sbr.LAUNCHES - before[0], tridiag.LAUNCHES - before[1]) == \
+        (kw, 1)
+    ref = torch.linalg.eigvalsh(A.to_dense().double())
+    eps = torch.finfo(torch.float32).eps
+    assert float((w_.double() - ref).abs().max() / ref.abs().max()) < \
+        60 * eps * n
+    G = generators.plrnt(n, n, nb, nb, seed=4)
+    kw = sum(band._sbr_schedule_bidiag(n, b, w, False)[3]
+             for b, w in band.sweep_ladder(2 * nb - 1) if sbr.eligible(b))
+    before = (sbr.LAUNCHES, tridiag.LAUNCHES)
+    s = eig.gesvd(G)
+    torch.cuda.synchronize()
+    assert (sbr.LAUNCHES - before[0], tridiag.LAUNCHES - before[1]) == \
+        (kw, 1)
+    ref = torch.linalg.svdvals(G.to_dense().double())
+    assert float((s.double() - ref).abs().max() / ref.max()) < \
+        60 * eps * n

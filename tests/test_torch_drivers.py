@@ -218,9 +218,11 @@ def test_getrf_ptgpanel_grid_routes_k5(prog, capsys):
 
 def test_every_kernel_wrapper_is_counted():
     """The driver reads the launch counter of every kernel wrapper."""
+    from dplasma_tpu_torch.kernels import sbr, tridiag
     assert [lab for lab, _ in common.KERNELS] == ["k1", "k2", "k3", "k4",
-                                                  "k5"]
-    assert [mod for _, mod in common.KERNELS] == [pk, pdd, plu, pqr, pring]
+                                                  "k5", "kt", "kw"]
+    assert [mod for _, mod in common.KERNELS] == [pk, pdd, plu, pqr, pring,
+                                                  tridiag, sbr]
     assert all(hasattr(mod, "LAUNCHES") for _, mod in common.KERNELS)
 
 
@@ -244,7 +246,7 @@ def test_bad_invocations(capsys):
     with pytest.raises(SystemExit) as e:
         common.parse_arguments(["-N", "8", "--mtx", "2"])
     assert e.value.code == 2
-    assert main(["testing_sheev", "-N", "8"]) == 2
+    assert main(["testing_spotrf_dtd", "-N", "8"]) == 2
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
     with pytest.raises(SystemExit, match="invalid grid"):
         main(["testing_spotrf", "-N", "8", "-p", "0", "--device", "cpu"])
@@ -446,7 +448,7 @@ def test_dd_inverse_drivers_route_k2(prog, want, capsys):
 def test_registry_has_38_drivers_and_check_inv_parses():
     from dplasma_tpu.drivers import testers as ref_testers
     from dplasma_tpu_torch.drivers import testers
-    assert len(testers.DRIVERS) == 53
+    assert len(testers.DRIVERS) == 59
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
     for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
                  ["-N", "8", "-xX"]):
