@@ -192,30 +192,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bitwise and timed; hetrf's host share (its diagonal tiles' rank-1
    loops) and one shetrf under ``torch.profiler``.
 16. the eigen/SVD chain with the port's two kernels of its own, KT (the
-   tridiagonal eigenvalues by bisection) and KW (one step of a narrow
-   SBR sweep): KT against its plain version on the (d, e) of an shetrd
-   at N=8192 (the plain version on the card, timed) and a dhetrd at
-   N=4096 (on the host) and on edge cases (n = 1 and 2, e = 0,
-   Wilkinson's W₂₁⁺, a Jordan–Wielandt zero diagonal), within
-   2·eps·t_norm and ascending, timed beside ``torch.linalg.eigvalsh`` of
-   the dense tridiagonal; KW replayed over every narrow sweep of one
-   shetrd and one sgebrd at N=8192 and of c and z at 4096 on random
-   storage of that geometry, the plain version running the same step on
-   the same input at the first, the last and every 97th step (c128
-   within 1e-11; f32/c64 a median distance to the step in twice the
-   precision at most 4× the plain version's), the f32 sweeps timed
-   through KW; the narrow sweeps of an shetrd and an sgebrd at N=512
-   on real data through KW and through the plain version, their spectra
-   held to each other and the dense solver's and both timed (KW's ms
-   and plain_ms); the six drivers through ``drivers.main`` with K1 on,
-   one timed run each after their schedules are built (no warm-up run),
-   every count zeroed just before each run and read just after and
-   each timed run's K1 / K2 / KW / KT launches held to the counts
-   derived from ops/eig.py and the schedules: ``testing_sheev -x`` (the
-   dense solver, no kernel),
+   tridiagonal eigenvalues by bisection) and KW (the SBR sweeps with
+   b <= 128, one persistent launch a sweep): KT against its plain
+   version on the (d, e) of an shetrd at N=8192 and a dhetrd at N=4096
+   (the plain version on the host over a sample of indices) and on edge
+   cases (n = 1 and 2, e = 0, Wilkinson's W₂₁⁺, a Jordan–Wielandt zero
+   diagonal), within 2·eps·t_norm and ascending, timed beside
+   ``torch.linalg.eigvalsh`` of the dense tridiagonal; KW replayed over
+   every sweep it takes of one shetrd and one sgebrd (herm 64, 16, 4;
+   bidiag 127, 31, 7) at N=8192 and of c, d and z at 4096, and of the
+   Hermitian ladder of an shbrdt (herm 127, 31, 7) at N=8192, on random
+   storage of that geometry, one launch a step, the plain version
+   running the same step on the same input at the first, the last and
+   every 97th step (every window slot within KW_COND eps kappa of the
+   reference step; f64/c128 within 1e-11; f32/c64 a median distance to
+   the step in twice the precision at most 4× the plain version's),
+   then each sweep in one launch on the same input, timed and held
+   ``torch.equal`` to its step-by-step launches (the narrow sweeps in
+   both forms, warp and block, timed in the order A B B A, each run held
+   bitwise); the KW
+   sweeps of an shetrd and an sgebrd at N=512 on real data through KW
+   and through the plain version, their spectra held to each other and
+   the dense solver's and both timed (KW's ms and plain_ms); the window
+   QR forms at the plain and K1 routes' shapes (``[geqrf]``); the six
+   drivers through ``drivers.main`` with K1 on, one timed run each
+   after their schedules are built (no warm-up run), every count zeroed
+   just before each run and read just after and each timed run's K1 /
+   K2 / KW / KT launches and KW steps held to the counts derived from
+   ops/eig.py and the schedules: ``testing_sheev -x`` (the dense
+   solver, no kernel),
    ``shetrd``, ``shbrdt -x``, ``sgebrd``, ``sgesvd -x``,
    ``sgebrd_ge2gb -x`` at N=8192 nb=256 and ``sgesvd -x`` on 8192×4096
-   and 4096×8192, ``{d,c,z}hetrd`` and ``{d,c,z}gesvd -x`` at 4096,
+   and 4096×8192, ``{d,c,z}hetrd`` and ``{d,c,z}gesvd -x`` at 2048,
    ``dhetrd`` / ``dgesvd -x`` under ``dd_gemm=always`` beside native
    FP64; two direct ``eig.heev(method="2stage")`` calls at 8192, their
    launches and spectrum held beside ``eigvalsh``, every distinct K1
@@ -3779,10 +3787,13 @@ def phase_hqr_ldl(torch, pk, pdd, dd, record):
 
 # ---------------------------------------------------------------------
 # phase 16: the eigen/SVD chain (herbt, hbrdt, hetrd, heev, gebrd_ge2gb,
-# gebrd, gesvd) with kernels KT (tridiagonal bisection) and KW (the
-# narrow SBR window step)
+# gebrd, gesvd) with kernels KT (tridiagonal bisection) and KW (the SBR
+# sweeps with b <= 128, one launch a sweep)
 N_EIG, NB_EIG = 8192, 256
-N_EIG_SMALL = 4096       # d, c, z and the dd route, cut for time
+N_EIG_SMALL = 4096       # KW's d, c and z replays, the dhetrd KT case
+# the d, c, z and dd drivers: cut from 4096 to keep the script well
+# inside its time limit on a slow host (it took 908 s of 1200 at 4096)
+N_EIG_DRIVERS = 2048
 N_EIG_ROUTES = 512       # both routes of every narrow sweep on real data
 # the Givens chase, logged: ~800 us a rotation on the card (eager, ~30
 # launches each), so N=512's 126480 rotations took 107 s in this phase
@@ -3836,55 +3847,58 @@ def ge2gb_products(m, n, nb, gated=True):
 
 
 def herm_chain_counts(band, n, b, dtype):
-    """(K1, KW) launches of one herm_band_to_tridiag_scan from band b:
-    KW one a step of a sweep with b <= 32, K1 seven a live window of a
-    sweep whose window products pass K1's gate."""
-    k1 = kw = 0
+    """(K1, KW launches, KW steps) of one herm_band_to_tridiag_scan from
+    band b: KW one launch a sweep it takes (b <= 128) over all the
+    sweep's steps, K1 seven a live window of a sweep whose window
+    products pass K1's gate."""
+    k1 = kw = steps = 0
     b = min(b, max(n - 1, 1))
     if n <= 2 or b <= 1:
-        return 0, 0
+        return 0, 0, 0
     for bb, w in band.sweep_ladder(b):
         sch = band._sbr_banded_schedule(n, bb, w)
         if sch is None:
             continue
-        route = band._route("auto", bb, dtype, 3 * bb + w)
-        kw += sch[2] if route == "kw" else 0
+        route = band._route("auto", bb, dtype, 3 * bb + w, "herm")
+        kw += route == "kw"
+        steps += sch[2] if route == "kw" else 0
         k1 += 7 * int((sch[1] > 0).sum()) if route == "k1" else 0
-    return k1, kw
+    return k1, kw, steps
 
 
 def bidiag_chain_counts(band, m, n, nb, dtype):
-    """(K1, KW) launches of one bidiag_band_to_bidiag_scan of gebrd's
-    band (2nb − 1): KW one a step of a narrow sweep, K1 four a live
-    window of a sweep whose window products pass the gate."""
-    k1 = kw = 0
+    """(K1, KW launches, KW steps) of one bidiag_band_to_bidiag_scan of
+    gebrd's band (2nb − 1): KW one launch a sweep it takes, K1 four a
+    live window of a sweep whose window products pass the gate."""
+    k1 = kw = steps = 0
     b = min(2 * nb - 1, max(n - 1, 1))
     K = min(m, n)
     for bb, w in band.sweep_ladder(b):
         sch = band._sbr_schedule_bidiag(K, bb, w, m < n)
         if sch is None or K <= 1:
             continue
-        route = band._route("auto", bb, dtype, 3 * bb + w)
-        kw += sch[3] if route == "kw" else 0
+        route = band._route("auto", bb, dtype, 3 * bb + w, "bidiag")
+        kw += route == "kw"
+        steps += sch[3] if route == "kw" else 0
         k1 += 4 * int((sch[1] > 0).sum()) if route == "k1" else 0
-    return k1, kw
+    return k1, kw, steps
 
 
 def eig_wants(torch, band, algo, m, n, nb, dtype, dd=False):
-    """{k1, k2, kw, kt} launches of one timed run of ``algo``, derived
-    from ops/eig.py and the sweep schedules (K1 on, f32 only; K2 under
-    dd, every f64 stage-1 product)."""
+    """{k1, k2, kw, kt} launches and the KW steps (kw_steps) of one
+    timed run of ``algo``, derived from ops/eig.py and the sweep
+    schedules (K1 on, f32 only; K2 under dd, every f64 stage-1
+    product)."""
     f32 = dtype == torch.float32
-    w = {"k1": 0, "k2": 0, "kw": 0, "kt": 0}
+    w = {"k1": 0, "k2": 0, "kw": 0, "kt": 0, "kw_steps": 0}
     if algo == "heev":
         return w
     if algo in ("hetrd", "hbrdt", "heev2"):
         b = nb if algo != "hbrdt" else 2 * nb - 1
-        k1, kw = herm_chain_counts(band, n, b, dtype)
+        k1, w["kw"], w["kw_steps"] = herm_chain_counts(band, n, b, dtype)
         stage1 = 0 if algo == "hbrdt" else 1
         w["k1"] = (k1 + stage1 * herbt_products(n, nb)) if f32 else 0
         w["k2"] = stage1 * herbt_products(n, nb, gated=False) if dd else 0
-        w["kw"] = kw
         w["kt"] = int(algo == "heev2")
         return w
     g1 = ge2gb_products(m, n, nb) if f32 else 0
@@ -3892,9 +3906,8 @@ def eig_wants(torch, band, algo, m, n, nb, dtype, dd=False):
     if algo == "gebrd_ge2gb":
         w["k1"] = g1
         return w
-    k1, kw = bidiag_chain_counts(band, m, n, nb, dtype)
+    k1, w["kw"], w["kw_steps"] = bidiag_chain_counts(band, m, n, nb, dtype)
     w["k1"] = (g1 + k1) if f32 else 0
-    w["kw"] = kw
     w["kt"] = int(algo == "gesvd")
     return w
 
@@ -3902,24 +3915,27 @@ def eig_wants(torch, band, algo, m, n, nb, dtype, dd=False):
 def eig_driver(torch, pk, pdd, argv, mca, want):
     """One eig driver run through ``blas3_driver`` (K1/K2 held, -x gated;
     the KW and KT counts, too, zeroed just before and read just after),
-    then each timed run's KW and KT launches held to ``want``."""
+    then each timed run's KW and KT launches and KW steps held to
+    ``want``."""
     from dplasma_tpu_torch.drivers import common
     from dplasma_tpu_torch.kernels import sbr, tridiag
     sbr.reset_counts()
     tridiag.reset_counts()
     r = blas3_driver(torch, pk, pdd, argv, mca, want["k1"], want["k2"])
-    kw_run, kt_run = sbr.LAUNCHES, tridiag.LAUNCHES
+    kw_run, kt_run, steps_run = sbr.LAUNCHES, tridiag.LAUNCHES, sbr.STEPS
     op = common.RUNS[-1]["ops"][0]
-    for lab in ("kw", "kt"):
-        check(all(x == want[lab] for x in op[f"{lab}_launches"]),
-              f"{argv[0]}: {lab.upper()} launches {op[f'{lab}_launches']} "
-              f"(want {want[lab]})")
+    for lab in ("kw_launches", "kt_launches", "kw_steps"):
+        key = lab.replace("_launches", "")
+        check(all(x == want[key] for x in op[lab]),
+              f"{argv[0]}: {lab} {op[lab]} (want {want[key]})")
     log(f"[{argv[0]}] {' '.join(argv[1:])}: per timed run K1 "
         f"{op['k1_launches']} K2 {op['k2_launches']} KW {op['kw_launches']}"
-        f" KT {op['kt_launches']} (derived {want}); in the run KW {kw_run} "
-        f"KT {kt_run}")
+        f" over {op['kw_steps']} steps, KT {op['kt_launches']} (derived "
+        f"{want}); in the run KW {kw_run} over {steps_run} steps, KT "
+        f"{kt_run}")
     r.update(kw_launches=op["kw_launches"], kt_launches=op["kt_launches"],
-             kw_launches_run=kw_run, kt_launches_run=kt_run, want=want)
+             kw_steps=op["kw_steps"], kw_launches_run=kw_run,
+             kw_steps_run=steps_run, kt_launches_run=kt_run, want=want)
     return r
 
 
@@ -4009,16 +4025,15 @@ def kt_case(torch, tridiag, key, d, e, plain_on, library=True):
 
 def phase_kt(torch, tridiag, eig, generators, record):
     """KT against its plain version on the (d, e) of one s hetrd at
-    N=8192 (the plain version on the card over every index, timed: the
-    kernel line's shape, heev 2stage's) and one d hetrd at N=4096 (the
-    plain version on the host over a sample of indices: over all of
-    them its 53 iterations of n sequential vector steps take tens of
-    seconds), and on edge cases, within 2·eps·t_norm, its results
+    N=8192 (the kernel line's shape, heev 2stage's) and one d hetrd at
+    N=4096, the plain version on the host over a sample of indices (on
+    the card over every index the s case took 24.9 s, cut for the
+    script's time), and on edge cases, within 2·eps·t_norm, its results
     ascending; timed beside torch.linalg.eigvalsh of the dense
     tridiagonal and its operations bound. gesvd's Jordan–Wielandt
     tridiagonals are held after the drivers (:func:`phase_kt_jw`)."""
     out = {"cases": {}}
-    for prec, dt, where, n in (("s", torch.float32, "card", N_EIG),
+    for prec, dt, where, n in (("s", torch.float32, "host", N_EIG),
                                ("d", torch.float64, "host", N_EIG_SMALL)):
         A = generators.plghe(0.0, n, NB_EIG, seed=3872, dtype=dt)
         d, e = eig.hetrd(A)
@@ -4098,7 +4113,7 @@ def _kw_strips(torch, sbr, kind, X, geom, bs, tabs, t, qr):
     if kind == "herm":
         R, C = sbr.herm_views(X, bs, geom)
         return torch.cat([R.reshape(G, -1), C.reshape(G, -1)], 1)
-    idx = sbr.bidiag_index(tabs[0][t], tabs[2][t], geom, qr)
+    idx = sbr.bidiag_index(tabs.c0[t], tabs.off[t], geom, qr)
     return X.view(-1)[idx].reshape(G, -1)
 
 
@@ -4111,14 +4126,14 @@ def _kw_kappa(torch, sbr, kind, X, geom, bs, tabs, t, qr):
     b = geom.b
     if kind == "herm":
         R, _ = sbr.herm_views(X, bs, geom)
-        blk = sbr.masked_block(R, tabs[0][t], b)
+        blk = sbr.masked_block(R, tabs.u[t], b)
     else:
-        W = X.view(-1)[sbr.bidiag_index(tabs[0][t], tabs[2][t], geom, qr)]
+        W = X.view(-1)[sbr.bidiag_index(tabs.c0[t], tabs.off[t], geom, qr)]
         if qr:
             blk = W[:, :, :b]
         else:
             rows = torch.arange(b, device=X.device)
-            keep = (rows[None, :] < tabs[1][t][:, None])[:, :, None]
+            keep = (rows[None, :] < tabs.u[t][:, None])[:, :, None]
             blk = torch.where(keep, W[:, :b, :], torch.zeros(
                 (), dtype=X.dtype, device=X.device)).conj().mT
     sv = torch.linalg.svdvals(blk)
@@ -4128,16 +4143,33 @@ def _kw_kappa(torch, sbr, kind, X, geom, bs, tabs, t, qr):
     return torch.where(s0 > 0, s0 / smin, torch.ones_like(s0))
 
 
-def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
-    """Every step of one narrow sweep on random storage of the main
-    path's geometry through KW; at t = 0, T − 1 and every KW_EVERY-th
-    step the plain version runs the same step on a copy of the same
-    input (and, for f32/c64, in twice the precision: the reference) and
-    every window slot is held on its own: max|KW − reference| over the
-    slot's strips at most KW_COND · eps · κ · max|reference|, κ the
-    condition of the slot's QR block (:func:`_kw_kappa`). f64/c128 are
-    also held to KW_TOL64 over the whole storage. Then (``timed``) the
-    whole sweep once more through KW alone, timed."""
+def _kw_sweep_ms(torch, sbr, kind, X, tabs, T, geom, form=None):
+    """One launch of KW over the whole sweep on X, timed by CUDA
+    events."""
+    run = sbr.herm_steps if kind == "herm" else sbr.bidiag_steps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(X, tabs, 0, T, geom, form)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed):
+    """Every step of one sweep on random storage of the main path's
+    geometry through KW, one launch a step; at t = 0, T − 1 and every
+    KW_EVERY-th step the plain version runs the same step on a copy of
+    the same input (and, for f32/c64, in twice the precision: the
+    reference) and every window slot is held on its own: max|KW −
+    reference| over the slot's strips at most KW_COND · eps · κ ·
+    max|reference|, κ the condition of the slot's QR block
+    (:func:`_kw_kappa`). f64/c128 are also held to KW_TOL64 over the
+    whole storage. Then the whole sweep in ONE launch on the same input,
+    timed, held bitwise (torch.equal) to the step-by-step launches; a
+    narrow sweep also in its other form (warp or block), both forms
+    timed in the order A B B A and each run held bitwise to the first."""
     wide = _wide(torch, dtype)
     eps = torch.finfo(dtype).eps
     if kind == "herm":
@@ -4146,14 +4178,14 @@ def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
         H = 2 * D + 1
         shape = (L0 + max(hi, n) + S, H)
         geom = sbr.HermGeom(G, S, V, b, H, D)
-        tabs = band._to_device((us,), "cuda")
+        tabs = sbr.herm_tabs(base + L0, us, geom, "cuda")
         bases = (base + L0).tolist()
 
         def kernel(X, t):
-            sbr.herm_step(X, bases[t], tabs[0], t, geom)
+            sbr.herm_step(X, tabs, t, geom)
 
         def plain(X, t):
-            sbr.herm_step_reference(X, bases[t], tabs[0][t], geom)
+            sbr.herm_step_reference(X, bases[t], tabs.u[t], geom)
     else:
         K = min(m, n)
         c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(
@@ -4161,14 +4193,14 @@ def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
         lim = park0 + G * V
         shape = (max(lim, m), max(lim, n))
         geom = sbr.BidiagGeom(G, V, b, shape[1])
-        tabs = band._to_device((c0s, us, offs), "cuda")
+        tabs = sbr.bidiag_tabs(c0s, us, offs, geom, "cuda")
         bases = [0] * T
 
         def kernel(X, t):
-            sbr.bidiag_step(X, tabs, t, geom, t % 2 == 1)
+            sbr.bidiag_step(X, tabs, t, geom)
 
         def plain(X, t):
-            sbr.bidiag_step_reference(X, tabs[0][t], tabs[1][t], tabs[2][t],
+            sbr.bidiag_step_reference(X, tabs.c0[t], tabs.u[t], tabs.off[t],
                                       geom, t % 2 == 1)
 
     def storage():
@@ -4182,17 +4214,25 @@ def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
         return _kw_strips(torch, sbr, kind, X, geom, bases[t], tabs, t,
                           t % 2 == 1)
 
+    pl = sbr.plan(b, V, dtype, kind)
     X = storage()
     worst_kw = worst_pl = worst_abs = 0.0
     checked = windows = 0
+    plain_ms = 0.0
     ratios = []
     cond = {"kw": 0.0, "plain": 0.0, "kappa_at_kw": 1.0, "kappa_max": 1.0}
     worst_step = {}
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
     for t in range(T):
         held = t in (0, T - 1) or t % KW_EVERY == 0
         if held:
             Xp = X.clone()
+            ev[0].record()
             plain(Xp, t)
+            ev[1].record()
+            torch.cuda.synchronize()
+            plain_ms += ev[0].elapsed_time(ev[1])
             Xw = ref = None
             if wide is not None:
                 Xw = X.to(wide)
@@ -4246,24 +4286,47 @@ def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
     check(median <= KW_RATIO,
           f"KW {kind} {dtype} {m}x{n} {b}->{w}: median of KW's distance "
           f"to the {wide} step over the plain version's {median:.2f}")
+    # the whole sweep in one launch, on the same input: bitwise the steps
+    Y = storage()
+    launches, steps = sbr.LAUNCHES, sbr.STEPS
+    ms = _kw_sweep_ms(torch, sbr, kind, Y, tabs, T, geom)
+    check((sbr.LAUNCHES - launches, sbr.STEPS - steps) == (1, T),
+          f"KW {kind} {b}->{w}: the sweep took {sbr.LAUNCHES - launches} "
+          f"launches over {sbr.STEPS - steps} steps (want 1 over {T})")
+    same = bool(torch.equal(X, Y))
+    check(same, f"KW {kind} {dtype} {m}x{n} {b}->{w}: the sweep's one "
+                f"launch differs from its {T} one-step launches")
     del X
-    ms = float("nan")
-    if timed:
-        X = storage()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for t in range(T):
-            kernel(X, t)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
-        del X
-    del tabs
+    # a narrow sweep in both forms, timed in the order A B B A (A the one
+    # plan takes, timed above; B's kernel loaded by one step first), each
+    # run bitwise the first
+    other, other_ms, form_ms = None, None, {pl.form: [ms]}
+    if b <= sbr.WARP_MAX_B:
+        other = "block" if pl.form == "warp" else "warp"
+        form_ms[other] = []
+        run = sbr.herm_steps if kind == "herm" else sbr.bidiag_steps
+        run(storage(), tabs, 0, 1, geom, other)
+        for f in (other, other, pl.form):
+            Z = storage()
+            form_ms[f].append(_kw_sweep_ms(torch, sbr, kind, Z, tabs, T,
+                                           geom, form=f))
+            check(bool(torch.equal(Y, Z)),
+                  f"KW {kind} {dtype} {b}->{w}: the {f} form's sweep "
+                  f"differs from the {pl.form} form's first")
+            del Z
+        other_ms = sum(form_ms[other]) / 2
+    del Y, tabs
     torch.cuda.empty_cache()
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes, flops = kw_sweep_cost(band, kind, m, n, b, w, isz,
+                                  dtype.is_complex)
+    peak = FP32_FLOPS if dtype in (torch.float32, torch.complex64) \
+        else FP64_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
     rec = {"kind": kind, "m": m, "n": n, "b": b, "w": w,
            "dtype": str(dtype), "steps": T, "slots": G,
+           "form": pl.form, "ncta": pl.ncta, "threads": pl.threads,
+           "smem": pl.smem,
            "live_windows": int((us > 0).sum()), "checked": checked,
            "windows_held": windows,
            "worst_kw": worst_kw, "worst_plain": worst_pl,
@@ -4271,44 +4334,91 @@ def kw_replay(torch, band, sbr, kind, m, n, b, w, dtype, seed, timed=True):
            "worst_cond_kw": cond["kw"], "worst_cond_plain": cond["plain"],
            "kappa_at_worst_cond": cond["kappa_at_kw"],
            "kappa_max": cond["kappa_max"], "worst_step": worst_step,
-           "sweep_ms": ms, "step_us": 1e3 * ms / T}
+           "one_launch_equal": same, "sweep_ms": ms, "step_us": 1e3 * ms / T,
+           "other_form": other, "other_form_ms": other_ms,
+           "form_ms": form_ms, "plain_ms_held": plain_ms, "plain_step_us": 1e3 * plain_ms /
+           max(checked, 1),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops}
     ref_txt = "plain" if wide is None else str(wide)[6:] + " plain"
+    blk = ("" if other is None else
+           f"; the two forms in the order A B B A, ms: {pl.form} "
+           + " / ".join(f"{x:.2f}" for x in form_ms[pl.form])
+           + f", {other} " + " / ".join(f"{x:.2f}" for x in form_ms[other])
+           + f" (mean {other_ms:.2f}, {1e3 * other_ms / T:.2f} us a step; "
+           f"bitwise the {pl.form} form's)")
     log(f"[kw] replay {kind} {str(dtype)[6:]} {m}x{n} {b}->{w}: T={T} "
-        f"G={G}, {checked} steps held, {windows} slots each within "
+        f"G={G} ({pl.form}, {pl.ncta} CTA, {pl.threads} threads, "
+        f"{pl.smem} B), {checked} steps held, {windows} slots each within "
         f"{KW_COND:g} eps kappa of the {ref_txt} step: worst KW "
         f"{cond['kw']:.3g} (kappa {cond['kappa_at_kw']:.3g}), plain "
         f"{cond['plain']:.3g}, largest kappa {cond['kappa_max']:.3g}; over "
         f"the storage worst KW {worst_kw:.3e} plain {worst_pl:.3e} (median "
         f"ratio {median:.2f} <= {KW_RATIO:g}), the worst step t="
         f"{worst_step.get('t')}: slot kappa {worst_step.get('kappa', 0):.3g}"
-        f", {worst_step.get('ratio', 0):.3g} eps kappa; the sweep through "
-        f"KW {ms:.2f} ms, {rec['step_us']:.2f} us a step ({T} launches)")
+        f", {worst_step.get('ratio', 0):.3g} eps kappa; the sweep in one "
+        f"launch {ms:.2f} ms, {rec['step_us']:.2f} us a step, torch.equal "
+        f"to its {T} one-step launches {same}{blk}; bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); the plain version "
+        f"{plain_ms:.1f} ms over the {checked} held steps, "
+        f"{rec['plain_step_us']:.1f} us a step")
     return rec
 
 
+def kw_barrier_us(torch, band, sbr):
+    """µs a step of KW's grid barrier alone: the f32 bidiagonal 7→1
+    sweep of an N_EIG sgebrd in one launch with every slot parked (u = 0:
+    a window returns at once), so a step is the barrier and the table
+    reads; the most per-slot step flags could save. Mean of 3 launches
+    after one."""
+    K, b, w = N_EIG, 7, 1
+    c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(K, b, w,
+                                                              False)
+    lim = park0 + G * V
+    X = torch.zeros((max(lim, K), max(lim, K)), device="cuda")
+    geom = sbr.BidiagGeom(G, V, b, X.shape[1])
+    tabs = sbr.bidiag_tabs(c0s, 0 * us, offs, geom, "cuda")
+    ms = time_ms(torch, lambda: sbr.bidiag_steps(X, tabs, 0, T, geom))
+    check(not bool(X.any()), "KW: a parked sweep wrote to X")
+    out = {"steps": T, "slots": G, "ms": ms, "us_a_step": 1e3 * ms / T}
+    log(f"[kw] the grid barrier alone: the bidiag {b}->{w} sweep at "
+        f"N={K} with every slot parked, {T} steps over {G} slots in one "
+        f"launch {ms:.3f} ms, {out['us_a_step']:.3f} us a step")
+    del X, tabs
+    return out
+
+
 def kw_sweep_cost(band, kind, m, n, b, w, isz, cplx):
-    """(bytes, flops) one narrow sweep must move and do: per live window
+    """(bytes, flops) one sweep must move and do: per live window
     the strips read once and written once (herm: the b×V row strip read,
     it and the V×b column strip written; bidiag: one b×V strip each
-    way), and the reflectors' applies (~8·u·b·V real flops herm, 4·u·b·V
-    bidiag, x4 complex)."""
+    way), and the reflectors' applies: reflector j of a window of width u
+    (j < u) spans b − j elements and meets the V − j − 1 lines past its
+    pivot, a dot and an update each, 4·(b − j) real flops a line (x4
+    complex); the herm step adds its b×b right pass, b rows more."""
+    import numpy as np
     f = 4 if cplx else 1
     if kind == "herm":
         base, us, T, G, S, V, L0, hi = band._sbr_banded_schedule(n, b, w)
-        live = us[us > 0].astype(float)
-        return (3.0 * b * V * isz * live.size,
-                f * 8.0 * b * V * float(live.sum()))
-    K = min(m, n)
-    c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(K, b, w, m < n)
-    live = us[us > 0].astype(float)
-    return 2.0 * b * V * isz * live.size, f * 4.0 * b * V * float(live.sum())
+        extra, nbytes = b, 3.0 * b * V * isz
+    else:
+        K = min(m, n)
+        c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(
+            K, b, w, m < n)
+        extra, nbytes = 0, 2.0 * b * V * isz
+    j = np.arange(b, dtype=np.float64)
+    upto = np.concatenate([[0.0], np.cumsum(4.0 * (b - j)
+                                            * (V - 1 - j + extra))])
+    live = us[us > 0]
+    return nbytes * live.size, f * float(upto[live].sum())
 
 
 def phase_kw_routes(torch, band, sbr, eig, generators, record):
-    """The narrow sweeps of one shetrd and one sgebrd at N_EIG_ROUTES on
-    real data through KW and through the plain version: the spectra of
-    the two tridiagonals (bidiagonals) held to each other and to the
-    dense solver's; both routes' narrow sweeps timed (KW's ms and
+    """The sweeps KW takes (b <= 128) of one shetrd and one sgebrd at
+    N_EIG_ROUTES on real data through KW and through the plain version:
+    the spectra of the two tridiagonals (bidiagonals) held to each other
+    and to the dense solver's; both routes' sweeps timed (KW's ms and
     plain_ms in the kernel line) beside their bound."""
     n, nb = N_EIG_ROUTES, NB_EIG
     A = generators.plghe(0.0, n, nb, seed=3872)
@@ -4320,7 +4430,9 @@ def phase_kw_routes(torch, band, sbr, eig, generators, record):
 
     def timed(route, sweep):
         def run(*a):
-            if not sbr.eligible(a[3] if len(a) == 5 else a[2]):
+            kind = "bidiag" if len(a) == 5 else "herm"
+            b, w = a[-2:] if kind == "bidiag" else a[2:4]
+            if not sbr.eligible(b, 3 * b + w, a[0].dtype, kind):
                 return sweep(*a)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4366,7 +4478,7 @@ def phase_kw_routes(torch, band, sbr, eig, generators, record):
             f"{kw_r:.3e}, plain vs it {pl_r:.3e} (relative to the largest)")
     for kind, b0 in (("herm", nb), ("bidiag", 2 * nb - 1)):
         for bb, w in band.sweep_ladder(b0):
-            if sbr.eligible(bb):
+            if sbr.eligible(bb, 3 * bb + w, torch.float32, kind):
                 c = kw_sweep_cost(band, kind, n, n, bb, w, 4, False)
                 cost[0] += c[0]
                 cost[1] += c[1]
@@ -4375,7 +4487,7 @@ def phase_kw_routes(torch, band, sbr, eig, generators, record):
                bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=cost[0], flops=cost[1])
-    log(f"[kw] the narrow sweeps of one shetrd and one sgebrd (N={n}, "
+    log(f"[kw] the KW sweeps of one shetrd and one sgebrd (N={n}, "
         f"nb={nb}): KW {out['ms']:.1f} ms, plain {out['plain_ms']:.1f} ms "
         f"(host clock around each sweep, synchronized), bound "
         f"{out['bound_ms']:.3f} ms ({out['bound_by']}: {cost[0] / 1e9:.2f} "
@@ -4397,12 +4509,13 @@ def prebuild_schedules(band, algo, m, n, nb):
 
 
 def geqrf_batched_vs_loop(torch, band):
-    """The batched torch route's window QR (band._live_factor) at the
-    sweeps where the chains at N_EIG take that route, f32 / f64 / c128,
-    per step: one batched torch.geqrf over the G window slots against a
-    loop of 2-D calls over the step's mean number of live windows, each
-    timed by CUDA events (mean of 5 after a warm-up); the measurement
-    behind band.LOOP_QR_MIN_B."""
+    """The window QR of the plain and K1 routes (band._live_factor) at
+    the chains' sweeps with b > 32 at N_EIG, f32 / f64 / c128, per step:
+    one batched torch.geqrf over the G window slots (the plain route
+    below LOOP_QR_MIN_B), one batched call over the step's mean number
+    of live windows only, and a loop of 2-D calls over them (the plain
+    and K1 routes from LOOP_QR_MIN_B), each timed by CUDA events (mean
+    of 5 after a warm-up); the measurement behind band.LOOP_QR_MIN_B."""
     out = []
     shapes = []
     for kind, b0 in (("herm", NB_EIG), ("bidiag", 2 * NB_EIG - 1)):
@@ -4417,18 +4530,22 @@ def geqrf_batched_vs_loop(torch, band):
     for dt in (torch.float32, torch.float64, torch.complex128):
         for kind, G, live, b in shapes:
             x = torch.randn(G, b, b, dtype=dt, device="cuda", generator=g)
+            xl = x[:live].contiguous()
             t_b = time_ms(torch, lambda: torch.geqrf(x), reps=5)
+            t_lb = time_ms(torch, lambda: torch.geqrf(xl), reps=5)
             t_l = time_ms(torch, lambda: [torch.geqrf(x[i])
                                           for i in range(live)], reps=5)
             takes = "loop" if b >= band.LOOP_QR_MIN_B else "batched"
             out.append({"dtype": str(dt), "sweep": kind, "G": G,
                         "live": live, "b": b, "batched_ms": t_b,
-                        "loop_ms": t_l, "takes": takes})
+                        "live_batched_ms": t_lb, "loop_ms": t_l,
+                        "takes": takes})
             log(f"[geqrf] {str(dt)[6:]} {kind} b={b}, a step: batched over "
-                f"its G={G} slots {t_b:.3f} ms, loop of 2-D over its mean "
-                f"{live} live windows {t_l:.3f} ms; the route takes the "
-                f"{takes} form (LOOP_QR_MIN_B {band.LOOP_QR_MIN_B})")
-            del x
+                f"its G={G} slots {t_b:.3f} ms, batched over its mean {live} "
+                f"live windows {t_lb:.3f} ms, loop of 2-D over them "
+                f"{t_l:.3f} ms; the plain and K1 routes take the {takes} "
+                f"form (LOOP_QR_MIN_B {band.LOOP_QR_MIN_B})")
+            del x, xl
     torch.cuda.empty_cache()
     return out
 
@@ -4458,20 +4575,24 @@ def phase_eig(torch, pk, pdd, record):
 
     rec["kt"] = phase_kt(torch, tridiag, eig, generators, record)
     lap("KT against its plain version")
-    # KW replayed on random storage: every narrow sweep of one shetrd
-    # and one sgebrd at 8192 (each also timed alone), c, d and z at 4096
+    # KW replayed on random storage: every sweep it takes of one shetrd
+    # and one sgebrd (herm 64, 16, 4; bidiag 127, 31, 7) at 8192 in f32,
+    # c, d and z at 4096, and of the Hermitian ladder of shbrdt's 511-wide
+    # band (herm 127, 31, 7) at 8192 in f32; each also timed in one launch
     reps = []
     for dt, n in ((torch.float32, N_EIG), (torch.complex64, N_EIG_SMALL),
                   (torch.float64, N_EIG_SMALL),
                   (torch.complex128, N_EIG_SMALL)):
-        for kind, b0, seed in (("herm", NB_EIG, 1700),
-                               ("bidiag", 2 * NB_EIG - 1, 1800)):
+        ladders = [("herm", NB_EIG, 1700), ("bidiag", 2 * NB_EIG - 1, 1800)]
+        if dt == torch.float32:
+            ladders.append(("herm", 2 * NB_EIG - 1, 1900))
+        for kind, b0, seed in ladders:
             for bb, w in band.sweep_ladder(b0):
-                if sbr.eligible(bb):
+                if sbr.eligible(bb, 3 * bb + w, dt, kind):
                     reps.append(kw_replay(torch, band, sbr, kind, n, n, bb,
-                                          w, dt, seed + bb,
-                                          timed=dt == torch.float32))
+                                          w, dt, seed + bb))
     rec["kw_replay"] = reps
+    rec["kw_barrier"] = kw_barrier_us(torch, band, sbr)
     lap("KW replays")
     rec["kw_routes"] = phase_kw_routes(torch, band, sbr, eig, generators,
                                        record)
@@ -4482,7 +4603,8 @@ def phase_eig(torch, pk, pdd, record):
     # the drivers, each one timed run: the schedules of its shape are
     # built just before it (what its warm-up run would build), so no
     # timed run builds one
-    n, t, ns = str(N_EIG), str(NB_EIG), str(N_EIG_SMALL)
+    n, t, ns, nd = (str(N_EIG), str(NB_EIG), str(N_EIG_SMALL),
+                    str(N_EIG_DRIVERS))
     f32 = torch.float32
     dts = {"s": f32, "d": torch.float64, "c": torch.complex64,
            "z": torch.complex128}
@@ -4506,19 +4628,19 @@ def phase_eig(torch, pk, pdd, record):
          ("gesvd", N_EIG_SMALL, N_EIG, f32))]
     for p in ("d", "c", "z"):
         runs += [
-            ([f"testing_{p}hetrd", "-N", ns, "-t", t] + once, {},
-             ("hetrd", N_EIG_SMALL, N_EIG_SMALL, dts[p])),
-            ([f"testing_{p}gesvd", "-N", ns, "-t", t, "-x"] + once, {},
-             ("gesvd", N_EIG_SMALL, N_EIG_SMALL, dts[p]))]
+            ([f"testing_{p}hetrd", "-N", nd, "-t", t] + once, {},
+             ("hetrd", N_EIG_DRIVERS, N_EIG_DRIVERS, dts[p])),
+            ([f"testing_{p}gesvd", "-N", nd, "-t", t, "-x"] + once, {},
+             ("gesvd", N_EIG_DRIVERS, N_EIG_DRIVERS, dts[p]))]
     dd_on = {"dd_gemm": "always"}
     runs += [
-        (["testing_dhetrd", "-N", ns, "-t", t] + once, dd_on,
-         ("hetrd", N_EIG_SMALL, N_EIG_SMALL, torch.float64)),
-        (["testing_dgesvd", "-N", ns, "-t", t, "-x"] + once, dd_on,
-         ("gesvd", N_EIG_SMALL, N_EIG_SMALL, torch.float64))]
+        (["testing_dhetrd", "-N", nd, "-t", t] + once, dd_on,
+         ("hetrd", N_EIG_DRIVERS, N_EIG_DRIVERS, torch.float64)),
+        (["testing_dgesvd", "-N", nd, "-t", t, "-x"] + once, dd_on,
+         ("gesvd", N_EIG_DRIVERS, N_EIG_DRIVERS, torch.float64))]
     # the Jordan–Wielandt tridiagonals KT gets in these runs, captured
     jw_from = {("testing_sgesvd", "-N", n): "sgesvd_jw",
-               ("testing_dgesvd", "-N", ns): "dgesvd_jw"}
+               ("testing_dgesvd", "-N", nd): "dgesvd_jw"}
     jw = {}
     kt_wrapper = tridiag.eigh_tridiagonal
 
@@ -4530,7 +4652,7 @@ def phase_eig(torch, pk, pdd, record):
 
     drivers = {}
     k1_by, k2_by = {}, {}
-    kw_total = kt_total = 0
+    kw_total = kt_total = steps_total = 0
     for argv, mca, (algo, mm, nn, dt) in runs:
         want = eig_wants(torch, band, algo, mm, nn, NB_EIG, dt, dd=bool(mca))
         prebuild_schedules(band, algo, mm, nn, NB_EIG)
@@ -4548,17 +4670,18 @@ def phase_eig(torch, pk, pdd, record):
         k2_by[path] = k2_by.get(path, 0) + r["k2_launches_run"]
         kw_total += r["kw_launches_run"]
         kt_total += r["kt_launches_run"]
+        steps_total += r["kw_steps_run"]
         torch.cuda.empty_cache()
     for prog in ("testing_dhetrd", "testing_dgesvd"):
         x = " -x" if prog.endswith("gesvd") else ""
-        dd_r = drivers[f"{prog} -N {ns} -t {t}{x} --nowarmup dd"]
-        nat = drivers[f"{prog} -N {ns} -t {t}{x} --nowarmup"]
-        log(f"[{prog}] N={ns}: dd {dd_r['best_s']:.5f} s, native FP64 "
+        dd_r = drivers[f"{prog} -N {nd} -t {t}{x} --nowarmup dd"]
+        nat = drivers[f"{prog} -N {nd} -t {t}{x} --nowarmup"]
+        log(f"[{prog}] N={nd}: dd {dd_r['best_s']:.5f} s, native FP64 "
             f"{nat['best_s']:.5f} s, dd / FP64 "
             f"{dd_r['best_s'] / nat['best_s']:.2f}x")
     rec["drivers"] = drivers
     lap("the drivers")
-    check(sorted(jw) == [f"dgesvd_jw_{2 * N_EIG_SMALL}",
+    check(sorted(jw) == [f"dgesvd_jw_{2 * N_EIG_DRIVERS}",
                          f"sgesvd_jw_{2 * N_EIG}"],
           f"KT: captured Jordan–Wielandt tridiagonals {sorted(jw)}")
     rec["kt"]["cases"].update(phase_kt_jw(torch, tridiag, jw))
@@ -4571,7 +4694,8 @@ def phase_eig(torch, pk, pdd, record):
     want = eig_wants(torch, band, "heev2", N_EIG, N_EIG, NB_EIG, f32)
 
     def counts():
-        return {"k1": pk.LAUNCHES, "kw": sbr.LAUNCHES, "kt": tridiag.LAUNCHES}
+        return {"k1": pk.LAUNCHES, "kw": sbr.LAUNCHES, "kt": tridiag.LAUNCHES,
+                "kw_steps": sbr.STEPS}
 
     def zero():
         for mod in (pk, sbr, tridiag):
@@ -4592,6 +4716,7 @@ def phase_eig(torch, pk, pdd, record):
               f"heev 2stage N={N_EIG}: launches {g}, want {want}")
     kw_total += got["kw"] + got2["kw"]
     kt_total += got["kt"] + got2["kt"]
+    steps_total += got["kw_steps"] + got2["kw_steps"]
     k1_by["sheev_2stage"] = got["k1"] + got2["k1"]
     H = A.to_dense()
     ev_ms = time_ms(torch, lambda: torch.linalg.eigvalsh(H), reps=1)
@@ -4653,6 +4778,7 @@ def phase_eig(torch, pk, pdd, record):
                     "s": chase_s, "rel": rel}
     lap("the Givens chase")
     rec["kw_launches"] = kw_total
+    rec["kw_steps"] = steps_total
     rec["kt_launches"] = kt_total
     rec["k1_by"] = {k: v for k, v in k1_by.items() if v}
     rec["k2_by"] = {k: v for k, v in k2_by.items() if v}
@@ -4680,6 +4806,7 @@ def kw_entry(eigr):
             "source": "dplasma_tpu_torch/kernels/csrc/sbr_window.cu",
             "replaces": "dplasma_tpu/ops/band.py:460",
             "launches": eigr["kw_launches"],
+            "steps": eigr["kw_steps"],
             # f64 / c128 replays against the plain version
             "max_abs_err": max(x["max_abs_err"] for x in eigr["kw_replay"]
                                if x["dtype"] in ("torch.float64",
@@ -4691,6 +4818,7 @@ def kw_entry(eigr):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,
             "kw_cond": KW_COND,
+            "barrier_us_a_step": eigr["kw_barrier"]["us_a_step"],
             "replays": [{k: x[k] for k in ("kind", "m", "n", "b", "w",
                                            "dtype", "steps", "slots",
                                            "checked", "windows_held",
@@ -4699,7 +4827,13 @@ def kw_entry(eigr):
                                            "kappa_at_worst_cond",
                                            "kappa_max", "worst_kw",
                                            "worst_plain", "median_ratio",
-                                           "sweep_ms", "step_us")}
+                                           "form", "ncta", "sweep_ms",
+                                           "one_launch_equal", "step_us",
+                                           "other_form", "other_form_ms",
+                                           "form_ms",
+                                           "plain_ms_held",
+                                           "plain_step_us", "bound_ms",
+                                           "bound_by")}
                         for x in eigr["kw_replay"]]}
 
 
@@ -4926,18 +5060,21 @@ def main() -> int:
         f"every dimension at most the first sweep's window (its window "
         f"products and the last stage-1 panels'), its "
         f"launches_by_path and K2's (dhetrd_dd, dgesvd_dd at "
-        f"{N_EIG_SMALL}) each phase 16 driver run (one timed run, no "
+        f"{N_EIG_DRIVERS}) each phase 16 driver run (one timed run, no "
         f"warm-up) and the two direct heev 2stage calls; KT's ms/plain_ms/"
         f"bound_ms/library_ms are one tridiagonal of an shetrd at N={N_EIG} "
-        f"(plain version on the card; library = torch.linalg.eigvalsh of "
-        f"the dense tridiagonal; by_case also a dhetrd's at {N_EIG_SMALL} and "
-        f"the sgesvd ({N_EIG}) and dgesvd ({N_EIG_SMALL}) driver runs' "
-        f"Jordan–Wielandt tridiagonals, their plain version on the host "
-        f"over {KT_SAMPLE} + 5 indices), KW's the narrow "
-        f"sweeps of one shetrd and one sgebrd at N={N_EIG_ROUTES} through "
-        f"KW and through the plain version (bound from the live windows' "
-        f"strips and applies; no library call computes a window step); "
-        f"their launches are counted in each phase 16 driver run and "
+        f"(library = torch.linalg.eigvalsh of the dense tridiagonal; "
+        f"by_case also a dhetrd's at {N_EIG_SMALL} and the sgesvd "
+        f"({N_EIG}) and dgesvd ({N_EIG_DRIVERS}) driver runs' "
+        f"Jordan–Wielandt tridiagonals; the plain version on the host "
+        f"over {KT_SAMPLE} + 5 indices), KW's the sweeps it takes "
+        f"(b <= 128) of one shetrd and one sgebrd at N={N_EIG_ROUTES} "
+        f"through KW and through the plain version (bound from the live "
+        f"windows' strips and applies; no library call computes a window "
+        f"step; replays: each sweep at {N_EIG} f32, {N_EIG_SMALL} c/d/z in "
+        f"one launch, its steps, us a step, bound and the plain version's "
+        f"time over the held steps); its launches (one a sweep) and steps "
+        f"are counted in each phase 16 driver run and "
         f"around each of the two direct heev 2stage calls; KW's "
         f"max_abs_err is the f64/c128 replays' worst against the plain "
         f"version on random storage (max_rel_err_f32_c64 the f32/c64 "

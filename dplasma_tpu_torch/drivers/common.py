@@ -51,7 +51,8 @@ PRECISIONS = {"s": torch.float32, "d": torch.float64,
 RUNS: list = []
 
 #: (label, wrapper module with a ``LAUNCHES`` counter) of every
-#: hand-written kernel; op records carry ``<label>_launches``
+#: hand-written kernel; op records carry ``<label>_launches``, and
+#: ``kw_steps``, the sweep steps KW's launches ran
 KERNELS = (("k1", _pk), ("k2", _pdd), ("k3", _plu), ("k4", _pqr),
            ("k5", _pring), ("kt", _tridiag), ("kw", _sbr))
 
@@ -298,8 +299,9 @@ class Driver:
 
     def _timed(self, fn: Callable, args: tuple):
         """One run of ``fn``: (output, seconds, {label: launches} of
-        every kernel in :data:`KERNELS`)."""
+        every kernel in :data:`KERNELS`, and "kw_steps")."""
         before = {lab: mod.LAUNCHES for lab, mod in KERNELS}
+        steps = _sbr.STEPS
         if self.device.type == "cuda":
             self.sync()
             start = torch.cuda.Event(enable_timing=True)
@@ -313,8 +315,9 @@ class Driver:
             t0 = time.perf_counter()
             out = fn(*args)
             secs = time.perf_counter() - t0
-        return out, secs, {lab: mod.LAUNCHES - before[lab]
-                           for lab, mod in KERNELS}
+        return out, secs, {**{lab: mod.LAUNCHES - before[lab]
+                              for lab, mod in KERNELS},
+                           "kw_steps": _sbr.STEPS - steps}
 
     def progress(self, fn: Callable, args: tuple, flops: float,
                  label: Optional[str] = None):
@@ -326,12 +329,14 @@ class Driver:
             _, warm, _ = self._timed(fn, args)
         times = []
         launches = {lab: [] for lab, _ in KERNELS}
+        kw_steps = []
         out = None
         for _ in range(max(ip.nruns, 1)):
             out, secs, n = self._timed(fn, args)
             times.append(secs)
             for lab in launches:
                 launches[lab].append(n[lab])
+            kw_steps.append(n["kw_steps"])
         best = min(times)
         gflops = (flops / 1e9) / best
         enq = dest = 0.0
@@ -339,11 +344,13 @@ class Driver:
         self.record["ops"].append({
             "op": name, "flops": flops, "warmup_s": warm, "runs_s": times,
             "best_s": best, "gflops": gflops,
-            **{f"{lab}_launches": n for lab, n in launches.items()}})
+            **{f"{lab}_launches": n for lab, n in launches.items()},
+            "kw_steps": kw_steps})
         if ip.loud >= 2:
             print(f"#+ kernels[{name}]: " + ", ".join(
                 f"{lab.upper()} launches per run = {n}"
-                for lab, n in launches.items()))
+                for lab, n in launches.items())
+                + f", KW steps per run = {kw_steps}")
         print("[****] TIME(s) %12.5f : %s\tPxQxg= %3d %-3d %d NB= %4d "
               "N= %7d : %14f gflops - ENQ&PROG&DEST %12.5f : %14f gflops"
               " - ENQ %12.5f - DEST %12.5f"

@@ -1,68 +1,98 @@
-"""KW, one step of a narrow successive-band-reduction sweep, on Hopper.
+"""KW, the successive-band-reduction sweeps with b <= 128, on Hopper.
 
-A kernel of the port with no Pallas counterpart: the reference runs the
-step as plain JAX inside ``lax.scan`` with ``jax.vmap`` over the
-independent windows of the step (``dplasma_tpu/ops/band.py``: ``one``
-of ``herm_sbr_sweep_banded`` :460-482, ``qr_one`` / ``lq_one`` of
-``bidiag_sbr_sweep`` :291-307), compiled once. Eager PyTorch pays launch
-and Python cost on every step instead, and the sweeps with b <= 32 hold
-94-97% of the steps of a chain (tens of thousands at N = 8192), each a
-batch of up to a thousand b×b QRs and two strip applies. KW does one
-step in one launch: ``csrc/sbr_window.cu``, CUDA C++ for ``sm_90a``.
+A kernel of the port with no Pallas counterpart: the reference runs each
+step of a sweep as plain JAX inside one ``lax.scan`` with ``jax.vmap``
+over the independent windows of the step (``dplasma_tpu/ops/band.py``:
+``one`` of ``herm_sbr_sweep_banded`` :460-482, ``qr_one`` / ``lq_one`` of
+``bidiag_sbr_sweep`` :291-307), so XLA compiles the whole sweep once.
+Eager PyTorch would pay launch and Python cost on every one of a chain's
+tens of thousands of steps, and torch's batched QR of the wide sweeps'
+windows is a library call per step. KW runs a range of steps of one sweep
+in one persistent launch: ``csrc/sbr_window.cu``, CUDA C++ for
+``sm_90a``. A sweep on the ``kw`` route (``ops/band.py``) is one launch.
 
-Design: one thread block per window slot of the step. The block copies
-its strips into shared memory (the herm step's row strip R, b×V, and
-its column strip, V×b; the bidiag QR step's b×V rows or the LQ step's
-V×b columns: at most 123 KB in complex128 at b = 32), runs the masked
-Householder QR column by column with LAPACK ``larfg`` conventions
-(β = −sign(Re α)·‖(α, x)‖, τ = 0 when x = 0 and Im α = 0, as
-``torch.geqrf`` gives them; not K4's τ = 2 rule), applies each
-reflector to the row strip from the left and to the column strip from
-the right as it is made, and writes the strips back in place. The
-step tables (window anchors, elimination widths, offsets) live on the
-device; the host loop passes the step index and nothing else, with no
-slicing and no synchronisation per step.
+Design (the source has the details): a window is V lines of b elements
+in shared memory, and one Householder QR runs over it with LAPACK
+``larfg`` conventions (β = −sign(Re α)·‖(α, x)‖, τ = 0 when x = 0 and
+Im α = 0, as ``torch.geqrf`` gives them), each reflector stored in
+place and applied as it is made. The Hermitian step holds only its row
+strip: its column strip is written as the mirror of the updated rows, and
+its trailing b×b block takes the right-hand pass. The LQ step holds its
+column strip conjugated, so it is the same left-hand QR. Three launch
+forms (:func:`plan`): one warp a window (several windows a block) for
+the narrow sweeps where that measured faster, one block a window, or a
+thread-block cluster of 2-8 CTAs a window where a bidiagonal window does
+not fit one block's 227 KB. Blocks stride over
+the window slots of a step; a grid barrier in global memory orders the
+steps. Sums run in a fixed order, so a launch over [0, T) is bitwise
+equal to T launches of one step (:func:`herm_step`, :func:`bidiag_step`,
+kept for replays and the card tests), and the forms agree bitwise.
 
-What bounds it: neither bytes nor operations. A step moves 2·G·b·V
-elements each way and does ~8·G·b²·V flops, microseconds of work at the
-card's rates; the block's chain of b reflectors, each a reduction and a
-barrier, and the launch itself take the time (PERF.md has the numbers).
+What bounds it: neither bytes nor operations. A step moves its strips
+once each way and does ~4·b²·V flops a window, microseconds of work at
+the card's rates; the chain of b reflectors per window, each a
+reduction and two barriers, and the grid barrier between steps take the
+time (PERF.md has the numbers).
 
 The plain versions (:func:`herm_step_reference`,
 :func:`bidiag_step_reference`) are the batched torch route: the
 reference's window step with its ``vmap`` axis written out (batched
 ``torch.geqrf``, ``householder.larft`` and the two compact-WY applies
-on 3-D tensors). The band sweeps take that route directly for b > 32,
-and the wrappers take it for a CPU tensor. On a CUDA tensor the
-wrappers launch KW or raise. ``ROUTED`` counts wrapper calls on any
-device, ``LAUNCHES`` the CUDA launches.
+on 3-D tensors). The band sweeps take that route for what KW refuses,
+and the wrappers take it for a CPU tensor, step by step. On a CUDA tensor
+the wrappers launch KW or raise. ``ROUTED`` counts wrapper calls on any
+device, ``LAUNCHES`` the CUDA launches and ``STEPS`` the sweep steps
+those launches ran.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from dplasma_tpu_torch.kernels import householder as hh
 
-#: widest band the kernel takes (its shared-memory plan)
-MAX_B = 32
+#: widest band the kernel takes
+MAX_B = 128
+#: bytes of shared memory one block may use (H100: 227 KB)
+SMEM_MAX = 232448
+#: bands up to this may run one warp a window
+WARP_MAX_B = 8
+#: (kind, b, dtype) of the narrow sweeps that take the warp form: where it
+#: measured faster than one block a window. chip_smoke phase 16 times both
+#: forms of every narrow sweep it replays in the order A B B A; on an H100
+#: 80GB HBM3 at 700 W, f32 herm 4->1 at N=8192 took 193.25 / 193.16 ms
+#: warp, 207.61 / 208.32 ms block, and the block form was ahead in the
+#: other 8 (sweep, dtype) pairs (herm 7->1 f32 319.37 / 319.38 against
+#: 347.33 / 347.22)
+WARP_FORM = {("herm", 4, torch.float32)}
+#: windows a block in the warp form
+WARP_WINDOWS = 4
+#: CTAs a cluster may hold (the portable limit)
+MAX_CLUSTER = 8
 
 #: wrapper calls on any device
 ROUTED = 0
 #: CUDA launches of KW
 LAUNCHES = 0
+#: sweep steps those launches ran
+STEPS = 0
 
 _DTYPES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
            torch.complex128: 3}
-_FNS: dict = {}
+_ISZ = {torch.float32: 4, torch.float64: 8, torch.complex64: 8,
+        torch.complex128: 16}
+_FORMS = {"warp": 0, "block": 1, "cluster": 2}
+_FN: list = []
 
 
 def reset_counts() -> None:
-    global ROUTED, LAUNCHES
+    global ROUTED, LAUNCHES, STEPS
     ROUTED = 0
     LAUNCHES = 0
+    STEPS = 0
 
 
 class HermGeom(NamedTuple):
@@ -86,9 +116,114 @@ class BidiagGeom(NamedTuple):
     ld: int
 
 
-def eligible(b: int) -> bool:
-    """Does a sweep of band ``b`` take KW? (b <= :data:`MAX_B`)"""
-    return 1 <= b <= MAX_B
+class Plan(NamedTuple):
+    """How KW launches a sweep: ``form`` "warp" (``wpb`` windows a
+    block), "block" or "cluster" (``ncta`` CTAs a window), ``threads`` a
+    block and ``smem`` bytes of shared memory a block."""
+    form: str
+    ncta: int
+    threads: int
+    wpb: int
+    smem: int
+
+
+def _threads(lines: int) -> int:
+    return min(512, max(64, -(-lines // 32) * 32))
+
+
+def line_stride(b: int, dtype) -> int:
+    """A window line's stride in shared memory, in elements: a whole
+    number of 16-byte vectors, odd (against bank conflicts), >= b."""
+    E = 16 // _ISZ[dtype]
+    m = -(-b // E)
+    return (m + 1 - m % 2) * E
+
+
+def plan(b: int, V: int, dtype, kind: str,
+         form: Optional[str] = None) -> Optional[Plan]:
+    """KW's launch of a ``kind`` ("herm" or "bidiag") sweep of band ``b``
+    and window ``V`` in ``dtype``, or None where KW refuses it. A window
+    holds V lines of b elements at :func:`line_stride` (plus its taus; a
+    cluster CTA also one reflector copy). ``form`` None takes the warp
+    form where :data:`WARP_FORM` lists the sweep, else one block, else
+    (bidiag only) the smallest cluster of 2, 4 or 8 CTAs whose share of
+    the lines fits :data:`SMEM_MAX`; ``form`` "warp" (b <=
+    :data:`WARP_MAX_B`) or "block" forces one, so the two narrow forms
+    can be timed side by side (chip_smoke phase 16's ``[kw]`` lines, on
+    which :data:`WARP_FORM` rests)."""
+    if not (1 <= b <= MAX_B and b <= V <= 4 * b) or dtype not in _ISZ:
+        return None
+    isz, LS = _ISZ[dtype], line_stride(b, dtype)
+    E = 16 // isz
+    if form is None:
+        form = "warp" if (kind, b, dtype) in WARP_FORM else "block"
+    if form == "warp" and b <= WARP_MAX_B:
+        smem = WARP_WINDOWS * (V * LS + -(-b // E) * E) * isz
+        if smem <= SMEM_MAX:
+            return Plan("warp", 1, 32 * WARP_WINDOWS, WARP_WINDOWS, smem)
+    smem = (V * LS + b) * isz
+    if smem <= SMEM_MAX:
+        return Plan("block", 1, _threads(V), 1, smem)
+    if kind != "bidiag":
+        return None
+    n = 2
+    while n <= MAX_CLUSTER:
+        P = -(-V // n)
+        smem = (P * LS + LS + b + 1) * isz
+        if smem <= SMEM_MAX:
+            return Plan("cluster", n, _threads(P), 1, smem)
+        n *= 2
+    return None
+
+
+def eligible(b: int, V: int, dtype, kind: str) -> int:
+    """Does a ``kind`` sweep of band ``b``, window ``V``, in ``dtype``
+    take KW? The CTAs a window needs (1 for one block or warp), 0 where
+    KW refuses it (b > :data:`MAX_B`, or more than :data:`MAX_CLUSTER`
+    CTAs, or a Hermitian window larger than one block)."""
+    p = plan(b, V, dtype, kind)
+    return 0 if p is None else p.ncta
+
+
+class HermTabs(NamedTuple):
+    """A Hermitian sweep's step tables on the device: ``base`` (T,) int64,
+    the F row of slot 0's anchor at each step; ``u`` (T, G) int32, the
+    elimination widths; and, from the host, ``rows`` = [lo, hi), the F
+    rows its windows span."""
+    base: torch.Tensor
+    u: torch.Tensor
+    rows: tuple
+
+
+class BidiagTabs(NamedTuple):
+    """A bidiagonal sweep's step tables on the device, (T, G) int32 each:
+    window anchors ``c0``, widths ``u``, LQ column offsets ``off``; and,
+    from the host, ``rows`` = [lo, hi), the rows and columns of X its
+    windows span."""
+    c0: torch.Tensor
+    u: torch.Tensor
+    off: torch.Tensor
+    rows: tuple
+
+
+def _dev(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def herm_tabs(base, u, geom: HermGeom, device) -> HermTabs:
+    """The device tables of a Hermitian sweep from its host schedule
+    (``base`` (T,) F rows of slot 0, ``u`` (T, G))."""
+    lo = int(np.min(base))
+    hi = int(np.max(base)) + (geom.G - 1) * geom.S + geom.V
+    return HermTabs(_dev(base, np.int64, device), _dev(u, np.int32, device),
+                    (lo, hi))
+
+
+def bidiag_tabs(c0, u, off, geom: BidiagGeom, device) -> BidiagTabs:
+    """The device tables of a bidiagonal sweep from its host schedule."""
+    return BidiagTabs(_dev(c0, np.int32, device), _dev(u, np.int32, device),
+                      _dev(off, np.int32, device),
+                      (int(np.min(c0)), int(np.max(c0)) + geom.V))
 
 
 def herm_views(F, bs: int, geom: HermGeom):
@@ -205,15 +340,17 @@ def bidiag_step_reference(X, c0, u, off, geom: BidiagGeom, qr: bool,
 # the kernel
 # ---------------------------------------------------------------------
 
-def _kernel(entry: str):
-    fn = _FNS.get(entry)
-    if fn is None:
+def _lib():
+    if not _FN:
         from dplasma_tpu_torch.kernels import _build
         lib = _build.load("sbr_window")
-        fn = getattr(lib, entry)
+        fn = lib.dtt_kw_sweep
         fn.restype = ctypes.c_int
-        _FNS[entry] = fn
-    return fn
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
+        _FN.append(fn)
+    return _FN[0]
 
 
 def _check(t, what):
@@ -227,65 +364,107 @@ def _check(t, what):
                         f"got {t.dtype}")
 
 
-def herm_step(F, bs: int, u_tab, t: int, geom: HermGeom) -> None:
-    """One Hermitian band-storage step of a sweep with b <= 32, in place
-    on F. ``u_tab`` is the sweep's (T, G) int32 table of elimination
-    widths on F's device, ``t`` the step, ``bs`` the F row of slot 0's
-    anchor."""
-    global ROUTED, LAUNCHES
+def _check_tabs(A, tabs, shapes, t0: int, t1: int, what: str):
+    T = tabs.u.shape[0]
+    if not 0 <= t0 < t1 <= T:
+        raise ValueError(f"KW {what}: steps [{t0}, {t1}) outside [0, {T})")
+    for name, (dt, shape) in shapes.items():
+        x = getattr(tabs, name)
+        if (x.device != A.device or x.dtype != dt or not x.is_contiguous()
+                or tuple(x.shape) != shape):
+            raise ValueError(f"KW {what}: table {name} must be a "
+                             f"contiguous {dt} {shape} on {A.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _launch(A, herm: bool, tabs, t0: int, t1: int, geom, pl: Plan,
+            what: str) -> None:
+    global LAUNCHES, STEPS
+    fn = _lib()
+    dev = A.device
+    # the grid barrier's counter, this launch's own: zeroed on the
+    # launch's stream, and freed to that stream after it
+    bar = (torch.zeros(1, dtype=torch.int64, device=dev) if t1 - t0 > 1
+           else None)
+    if herm:
+        G, S, V, b, H, D = geom
+        ld, ptrs = 0, (tabs.base.data_ptr(), 0, tabs.u.data_ptr(), 0)
+    else:
+        G, V, b, ld = geom
+        S = H = D = 0
+        ptrs = (0, tabs.c0.data_ptr(), tabs.u.data_ptr(), tabs.off.data_ptr())
+    with torch.cuda.device(dev):
+        err = fn(_DTYPES[A.dtype], int(herm), A.data_ptr(), ld, *ptrs, t0,
+                 t1, G, V, b, S, H, D, _FORMS[pl.form], pl.ncta, pl.threads,
+                 pl.wpb, None if bar is None else bar.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"KW {what} launch failed: error {err} "
+                           f"({A.dtype}, {geom}, {pl}, steps [{t0}, {t1}))")
+    LAUNCHES += 1
+    STEPS += t1 - t0
+
+
+def herm_steps(F, tabs: HermTabs, t0: int, t1: int, geom: HermGeom,
+               form: Optional[str] = None) -> None:
+    """Steps [t0, t1) of one Hermitian band-storage sweep, in place on F,
+    in one launch (``form`` forces :func:`plan`'s form)."""
+    global ROUTED
     G, S, V, b, H, D = geom
-    if not eligible(b):
-        raise ValueError(f"KW takes b <= {MAX_B}, got {b}")
+    pl = plan(b, V, F.dtype, "herm", form)
+    if pl is None:
+        raise ValueError(f"KW refuses a herm sweep b={b} V={V} {F.dtype}")
     ROUTED += 1
     if F.device.type == "cpu":
-        herm_step_reference(F, bs, u_tab[t], geom)
+        for t in range(t0, t1):
+            herm_step_reference(F, int(tabs.base[t]), tabs.u[t], geom)
         return
-    _check(F, "herm step")
-    if bs < 0 or (bs + G * S) * H > F.numel():
-        raise ValueError(f"KW herm step: window rows [{bs}, "
-                         f"{bs + G * S}) outside F {tuple(F.shape)}")
-    fn = _kernel("dtt_kw_herm_step")
-    with torch.cuda.device(F.device):
-        err = fn(ctypes.c_int(_DTYPES[F.dtype]), ctypes.c_void_p(F.data_ptr()),
-                 ctypes.c_longlong(bs),
-                 ctypes.c_void_p(u_tab.data_ptr() + 4 * t * G),
-                 ctypes.c_int(G), ctypes.c_int(S), ctypes.c_int(V),
-                 ctypes.c_int(b), ctypes.c_int(H), ctypes.c_int(D),
-                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"KW herm step launch failed: cudaError {err} "
-                           f"({F.dtype}, {geom})")
-    LAUNCHES += 1
+    _check(F, "herm steps")
+    T = tabs.base.shape[0]
+    _check_tabs(F, tabs, {"base": (torch.int64, (T,)),
+                          "u": (torch.int32, (T, G))}, t0, t1, "herm steps")
+    lo, hi = tabs.rows
+    if F.dim() != 2 or F.shape[1] != H or lo < 0 or hi > F.shape[0]:
+        raise ValueError(f"KW herm steps: window rows [{lo}, {hi}) outside "
+                         f"F {tuple(F.shape)} (row width {H})")
+    _launch(F, True, tabs, t0, t1, geom, pl, "herm steps")
 
 
-def bidiag_step(X, tabs, t: int, geom: BidiagGeom, qr: bool) -> None:
-    """One bidiagonal dense-layout step (QR when ``qr``, else LQ) of a
-    sweep with b <= 32, in place on X. ``tabs`` = (c0, u, off), the
-    sweep's (T, G) int32 tables on X's device."""
-    global ROUTED, LAUNCHES
+def bidiag_steps(X, tabs: BidiagTabs, t0: int, t1: int, geom: BidiagGeom,
+                 form: Optional[str] = None) -> None:
+    """Steps [t0, t1) of one bidiagonal dense-layout sweep (odd steps QR,
+    even LQ), in place on X, in one launch."""
+    global ROUTED
     G, V, b, ld = geom
-    if not eligible(b):
-        raise ValueError(f"KW takes b <= {MAX_B}, got {b}")
-    c0, u, off = tabs
+    pl = plan(b, V, X.dtype, "bidiag", form)
+    if pl is None:
+        raise ValueError(f"KW refuses a bidiag sweep b={b} V={V} {X.dtype}")
     ROUTED += 1
     if X.device.type == "cpu":
-        bidiag_step_reference(X, c0[t], u[t], off[t], geom, qr)
+        for t in range(t0, t1):
+            bidiag_step_reference(X, tabs.c0[t], tabs.u[t], tabs.off[t],
+                                  geom, t % 2 == 1)
         return
-    _check(X, "bidiag step")
-    if X.dim() != 2 or X.shape[1] != ld:
-        raise ValueError(f"KW bidiag step: X {tuple(X.shape)} does not "
-                         f"have row stride {ld}")
-    fn = _kernel("dtt_kw_bidiag_step")
-    o = 4 * t * G
-    with torch.cuda.device(X.device):
-        err = fn(ctypes.c_int(_DTYPES[X.dtype]), ctypes.c_int(int(qr)),
-                 ctypes.c_void_p(X.data_ptr()), ctypes.c_longlong(ld),
-                 ctypes.c_void_p(c0.data_ptr() + o),
-                 ctypes.c_void_p(u.data_ptr() + o),
-                 ctypes.c_void_p(off.data_ptr() + o),
-                 ctypes.c_int(G), ctypes.c_int(V), ctypes.c_int(b),
-                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"KW bidiag step launch failed: cudaError "
-                           f"{err} ({X.dtype}, {geom}, qr={qr})")
-    LAUNCHES += 1
+    _check(X, "bidiag steps")
+    T = tabs.u.shape[0]
+    _check_tabs(X, tabs, {k: (torch.int32, (T, G))
+                          for k in ("c0", "u", "off")}, t0, t1,
+                "bidiag steps")
+    lo, hi = tabs.rows
+    if (X.dim() != 2 or X.shape[1] != ld or lo < 0
+            or hi > min(X.shape)):
+        raise ValueError(f"KW bidiag steps: X {tuple(X.shape)} (row stride "
+                         f"{ld}) does not hold windows [{lo}, {hi})")
+    _launch(X, False, tabs, t0, t1, geom, pl, "bidiag steps")
+
+
+def herm_step(F, tabs: HermTabs, t: int, geom: HermGeom,
+              form: Optional[str] = None) -> None:
+    """Step ``t`` alone: :func:`herm_steps` over [t, t + 1)."""
+    herm_steps(F, tabs, t, t + 1, geom, form)
+
+
+def bidiag_step(X, tabs: BidiagTabs, t: int, geom: BidiagGeom,
+                form: Optional[str] = None) -> None:
+    """Step ``t`` alone: :func:`bidiag_steps` over [t, t + 1)."""
+    bidiag_steps(X, tabs, t, t + 1, geom, form)

@@ -14,12 +14,15 @@ over them.
   its windows strided views of F: :func:`kernels.sbr.herm_views`),
   bidiagonal bands on the padded dense matrix
   (:func:`bidiag_sbr_sweep`, its windows one indexed gather and one
-  scatter per step). Each step takes one of three routes:
-  kernel KW (``kernels/sbr.py``) for b <= 32, where 94-97% of a chain's
-  steps are; one 2-D product per window through ``blas.dot`` (hence K1)
-  where the reference's K1 gate admits the window's products (f32, b
-  and V >= 256: the first sweep of the drivers' default chains); else
-  the batched torch route (KW's plain version).
+  scatter per step). A sweep takes one of three routes: kernel KW
+  (``kernels/sbr.py``) for every window it takes (b <= 128: at the
+  drivers' default nb = 256 the Hermitian 64-, 16- and 4-wide sweeps
+  and the bidiagonal 127-, 31- and 7-wide ones, in every dtype), the
+  whole sweep in one launch; one 2-D product per window through
+  ``blas.dot`` (hence K1) where the reference's K1 gate admits the
+  window's products (f32, b and V >= 256: the first sweep of the
+  drivers' default chains); else the batched torch route (KW's plain
+  version), step by step.
 * **Givens chases** (``hbrdt(method="chase")``, a ``BandMatrix`` input,
   ``gebrd(method="chase")``): one rotation per step, plain torch.
 
@@ -27,7 +30,8 @@ Every schedule is cached on the host per argument set
 (``functools.lru_cache``, the :data:`SCHEDULES_KEPT` most recent of each
 builder: one chain's sweeps and more), so a timed run after the warm-up
 builds none of them; each sweep call copies its tables to the device
-and frees them when it ends (milliseconds at N = 8192).
+(the Hermitian sweep's bases too) and frees them when it ends
+(milliseconds at N = 8192).
 
 Stage 2's window products stay in the working dtype under MCA
 ``dd_gemm=always``: the reference would send each b×b product to the
@@ -213,17 +217,19 @@ def _to_device(arrays, device):
                  for a in arrays)
 
 
-#: from this band on the batched torch route factors the live windows'
-#: blocks one 2-D ``torch.geqrf`` each. On an H100 (chip_smoke phase 16,
-#: its ``[geqrf]`` lines), f32 at N = 8192: the 127-wide sweep's batched
-#: call over its 15 slots took 7.30 ms a step, 2-D calls 0.63 ms each
-#: over its ~7 live windows; the 64-wide sweep's 1.15 ms over 33 slots
-#: against 0.18 ms each over ~16 live windows, so it stays batched
+#: from this band on the window QRs of the batched torch route and of the
+#: K1 route are one 2-D ``torch.geqrf`` a live window. On an H100
+#: (chip_smoke phase 16, its ``[geqrf]`` lines), f32 at N = 8192: the
+#: 127-wide sweep's batched call over its 15 slots took 7.30 ms a step,
+#: 2-D calls 0.63 ms each over its ~7 live windows; the 64-wide sweep's
+#: 1.15 ms over 33 slots against 0.18 ms each over ~16 live windows, so
+#: it stays batched; the 256- and 511-wide sweeps' loops 2.2-2.5x faster
+#: than their batched calls over every slot
 LOOP_QR_MIN_B = 96
 
 
 def _live_factor(live, b: int):
-    """The batched route's QR of the (G, b, b) window blocks: one batched
+    """The window QR of a (G, b, b) batch of blocks: one batched
     ``torch.geqrf`` below :data:`LOOP_QR_MIN_B`, else one 2-D call per
     live window (``live``: host indices), the dead windows' reflectors
     the identity (taus 0), as a batched QR of their zero blocks gives."""
@@ -373,13 +379,14 @@ def _bidiag_k1_step(X, c0s, us, offs, t: int, geom, qr: bool):
     idx = sbr.bidiag_index(c0, off, geom, qr)
     flat = X.view(-1)
     W = flat[idx]
+    factor = _live_factor(range(live.size), b)
     if qr:
-        packed, taus = torch.geqrf(W[:, :, :b])
+        packed, taus = factor(W[:, :, :b])
     else:
         blk = W[:, :b, :].clone()
         for a, g in enumerate(live):
             blk[a, int(us[t, g]):, :] = 0
-        packed, taus = torch.geqrf(blk.conj().mT)
+        packed, taus = factor(blk.conj().mT)
     out = torch.empty_like(W)
     for a in range(live.size):
         vp, tp = _k1_reflectors(packed, taus, a)
@@ -389,22 +396,21 @@ def _bidiag_k1_step(X, c0s, us, offs, t: int, geom, qr: bool):
     flat[idx] = out
 
 
-def _route(route: str, b: int, dtype, V: int) -> str:
-    """The step route of a sweep: ``kw`` (b <= 32), ``k1`` (the window
-    products pass K1's gate) or ``plain`` (the batched torch route);
+def _route(route: str, b: int, dtype, V: int, kind: str) -> str:
+    """The route of a ``kind`` ("herm" or "bidiag") sweep: ``kw`` (KW
+    takes its windows: b <= 128), ``k1`` (the window products pass K1's
+    gate: f32, b and V >= 256) or ``plain`` (the batched torch route);
     ``route`` other than ``auto`` forces one."""
     if route != "auto":
         return route
-    if sbr.eligible(b):
+    if sbr.eligible(b, V, dtype, kind):
         return "kw"
     return "k1" if _k1_windows(dtype, b, V) else "plain"
 
 
-def bidiag_sweep_steps(X, M: int, N: int, b: int, w: int,
-                       route: str = "auto"):
-    """The steps of :func:`bidiag_sbr_sweep` as a generator: pads X into
-    a fresh array Xp and yields (t, Xp) after each step t."""
-    assert 1 <= w <= b // 4 or (b <= 4 and w == 1), (b, w)
+def _bidiag_storage(X, M: int, N: int, b: int, w: int):
+    """(Xp, T, geom, tabs): X zero-padded to hold the parked windows, and
+    the sweep's step count, geometry and device tables."""
     K = min(M, N)
     c0s, us, offs, T, G, V, park0 = _sbr_schedule_bidiag(K, b, w, M < N)
     Mp, Np = X.shape
@@ -413,17 +419,27 @@ def bidiag_sweep_steps(X, M: int, N: int, b: int, w: int,
     Xp = torch.zeros((R, C), dtype=X.dtype, device=X.device)
     Xp[:Mp, :Np] = X
     geom = sbr.BidiagGeom(G, V, b, C)
-    tabs = _to_device((c0s, us, offs), X.device)
-    how = _route(route, b, X.dtype, V)
+    return Xp, T, geom, sbr.bidiag_tabs(c0s, us, offs, geom, X.device)
+
+
+def bidiag_sweep_steps(X, M: int, N: int, b: int, w: int,
+                       route: str = "auto"):
+    """The steps of :func:`bidiag_sbr_sweep` as a generator: pads X into
+    a fresh array Xp and yields (t, Xp) after each step t (the ``kw``
+    route one KW launch a step)."""
+    assert 1 <= w <= b // 4 or (b <= 4 and w == 1), (b, w)
+    c0s, us, offs = _sbr_schedule_bidiag(min(M, N), b, w, M < N)[:3]
+    Xp, T, geom, tabs = _bidiag_storage(X, M, N, b, w)
+    how = _route(route, b, X.dtype, geom.V, "bidiag")
     for t in range(T):
         qr = t % 2 == 1
         if how == "kw":
-            sbr.bidiag_step(Xp, tabs, t, geom, qr)
+            sbr.bidiag_step(Xp, tabs, t, geom)
         elif how == "k1":
             _bidiag_k1_step(Xp, c0s, us, offs, t, geom, qr)
         else:
             sbr.bidiag_step_reference(
-                Xp, tabs[0][t], tabs[1][t], tabs[2][t], geom, qr,
+                Xp, tabs.c0[t], tabs.u[t], tabs.off[t], geom, qr,
                 _live_factor(np.nonzero(us[t])[0], b))
         yield t, Xp
 
@@ -433,13 +449,19 @@ def bidiag_sbr_sweep(X, M: int, N: int, b: int, w: int,
     """One pipelined SBR sweep on an upper-band matrix: band ``b`` ->
     ``w`` (``w <= b//4``) by row-panel LQ + alternating QR/LQ bulge
     chasing. ``X`` dense-stored, logical ``M x N``, upper bandwidth
-    ``<= b``. Returns the swept array, cropped back to X's shape."""
+    ``<= b``. Returns the swept array, cropped back to X's shape. On the
+    ``kw`` route the whole sweep is one KW launch."""
     K = min(M, N)
     if _sbr_schedule_bidiag(K, b, w, M < N) is None or K <= 1 or b <= 1:
         return X
-    Xp = X
-    for _, Xp in bidiag_sweep_steps(X, M, N, b, w, route):
-        pass
+    if _route(route, b, X.dtype, 3 * b + w, "bidiag") == "kw":
+        assert 1 <= w <= b // 4 or (b <= 4 and w == 1), (b, w)
+        Xp, T, geom, tabs = _bidiag_storage(X, M, N, b, w)
+        sbr.bidiag_steps(Xp, tabs, 0, T, geom)
+    else:
+        Xp = X
+        for _, Xp in bidiag_sweep_steps(X, M, N, b, w, route):
+            pass
     return Xp[:X.shape[0], :X.shape[1]]
 
 
@@ -515,7 +537,7 @@ def _herm_k1_step(F, bs: int, us, t: int, geom):
         for a, g in enumerate(live):
             u = int(us[t, g])
             blk[a, :, :u] = R[g, :, b - u:b]
-        packed, taus = torch.geqrf(blk)
+        packed, taus = _live_factor(range(live.size), b)(blk)
         for a, g in enumerate(live):
             vp, tp = _k1_reflectors(packed, taus, a)
             r2, c2 = sbr.herm_window(_pad4(R[g]), vp, tp, b)
@@ -524,26 +546,33 @@ def _herm_k1_step(F, bs: int, us, t: int, geom):
     Cv.copy_(C2)
 
 
-def herm_sweep_steps(F, N: int, b: int, w: int, D: int, L0: int,
-                     route: str = "auto"):
-    """The steps of :func:`herm_sbr_sweep_banded` as a generator, in
-    place on F: yields t after each step t."""
+def _herm_tables(F, N: int, b: int, w: int, D: int, L0: int):
+    """(T, geom, tabs, host schedule (bases, us)) of one band-storage
+    sweep on F."""
     base, us, T, G, S, V, L0_need, hi = _sbr_banded_schedule(N, b, w)
     H = F.shape[1]
     assert D >= 2 * b + w and H == 2 * D + 1
     assert L0 >= L0_need and L0 + hi <= F.shape[0], (L0, hi, F.shape)
     assert F.is_contiguous()
     geom = sbr.HermGeom(G, S, V, b, H, D)
-    (ud,) = _to_device((us,), F.device)
-    how = _route(route, b, F.dtype, V)
-    bases = (base + L0).tolist()
+    return T, geom, sbr.herm_tabs(base + L0, us, geom, F.device), \
+        ((base + L0).tolist(), us)
+
+
+def herm_sweep_steps(F, N: int, b: int, w: int, D: int, L0: int,
+                     route: str = "auto"):
+    """The steps of :func:`herm_sbr_sweep_banded` as a generator, in
+    place on F: yields t after each step t (the ``kw`` route one KW
+    launch a step)."""
+    T, geom, tabs, (bases, us) = _herm_tables(F, N, b, w, D, L0)
+    how = _route(route, b, F.dtype, geom.V, "herm")
     for t in range(T):
         if how == "kw":
-            sbr.herm_step(F, bases[t], ud, t, geom)
+            sbr.herm_step(F, tabs, t, geom)
         elif how == "k1":
             _herm_k1_step(F, bases[t], us, t, geom)
         else:
-            sbr.herm_step_reference(F, bases[t], ud[t], geom,
+            sbr.herm_step_reference(F, bases[t], tabs.u[t], geom,
                                     _live_factor(np.nonzero(us[t])[0], b))
         yield t
 
@@ -552,8 +581,13 @@ def herm_sbr_sweep_banded(F, N: int, b: int, w: int, D: int, L0: int,
                           route: str = "auto"):
     """One pipelined SBR sweep on full-band storage ``F`` ((Nc, 2D+1)
     column-major, contiguous, D >= 2b + w, logical column c at row
-    L0 + c): band b -> w, in place. Returns F."""
+    L0 + c): band b -> w, in place. Returns F. On the ``kw`` route the
+    whole sweep is one KW launch."""
     if _sbr_banded_schedule(N, b, w) is None or N <= 2 or b <= 1:
+        return F
+    if _route(route, b, F.dtype, 3 * b + w, "herm") == "kw":
+        T, geom, tabs, _ = _herm_tables(F, N, b, w, D, L0)
+        sbr.herm_steps(F, tabs, 0, T, geom)
         return F
     for _ in herm_sweep_steps(F, N, b, w, D, L0, route):
         pass

@@ -12,7 +12,10 @@ reference's routing.
   ``blas.dot`` (K1 on f32 products with every dimension >= 256, the
   limb route K2 under MCA ``dd_gemm=always``).
 * Stage 2 is ``ops/band.py``: successive quarter-width SBR sweeps
-  (kernel KW for b <= 32), or the Givens chase on request.
+  (kernel KW, one launch a sweep, for b <= 128: at nb = 256 three of
+  hetrd's four sweeps, 42983 steps at N=8192, and three of gesvd's,
+  96229 steps; the first sweep's window products on K1 in f32), or the
+  Givens chase on request.
 * The tridiagonal eigenvalues come from kernel KT
   (``kernels/tridiag.py``), the counterpart of the reference's
   ``jax.scipy.linalg.eigh_tridiagonal``; singular values from the

@@ -19,6 +19,8 @@ descriptor against the reference, on the very same numpy inputs.
   singular values of the bidiagonal within 1e-12 (d/z) and 1e-4 (s/c)
   of the reference's.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -202,10 +204,9 @@ def test_herm_scan_matches_the_reference(prec):
     sbr.reset_counts()
     d, e = band.herm_band_to_tridiag_scan(torch.from_numpy(h), N, B)
     # 16 -> 4 -> 1: both sweeps through the KW wrapper (its plain
-    # version on the CPU), one call per step
-    steps = sum(band._sbr_banded_schedule(N, b, w)[2]
-                for b, w in band.sweep_ladder(B))
-    assert (sbr.ROUTED, sbr.LAUNCHES) == (steps, 0)
+    # version on the CPU, step by step), one call per sweep
+    sweeps = len(band.sweep_ladder(B))
+    assert (sbr.ROUTED, sbr.LAUNCHES, sbr.STEPS) == (sweeps, 0, 0)
     d0, e0 = rb.herm_band_to_tridiag_scan(jnp.asarray(h), N, B)
     _close(d, d0, prec)
     _close(e, e0, prec)
@@ -286,11 +287,12 @@ def test_wide_blocks_factor_live_windows_one_at_a_time(monkeypatch):
     a = torch.from_numpy(_upper_band("d", 300, 300, b=127, seed=4))
     h = torch.from_numpy(_herm_band("d", n=300, b=127, seed=5))
     assert 127 >= band.LOOP_QR_MIN_B
-    got_b = band.bidiag_sbr_sweep(a, 300, 300, 127, 31)
-    got_h = band.herm_band_to_tridiag_scan(h, 300, 127)
+    plain = functools.partial(band.herm_sbr_sweep_banded, route="plain")
+    got_b = band.bidiag_sbr_sweep(a, 300, 300, 127, 31, "plain")
+    got_h = band.herm_band_to_tridiag_scan(h, 300, 127, sweep=plain)
     monkeypatch.setattr(band, "LOOP_QR_MIN_B", 10 ** 6)
-    want_b = band.bidiag_sbr_sweep(a, 300, 300, 127, 31)
-    want_h = band.herm_band_to_tridiag_scan(h, 300, 127)
+    want_b = band.bidiag_sbr_sweep(a, 300, 300, 127, 31, "plain")
+    want_h = band.herm_band_to_tridiag_scan(h, 300, 127, sweep=plain)
     assert float((got_b - want_b).abs().max()) <= 1e-12 * float(
         want_b.abs().max())
     for g, w in zip(got_h, want_h):

@@ -44,14 +44,18 @@ CPU's bits; zpotrf under dd with its derived launch count; the
 incpiv/qrf K1 products held as the inverse family's. The eigen/SVD
 slice: KT within 2·eps·t_norm of its plain version (random, clustered,
 zero-diagonal and n = 2 tridiagonals), ascending, one launch; KW step
-by step against its plain version on random storage of a herm and a
-bidiag sweep (f64/c128 within 1e-11 relative; f32/c64 finite and, over
-the sweep, a median distance to the step in twice the precision at most
-4x the plain version's: once a random block is close to rank-deficient
-its last reflectors come from rounding noise and both f32 routes land
-far from the wide step); an shetrd and an sgesvd
-on the card with the KW / KT / K1 launches the schedules give and the
-spectrum of the dense solver.
+by step against its plain version on random storage of the herm 32-, 4-
+and 64-wide and the bidiag 31- and 127-wide sweeps (the 127-wide a
+cluster of CTAs in f64, c64 and c128; f64/c128 within 1e-11 relative;
+f32/c64 finite and, over the sweep, a median distance to the step in
+twice the precision at most 4x the plain version's: once a random block
+is close to rank-deficient its last reflectors come from rounding noise
+and both f32 routes land far from the wide step); every default-ladder
+sweep (herm 64, 16, 4; bidiag 127, 31, 7) in each dtype in one launch
+``torch.equal`` to its one-step launches, the narrow ones' warp and
+block forms too; an shetrd and an sgesvd on the card with one KW launch
+a sweep over the steps, the KT / K1 launches the schedules give, and
+the spectrum of the dense solver.
 """
 import pytest
 import torch
@@ -1090,94 +1094,225 @@ def _median_ok(ratios):
 _WIDE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
-                                   torch.complex64, torch.complex128])
-@pytest.mark.parametrize("b,w", [(32, 8), (4, 1)])
-def test_kw_herm_steps_match_plain_version(card, dtype, b, w):
+_ALL = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+
+
+def _herm_case(card, dtype, n, b, w, seed):
+    """Random band storage of one Hermitian sweep's geometry, its
+    geometry and device tables."""
     from dplasma_tpu_torch.kernels import sbr
     from dplasma_tpu_torch.ops import band
-    n = 400
     base, us, T, G, S, V, L0, hi = band._sbr_banded_schedule(n, b, w)
     D = 2 * b + w
     H = 2 * D + 1
-    g = torch.Generator(device="cuda").manual_seed(b)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     F = torch.randn((L0 + max(hi, n) + S, H), dtype=dtype, device=card,
                     generator=g)
     geom = sbr.HermGeom(G, S, V, b, H, D)
-    ud = torch.from_numpy(us).to(card)
-    ratios = []
-    for t in range(T):
-        bs = int(base[t]) + L0
-        P = F.clone()
-        sbr.herm_step_reference(P, bs, ud[t], geom)
-        W = None
-        if dtype in _WIDE:
-            W = F.to(_WIDE[dtype])
-            sbr.herm_step_reference(W, bs, ud[t], geom)
-        sbr.herm_step(F, bs, ud, t, geom)
-        _kw_check(F, P, W, dtype, ratios)
-    assert _median_ok(ratios)
+    return F, T, geom, sbr.herm_tabs(base + L0, us, geom, card)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
-                                   torch.complex64, torch.complex128])
-@pytest.mark.parametrize("m,n", [(300, 300), (300, 200), (200, 300)])
-def test_kw_bidiag_steps_match_plain_version(card, dtype, m, n):
+def _bidiag_case(card, dtype, m, n, b, w, seed):
+    """A random m x n matrix padded for one bidiagonal sweep, its
+    geometry and device tables."""
     from dplasma_tpu_torch.kernels import sbr
     from dplasma_tpu_torch.ops import band
-    b, w = 31, 7
     K = min(m, n)
     c0s, us, offs, T, G, V, park0 = band._sbr_schedule_bidiag(K, b, w, m < n)
     lim = park0 + G * V
     X = torch.zeros((max(lim, m), max(lim, n)), dtype=dtype, device=card)
-    g = torch.Generator(device="cuda").manual_seed(m + n)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     X[:m, :n] = torch.randn((m, n), dtype=dtype, device=card, generator=g)
     geom = sbr.BidiagGeom(G, V, b, X.shape[1])
-    tabs = tuple(torch.from_numpy(a).to(card) for a in (c0s, us, offs))
+    return X, T, geom, sbr.bidiag_tabs(c0s, us, offs, geom, card)
+
+
+def _herm_replay(card, dtype, n, b, w):
+    from dplasma_tpu_torch.kernels import sbr
+    F, T, geom, tabs = _herm_case(card, dtype, n, b, w, b)
+    ratios = []
+    for t in range(T):
+        bs = int(tabs.base[t])
+        P = F.clone()
+        sbr.herm_step_reference(P, bs, tabs.u[t], geom)
+        W = None
+        if dtype in _WIDE:
+            W = F.to(_WIDE[dtype])
+            sbr.herm_step_reference(W, bs, tabs.u[t], geom)
+        sbr.herm_step(F, tabs, t, geom)
+        _kw_check(F, P, W, dtype, ratios)
+    assert _median_ok(ratios)
+
+
+def _bidiag_replay(card, dtype, m, n, b, w):
+    from dplasma_tpu_torch.kernels import sbr
+    X, T, geom, tabs = _bidiag_case(card, dtype, m, n, b, w, m + n)
     ratios = []
     for t in range(T):
         qr = t % 2 == 1
         P = X.clone()
-        sbr.bidiag_step_reference(P, tabs[0][t], tabs[1][t], tabs[2][t],
+        sbr.bidiag_step_reference(P, tabs.c0[t], tabs.u[t], tabs.off[t],
                                   geom, qr)
         W = None
         if dtype in _WIDE:
             W = X.to(_WIDE[dtype])
-            sbr.bidiag_step_reference(W, tabs[0][t], tabs[1][t],
-                                      tabs[2][t], geom, qr)
-        sbr.bidiag_step(X, tabs, t, geom, qr)
+            sbr.bidiag_step_reference(W, tabs.c0[t], tabs.u[t],
+                                      tabs.off[t], geom, qr)
+        sbr.bidiag_step(X, tabs, t, geom)
         _kw_check(X, P, W, dtype, ratios)
     assert _median_ok(ratios)
 
 
+@pytest.mark.parametrize("dtype", _ALL)
+@pytest.mark.parametrize("b,w", [(32, 8), (4, 1)])
+def test_kw_herm_steps_match_plain_version(card, dtype, b, w):
+    _herm_replay(card, dtype, 400, b, w)
+
+
+@pytest.mark.parametrize("dtype", _ALL)
+@pytest.mark.parametrize("m,n", [(300, 300), (300, 200), (200, 300)])
+def test_kw_bidiag_steps_match_plain_version(card, dtype, m, n):
+    _bidiag_replay(card, dtype, m, n, 31, 7)
+
+
+@pytest.mark.parametrize("dtype", _ALL)
+@pytest.mark.parametrize("n,b,w", [(600, 64, 16), (700, 127, 31),
+                                   (400, 31, 7)])
+def test_kw_wide_herm_steps_match_plain_version(card, dtype, n, b, w):
+    """The 64-wide Hermitian sweep of heev's ladder (one block a window,
+    213 KB in complex128) and the 127- and 31-wide ones of hbrdt's (the
+    127-wide window one block of 416 threads, 218 KB, in f32; refused in
+    the other types, which take the plain route), step by step against
+    the plain version."""
+    from dplasma_tpu_torch.kernels import sbr
+    if not sbr.eligible(b, 3 * b + w, dtype, "herm"):
+        assert b == 127 and dtype != torch.float32
+        F, T, geom, tabs = _herm_case(card, dtype, n, b, w, b)
+        with pytest.raises(ValueError, match="refuses"):
+            sbr.herm_step(F, tabs, 0, geom)
+        return
+    _herm_replay(card, dtype, n, b, w)
+
+
+@pytest.mark.parametrize("dtype", _ALL)
+@pytest.mark.parametrize("m,n", [(700, 700), (700, 500)])
+def test_kw_wide_bidiag_steps_match_plain_version(card, dtype, m, n):
+    """The 127-wide bidiagonal sweep (one block in f32, a cluster of 2
+    CTAs in f64 / c64 and of 4 in c128), step by step against the plain
+    version."""
+    _bidiag_replay(card, dtype, m, n, 127, 31)
+
+
+#: heev's and gesvd's default ladders at nb = 256, and hbrdt's Hermitian
+#: one from its 511-wide band
+_LADDER = [("herm", 64, 16), ("herm", 16, 4), ("herm", 4, 1),
+           ("bidiag", 127, 31), ("bidiag", 31, 7), ("bidiag", 7, 1),
+           ("herm", 127, 31), ("herm", 31, 7), ("herm", 7, 1)]
+
+
+@pytest.mark.parametrize("dtype", _ALL)
+@pytest.mark.parametrize("kind,b,w", _LADDER)
+def test_kw_sweep_launch_equals_step_launches(card, dtype, kind, b, w):
+    """One launch over [0, T) of a default-ladder sweep is bitwise equal
+    to T one-step launches (the grid barrier orders the steps; sums run
+    in a fixed order), and the narrow sweeps' warp and block forms to
+    each other. (The 127-wide Hermitian window runs in f32 only; the
+    other types' whole-sweep launch is refused.)"""
+    from dplasma_tpu_torch.kernels import sbr
+    n = 700 if b > 32 else 300
+    if kind == "herm":
+        X, T, geom, tabs = _herm_case(card, dtype, n, b, w, 7 * b)
+        steps, step = sbr.herm_steps, sbr.herm_step
+    else:
+        X, T, geom, tabs = _bidiag_case(card, dtype, n, n, b, w, 7 * b)
+        steps, step = sbr.bidiag_steps, sbr.bidiag_step
+    if not sbr.eligible(b, 3 * b + w, dtype, kind):
+        assert (kind, b) == ("herm", 127) and dtype != torch.float32
+        with pytest.raises(ValueError, match="refuses"):
+            steps(X, tabs, 0, T, geom)
+        return
+    one, many = X.clone(), X.clone()
+    launches = sbr.LAUNCHES
+    for t in range(T):
+        step(one, tabs, t, geom)
+    steps(many, tabs, 0, T, geom)
+    torch.cuda.synchronize()
+    assert sbr.LAUNCHES - launches == T + 1
+    assert torch.equal(one, many)
+    if b <= sbr.WARP_MAX_B:
+        for form in ("warp", "block"):
+            other = X.clone()
+            steps(other, tabs, 0, T, geom, form=form)
+            assert torch.equal(other, many)
+
+
+def test_kw_sweeps_on_two_streams_keep_their_own_barriers(card):
+    """Two whole-sweep launches in flight at once on two streams (a
+    Hermitian 16-wide and a bidiagonal 31-wide sweep) each end as they
+    do alone: each launch has its own grid-barrier counter."""
+    from dplasma_tpu_torch.kernels import sbr
+    Xh, Th, gh, th = _herm_case(card, torch.float32, 300, 16, 4, 5)
+    Xb, Tb, gb, tb = _bidiag_case(card, torch.float32, 300, 300, 31, 7, 6)
+    want_h, want_b = Xh.clone(), Xb.clone()
+    sbr.herm_steps(want_h, th, 0, Th, gh)
+    sbr.bidiag_steps(want_b, tb, 0, Tb, gb)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        sbr.herm_steps(Xh, th, 0, Th, gh)
+    with torch.cuda.stream(s2):
+        sbr.bidiag_steps(Xb, tb, 0, Tb, gb)
+    torch.cuda.synchronize()
+    assert torch.equal(Xh, want_h) and torch.equal(Xb, want_b)
+
+
+def _eig_kw_counts(n, nb):
+    """(launches, steps) of KW in one heev 2stage and one gesvd at n, nb:
+    one launch a sweep it takes, every step of the sweep."""
+    from dplasma_tpu_torch.kernels import sbr
+    from dplasma_tpu_torch.ops import band
+    out = []
+    for kind, b0 in (("herm", nb), ("bidiag", 2 * nb - 1)):
+        launches = steps = 0
+        for b, w in band.sweep_ladder(b0):
+            if sbr.eligible(b, 3 * b + w, torch.float32, kind):
+                launches += 1
+                steps += (band._sbr_banded_schedule(n, b, w)[2]
+                          if kind == "herm" else
+                          band._sbr_schedule_bidiag(n, b, w, False)[3])
+        out.append((launches, steps))
+    return out
+
+
 def test_eig_chain_on_card_launches_the_counted_kernels(card, k1_on):
-    """shetrd / heev 2stage and sgesvd at N=1024, nb=256: KW once a step
-    of each narrow sweep, KT once per tridiagonal, K1 on herbt's and the
-    first sweep's window products; spectra within the drivers' -x
-    gates of the dense solver's."""
+    """shetrd / heev 2stage and sgesvd at N=1024, nb=256: KW once a
+    sweep of b <= 128 (herm 64, 16, 4; bidiag 127, 31, 7) over all its
+    steps, KT once per tridiagonal, K1 on herbt's and the first sweep's
+    window products; spectra within the drivers' -x gates of the dense
+    solver's."""
     from dplasma_tpu_torch.kernels import sbr, tridiag
-    from dplasma_tpu_torch.ops import band, eig, generators
+    from dplasma_tpu_torch.ops import eig, generators
     n, nb = 1024, 256
+    (hl, hs), (bl, bs) = _eig_kw_counts(n, nb)
+    assert (hl, bl) == (3, 3)
     A = generators.plghe(0.0, n, nb, seed=3)
-    kw = sum(band._sbr_banded_schedule(n, b, w)[2]
-             for b, w in band.sweep_ladder(nb) if sbr.eligible(b))
-    before = (sbr.LAUNCHES, tridiag.LAUNCHES)
+    before = (sbr.LAUNCHES, sbr.STEPS, tridiag.LAUNCHES)
     w_ = eig.heev(A, method="2stage")
     torch.cuda.synchronize()
-    assert (sbr.LAUNCHES - before[0], tridiag.LAUNCHES - before[1]) == \
-        (kw, 1)
+    assert (sbr.LAUNCHES - before[0], sbr.STEPS - before[1],
+            tridiag.LAUNCHES - before[2]) == (hl, hs, 1)
     ref = torch.linalg.eigvalsh(A.to_dense().double())
     eps = torch.finfo(torch.float32).eps
     assert float((w_.double() - ref).abs().max() / ref.abs().max()) < \
         60 * eps * n
     G = generators.plrnt(n, n, nb, nb, seed=4)
-    kw = sum(band._sbr_schedule_bidiag(n, b, w, False)[3]
-             for b, w in band.sweep_ladder(2 * nb - 1) if sbr.eligible(b))
-    before = (sbr.LAUNCHES, tridiag.LAUNCHES)
+    before = (sbr.LAUNCHES, sbr.STEPS, tridiag.LAUNCHES)
     s = eig.gesvd(G)
     torch.cuda.synchronize()
-    assert (sbr.LAUNCHES - before[0], tridiag.LAUNCHES - before[1]) == \
-        (kw, 1)
+    assert (sbr.LAUNCHES - before[0], sbr.STEPS - before[1],
+            tridiag.LAUNCHES - before[2]) == (bl, bs, 1)
     ref = torch.linalg.svdvals(G.to_dense().double())
     assert float((s.double() - ref).abs().max() / ref.max()) < \
         60 * eps * n

@@ -88,8 +88,10 @@ def _bidiag_steps(m, n, b):
     (["testing_dgesvd", "-M", "24", "-N", "40", "-t", "16"],
      _bidiag_steps(24, 40, 31), 1)])
 def test_timed_runs_route_the_counted_steps(argv, kw, kt):
-    """Each timed run calls the KW wrapper once per step of its narrow
-    sweeps (every sweep here: b <= 31) and KT once per tridiagonal."""
+    """Each timed run calls the KW wrapper once per sweep (every sweep
+    here: b <= 31, two of them, b -> b/4 -> 1; the wrapper runs the
+    ``kw`` steps of each, step by step on the CPU) and KT once per
+    tridiagonal."""
     sbr.reset_counts()
     tridiag.reset_counts()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -99,7 +101,8 @@ def test_timed_runs_route_the_counted_steps(argv, kw, kt):
     op = common.RUNS[-1]["ops"][0]
     assert op["kw_launches"] == [0] and op["kt_launches"] == [0]
     runs = 2   # the warm-up and the timed run
-    assert sbr.ROUTED == runs * kw
+    sweeps = 2 if kw else 0
+    assert sbr.ROUTED == runs * sweeps and sbr.STEPS == 0
     assert tridiag.ROUTED == runs * kt
 
 
