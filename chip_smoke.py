@@ -192,13 +192,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bitwise and timed; hetrf's host share (its diagonal tiles' rank-1
    loops) and one shetrf under ``torch.profiler``.
 16. the eigen/SVD chain with the port's two kernels of its own, KT (the
-   tridiagonal eigenvalues by bisection) and KW (the SBR sweeps with
-   b <= 128, one persistent launch a sweep): KT against its plain
-   version on the (d, e) of an shetrd at N=8192 and a dhetrd at N=4096
-   (the plain version on the host over a sample of indices) and on edge
-   cases (n = 1 and 2, e = 0, Wilkinson's W₂₁⁺, a Jordan–Wielandt zero
-   diagonal), within 2·eps·t_norm and ascending, timed beside
-   ``torch.linalg.eigvalsh`` of the dense tridiagonal; KW replayed over
+   tridiagonal eigenvalues by bisection on a shared tree, one launch a
+   call) and KW (the SBR sweeps with b <= 128, one persistent launch a
+   sweep): KT against its plain version on the (d, e) of an shetrd at
+   N=8192 (also cast to f64) and a dhetrd at N=4096 (the plain version
+   on the host over a sample of indices) and on edge cases (n = 1 and
+   2, e = 0, Wilkinson's W₂₁⁺, a Jordan–Wielandt zero diagonal),
+   ``torch.equal`` and within 2·eps·t_norm, ascending, timed beside its
+   bound (the shared tree's Sturm steps at the card's division rate;
+   the per-search bound beside it) and ``torch.linalg.eigvalsh`` of the
+   dense tridiagonal; the gesvd drivers' Jordan–Wielandt tridiagonals the
+   same, and their top K (the values gesvd asks KT for) launched alone,
+   timed and held ``torch.equal`` to the full launch; KW replayed over
    every sweep it takes of one shetrd and one sgebrd (herm 64, 16, 4;
    bidiag 127, 31, 7) at N=8192 and of c, d and z at 4096, and of the
    Hermitian ladder of an shbrdt (herm 127, 31, 7) at N=8192, on random
@@ -227,7 +232,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``dhetrd`` / ``dgesvd -x`` under ``dd_gemm=always`` beside native
    FP64; two direct ``eig.heev(method="2stage")`` calls at 8192, their
    launches and spectrum held beside ``eigvalsh``, every distinct K1
-   window product of the first held and timed; one shetrd at N=2048
+   window product of the first held and timed; one heev 2stage and one
+   sgesvd at 8192 with each stage (stage 1, the band scan, each sweep
+   with its route and launches, KT) timed by CUDA events and the host
+   clock, their launches held; one shetrd at N=2048
    under ``torch.profiler``; the band-storage Givens chase (``hbrdt`` on a
    ``BandMatrix``) at N=128, b=32, logged.
 
@@ -1582,7 +1590,7 @@ def _device_ms(ev) -> float:
 
 # name pieces of the hand-written kernels, each kept apart in a profile
 PORT_KERNELS = ("k1_gemm", "k2_", "k3_lu_panel", "k4_geqrt_panel",
-                "k5_ring", "kt_bisect", "kw_herm", "kw_bidiag")
+                "k5_ring", "kt_tree", "kw_sweep")
 
 # name pieces of cuBLAS's int8 GEMMs (torch._int_mm): none may run on the
 # dd route's main path, whose limb products are K2's
@@ -1594,8 +1602,8 @@ INT8_LIBRARY = ("gemm_s8", "imma")
 # element type in their name: the dd route's int64 elementwise work is
 # its digit splits and scales (shifts, ands, ors, wheres, clamps,
 # negations, scalar arithmetic on the f64 bit patterns)
-_CATEGORIES = (("KW (kw_herm, kw_bidiag)", ("kw_herm", "kw_bidiag")),
-               ("KT (kt_bisect)", ("kt_bisect",)),
+_CATEGORIES = (("KW (kw_sweep)", ("kw_sweep",)),
+               ("KT (kt_tree)", ("kt_tree",)),
                ("K5 (k5_ring)", ("k5_ring",)),
                ("K2 (k2_limb_gemm)", ("k2_",)),
                ("K3 (k3_lu_panel)", ("k3_lu_panel",)),
@@ -1629,6 +1637,17 @@ _CATEGORIES = (("KW (kw_herm, kw_bidiag)", ("kw_herm", "kw_bidiag")),
                ("elementwise other", ("elementwise",)))
 
 
+def _by_category(by_kernel):
+    """{category: ms} of a {kernel name: ms} breakdown (_CATEGORIES)."""
+    cats = {}
+    for name, ms in by_kernel.items():
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(all(p in name for p in k) if isinstance(k, tuple)
+                           else k in name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    return cats
+
+
 def _profile(torch, record, key, label, run):
     """One call of ``run`` (one factorization) under torch.profiler,
     after one warm call: device time by kernel, by category and the
@@ -1653,12 +1672,7 @@ def _profile(torch, record, key, label, run):
         if ms and ev.device_type == cuda:
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ms
     busy = sum(by_kernel.values())
-    cats = {}
-    for name, ms in by_kernel.items():
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(all(p in name for p in k) if isinstance(k, tuple)
-                           else k in name for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + ms
+    cats = _by_category(by_kernel)
     tag = f"[{key}]"
     if not by_kernel:
         log(f"{tag} the profiler recorded no device time: breakdown not "
@@ -3947,10 +3961,10 @@ def _t_norm(torch, d, e):
                                (dd - row).abs().max()))
 
 
-def kt_bound_ms(n, dtype, iters):
-    """n Sturm sequences of n steps per iteration, four operations each
-    (a division, two subtractions, a comparison) at the CUDA-core rate
-    of the type; the inputs (2n values) and the output are bytes."""
+def kt_bound_ms_per_search(n, dtype, iters):
+    """The bound of one search a value, no tree shared: n Sturm
+    sequences of n steps per level, four operations each at the
+    CUDA-core rate of the type, or the 3n values moved."""
     isz = 4 if dtype == "float32" else 8
     t_ops = 4.0 * n * n * iters / (FP32_FLOPS if isz == 4 else FP64_FLOPS)
     t_bytes = 3.0 * n * isz / HBM_BYTES_S
@@ -3958,7 +3972,94 @@ def kt_bound_ms(n, dtype, iters):
                                        else "bytes")
 
 
+H100_SMS = 132
+MUFU_PER_CLK = 16        # MUFU results a clock an SM (sm_90)
+DFMA_PER_CLK = 64        # FP64 FMAs a clock an SM (sm_90)
+
+
+def kt_rates(torch):
+    """What the division term of KT's bound reads off this card and this
+    build: the card's max SM clock (nvidia-smi clocks.max.sm, MHz) and
+    the FP64-pipe instructions (DFMA, DMUL, DADD) on the fast path of
+    the compiled IEEE double division (the SASS of ``kt_ddiv_probe``
+    before its first EXIT, by the toolkit's cuobjdump)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from dplasma_tpu_torch.kernels import _build
+    out = {"sm_clock_max_mhz": None, "ddiv_dfma": None, "ddiv_fp64_ops":
+           None, "ddiv_sass": None}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        out["sm_clock_max_mhz"] = float(smi.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        pass
+    _build.load("tridiag_bisect")
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"),
+         "-sass", "-fun", "kt_ddiv_probe",
+         str(_build._target("tridiag_bisect"))],
+        capture_output=True, text=True, timeout=120)
+    body = sass.stdout.split("EXIT")[0]
+    ops = []
+    for ln in body.splitlines():
+        # "/*0080*/  @!P0 MUFU.RCP64H R5, R3 ;  /* 0x... */"
+        toks = ln.split("*/")[1].split() if ln.count("*/") >= 2 else []
+        toks = [t for t in toks if not t.startswith("@")]
+        if toks:
+            ops.append(toks[0])
+    if sass.returncode == 0 and "MUFU.RCP64H" in body:
+        out["ddiv_dfma"] = sum(o.startswith("DFMA") for o in ops)
+        out["ddiv_fp64_ops"] = sum(o.startswith(("DFMA", "DMUL", "DADD"))
+                                   for o in ops)
+        out["ddiv_sass"] = [o for o in ops if o.startswith(
+            ("DFMA", "DMUL", "DADD", "MUFU"))]
+    check(out["sm_clock_max_mhz"] is not None,
+          f"KT bound: the max SM clock unread ({smi.stdout!r})")
+    check(bool(out["ddiv_fp64_ops"]),
+          f"KT bound: the f64 division's SASS unread (cuobjdump rc "
+          f"{sass.returncode}, MUFU.RCP64H in it "
+          f"{'MUFU.RCP64H' in body})")
+    log(f"[kt] card rates: max SM clock {out['sm_clock_max_mhz']} MHz; "
+        f"IEEE double division: {out['ddiv_dfma']} DFMA, "
+        f"{out['ddiv_fp64_ops']} FP64-pipe instructions on its fast path "
+        f"({out['ddiv_sass']}; cuobjdump rc {sass.returncode})")
+    return out
+
+
+def kt_bound_ms(n, dtype, iters, m, rates):
+    """The least time for this output on a shared tree: (2^D − 1 +
+    (iters − D)·m) Sturm sequences of n steps (one node a level a target
+    below a top tree of D levels), at the D that makes it least (⌈log₂
+    m⌉: each level past it adds 2^D − m), whatever the launch's plan;
+    the largest of the operations term (four a step at the type's
+    CUDA-core rate), the division term (f32: one MUFU reciprocal a step
+    at 16 a clock an SM; f64: the compiled division's FP64-pipe
+    instructions, its DFMAs and DMUL, at 64 a clock an SM; at the card's
+    max SM clock) and the bytes term (2n inputs, m outputs). Returns
+    (ms, by, terms, depth)."""
+    isz = 4 if dtype == "float32" else 8
+    depth = min(range(iters + 1),
+                key=lambda D: (1 << D) - 1 + (iters - D) * m)
+    steps = float((1 << depth) - 1 + (iters - depth) * m) * n
+    t_ops = 4.0 * steps / (FP32_FLOPS if isz == 4 else FP64_FLOPS)
+    clk = rates["sm_clock_max_mhz"] * 1e6
+    per = (MUFU_PER_CLK if isz == 4
+           else DFMA_PER_CLK / rates["ddiv_fp64_ops"])
+    t_div = steps / (H100_SMS * per * clk)
+    t_bytes = (2.0 * n + m) * isz / HBM_BYTES_S
+    terms = {"operations": t_ops, "division": t_div, "bytes": t_bytes}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by, {k: 1e3 * v for k, v in terms.items()}, \
+        depth
+
+
 KT_SAMPLE = 64           # indices the host's plain version bisects for
+# (depth, s) plans timed beside tridiag.plan's on shetrd's tridiagonal: a
+# top tree of ⌈log₂ n⌉ levels with rounds of 3 and 4, and one level more
+# than the default's
+KT_PLANS = ((13, 3), (13, 4), (16, 3))
 
 
 def kt_targets(torch, n):
@@ -3970,12 +4071,18 @@ def kt_targets(torch, n):
     return torch.unique(torch.cat([k, mid.clamp(0, n - 1)]))
 
 
-def kt_case(torch, tridiag, key, d, e, plain_on, library=True):
-    """KT on (d, e) on the card, held within 2·eps·t_norm of its plain
-    version (on the card over every index, or ``plain_on`` "host": on
-    the host over kt_targets' sample) and ascending; KT timed beside its
-    operations bound and (``library``) torch.linalg.eigvalsh of the
-    dense tridiagonal. Returns the case's record."""
+def kt_case(torch, tridiag, key, d, e, plain_on, rates, library=True,
+            keep=None, plans=()):
+    """KT on (d, e) on the card, held ``torch.equal`` to its plain
+    version and within 2·eps·t_norm of it (on the card over every index,
+    or ``plain_on`` "host": on the host over kt_targets' sample) and
+    ascending; KT timed beside its bound (and the per-search one) and
+    (``library``) torch.linalg.eigvalsh of the dense tridiagonal.
+    ``keep``: the top ``keep`` indices gesvd asks for, launched and
+    timed too (the case's ``ms``; the whole spectrum's is ``full_ms``),
+    held ``torch.equal`` to the full launch there. ``plans``: (depth, s)
+    pairs launched for the whole spectrum beside ``tridiag.plan``'s, each
+    held ``torch.equal`` to it and timed. Returns the case's record."""
     n, dt = d.shape[0], d.dtype
     tridiag.reset_counts()
     got = tridiag.eigh_tridiagonal(d, e)
@@ -3992,47 +4099,97 @@ def kt_case(torch, tridiag, key, d, e, plain_on, library=True):
     eps = torch.finfo(dt).eps
     held = got.cpu() if ks is None else got.cpu()[ks.long()]
     err = float((held - want.cpu()).abs().max())
+    equal = bool(torch.equal(held, want.cpu()))
     asc = bool((got[1:] >= got[:-1]).all())
-    check(err <= 2 * eps * tn and asc,
-          f"KT {key}: |kernel - plain| {err:.3e} > 2 eps t_norm "
-          f"{2 * eps * tn:.3e} or not ascending ({asc})")
-    ms = time_ms(torch, lambda: tridiag.eigh_tridiagonal(d, e), reps=5)
-    iters = {torch.float32: 24, torch.float64: 53}[dt]   # nmant + 1
-    bound, by = kt_bound_ms(n, str(dt).split(".")[-1], iters)
-    rec = {"n": n, "max_abs_err": err, "eps_t_norm": eps * tn,
-           "ascending": asc, "ms": ms, "plain_ms": 1e3 * plain_s,
-           "plain_on": plain_on,
+    check(equal and err <= 2 * eps * tn and asc,
+          f"KT {key}: kernel equal to plain {equal}, |kernel - plain| "
+          f"{err:.3e} (2 eps t_norm {2 * eps * tn:.3e}), ascending {asc}")
+    iters = tridiag.max_levels(dt)
+    full_ms = time_ms(torch, lambda: tridiag.eigh_tridiagonal(d, e), reps=5)
+    rec = {"n": n, "max_abs_err": err, "equal": equal,
+           "eps_t_norm": eps * tn, "ascending": asc, "full_ms": full_ms,
+           "plain_ms": 1e3 * plain_s, "plain_on": plain_on,
            "plain_indices": n if ks is None else int(ks.numel()),
-           "library_ms": None, "bound_ms": bound, "bound_by": by}
+           "library_ms": None}
+    m, ms = n, full_ms
+    if keep:
+        m = keep
+        tg = torch.arange(n - keep, n, dtype=torch.int32, device=d.device)
+        tridiag.reset_counts()
+        top = tridiag.eigh_tridiagonal(d, e, targets=tg)
+        torch.cuda.synchronize()
+        check(tridiag.LAUNCHES == 1, f"KT {key} targets: "
+              f"{tridiag.LAUNCHES} launches")
+        same = bool(torch.equal(top, got[n - keep:]))
+        check(same, f"KT {key}: the {keep} targets differ from the full "
+              f"launch")
+        ms = time_ms(torch, lambda: tridiag.eigh_tridiagonal(d, e,
+                                                             targets=tg),
+                     reps=5)
+        rec.update(targets=keep, targets_equal_full=same)
+    pl = tridiag.plan(n, m, dt)
+    bound, by, terms, bdepth = kt_bound_ms(n, str(dt).split(".")[-1],
+                                           iters, m, rates)
+    old, old_by = kt_bound_ms_per_search(n, str(dt).split(".")[-1],
+                                         iters)
+    rec.update(ms=ms, plan=pl._asdict(), bound_ms=bound, bound_by=by,
+               bound_terms_ms=terms, bound_depth=bdepth,
+               bound_ms_per_search=old, bound_by_per_search=old_by)
+    plan_txt = ""
+    if plans:
+        # the default plan beside others, the same bits from each
+        rec["plans_ms"] = {str(tuple(pl)): full_ms}
+        for alt in plans:
+            alt = tridiag.Plan(alt[0], alt[1], pl.resident)
+            other = tridiag._launch(d, e, None, alt)
+            check(bool(torch.equal(other, got)),
+                  f"KT {key}: plan {tuple(alt)} differs from {tuple(pl)}")
+            rec["plans_ms"][str(tuple(alt))] = time_ms(
+                torch, lambda: tridiag._launch(d, e, None, alt), reps=5)
+        plan_txt = "; plans (depth, s, resident), all equal: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in rec["plans_ms"].items())
     lib_txt = "not timed"
     if library:
         T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
-        rec["library_ms"] = time_ms(torch, lambda: torch.linalg.eigvalsh(T),
-                                    reps=1)
-        lib = torch.linalg.eigvalsh(T.double())
-        del T
-        rec["vs_eigvalsh64"] = float((got.double() - lib).abs().max())
-        lib_txt = (f"{rec['library_ms']:.3f} ms, |kernel - eigvalsh f64| "
-                   f"{rec['vs_eigvalsh64']:.3e}")
-    log(f"[kt] {key}: |kernel - plain| {err:.3e} ({err / (eps * tn):.2f} "
-        f"eps t_norm) over {rec['plain_indices']} of {n} indices, "
-        f"ascending {asc}; kernel {ms:.3f} ms, plain {1e3 * plain_s:.1f} ms"
-        f" (on the {plain_on}), bound {bound:.3f} ms ({by}); eigvalsh of "
-        f"the dense tridiagonal {lib_txt}")
+        lib = {}
+
+        def dense():
+            lib["w"] = torch.linalg.eigvalsh(T)
+
+        rec["library_ms"] = time_ms(torch, dense, reps=1)
+        w64 = (lib["w"] if dt == torch.float64 else
+               torch.linalg.eigvalsh(T.double()) if n <= N_EIG else None)
+        del T, lib
+        lib_txt = f"{rec['library_ms']:.3f} ms"
+        if w64 is not None:
+            rec["vs_eigvalsh64"] = float((got.double() - w64).abs().max())
+            lib_txt += f", |kernel - eigvalsh f64| {rec['vs_eigvalsh64']:.3e}"
+    tg_txt = (f"; its top {keep} (gesvd's targets) {ms:.3f} ms, equal to "
+              f"the full launch there" if keep else "")
+    log(f"[kt] {key}: kernel equal to plain {equal}, |kernel - plain| "
+        f"{err:.3e} ({err / (eps * tn):.2f} eps t_norm) over "
+        f"{rec['plain_indices']} of {n} indices, ascending {asc}; kernel "
+        f"{full_ms:.3f} ms for all {n} values{tg_txt}; plan {tuple(pl)}; "
+        f"plain {1e3 * plain_s:.1f} ms (on the {plain_on}); bound "
+        f"{bound:.3f} ms ({by}; terms {terms}; per search {old:.3f} ms, "
+        f"{old_by}; the tree's least depth {bdepth}); eigvalsh of the "
+        f"dense tridiagonal {lib_txt}{plan_txt}")
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_kt(torch, tridiag, eig, generators, record):
     """KT against its plain version on the (d, e) of one s hetrd at
-    N=8192 (the kernel line's shape, heev 2stage's) and one d hetrd at
+    N=8192 (the kernel line's shape, heev 2stage's), the same cast to
+    f64 (timed beside eigvalsh at 8192 in f64) and one d hetrd at
     N=4096, the plain version on the host over a sample of indices (on
     the card over every index the s case took 24.9 s, cut for the
-    script's time), and on edge cases, within 2·eps·t_norm, its results
-    ascending; timed beside torch.linalg.eigvalsh of the dense
-    tridiagonal and its operations bound. gesvd's Jordan–Wielandt
-    tridiagonals are held after the drivers (:func:`phase_kt_jw`)."""
-    out = {"cases": {}}
+    script's time), and on edge cases, ``torch.equal`` and within
+    2·eps·t_norm, its results ascending; timed beside
+    torch.linalg.eigvalsh of the dense tridiagonal and its bound.
+    gesvd's Jordan–Wielandt tridiagonals are held after the drivers
+    (:func:`phase_kt_jw`)."""
+    out = {"cases": {}, "rates": kt_rates(torch)}
     for prec, dt, where, n in (("s", torch.float32, "host", N_EIG),
                                ("d", torch.float64, "host", N_EIG_SMALL)):
         A = generators.plghe(0.0, n, NB_EIG, seed=3872, dtype=dt)
@@ -4040,7 +4197,12 @@ def phase_kt(torch, tridiag, eig, generators, record):
         del A
         torch.cuda.empty_cache()
         out["cases"][f"{prec}hetrd_{n}"] = kt_case(
-            torch, tridiag, f"{prec}hetrd_{n}", d, e, where)
+            torch, tridiag, f"{prec}hetrd_{n}", d, e, where, out["rates"],
+            plans=KT_PLANS if prec == "s" else ())
+        if prec == "s":
+            out["cases"][f"shetrd_{n}_as_f64"] = kt_case(
+                torch, tridiag, f"shetrd_{n}_as_f64", d.double(),
+                e.double(), where, out["rates"])
     rng = torch.Generator().manual_seed(1601)
     m = 10
     edge = {
@@ -4059,26 +4221,31 @@ def phase_kt(torch, tridiag, eig, generators, record):
             tn = _t_norm(torch, d, e) if d.numel() > 1 else abs(float(d[0]))
             eps = torch.finfo(dt).eps
             err = float((got - want).abs().max())
+            equal = bool(torch.equal(got, want))
             asc = bool((got[1:] >= got[:-1]).all()) if got.numel() > 1 \
                 else True
-            check(err <= 2 * eps * max(tn, 1e-30) and asc,
-                  f"KT edge case {name} {dt}: {err:.3e}, ascending {asc}")
+            check(equal and err <= 2 * eps * max(tn, 1e-30) and asc,
+                  f"KT edge case {name} {dt}: equal {equal}, {err:.3e}, "
+                  f"ascending {asc}")
             out["cases"][f"{name}_{str(dt)[-7:]}"] = {
-                "n": d.numel(), "max_abs_err": err}
-            log(f"[kt] {name} {str(dt)[6:]} n={d.numel()}: |kernel - plain| "
-                f"{err:.3e}, ascending {asc}")
+                "n": d.numel(), "max_abs_err": err, "equal": equal}
+            log(f"[kt] {name} {str(dt)[6:]} n={d.numel()}: kernel equal "
+                f"to plain {equal}, |kernel - plain| {err:.3e}, "
+                f"ascending {asc}")
     return out
 
 
-def phase_kt_jw(torch, tridiag, jw):
+def phase_kt_jw(torch, tridiag, jw, rates):
     """KT on the Jordan–Wielandt tridiagonals that gesvd driver runs of
     phase 16 handed it (captured from those runs: a zero diagonal of
-    length 2K and the interleaved [d1, e1, d2, ...]), held against
-    the plain version on the host over a sample of indices and timed
-    beside its bound (eigvalsh of the dense tridiagonal, 1-2 GB at these
-    sizes, not timed)."""
-    return {key: kt_case(torch, tridiag, key, d, e, "host", library=False)
-            for key, (d, e) in jw.items()}
+    length L + 1 and the interleaved [d1, e1, d2, ...]), held against
+    the plain version on the host over a sample of indices, its top K
+    (the values gesvd asks for) ``torch.equal`` to the full launch's
+    there, both timed beside the bound; the sgesvd one also beside
+    eigvalsh of the dense tridiagonal (n = 16384 f32, 1 GiB)."""
+    return {key: kt_case(torch, tridiag, key, d, e, "host", rates,
+                         library=key.startswith("sgesvd"), keep=k)
+            for key, (d, e, k) in jw.items()}
 
 
 def _rand_like_storage(torch, shape, dtype, seed):
@@ -4550,6 +4717,238 @@ def geqrf_batched_vs_loop(torch, band):
     return out
 
 
+def _sync_calls(torch):
+    """A context whose value is the list of warnings raised inside it,
+    with PyTorch's sync debug mode on: each of torch's synchronising
+    CUDA calls (a blocking copy between host and card, ``.item()``)
+    adds one (:func:`_n_syncs`); kernels launched through ctypes and the
+    caching allocator's own calls are not seen."""
+    import contextlib
+    import warnings
+
+    @contextlib.contextmanager
+    def ctx():
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield seen
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+    return ctx()
+
+
+def _n_syncs(seen):
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+#: live windows in the profiled slice of a K1-route sweep's steps
+K1_SLICE_WINDOWS = 48
+
+
+def k1_route_idle(torch, band, kind, args):
+    """The device's idle share on the K1 route of a chain's first sweep
+    (``kind`` "herm", ``args`` (F, N, b, w, D, L0); "bidiag", (X, M, N,
+    b, w)), on a slice of its steps: from the first whose live windows
+    reach the sweep's mean, K1_SLICE_WINDOWS windows long. The steps
+    before it run untimed; the slice runs twice from the same input,
+    once timed by CUDA events and the host clock with torch's
+    synchronising calls counted, once under torch.profiler for the
+    device's busy time. The idle share is 1 − busy / the unprofiled
+    span. Returns its record."""
+    import contextlib
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    if kind == "herm":
+        F, N, b, w, D, L0 = args
+        us = band._sbr_banded_schedule(N, b, w)[1]
+
+        def steps():
+            return band.herm_sweep_steps(F.clone(), N, b, w, D, L0,
+                                         route="k1")
+    else:
+        X, M, N, b, w = args
+        us = band._sbr_schedule_bidiag(min(M, N), b, w, M < N)[1]
+
+        def steps():
+            return band.bidiag_sweep_steps(X, M, N, b, w, route="k1")
+    live = (np.asarray(us) != 0).sum(1)
+    t0 = int(np.argmax(live >= live.mean()))
+    t1 = min(len(live), t0 + 1 + int(np.searchsorted(
+        np.cumsum(live[t0:]), K1_SLICE_WINDOWS)))
+
+    def run(prof):
+        gen = steps()
+        for _ in range(t0):
+            next(gen)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if prof else contextlib.nullcontext())
+        with ctx as p, _sync_calls(torch) as seen:
+            ev[0].record()
+            h0 = time.perf_counter()
+            for _ in range(t1 - t0):
+                next(gen)
+            host = 1e3 * (time.perf_counter() - h0)
+            ev[1].record()
+            torch.cuda.synchronize()
+        gen.close()
+        by_kernel = {}
+        if prof:
+            cuda = torch.autograd.DeviceType.CUDA
+            for x in p.events():
+                if x.device_type == cuda and _device_ms(x):
+                    by_kernel[x.name] = (by_kernel.get(x.name, 0.0)
+                                         + _device_ms(x))
+        return ev[0].elapsed_time(ev[1]), host, _n_syncs(seen), by_kernel
+
+    span, host, syncs, _ = run(False)
+    pspan, phost, _, by_kernel = run(True)
+    busy = sum(by_kernel.values())
+    check(busy > 0, f"K1 route {kind} {b}->{w}: the profiler recorded "
+          f"no device time")
+    cats = dict(sorted(_by_category(by_kernel).items(),
+                       key=lambda kv: -kv[1]))
+    wins = int(live[t0:t1].sum())
+    rec = {"kind": kind, "b": b, "w": w, "steps": [t0, t1],
+           "windows": wins, "span_ms": span, "host_ms": host,
+           "syncs": syncs, "busy_ms": busy, "idle_share": 1 - busy / span,
+           "profiled_span_ms": pspan, "profiled_host_ms": phost,
+           "categories_ms": cats}
+    log(f"[stages]   K1 route {kind} {b}->{w}, steps {t0}..{t1 - 1} of "
+        f"{len(live)} ({wins} live windows): device span {span:.1f} ms, "
+        f"host {host:.1f} ms with {syncs} synchronising calls; device busy "
+        f"{busy:.1f} ms (torch.profiler; span {pspan:.1f}, host {phost:.1f} "
+        f"under it): idle share {100 * rec['idle_share']:.1f}%; a window "
+        f"{span / wins:.2f} ms of span, {busy / wins:.2f} ms busy; busy by "
+        f"category: " + ", ".join(f"{c} {ms:.1f} ms" for c, ms in
+                                  list(cats.items())[:5]))
+    return rec
+
+
+def eig_stage_times(torch, pk, sbr, tridiag, band, eig, algo, A):
+    """One ``eig.heev(A, method="2stage")`` (``algo`` "heev2") or
+    ``eig.gesvd(A)`` ("gesvd") with each stage timed by CUDA events on
+    the stream and by the host clock, with torch's synchronising calls
+    in it counted (:func:`_sync_calls`): a stage's host time includes
+    its waits at them (a table upload waits for the stages before it),
+    so it is the time the host spent issuing the stage only where it
+    counts none. Stages: stage 1 (herbt / gebrd_ge2gb), the band scan
+    (hbrdt's, with its band set-up; the bidiagonal one) and inside it
+    each sweep of the ladder with its route and launches, then KT.
+    Counts zeroed just before, read just after. The first sweep on the
+    K1 route is kept and its device idle share measured after the run
+    (:func:`k1_route_idle`). Returns (record, launches)."""
+    rows = []
+    kept = {}
+
+    def counts():
+        return {"k1": pk.LAUNCHES, "kw": sbr.LAUNCHES,
+                "kt": tridiag.LAUNCHES, "kw_steps": sbr.STEPS}
+
+    def timed(name, fn, route=None, keep=None):
+        def run(*a, **kw):
+            row = {"stage": name(*a) if callable(name) else name,
+                   "route": route(*a) if callable(route) else route}
+            if keep and row["route"] == "k1" and keep not in kept:
+                kept[keep] = (a[0].clone(),) + a[1:]
+            rows.append(row)
+            c0 = counts()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            row["w0"] = len(seen)
+            ev[0].record()
+            h0 = time.perf_counter()
+            out = fn(*a, **kw)
+            row["host_ms"] = 1e3 * (time.perf_counter() - h0)
+            ev[1].record()
+            row["w1"] = len(seen)
+            c1 = counts()
+            row["launches"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+            row["ev"] = ev
+            return out
+        return run
+
+    def herm_route(F, N, b, w, D, L0):
+        return band._route("auto", b, F.dtype, 3 * b + w, "herm")
+
+    def bidiag_route(X, M, N, b, w):
+        return band._route("auto", b, X.dtype, 3 * b + w, "bidiag")
+
+    saved = {(eig, "herbt"): eig.herbt,
+             (eig, "gebrd_ge2gb"): eig.gebrd_ge2gb,
+             (band, "herm_band_to_tridiag_scan"):
+                 band.herm_band_to_tridiag_scan,
+             (band, "bidiag_band_to_bidiag_scan"):
+                 band.bidiag_band_to_bidiag_scan,
+             (tridiag, "eigh_tridiagonal"): tridiag.eigh_tridiagonal}
+    herm_sweep = timed(lambda F, N, b, w, D, L0: f"sweep herm {b}->{w}",
+                       band.herm_sbr_sweep_banded, herm_route, "herm")
+    bidiag_sweep = timed(lambda X, M, N, b, w: f"sweep bidiag {b}->{w}",
+                         band.bidiag_sbr_sweep, bidiag_route, "bidiag")
+    hscan, bscan = (saved[(band, "herm_band_to_tridiag_scan")],
+                    saved[(band, "bidiag_band_to_bidiag_scan")])
+    eig.herbt = timed("stage 1 herbt", eig.herbt)
+    eig.gebrd_ge2gb = timed("stage 1 gebrd_ge2gb", eig.gebrd_ge2gb)
+    band.herm_band_to_tridiag_scan = timed(
+        "hbrdt scan (band set-up and sweeps)",
+        lambda X, N, b: hscan(X, N, b, sweep=herm_sweep))
+    band.bidiag_band_to_bidiag_scan = timed(
+        "bidiag scan (sweeps)",
+        lambda X, M, N, b: bscan(X, M, N, b, sweep=bidiag_sweep))
+    tridiag.eigh_tridiagonal = timed("KT", tridiag.eigh_tridiagonal)
+    for mod in (pk, sbr, tridiag):
+        mod.reset_counts()
+    seen = []
+    try:
+        torch.cuda.synchronize()
+        with _sync_calls(torch) as seen:
+            t0 = time.perf_counter()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            w = (eig.heev(A, method="2stage") if algo == "heev2"
+                 else eig.gesvd(A))
+            e1.record()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    got = counts()
+    check(bool(torch.isfinite(w).all()), f"{algo} stage run: not finite")
+    for r in rows:
+        ev = r.pop("ev")
+        r["device_ms"] = ev[0].elapsed_time(ev[1])
+        r["syncs"] = _n_syncs(seen[r.pop("w0"):r.pop("w1")])
+    span = e0.elapsed_time(e1)
+    top = [r for r in rows if not r["stage"].startswith("sweep")]
+    rec = {"algo": algo, "n": A.desc.N, "nb": A.desc.nb, "wall_s": wall,
+           "host_s": host, "syncs": _n_syncs(seen),
+           "device_span_ms": span, "stages": rows,
+           "outside_stages_ms": span - sum(r["device_ms"] for r in top),
+           "launches": got}
+    log(f"[stages] {algo} N={A.desc.N} nb={A.desc.nb}: wall {wall:.3f} s "
+        f"(host {host:.3f} s, {rec['syncs']} synchronising calls), device "
+        f"span {span:.1f} ms, outside the stages "
+        f"{rec['outside_stages_ms']:.1f} ms; launches {got}")
+    for r in rows:
+        log(f"[stages]   {r['stage']}"
+            f"{' (' + r['route'] + ')' if r['route'] else ''}: device "
+            f"{r['device_ms']:.1f} ms, host {r['host_ms']:.1f} ms with "
+            f"{r['syncs']} synchronising calls, launches {r['launches']}")
+    for kind, args in kept.items():
+        rec["k1_route"] = k1_route_idle(torch, band, kind, args)
+    del kept
+    torch.cuda.empty_cache()
+    return rec, got
+
+
 def phase_eig(torch, pk, pdd, record):
     """Phase 16: the eigen/SVD chain. KT and KW against their plain
     versions; the six drivers through ``drivers.main`` with K1 on, every
@@ -4645,9 +5044,10 @@ def phase_eig(torch, pk, pdd, record):
     kt_wrapper = tridiag.eigh_tridiagonal
 
     def kt_capture(label):
-        def capture(d, e):
-            jw[f"{label}_{d.shape[0]}"] = (d.clone(), e.clone())
-            return kt_wrapper(d, e)
+        def capture(d, e, targets=None):
+            k = None if targets is None else targets.shape[0]
+            jw[f"{label}_{d.shape[0]}"] = (d.clone(), e.clone(), k)
+            return kt_wrapper(d, e, targets=targets)
         return capture
 
     drivers = {}
@@ -4684,7 +5084,8 @@ def phase_eig(torch, pk, pdd, record):
     check(sorted(jw) == [f"dgesvd_jw_{2 * N_EIG_DRIVERS}",
                          f"sgesvd_jw_{2 * N_EIG}"],
           f"KT: captured Jordan–Wielandt tridiagonals {sorted(jw)}")
-    rec["kt"]["cases"].update(phase_kt_jw(torch, tridiag, jw))
+    rec["kt"]["cases"].update(phase_kt_jw(torch, tridiag, jw,
+                                          rec["kt"]["rates"]))
     del jw
     lap("KT on the gesvd drivers' Jordan–Wielandt tridiagonals")
 
@@ -4731,6 +5132,24 @@ def phase_eig(torch, pk, pdd, record):
     rec["heev_2stage"] = {"s": two, "launches": got, "eigvalsh_ms": ev_ms,
                           "rel": rel}
     del H
+    # the chain's stages at 8192: one heev 2stage and one sgesvd, each
+    # stage by CUDA events and the host clock
+    G = generators.plrnt(N_EIG, N_EIG, NB_EIG, NB_EIG, seed=3873)
+    rec["stages"] = {}
+    for algo, M_ in (("heev2", A), ("gesvd", G)):
+        prebuild_schedules(band, "gesvd" if algo == "gesvd" else "hetrd",
+                           N_EIG, N_EIG, NB_EIG)
+        rec["stages"][algo], g = eig_stage_times(
+            torch, pk, sbr, tridiag, band, eig, algo, M_)
+        want_s = eig_wants(torch, band, algo, N_EIG, N_EIG, NB_EIG, f32)
+        check(g == {k: want_s[k] for k in g},
+              f"{algo} stage run N={N_EIG}: launches {g}, want {want_s}")
+        kw_total += g["kw"]
+        kt_total += g["kt"]
+        steps_total += g["kw_steps"]
+        k1_by[f"s{algo}_stages"] = g["k1"]
+    del G
+    torch.cuda.empty_cache()
     # heev 2stage's window products (every dimension at most the first
     # sweep's window; sgesvd's take the same code path on 512-wide padded
     # operands, their launches held by the drivers)
@@ -4796,7 +5215,11 @@ def kt_entry(eigr):
             "max_abs_err": max(c["max_abs_err"]
                                for c in eigr["kt"]["cases"].values()),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "library_ms",
+                                         "bound_ms_per_search", "plan")},
+            "equal_at_every_held_index": all(
+                c.get("equal", False) for c in eigr["kt"]["cases"].values()),
+            "rates": eigr["kt"]["rates"],
             "by_case": eigr["kt"]["cases"]}
 
 
@@ -5061,13 +5484,20 @@ def main() -> int:
         f"products and the last stage-1 panels'), its "
         f"launches_by_path and K2's (dhetrd_dd, dgesvd_dd at "
         f"{N_EIG_DRIVERS}) each phase 16 driver run (one timed run, no "
-        f"warm-up) and the two direct heev 2stage calls; KT's ms/plain_ms/"
+        f"warm-up), the two direct heev 2stage calls and the stage-timed "
+        f"heev 2stage and sgesvd; KT's ms/plain_ms/"
         f"bound_ms/library_ms are one tridiagonal of an shetrd at N={N_EIG} "
         f"(library = torch.linalg.eigvalsh of the dense tridiagonal; "
-        f"by_case also a dhetrd's at {N_EIG_SMALL} and the sgesvd "
-        f"({N_EIG}) and dgesvd ({N_EIG_DRIVERS}) driver runs' "
-        f"Jordan–Wielandt tridiagonals; the plain version on the host "
-        f"over {KT_SAMPLE} + 5 indices), KW's the sweeps it takes "
+        f"bound = the shared tree's Sturm steps at the division rate or "
+        f"the operations or bytes rate, whichever is largest, "
+        f"bound_ms_per_search the n^2 levels operations bound of one "
+        f"search a value; "
+        f"by_case also the same cast to f64, a dhetrd's at {N_EIG_SMALL} "
+        f"and the sgesvd ({N_EIG}) and dgesvd ({N_EIG_DRIVERS}) driver "
+        f"runs' Jordan–Wielandt tridiagonals, whose ms is the launch of "
+        f"the top K gesvd asks for and full_ms all values; the plain "
+        f"version on the host over {KT_SAMPLE} + 5 indices, held "
+        f"torch.equal), KW's the sweeps it takes "
         f"(b <= 128) of one shetrd and one sgebrd at N={N_EIG_ROUTES} "
         f"through KW and through the plain version (bound from the live "
         f"windows' strips and applies; no library call computes a window "

@@ -20,7 +20,7 @@ reference's routing.
   (``kernels/tridiag.py``), the counterpart of the reference's
   ``jax.scipy.linalg.eigh_tridiagonal``; singular values from the
   Jordan–Wielandt tridiagonal of the bidiagonal (eigenvalues ±σ, zero
-  diagonal), through KT as well.
+  diagonal), through KT as well, bisecting only the K values kept.
 """
 from __future__ import annotations
 
@@ -234,8 +234,9 @@ def gebrd(A: TileMatrix, chase_cut: int = _CHASE_CUT, method: str = "auto"):
 def gesvd(A: TileMatrix):
     """Singular values (the SVD chain + the driver's finish): the
     bidiagonal's Jordan–Wielandt tridiagonal (zero diagonal of length
-    L + 1, off-diagonal [d1, e1, d2, e2, ...]) through KT. Returns
-    descending singular values (min(M, N),)."""
+    L + 1, off-diagonal [d1, e1, d2, e2, ...]) through KT, which bisects
+    only the K eigenvalues kept (indices L + 1 − K … L, the reference's
+    ``w[::-1][:K]``). Returns descending singular values (min(M, N),)."""
     d, e = gebrd(A)
     K = d.shape[0]
     if K == 1 and e.shape[0] == 0:
@@ -245,8 +246,10 @@ def gesvd(A: TileMatrix):
     off[0::2] = d
     off[1::2] = e
     w = tridiag.eigh_tridiagonal(
-        torch.zeros((L + 1,), dtype=d.dtype, device=d.device), off)
-    return torch.flip(w, (0,))[:K]
+        torch.zeros((L + 1,), dtype=d.dtype, device=d.device), off,
+        targets=torch.arange(L + 1 - K, L + 1, dtype=torch.int32,
+                             device=d.device))
+    return torch.flip(w, (0,))
 
 
 def gesvd_direct(A: TileMatrix):

@@ -42,10 +42,16 @@ and z generators bitwise equal on the card and the CPU; a complex dd
 product two 2K-deep K2 launches, each bitwise, the whole product the
 CPU's bits; zpotrf under dd with its derived launch count; the
 incpiv/qrf K1 products held as the inverse family's. The eigen/SVD
-slice: KT within 2·eps·t_norm of its plain version (random, clustered,
-zero-diagonal and n = 2 tridiagonals), ascending, one launch; KW step
-by step against its plain version on random storage of the herm 32-, 4-
-and 64-wide and the bidiag 31- and 127-wide sweeps (the 127-wide a
+slice: KT ``torch.equal`` to its plain version (random at n = 700 and
+2048, clustered, zero-diagonal and n = 2 tridiagonals; bisection run to
+nmant + 1 levels, which is where the plain version's global stop ends
+on these), ascending, one launch a call; with targets (and gesvd's K
+kept values of a Jordan–Wielandt tridiagonal) the full launch's bits
+at their indices; the same bits under every plan of the shared tree
+(flat, shallow, deep; resident or streamed pairs) and at n = 40000
+f32, whose pairs do not fit shared memory; KW step by step against
+its plain version on random storage of the herm 32-, 4- and 64-wide
+and the bidiag 31- and 127-wide sweeps (the 127-wide a
 cluster of CTAs in f64, c64 and c128; f64/c128 within 1e-11 relative;
 f32/c64 finite and, over the sweep, a median distance to the step in
 twice the precision at most 4x the plain version's: once a random block
@@ -1049,11 +1055,14 @@ def _kt_cases():
             "wilkinson": (torch.arange(-m, m + 1).abs().double(),
                           torch.ones(2 * m)),
             "zero_diag": (torch.zeros(301), torch.rand(300, generator=g)),
-            "n2": (torch.tensor([1.0, -3.0]), torch.tensor([0.75]))}
+            "n2": (torch.tensor([1.0, -3.0]), torch.tensor([0.75])),
+            "random2048": (torch.randn(2048, generator=g),
+                           torch.randn(2047, generator=g))}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["random", "wilkinson", "zero_diag", "n2"])
+@pytest.mark.parametrize("case", ["random", "wilkinson", "zero_diag", "n2",
+                                  "random2048"])
 def test_kt_matches_plain_version(card, dtype, case):
     from dplasma_tpu_torch.kernels import tridiag
     d, e = (x.to(dtype).to(card) for x in _kt_cases()[case])
@@ -1067,6 +1076,90 @@ def test_kt_matches_plain_version(card, dtype, case):
     tn = float(torch.maximum((d.double() + row).abs().max(),
                              (d.double() - row).abs().max()))
     assert float((got - want).abs().max()) <= 2 * torch.finfo(dtype).eps * tn
+    assert torch.equal(got, want)
+    assert bool((got[1:] >= got[:-1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "zero_diag", "jordan_wielandt"])
+def test_kt_targets_are_the_full_launch_at_their_indices(card, monkeypatch,
+                                                         dtype, case):
+    """One launch a call with targets too, each value the full launch's
+    bits at its index; gesvd's K targets (the Jordan–Wielandt
+    tridiagonal of a 300×200 bidiagonal: zero diagonal of length 401,
+    off-diagonal [d1, e1, ...]) give the full launch's top K."""
+    from dplasma_tpu_torch.kernels import tridiag
+    from dplasma_tpu_torch.ops import eig, generators
+    if case == "jordan_wielandt":
+        G = generators.plrnt(300, 200, 64, 64, seed=5, dtype=dtype)
+        bd, be = eig.gebrd(G)
+        e = torch.zeros(bd.shape[0] + be.shape[0], dtype=dtype, device=card)
+        e[0::2], e[1::2] = bd, be
+        d = torch.zeros(e.shape[0] + 1, dtype=dtype, device=card)
+    else:
+        d, e = (x.to(dtype).to(card) for x in _kt_cases()[case])
+    n = d.shape[0]
+    full = tridiag.eigh_tridiagonal(d, e)
+    k = torch.tensor([n - 1, 0, n // 2, n // 2 - 1, 7, n - 1],
+                     dtype=torch.int32, device=card)
+    before = tridiag.LAUNCHES
+    got = tridiag.eigh_tridiagonal(d, e, targets=k)
+    torch.cuda.synchronize()
+    assert tridiag.LAUNCHES == before + 1
+    assert torch.equal(got, full[k.long()])
+    top = torch.arange(n // 2 + 1, n, dtype=torch.int32, device=card)
+    assert torch.equal(tridiag.eigh_tridiagonal(d, e, targets=top),
+                       full[n // 2 + 1:])
+    if case == "jordan_wielandt":
+        monkeypatch.setattr(eig, "gebrd", lambda A: (bd, be))
+        before = tridiag.LAUNCHES
+        s = eig.gesvd(G)
+        assert tridiag.LAUNCHES == before + 1
+        assert torch.equal(s, torch.flip(full, (0,))[:200])
+    # an index outside [0, n) launches nothing and raises
+    before = tridiag.LAUNCHES
+    for bad in ([-1], [0, n]):
+        with pytest.raises(ValueError):
+            tridiag.eigh_tridiagonal(
+                d, e, targets=torch.tensor(bad, device=card))
+    assert tridiag.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kt_every_plan_gives_the_same_bits(card, dtype):
+    """Flat (depth 0), shallow and deep top trees, rounds of 1 to 5
+    levels, resident or streamed pairs: the same bits at every index."""
+    from dplasma_tpu_torch.kernels import tridiag
+    d, e = (x.to(dtype).to(card) for x in _kt_cases()["random"])
+    want = tridiag.eigh_tridiagonal(d, e)
+    P = tridiag.Plan
+    for pl in (P(0, 1, True), P(0, 4, False), P(3, 2, True),
+               P(10, 5, True), P(11, 3, False), P(16, 4, False),
+               P(tridiag.MAX_DEPTH, 5, True)):
+        got = tridiag._launch(d, e, None, pl)
+        assert torch.equal(got, want), pl
+
+
+def test_kt_streamed_pairs_above_shared_memory(card):
+    """n = 40000 f32 (its 320 KB of pairs streamed through shared memory
+    in chunks): held against the plain version on the host at sampled
+    indices, and the targets launch at those indices the same bits."""
+    from dplasma_tpu_torch.kernels import tridiag
+    n = 40000
+    assert not tridiag.plan(n, n, torch.float32).resident
+    g = torch.Generator().manual_seed(12)
+    d, e = torch.randn(n, generator=g), torch.randn(n - 1, generator=g)
+    before = tridiag.LAUNCHES
+    got = tridiag.eigh_tridiagonal(d.to(card), e.to(card))
+    torch.cuda.synchronize()
+    assert tridiag.LAUNCHES == before + 1
+    k = torch.tensor([0, 1, 9999, n // 2, 31234, n - 2, n - 1],
+                     dtype=torch.int32)
+    want = tridiag.eigh_tridiagonal_reference(d, e, targets=k)
+    assert torch.equal(got.cpu()[k.long()], want)
+    assert torch.equal(tridiag.eigh_tridiagonal(d.to(card), e.to(card),
+                                                targets=k.to(card)).cpu(),
+                       want)
     assert bool((got[1:] >= got[:-1]).all())
 
 
