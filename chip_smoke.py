@@ -238,6 +238,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    clock, their launches held; one shetrd at N=2048
    under ``torch.profiler``; the band-storage Givens chase (``hbrdt`` on a
    ``BandMatrix``) at N=128, b=32, logged.
+17. the out-of-HBM tiers, the GEMM dispatcher and the rest of the
+   single-device catalogue, every count zeroed just before each call or
+   driver run and read just after: the host link's rates (one pinned
+   ``copy_`` of 1 GiB each way, the tiers' pitched copies of 512- and
+   4096-wide blocks); ``potrf_lowmem`` on ``plghe`` made on the card and
+   copied to pinned host memory, f32 at N=32768 and FP64 at N=16384, the
+   budget a quarter of the matrix (nb 512, cw 6656 / 2560), held by
+   ``check_potrf`` and against the in-core ``potrf`` (within N·u);
+   ``getrf_lowmem`` at N=16384, nb=512 in 256 MiB under
+   ``panel.kernel=pallas`` (every K3 panel recorded and held bitwise
+   against ``lu_panel_reference``; A[perm] = L U within 60) and
+   ``geqrf_lowmem`` (``check_qr``, orthogonality, R within 1e-3 of the
+   in-core ``geqrf``'s); each logs its time, the bytes each way (equal
+   to the schedule's sums), the GB/s over the call against the pinned
+   copy's, the peak device memory against the budget and K1 / K3
+   launches equal to the counts derived from the code, and every
+   distinct K1 product is held to ``gemm_reference`` and timed;
+   ``gemm_ex(algo="stream")`` at 16384³ (B=C=8, D=4: 128 K1 launches)
+   beside ``blas3.gemm`` and ``plan_gemm``'s auto choice; the DTD
+   drivers (``testing_{s,d}potrf_dtd``, ``sgemm_dtd`` 8192,
+   ``sgeqrf_dtd``, ``sgetrf_incpiv_dtd`` 4096, the ``_untied`` at 2048)
+   with -x beside ``testing_spotrf``; ``potrf_lapack`` on a
+   Fortran-ordered f32 buffer at N=16384 (INFO 0, ``check_potrf``, the
+   strict upper triangle untouched, INFO > 0 on a matrix that is not
+   SPD); every ``pltmg`` type and ``latms`` at 4096 in s and z against
+   the port's CPU result (bitwise for the hash and integer types, else
+   within ``MG_TOL``; latms by its singular values); ``map_tiles`` and
+   ``factor_info`` on the spotrf factor at 8192.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -5206,6 +5234,619 @@ def phase_eig(torch, pk, pdd, record):
 
 
 
+# ---------------------------------------------------------------------
+# Phase 17: the out-of-HBM tiers, the GEMM dispatcher and the rest of
+# the single-device catalogue
+# ---------------------------------------------------------------------
+
+N_LM_S, NB_LM = 32768, 512         # spotrf_lowmem, budget a quarter of A
+N_LM_D = 16384                     # dpotrf_lowmem (native FP64)
+N_LM_LU = 16384                    # sgetrf / sgeqrf_lowmem, 256 MiB
+LM_LU_BUDGET = 256 * 2**20
+N_STREAM, NB_STREAM = 16384, 512   # gemm_ex(algo="stream")
+STREAM_INFO = {"DPLASMA:GEMM:GPU:B": 8, "DPLASMA:GEMM:GPU:C": 8,
+               "DPLASMA:GEMM:GPU:D": 4}
+N_DTD, NB_DTD, N_DTD_QR, N_DTD_UNTIED = 8192, 512, 4096, 2048
+N_LAPACK, NB_LAPACK = 16384, 512
+N_MG, NB_MG = 4096, 512
+# card vs CPU for the closed forms that are not exact: the two devices'
+# arccos, cos, sin and pow may differ by an ulp, which chebvand's
+# cos(i·arccos p) multiplies by i < 4096 (i·u·pi: 7.7e-4 in f32, 1.4e-12
+# in f64)
+MG_TOL = {"float32": 2e-3, "complex128": 1e-11}
+# the pltmg types whose values come from the hash or from integers
+MG_EXACT = ("random", "hadamard", "moler", "riemann", "minij", "invhess",
+            "wilkinson", "foster", "wright", "circul", "hankel", "fiedler",
+            "langou")
+
+
+def lowmem_bytes(op, N, nb, cw, item):
+    """(host -> device, device -> host) bytes of one lowmem call: the
+    schedule's sums (ops/potrf.py, ops/lu.py, ops/qr.py)."""
+    h2d = d2h = 0
+    for s in range(0, N, nb):
+        w = min(nb, N - s)
+        if op == "potrf":
+            h2d += (N - s) * (w + s)
+            d2h += (N - s) * w
+        elif op == "getrf":
+            h2d += N * w + sum((N - j0) * (min(j0 + cw, s) - j0)
+                               for j0 in range(0, s, cw))
+            d2h += N * w
+        else:
+            h2d += N * w + (s // nb) * nb * nb + sum(
+                N - j * nb for j in range(s // nb)) * nb
+            d2h += N * w + w * w
+    return h2d * item, d2h * item
+
+
+def rec_panel_k1(m, n, base=8):
+    """K1 products of one recursive LU panel (``panels._lu_rec``): one
+    Schur product a level, K1's when its dimensions are all >= 256."""
+    if n <= base:
+        return 0
+    h = n // 2
+    return (rec_panel_k1(m, h, base) + int(min(m - h, h, n - h) >= 256)
+            + rec_panel_k1(m - h, n - h, base))
+
+
+def lowmem_k1(op, N, nb, cw, pallas=False):
+    """(K1, K3) launches of one lowmem call, from the code: potrf one
+    product a streamed chunk; getrf one a block apply (its rows below the
+    block), under ``panel.kernel=pallas`` K3 on the panels its gate takes
+    and the rec panel's products on the others; geqrf three an apply and
+    one a panel (``larft``); each K1's when every dimension is >= 256."""
+    from dplasma_tpu_torch.kernels.pallas_qr import eligible_shape
+    k1 = k3 = 0
+
+    def add(*dims):
+        nonlocal k1
+        k1 += int(min(dims) >= 256)
+
+    for s in range(0, N, nb):
+        w = min(nb, N - s)
+        if op == "potrf":
+            for j0 in range(0, s, cw):
+                add(N - s, min(j0 + cw, s) - j0, w)
+        elif op == "getrf":
+            for j0 in range(0, s, cw):
+                c = min(j0 + cw, s) - j0
+                if N - j0 - c > 0:
+                    add(N - j0 - c, c, w)
+            if pallas and eligible_shape(N - s, w):
+                k3 += 1
+            elif pallas:
+                k1 += rec_panel_k1(N - s, w)
+        else:
+            for j in range(s // nb):
+                add(nb, N - j * nb, w)
+                add(nb, nb, w)
+                add(N - j * nb, nb, w)
+            add(w, N - s, w)
+    return k1, k3
+
+
+def pinned_rates(torch, nbytes=2**30):
+    """Bytes a second of one pinned ``Tensor.copy_`` each way (the host
+    link's bound), and of the tiers' pitched 2-D copies (``hostlink``) of
+    512- and 4096-wide column blocks of a 16384-wide f32 host matrix."""
+    import numpy as np
+    from dplasma_tpu_torch.kernels import hostlink
+    h = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    d = torch.empty(nbytes // 4, dtype=torch.float32, device="cuda")
+    h2d = time_ms(torch, lambda: d.copy_(h, non_blocking=True))
+    d2h = time_ms(torch, lambda: h.copy_(d, non_blocking=True))
+    out = {"h2d_GBps": nbytes / h2d / 1e6, "d2h_GBps": nbytes / d2h / 1e6}
+    del d
+    n = 16384
+    H = hostlink.HostMatrix(np.zeros((n, n), np.float32),
+                            torch.device("cuda"))
+    for w in (512, 4096):
+        def up(w=w):
+            for c0 in range(0, n, w):
+                H.upload(0, n, c0, c0 + w)
+        ms = time_ms(torch, up)
+        out[f"pitched_{w}_GBps"] = n * n * 4 / ms / 1e6
+        blk = torch.zeros((n, w), device="cuda")
+
+        def down(w=w, blk=blk):
+            for c0 in range(0, n, w):
+                H.download(blk, 0, c0)
+            H.finish()
+        ms = time_ms(torch, down)
+        out[f"pitched_{w}_d2h_GBps"] = n * n * 4 / ms / 1e6
+    del H
+    log("[hostlink] pinned copy_ of 1 GiB: h2d {h2d_GBps:.2f} GB/s, d2h "
+        "{d2h_GBps:.2f} GB/s; pitched 2-D blocks of a 16384-wide f32 "
+        "matrix: 512 wide h2d {pitched_512_GBps:.2f} / d2h "
+        "{pitched_512_d2h_GBps:.2f} GB/s, 4096 wide h2d "
+        "{pitched_4096_GBps:.2f} / d2h {pitched_4096_d2h_GBps:.2f} "
+        "GB/s".format(**out))
+    return out
+
+
+def lowmem_case(torch, pk, plu, tag, run, op, N, nb, cw, item, budget,
+                rates, pallas=False):
+    """One lowmem call on the card, every count zeroed just before and
+    read just after: its time, the bytes each way against the schedule's
+    sums, the achieved rate against the pinned copy's, the peak device
+    memory against the budget, K1 / K3 launches against the derived
+    counts. Returns (result, record, K1 products recorded, K3 panels
+    recorded as host (input, packed, perm))."""
+    from dplasma_tpu_torch.kernels import hostlink
+    panels = []
+    orig_k3 = plu.lu_panel
+
+    def k3_recorder(a):
+        out = orig_k3(a)
+        panels.append((a.cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hostlink.reset_stats()
+    pk.reset_counts()
+    plu.reset_counts()
+    box = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        box["out"] = run()
+        torch.cuda.synchronize()
+        box["s"] = time.perf_counter() - t0
+
+    plu.lu_panel = k3_recorder
+    try:
+        products = recorded_k1_products(torch, pk, timed)
+    finally:
+        plu.lu_panel = orig_k3
+    peak = torch.cuda.max_memory_allocated() - base
+    st = hostlink.STATS
+    k1, k3 = pk.LAUNCHES, plu.LAUNCHES
+    want_h2d, want_d2h = lowmem_bytes(op, N, nb, cw, item)
+    want_k1, want_k3 = lowmem_k1(op, N, nb, cw, pallas)
+    if item != 4:                        # K1 and K3 take f32 only
+        want_k1 = want_k3 = 0
+    s = box["s"]
+    bound_s = max(st.h2d_bytes / (rates["h2d_GBps"] * 1e9),
+                  st.d2h_bytes / (rates["d2h_GBps"] * 1e9))
+    r = {"N": N, "nb": nb, "cw": cw, "budget": budget, "s": s,
+         "h2d_bytes": st.h2d_bytes, "d2h_bytes": st.d2h_bytes,
+         "h2d_copies": st.h2d_copies, "d2h_copies": st.d2h_copies,
+         "largest_h2d": st.largest_h2d,
+         "h2d_GBps": st.h2d_bytes / s / 1e9,
+         "link_GBps": (st.h2d_bytes + st.d2h_bytes) / s / 1e9,
+         "bound_s": bound_s, "peak_bytes": peak,
+         "peak_over_budget": peak / budget, "k1": k1, "k3": k3,
+         "k1_want": want_k1, "k3_want": want_k3,
+         "swapped_rows": st.swapped_rows, "swap_s": st.swap_s,
+         "setup_s": st.setup_s, "ffma": pk.FFMA_LAUNCHES}
+    log(f"[{tag}] N={N} nb={nb} cw={cw} budget {budget / 2**20:.0f} MiB: "
+        f"{s:.3f} s (of it {st.setup_s:.3f} s copying the input into "
+        f"pinned memory); h2d {st.h2d_bytes / 1e9:.3f} GB (schedule "
+        f"{want_h2d / 1e9:.3f}) in {st.h2d_copies} copies, d2h "
+        f"{st.d2h_bytes / 1e9:.3f} GB ({want_d2h / 1e9:.3f}) in "
+        f"{st.d2h_copies}; {r['h2d_GBps']:.2f} GB/s h2d over the call "
+        f"against {rates['h2d_GBps']:.2f} pinned (bound {bound_s:.3f} s, "
+        f"{100 * bound_s / s:.1f}% of the call); peak device memory "
+        f"{peak / 2**20:.1f} MiB = {r['peak_over_budget']:.3f} x the "
+        f"budget; K1 {k1} (derived {want_k1}) K3 {k3} ({want_k3})"
+        + (f"; {st.swapped_rows} rows swapped on the host in "
+           f"{st.swap_s:.3f} s ({1e3 * st.swap_s / (-(-N // nb)):.2f} ms a "
+           f"panel)" if op == "getrf" else ""))
+    check((st.h2d_bytes, st.d2h_bytes) == (want_h2d, want_d2h),
+          f"{tag}: bytes {st.h2d_bytes}/{st.d2h_bytes} != the schedule's "
+          f"{want_h2d}/{want_d2h}")
+    check((k1, k3) == (want_k1, want_k3),
+          f"{tag}: K1/K3 launches {k1}/{k3} != derived {want_k1}/{want_k3}")
+    check(pk.FFMA_LAUNCHES == 0, f"{tag}: a K1 product took the FFMA kernel")
+    return box["out"], r, products, panels
+
+
+def phase_lowmem_catalogue(torch, pk, plu, record):
+    """Phase 17: the out-of-HBM tiers streaming over pinned host memory,
+    the GEMM dispatcher's streamed GEMM, the DTD drivers, the LAPACK-layout
+    Cholesky, the pltmg catalogue, map_tiles and factor_info. Every count
+    zeroed just before each call and read just after. Returns its record,
+    the K1 path sums and the K1 / K3 launches by path."""
+    import dataclasses
+
+    import numpy as np
+    from dplasma_tpu_torch import adtt
+    from dplasma_tpu_torch.descriptors import TileDesc, TileMatrix
+    from dplasma_tpu_torch.kernels import pallas_dd as pdd
+    from dplasma_tpu_torch.ops import blas3, checks, gemm, generators, info
+    from dplasma_tpu_torch.ops import lu, matgen, potrf, qr
+    from dplasma_tpu_torch.ops import map as pmap
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    rec = {}
+    k1_paths, k1_by, k3_by = {}, {}, {}
+    t_phase = time.perf_counter()
+    t0 = t_phase
+
+    def lap(what):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"[phase17] {what}: {now - t0:.1f} s")
+        rec.setdefault("section_s", {})[what] = now - t0
+        t0 = now
+
+    def pinned(x):
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x)
+        return h
+
+    rates = pinned_rates(torch)
+    rec["rates"] = rates
+    lap("host link rates")
+
+    # 1-2. potrf_lowmem: f32 at 32768 (budget 1 GiB) and FP64 at 16384
+    for tag, dt, N in (("spotrf_lowmem", torch.float32, N_LM_S),
+                       ("dpotrf_lowmem", torch.float64, N_LM_D)):
+        A = generators.plghe(float(N), N, NB_LM, seed=3872, dtype=dt)
+        Ah = pinned(A.data)
+        a = Ah.numpy()
+        item = a.itemsize
+        budget = a.nbytes // 4
+        nb, cw = potrf.plan_potrf_lowmem(N, a.dtype, budget)
+        cw = max(cw // nb * nb, nb)
+        L, r, products, _ = lowmem_case(
+            torch, pk, plu, tag, lambda: potrf.potrf_lowmem(
+                a, budget_bytes=budget), "potrf", N, nb, cw, item, budget,
+            rates)
+        check(nb == NB_LM, f"{tag}: plan nb {nb}")
+        Ld = TileMatrix(torch.from_numpy(L).cuda(), A.desc)
+        del L, Ah, a
+        res, ok = checks.check_potrf(A, Ld, "L")
+        Lin = potrf.potrf(A, "L").data
+        diff = float((Ld.data - Lin).abs().max() / Lin.abs().max())
+        tol = N * checks._eps(dt)
+        log(f"[{tag}] check_potrf {res:.3e}; max|L - L(in-core potrf, "
+            f"nb={NB_LM})| / max|L| = {diff:.3e} (tol N*u = {tol:.2e})")
+        check(ok and res < 60, f"{tag}: check_potrf {res:.3e}")
+        check(diff <= tol, f"{tag}: {diff:.3e} off the in-core potrf")
+        r.update(check_potrf=res, vs_incore=diff, incore_tol=tol)
+        rec[tag] = r
+        k1_by[tag] = r["k1"]
+        if products:
+            k1_paths[tag] = k1_path_sum(torch, pk, record, tag, products,
+                                        1700)
+        del A, Ld, Lin
+        torch.cuda.empty_cache()
+        lap(tag)
+
+    # where a lowmem call's time goes: one spotrf_lowmem at N=16384 (its
+    # budget a quarter of A) under torch.profiler
+    A = generators.plghe(16384.0, 16384, NB_LM, seed=3872)
+    Ah = pinned(A.data)
+    a = Ah.numpy()
+    _profile(torch, rec, "spotrf_lowmem_profile", "spotrf_lowmem N=16384",
+             lambda: potrf.potrf_lowmem(a, budget_bytes=a.nbytes // 4))
+    del A, Ah, a
+    lap("the spotrf_lowmem profile")
+
+    # 3. getrf_lowmem under panel.kernel=pallas, every K3 panel recorded
+    N = N_LM_LU
+    A = generators.plrnt(N, N, NB_LM, NB_LM, seed=3872)
+    Ah = pinned(A.data)
+    a = Ah.numpy()
+    cw = LM_LU_BUDGET // (3 * N * 4) // NB_LM * NB_LM
+    panel_s = []
+    orig_panel = lu._panel_lu
+
+    def timed_panel(col):
+        # each panel's device time, fenced on the host: the tier syncs
+        # once a panel anyway (its pivots go to the host)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = orig_panel(col)
+        torch.cuda.synchronize()
+        panel_s.append(time.perf_counter() - t2)
+        return out
+
+    lu._panel_lu = timed_panel
+    try:
+        with cfg.override_scope({"panel.kernel": "pallas"}):
+            (LU, perm), r, products, panels = lowmem_case(
+                torch, pk, plu, "sgetrf_lowmem", lambda: lu.getrf_lowmem(
+                    a, nb=NB_LM, budget_bytes=LM_LU_BUDGET), "getrf", N,
+                NB_LM, cw, 4, LM_LU_BUDGET, rates, pallas=True)
+        pallas_panels = list(panel_s)
+        panel_s.clear()
+        # the same call on the vendor panels (panel.kernel's default)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lu.getrf_lowmem(a, nb=NB_LM, budget_bytes=LM_LU_BUDGET)
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t1
+    finally:
+        lu._panel_lu = orig_panel
+    k3n = r["k3_want"]
+    log(f"[sgetrf_lowmem] panels (host clock, fenced): {sum(pallas_panels):.3f}"
+        f" s of the call; the {len(pallas_panels) - k3n} rec panels "
+        f"{sum(pallas_panels[:-k3n]):.3f} s, the {k3n} K3 panels "
+        f"{sum(pallas_panels[-k3n:]):.3f} s; the same call on cuSOLVER's "
+        f"panels (panel.kernel=chain; CALU above lu.panel_chunk = "
+        f"{cfg.mca_get_int('lu.panel_chunk', 8192)} rows): "
+        f"{chain_s:.3f} s, its panels {sum(panel_s):.3f} s")
+    check(perm.device.type == "cuda", "getrf_lowmem's perm is not on the card")
+    worst = 0.0
+    k3_rows = []
+    for pa, ppacked, pperm in panels:
+        pa = pa.cuda()
+        want, wperm = plu.lu_panel_reference(pa)
+        err = float((ppacked.cuda() - want).abs().max())
+        check(torch.equal(pperm.cuda(), wperm) and err == 0.0,
+              f"sgetrf_lowmem: a K3 panel {tuple(pa.shape)} differs from "
+              f"lu_panel_reference ({err:.3e})")
+        perm_eq, mabs, _, k_ms, p_ms, l_ms = k3_case(torch, plu, pa)
+        check(perm_eq and mabs == 0.0, "K3 relaunch differs")
+        b_ms, _ = lu_bound_ms(pa.shape[0], pa.shape[1])
+        k3_rows.append({"M": pa.shape[0], "ms": k_ms, "plain_ms": p_ms,
+                        "library_ms": l_ms, "bound_ms": b_ms})
+        worst = max(worst, err)
+    log(f"[sgetrf_lowmem] the {len(panels)} K3 panels bitwise equal to "
+        f"lu_panel_reference (perm and factor); kernel "
+        f"{sum(x['ms'] for x in k3_rows):.3f} ms, plain "
+        f"{sum(x['plain_ms'] for x in k3_rows):.3f} ms, cuSOLVER "
+        f"{sum(x['library_ms'] for x in k3_rows):.3f} ms over them")
+    L = torch.tril(torch.from_numpy(LU).cuda(), -1)
+    L.diagonal().fill_(1)
+    U = torch.triu(torch.from_numpy(LU).cuda())
+    del LU
+    res = float((A.data[perm] - torch.matmul(L, U)).abs().max()
+                / (A.data.abs().max() * N * checks._eps(torch.float32)))
+    log(f"[sgetrf_lowmem] max|A[perm] - L U| / (max|A| N eps) = "
+        f"{res:.3e} (the -x threshold 60)")
+    check(res < 60, f"sgetrf_lowmem: residual {res:.3e}")
+    r.update(residual=res, k3_panels=k3_rows, panels_s=pallas_panels,
+             chain_s=chain_s, chain_panels_s=sum(panel_s))
+    rec["sgetrf_lowmem"] = r
+    k1_by["sgetrf_lowmem"], k3_by["sgetrf_lowmem"] = r["k1"], r["k3"]
+    k1_paths["sgetrf_lowmem"] = k1_path_sum(torch, pk, record,
+                                            "sgetrf_lowmem", products, 1710)
+    del L, U, Ah, a, perm
+    torch.cuda.empty_cache()
+    lap("sgetrf_lowmem")
+
+    # 4. geqrf_lowmem against check_qr, orthogonality and in-core geqrf
+    Ah = pinned(A.data)
+    a = Ah.numpy()
+    (packed, Ts), r, products, _ = lowmem_case(
+        torch, pk, plu, "sgeqrf_lowmem", lambda: qr.geqrf_lowmem(
+            a, nb=NB_LM, budget_bytes=LM_LU_BUDGET), "geqrf", N, NB_LM,
+        NB_LM, 4, LM_LU_BUDGET, rates)
+    kt = N // NB_LM
+    Af = TileMatrix(torch.from_numpy(packed).cuda(), A.desc)
+    Tf = TileMatrix(torch.from_numpy(Ts).cuda(),
+                    TileDesc(NB_LM, kt * NB_LM, NB_LM, NB_LM))
+    del packed, Ts, Ah, a
+    Q = qr.ungqr(Af, Tf).to_dense()
+    R = torch.triu(Af.data)
+    rq, okq = checks.check_qr(A, Q, R)
+    ro, oko = checks.check_orthogonality(Q)
+    del Q
+    Ain, _ = qr.geqrf(A)
+    Rin = torch.triu(Ain.data)
+    diff = float((R - Rin).abs().max() / Rin.abs().max())
+    tol = 1e-3
+    log(f"[sgeqrf_lowmem] |A-QR| {rq:.3e}, |I-Q'Q| {ro:.3e}; max|R - "
+        f"R(in-core geqrf, vendor panels)| / max|R| = {diff:.3e} (tol "
+        f"{tol:g})")
+    check(okq and oko, f"sgeqrf_lowmem: checks {rq:.3e} {ro:.3e}")
+    check(diff <= tol, f"sgeqrf_lowmem: R {diff:.3e} off the in-core one")
+    r.update(check_qr=rq, check_orthogonality=ro, vs_incore=diff)
+    rec["sgeqrf_lowmem"] = r
+    k1_by["sgeqrf_lowmem"] = r["k1"]
+    k1_paths["sgeqrf_lowmem"] = k1_path_sum(torch, pk, record,
+                                            "sgeqrf_lowmem", products, 1720)
+    del A, Af, Tf, R, Ain, Rin
+    torch.cuda.empty_cache()
+    lap("sgeqrf_lowmem")
+
+    # 5. gemm_stream through gemm_ex(algo="stream") beside blas3.gemm
+    N = N_STREAM
+    A = generators.plrnt(N, N, NB_STREAM, NB_STREAM, seed=1)
+    B = generators.plrnt(N, N, NB_STREAM, NB_STREAM, seed=2)
+    C = generators.plrnt(N, N, NB_STREAM, NB_STREAM, seed=3)
+    inf = cfg.Info(STREAM_INFO)
+    auto = gemm.plan_gemm(C, A, B)
+    plan = gemm.plan_gemm(C, A, B, info=inf, algo="stream")
+    nblk = (-(-N // (plan.b * NB_STREAM))) ** 2
+    want = nblk * (-(-N // (plan.d * NB_STREAM)))
+    pk.reset_counts()
+    box = {}
+    products = recorded_k1_products(torch, pk, lambda: box.setdefault(
+        "out", gemm.gemm_ex(0.5, A, B, 2.0, C, info=inf, algo="stream")))
+    launches = pk.LAUNCHES
+    got = box.pop("out")
+    ref = blas3.gemm(0.5, A, B, 2.0, C)
+    rel = rel_fro(torch, got.data, ref.data)
+    s_ms = time_ms(torch, lambda: gemm.gemm_ex(0.5, A, B, 2.0, C, info=inf,
+                                               algo="stream"))
+    d_ms = time_ms(torch, lambda: blas3.gemm(0.5, A, B, 2.0, C))
+    b_ms, _ = gemm_bound_ms(N, N, N, 4, True, TF32_FLOPS / 3)
+    log(f"[gemm_stream] M=N=K={N} mb=nb={NB_STREAM} plan {plan}: K1 "
+        f"{launches} (derived {want}); rel_fro vs blas3.gemm {rel:.3e}; "
+        f"{s_ms:.2f} ms beside blas3.gemm's one product {d_ms:.2f} ms "
+        f"(3xTF32 bound {b_ms:.2f} ms); plan_gemm auto at this size on "
+        f"{torch.cuda.get_device_name(0)} "
+        f"({gemm.device_memory_bytes() / 2**30:.1f} GiB): {auto.algo}")
+    check(launches == want, f"gemm_stream: K1 {launches} != {want}")
+    check(rel <= TOL["float32"], f"gemm_stream: rel_fro {rel:.3e}")
+    rec["sgemm_stream"] = {"plan": dataclasses.asdict(plan), "k1": launches,
+                           "rel_fro": rel, "ms": s_ms, "dot_ms": d_ms,
+                           "bound_ms": b_ms, "auto": auto.algo}
+    k1_by["sgemm_stream"] = launches
+    k1_paths["sgemm_stream"] = k1_path_sum(torch, pk, record,
+                                           "sgemm_stream", products, 1730)
+    del A, B, C, got, ref
+    torch.cuda.empty_cache()
+    lap("gemm_stream")
+
+    # 6. the DTD drivers beside testing_spotrf
+    nt = N_DTD // NB_DTD
+    dtd_k1 = nt * (nt - 1) // 2 + nt * (nt - 1) * (nt - 2) // 6
+    kq = N_DTD_QR // NB_DTD
+    ku = N_DTD_UNTIED // NB_DTD
+    drv = {}
+    for argv, k1_want in (
+            (["testing_spotrf_dtd", "-N", str(N_DTD), "-t", str(NB_DTD),
+              "-x"], dtd_k1),
+            (["testing_dpotrf_dtd", "-N", str(N_DTD), "-t", str(NB_DTD),
+              "-x"], 0),
+            (["testing_sgemm_dtd", "-M", str(N_DTD), "-N", str(N_DTD),
+              "-K", str(N_DTD), "-t", str(NB_DTD), "-x"], nt ** 3),
+            (["testing_sgeqrf_dtd", "-N", str(N_DTD_QR), "-t", str(NB_DTD),
+              "-x"], qr_k1_products(kq)),
+            (["testing_sgetrf_incpiv_dtd", "-N", str(N_DTD_QR), "-t",
+              str(NB_DTD), "-x"], incpiv_k1(kq)),
+            (["testing_spotrf_dtd_untied", "-N", str(N_DTD_UNTIED), "-t",
+              str(NB_DTD), "-x"],
+             ku * (ku - 1) // 2 + ku * (ku - 1) * (ku - 2) // 6),
+            (["testing_sgeqrf_dtd_untied", "-N", str(N_DTD_UNTIED), "-t",
+              str(NB_DTD), "-x"], qr_k1_products(ku)),
+            (["testing_spotrf", "-N", str(N_DTD), "-t", str(NB_DTD)],
+             2 * nt - 3)):
+        r = blas3_driver(torch, pk, pdd, argv, {}, k1_want, 0)
+        drv[argv[0]] = r
+        k1_by[f"{argv[0][8:]}_{argv[argv.index('-N') + 1]}"] = \
+            r["k1_launches_run"]
+    log(f"[dtd] testing_spotrf_dtd {drv['testing_spotrf_dtd']['best_s']:.4f}"
+        f" s ({nt * (nt + 1) * (nt + 2) // 6} tasks) beside testing_spotrf "
+        f"{drv['testing_spotrf']['best_s']:.4f} s at N={N_DTD} nb={NB_DTD}")
+    rec["dtd"] = drv
+    lap("the DTD drivers")
+
+    # 7. potrf_lapack on a Fortran-ordered f32 host buffer (A is exactly
+    # symmetric: the row-major host copy, transposed, is its column-major
+    # buffer)
+    N = N_LAPACK
+    A = generators.plghe(float(N), N, NB_LAPACK, seed=3872)
+    a = A.data.cpu().numpy().T
+    check(a.flags.f_contiguous, "potrf_lapack: the buffer is not F-ordered")
+    pk.reset_counts()
+    t1 = time.perf_counter()
+    inf_ = adtt.potrf_lapack(adtt.LapackView(a), NB_LAPACK)
+    torch.cuda.synchronize()
+    lap_s = time.perf_counter() - t1
+    k1 = pk.LAUNCHES
+    kt = N // NB_LAPACK
+    back = torch.from_numpy(a).cuda()
+    untouched = bool(torch.equal(torch.triu(back, 1),
+                                 torch.triu(A.data, 1)))
+    Ld = TileMatrix(torch.tril(back).contiguous(), A.desc)
+    del back
+    res, ok = checks.check_potrf(A, Ld, "L")
+    bad = generators.plghe(0.0, N, NB_LAPACK, seed=3872).data.cpu().numpy().T
+    info_bad = adtt.potrf_lapack(adtt.LapackView(bad), NB_LAPACK)
+    log(f"[potrf_lapack] N={N} nb={NB_LAPACK} Fortran-ordered f32: INFO "
+        f"{inf_}, {lap_s:.3f} s, K1 {k1} (derived {kt * (kt - 1) // 2}), "
+        f"check_potrf {res:.3e}, strict upper untouched {untouched}; "
+        f"plghe with bump 0 (not SPD): INFO {info_bad}")
+    check(inf_ == 0 and ok and untouched, "potrf_lapack: INFO, check or "
+          "the untouched upper triangle")
+    check(k1 == kt * (kt - 1) // 2, f"potrf_lapack: K1 {k1}")
+    check(info_bad > 0, f"potrf_lapack: INFO {info_bad} on a non-SPD matrix")
+    rec["potrf_lapack"] = {"N": N, "info": inf_, "s": lap_s, "k1": k1,
+                           "check_potrf": res, "info_non_spd": info_bad}
+    k1_by["spotrf_lapack"] = k1
+    del A, a, Ld, bad
+    torch.cuda.empty_cache()
+    lap("potrf_lapack")
+
+    # 8. pltmg: every type and latms, card against the port on the CPU
+    mg = {}
+    slowest = (0.0, None)
+    for dt in (torch.float32, torch.complex128):
+        key = str(dt).split(".")[1]
+        for name in matgen.TYPES:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = matgen.pltmg(name, N_MG, N_MG, NB_MG, NB_MG, dtype=dt)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+            want = matgen.pltmg(name, N_MG, N_MG, NB_MG, NB_MG, dtype=dt,
+                                device="cpu")
+            g = got.data.cpu()
+            equal = bool(torch.equal(g, want.data))
+            err = float((g - want.data).abs().max()
+                        / max(float(want.data.abs().max()), 1.0))
+            check(bool(torch.isfinite(got.data).all()),
+                  f"pltmg {name} {key}: not finite")
+            if name in MG_EXACT:
+                check(equal, f"pltmg {name} {key}: not bitwise the CPU's")
+            else:
+                check(err <= MG_TOL[key], f"pltmg {name} {key}: {err:.3e}")
+            mg[f"{name}_{key}"] = {"ms": ms, "bitwise": equal, "err": err}
+            slowest = max(slowest, (ms, f"{name} {key}"))
+        sv = np.geomspace(1.0, 1e-3, N_MG)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = matgen.latms(N_MG, N_MG, NB_MG, NB_MG, sv, dtype=dt)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        want = matgen.latms(N_MG, N_MG, NB_MG, NB_MG, sv, dtype=dt,
+                            device="cpu")
+        s_ = torch.linalg.svdvals(got.data).double().cpu()
+        sv_err = float((s_ - torch.from_numpy(sv)).abs().max())
+        err = float((got.data.cpu() - want.data).abs().max()
+                    / float(want.data.abs().max()))
+        sv_tol = 1e-3 if dt == torch.float32 else 1e-10
+        log(f"[pltmg] latms {key}: {ms:.1f} ms; its singular values "
+            f"within {sv_err:.3e} of sv (tol {sv_tol:g} x max sv); "
+            f"entrywise {err:.3e} off the CPU's (QRs on two libraries, "
+            f"logged)")
+        check(sv_err <= sv_tol, f"latms {key}: singular values {sv_err:.3e}")
+        mg[f"latms_{key}"] = {"ms": ms, "sv_err": sv_err, "err": err}
+        slowest = max(slowest, (ms, f"latms {key}"))
+    rows = sorted(mg.items(), key=lambda kv: -kv[1]["ms"])
+    log(f"[pltmg] {len(matgen.TYPES)} types + latms at {N_MG}x{N_MG} "
+        f"nb={NB_MG} in s and z on the card: bitwise the CPU's "
+        f"{sum(v.get('bitwise', False) for v in mg.values())} of "
+        f"{2 * len(matgen.TYPES)} (gated on the {len(MG_EXACT)} "
+        f"hash/integer types), the rest within {MG_TOL}; slowest "
+        f"{slowest[1]} {slowest[0]:.1f} ms; then " + ", ".join(
+            f"{k} {v['ms']:.1f}" for k, v in rows[1:6]))
+    rec["pltmg"] = mg
+    lap("pltmg")
+
+    # 9. map_tiles and factor_info on the spotrf factor at 8192
+    F = potrf.potrf(generators.plghe(float(N_DTD), N_DTD, NB_DTD,
+                                     seed=3872), "L")
+
+    def op(i, j, t):
+        return t * 2.0 + (i - 2 * j)
+
+    got = pmap.map_tiles(F, op)
+    ok_map = all(torch.equal(got.tile(i, j), F.tile(i, j) * 2.0 + (i - 2 * j))
+                 for i in range(F.MT) for j in range(F.NT))
+    i0 = int(info.factor_info(F, "L"))
+    G = potrf.potrf(generators.plghe(0.0, N_DTD, NB_DTD, seed=3872), "L")
+    x = torch.tril(G.to_dense())
+    bad_rows = torch.nonzero((~torch.isfinite(x)).any(dim=1))
+    want_bad = int(bad_rows[0]) + 1 if bad_rows.numel() else 0
+    i1 = int(info.factor_info(G, "L"))
+    log(f"[map/info] map_tiles over the {F.MT}x{F.NT} tiles of the spotrf "
+        f"factor at {N_DTD}: equal to the tile loop {ok_map}; factor_info "
+        f"{i0} on it, {i1} on the factor of plghe with bump 0 (first bad "
+        f"row {want_bad})")
+    check(ok_map and i0 == 0 and i1 == want_bad and i1 > 0,
+          "map_tiles / factor_info")
+    rec["map_info"] = {"map_equal": ok_map, "info_spd": i0,
+                       "info_non_spd": i1}
+    del F, G, x, got
+    torch.cuda.empty_cache()
+    lap("map_tiles and factor_info")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    record["phase17"] = rec
+    return rec, k1_paths, k1_by, k3_by
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -5309,6 +5950,8 @@ def main() -> int:
                                                            dd, record)
     k1hq, k2hq, k1hq_by, k2hq_by = phase_hqr_ldl(torch, pk, pdd, dd, record)
     eigr, k1eig = phase_eig(torch, pk, pdd, record)
+    _, k1lm, k1lm_by, k3lm_by = phase_lowmem_catalogue(torch, pk, plu,
+                                                       record)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
@@ -5316,7 +5959,7 @@ def main() -> int:
                   for path, t in (("spotrf", k1tot), *k1luqr.items(),
                                   *k1cyc.items(), *k1inv.items(),
                                   *k1cx.items(), *k1hq.items(),
-                                  *k1eig.items())}
+                                  *k1eig.items(), *k1lm.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
@@ -5350,21 +5993,23 @@ def main() -> int:
          "launches": (k1_spotrf + k1_sgetrf + k1_sgeqrf + k1_gt + k1_pc
                       + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
-                      + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())),
+                      + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())
+                      + sum(k1lm_by.values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
                                    "potrf_cyclic": k1_pc,
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
                                   **ir["k1"], **k1inv_by, **k1cx_by,
-                                  **k1hq_by, **eigr["k1_by"]),
+                                  **k1hq_by, **eigr["k1_by"], **k1lm_by),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
                             + [t["max_abs_err"] for t in k1inv.values()]
                             + [t["max_abs_err"] for t in k1cx.values()]
                             + [t["max_abs_err"] for t in k1hq.values()]
-                            + [t["max_abs_err"] for t in k1eig.values()]),
+                            + [t["max_abs_err"] for t in k1eig.values()]
+                            + [t["max_abs_err"] for t in k1lm.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -5401,10 +6046,10 @@ def main() -> int:
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
          "launches": (k3_sgetrf + ddf["k3"]["dgetrf_dd"]
-                      + ir["k3"]["gesv_ir"]),
+                      + ir["k3"]["gesv_ir"] + sum(k3lm_by.values())),
          "launches_by_path": {"sgetrf": k3_sgetrf,
                               "dgetrf_dd": ddf["k3"]["dgetrf_dd"],
-                              "gesv_ir": ir["k3"]["gesv_ir"]},
+                              "gesv_ir": ir["k3"]["gesv_ir"], **k3lm_by},
          "max_abs_err": k3tot["max_abs_err"],
          "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
          "bound_ms": k3tot["bound_ms"],
@@ -5526,7 +6171,13 @@ def main() -> int:
         f"count; library = the root's block expanded and made contiguous "
         f"for a broadcast, the rotated blocks stacked for a shift), "
         f"launches the sgetrf_ptgpanel driver run (warm-up and timed run) "
-        f"and the timed potrf_cyclic call")
+        f"and the timed potrf_cyclic call; phase 17: K1's by_path "
+        f"spotrf_lowmem (N={N_LM_S}, nb={NB_LM}), sgetrf_lowmem and "
+        f"sgeqrf_lowmem (N={N_LM_LU}) and sgemm_stream ({N_STREAM}^3) each "
+        f"distinct product of the one timed call, held and timed once "
+        f"times its count; K1's and K3's launches_by_path count each "
+        f"phase 17 call (the lowmem tiers, gemm_ex stream, potrf_lapack) "
+        f"and driver run (warm-up, timed run, -x check)")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

@@ -174,6 +174,22 @@ class TileMatrix:
     def shape(self):
         return (self.desc.M, self.desc.N)
 
+    @property
+    def MT(self) -> int:
+        return self.desc.MT
+
+    @property
+    def NT(self) -> int:
+        return self.desc.NT
+
+    @property
+    def mb(self) -> int:
+        return self.desc.mb
+
+    @property
+    def nb(self) -> int:
+        return self.desc.nb
+
     # -- views ---------------------------------------------------------
     def to_dense(self) -> torch.Tensor:
         return self.data[: self.desc.M, : self.desc.N]

@@ -15,14 +15,20 @@ and the tree checker ``pivgen``; the LDLᴴ and butterfly solvers
 ``gebrd_ge2gb``; the mixed-precision IR
 solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
 from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
-``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``.
+``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``;
+the insert-task (DTD) runtime paths ``potrf_dtd``, ``potrf_dtd_untied``,
+``gemm_dtd``, ``geqrf_dtd``, ``geqrf_dtd_untied`` and
+``getrf_incpiv_dtd`` (``_untied`` differs from its twin only in
+PaRSEC's worker binding, which the port does not have; ``geqrf_dtd`` and
+``getrf_incpiv_dtd`` run the geqrf and getrf_incpiv bodies, as the
+reference re-runs its PTG DAG under the DTD engine).
 Under MCA ``dd_gemm=always`` the d-precision drivers take the
 f64-equivalent limb route. Every driver but the IR solvers (float64
 only, as in the reference) runs in all four precisions s, d, c and z.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:24, :31-41, :68-287,
 :290-381, :395-450, :454-455, :510-607, :609-713, :771-798,
-:720-768, :801-868, :932-975, :980-1067; the IR drivers
+:720-768, :801-868, :871-930, :932-975, :980-1067; the IR drivers
 without the autopilot and the ladder's fallback rung, whose escape the
 solvers' own escalation already takes): seeded generation → timed run
 with the GFLOPS print → optional ``-x`` residual verification against
@@ -33,7 +39,9 @@ from __future__ import annotations
 
 import torch
 
+from dplasma_tpu_torch import dtd
 from dplasma_tpu_torch.drivers.common import Driver
+from dplasma_tpu_torch.kernels import blas as kb
 from dplasma_tpu_torch.ops import aux, blas3, checks, eig, generators, hqr
 from dplasma_tpu_torch.ops import ldl, lu, norms, qr, rbt, refine
 from dplasma_tpu_torch.ops import potrf as potrf_mod
@@ -823,6 +831,63 @@ def print_matrix(drv: Driver):
     return 0
 
 
+# ------------------------------------------------------------------ DTD
+
+def potrf_dtd(drv: Driver):
+    """testing_zpotrf_dtd: the insert-task runtime path."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    out, _ = drv.progress(lambda a: dtd.potrf_dtd(a, "L"), (A0,),
+                          lawn41.potrf(ip.N, ip.prec_dtype.is_complex))
+    if ip.check:
+        r, ok = checks.check_potrf(A0, out, "L")
+        return drv.report_check("POTRF(dtd)", r, ok)
+    return 0
+
+
+def _dtd_gemm_body(a, b, c):
+    """C = A B by one task per C tile and k panel, each accumulating
+    into its C tile (INOUT)."""
+    tp = dtd.TaskPool(c)
+    for i in range(c.MT):
+        for j in range(c.NT):
+            for kk in range(a.NT):
+                def task(ct, i=i, j=j, kk=kk):
+                    return kb.gemm(1.0, a.tile(i, kk), b.tile(kk, j),
+                                   1.0 if kk else 0.0, ct)
+                tp.insert_task(task, tp.tile(0, i, j, dtd.INOUT),
+                               name="gemm")
+    (out,) = tp.wait()
+    return out
+
+
+def gemm_dtd(drv: Driver):
+    ip = drv.ip
+    A0 = _gen(drv, ip.M, ip.K)
+    B0 = _gen(drv, ip.K, ip.N, 1)
+    C0 = _gen(drv, ip.M, ip.N, 2)
+    out, _ = drv.progress(
+        _dtd_gemm_body, (A0, B0, C0),
+        lawn41.gemm(ip.M, ip.N, ip.K, ip.prec_dtype.is_complex))
+    if ip.check:
+        ref = blas3.gemm(1.0, A0, B0, 0.0, C0.like(C0.data * 0))
+        r = float(torch.max(torch.abs(out.to_dense() - ref.to_dense()))
+                  / (torch.max(torch.abs(ref.to_dense())) + 1.0))
+        eps = checks._eps(ip.prec_dtype)
+        return drv.report_check("GEMM(dtd)", r, r < 60 * eps * ip.K)
+    return 0
+
+
+def geqrf_dtd(drv: Driver):
+    """testing_zgeqrf_dtd: the blocked QR (the reference re-runs its PTG
+    DAG under the DTD engine)."""
+    return geqrf(drv)
+
+
+def getrf_incpiv_dtd(drv: Driver):
+    return getrf_incpiv(drv)
+
+
 #: registry: algo name (precision-less) -> driver body
 DRIVERS = {
     "gemm": gemm, "symm": symm, "hemm": hemm,
@@ -848,4 +913,8 @@ DRIVERS = {
     "lange": lange, "lanhe": lanhe, "lansy": lansy, "lantr": lantr,
     "lanm2": lanm2,
     "geadd": geadd, "tradd": tradd, "print": print_matrix,
+    "potrf_dtd": potrf_dtd, "potrf_dtd_untied": potrf_dtd,
+    "gemm_dtd": gemm_dtd,
+    "geqrf_dtd": geqrf_dtd, "geqrf_dtd_untied": geqrf_dtd,
+    "getrf_incpiv_dtd": getrf_incpiv_dtd,
 }

@@ -22,11 +22,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "dplasma_tpu_torch"
 
-#: kernel name -> source file under csrc/
+#: kernel name -> source file under csrc/ (``host_copy`` is no kernel:
+#: the lowmem tiers' pitched host copy, ``kernels/hostlink.py``)
 SOURCES = {"gemm": "gemm.cu", "recombine": "recombine.cu",
            "lu_panel": "lu_panel.cu", "geqrt_panel": "geqrt_panel.cu",
            "ring": "ring.cu", "tridiag_bisect": "tridiag_bisect.cu",
-           "sbr_window": "sbr_window.cu"}
+           "sbr_window": "sbr_window.cu", "host_copy": "host_copy.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -53,16 +53,48 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _hash2d(seed: int, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """The uint32 hash of (seed, i, j) at integer index tensors of any
+    (broadcastable) shape, as int64 values in [0, 2^32); an index wraps
+    to 32 bits as the reference's ``astype(uint32)`` wraps it."""
+    h = _mix(torch.tensor((seed & _MASK) ^ _GOLDEN, device=i.device))
+    h = _mix(h ^ _mul32(i.to(torch.int64) & _MASK, _R1))
+    return _mix(h ^ _mul32(j.to(torch.int64) & _MASK, _R2))
+
+
+def _uniform(seed: int, i: torch.Tensor, j: torch.Tensor,
+             real_dtype) -> torch.Tensor:
+    """U(-0.5, 0.5) at global elements (i, j), in ``real_dtype``."""
+    u = _hash2d(seed, i, j).to(torch.float64).to(real_dtype) * (2.0 ** -32)
+    return 0.5 - u
+
+
+def _grid(desc: TileDesc, device):
+    """Row and column index tensors (Mp, 1) and (1, Np) of the padded
+    grid (int64)."""
+    r = torch.arange(desc.Mp, device=device)[:, None]
+    c = torch.arange(desc.Np, device=device)[None, :]
+    return r, c
+
+
+def _value(seed: int, r: torch.Tensor, c: torch.Tensor,
+           dtype) -> torch.Tensor:
+    """The generators' value at (r, c): uniform in the real dtype; a
+    complex element's real part from ``seed``, its imaginary part from
+    ``seed + 1``."""
+    if dtype.is_complex:
+        rdt = dtype.to_real()
+        return torch.complex(_uniform(seed, r, c, rdt),
+                             _uniform(seed + 1, r, c, rdt))
+    return _uniform(seed, r, c, dtype)
+
+
 def _uniform_rows(seed: int, r0: int, r1: int, ncols: int, dtype,
                   device) -> torch.Tensor:
-    """U(-0.5, 0.5) at global elements [r0, r1) × [0, ncols)."""
-    h0 = _mix(torch.tensor((seed & _MASK) ^ _GOLDEN, device=device))
-    i = torch.arange(r0, r1, dtype=torch.int64, device=device)
-    j = torch.arange(ncols, dtype=torch.int64, device=device)
-    hi = _mix(h0 ^ _mul32(i, _R1))              # per row
-    h = _mix(hi[:, None] ^ _mul32(j, _R2)[None, :])
-    u = h.to(torch.float64).to(dtype) * (2.0 ** -32)
-    return 0.5 - u
+    """U(-0.5, 0.5) at global elements [r0, r1) × [0, ncols) (the row
+    part of the hash once a row)."""
+    return _uniform(seed, torch.arange(r0, r1, device=device)[:, None],
+                    torch.arange(ncols, device=device)[None, :], dtype)
 
 
 def _hash_grid(seed: int, desc: TileDesc, dtype, device) -> torch.Tensor:

@@ -54,22 +54,43 @@ its ``larft`` Gram and three per ``apply_q`` on a trailing block. Under
 ``dd_gemm=always`` a complex product is two limb products and a complex
 ``trsm_f64`` five products (the Newton inverse's four and one apply); a
 real one is two limb residuals. The reference's ``lax.cond`` on the
-criterion is a host ``bool`` per panel here. The lowmem tier and
-``dag`` wait for later slices.
+criterion is a host ``bool`` per panel here.
+
+The out-of-HBM tier :func:`getrf_lowmem` (lu.py:780-854) keeps the
+matrix on the host (``kernels.hostlink``) and runs a left-looking
+sweep: per nb-wide panel, its whole column and then each finished
+``cw``-wide block (rows j0 and below) go up, each block one U solve and
+one rank-cw product (one K1 launch in f32), then the panel's rows from
+its diagonal down factor by :func:`_panel_lu` and go back with the U
+rows above. The panel's pivots then swap host rows in every other
+column — only the rows the permutation moves (at most 2·nb for a
+partial-pivoting panel), gathered before they are scattered, which is
+bitwise the reference's whole-slab gather. Per square factorization
+with nb-wide panels: Σₖ ceil(k·nb / cw) applies, and under
+``panel.kernel=pallas`` K3 on the panels with (N − s)·nb·4 <= 8 MiB and
+the ``rec`` panel on the others, whose one Schur product of width nb/2
+>= 256 is one more K1 launch: at N = 16384, nb = 512, cw = 1024, 256
+applies, 8 K3 and 24 + 256 = 280 K1 launches.
+
+``dag`` waits for ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from dplasma_tpu_torch import resolve_device
+from dplasma_tpu_torch.analysis import memcheck as _mc
 from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import _sweep, blas3
+from dplasma_tpu_torch.ops.potrf import lowmem_budget
 from dplasma_tpu_torch.parallel import cyclic
 from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config as _cfg
@@ -608,3 +629,58 @@ def gerfs(A: TileMatrix, LU: TileMatrix, perm, B: TileMatrix,
         D = getrs("N", LU, perm, R)
         X = X.like(X.data + D.data)
     return X
+
+
+# -- out-of-HBM tier ---------------------------------------------------
+
+def _lowmem_lu_apply(col, W, j0: int):
+    """One streamed finished block, applied in place: the panel's rows
+    j0..j0+cw solve against W's unit-lower diagonal block, then the rows
+    below take the rank-cw product. ``W`` holds only rows j0 and below
+    (the rows above are never read)."""
+    cw = W.shape[1]
+    blk = col[j0:j0 + cw]
+    u = k.trsm(W[:cw], blk, side="L", lower=True, unit=True)
+    blk.copy_(u)
+    if col.shape[0] > j0 + cw:
+        col[j0 + cw:] -= k.dot(W[cw:], u)
+    return col
+
+
+def getrf_lowmem(A, nb: int = 512, budget_bytes: int | None = None, *,
+                 device=None):
+    """Out-of-HBM partial-pivoting LU (the reference's lowmem tier;
+    ref tests/Testings.cmake:147, src/zgemm_NN_gpu.jdf:243-330).
+
+    ``A`` is a square host numpy array (not written). A left-looking
+    sweep streams finished column blocks through a device working set
+    of ``3·N·cw`` elements (``cw`` from ``budget_bytes``, default MCA
+    ``device.hbm_fraction`` of the device's memory); the new pivots of
+    each panel swap host rows, so streamed factor columns are always in
+    final row order. Returns (packed L\\U host array, perm on the
+    device) with ``A[perm] = L U``. ``device``: the card by default, the
+    CPU only when asked; without CUDA the default raises."""
+    dev = resolve_device(device)
+    H = hostlink.HostMatrix(A, dev)
+    N = H.a.shape[0]
+    if H.a.shape[1] != N:
+        raise ValueError(f"getrf_lowmem: square only, got {H.a.shape}")
+    if budget_bytes is None:
+        budget_bytes = lowmem_budget(dev)
+    cw = _mc.lowmem_blocking("getrf", N, H.a.itemsize, budget_bytes,
+                             nb=nb)["cw"]
+    perm = np.arange(N)
+    for s in range(0, N, nb):
+        w = min(nb, N - s)
+        col = H.upload(0, N, s, s + w)
+        for j0 in range(0, s, cw):
+            _lowmem_lu_apply(col, H.upload(j0, N, j0, min(j0 + cw, s)), j0)
+        pan, p_loc = _panel_lu(col[s:])
+        if s:
+            H.download(col[:s], 0, s)
+        H.download(pan, s, s)
+        del col, pan
+        p_loc = _host(p_loc)
+        H.permute_rows(s, p_loc, s, s + w)
+        perm[s:] = perm[s:][p_loc]
+    return H.finish(), torch.as_tensor(perm, device=dev)

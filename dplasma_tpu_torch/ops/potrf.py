@@ -31,17 +31,33 @@ products (30 at KT = 16). ``lauum`` is one product, ``potri`` =
 ``lauum ∘ trtri`` and ``poinv`` = ``potri ∘ potrf``. Every product goes
 through ``kernels.blas.dot``: K1 in f32, K2 under the dd route.
 
-``dag`` and the lowmem tier wait for later slices.
+The out-of-HBM tier ``potrf_lowmem`` (potrf.py:269-350) keeps the
+matrix on the host and streams it through a device working set of
+``N·(cw + 3·nb)`` elements (``analysis.memcheck.lowmem_blocking``): per
+panel, its column and then each finished chunk of ``cw`` columns go up
+(``kernels.hostlink``: pinned memory, one pitched copy a block), each
+chunk is one update product, and the factored panel goes back. With
+``nt`` panels that is Σₖ ceil(k·nb / cw) update products, one K1 launch
+each in f32 (185 at N = 32768, nb = 512, cw = 6656); the panel solve is
+cuBLAS's. Host → device it moves Σ (N − s)(s + w) elements, device →
+host Σ (N − s)·w.
+
+``dag`` waits for ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dplasma_tpu_torch import resolve_device
+from dplasma_tpu_torch.analysis import memcheck as _mc
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import quant as _quant
 from dplasma_tpu_torch.ops import blas3
+from dplasma_tpu_torch.ops import gemm as _gemm
 from dplasma_tpu_torch.ops._sweep import sweep_params
 from dplasma_tpu_torch.ops.aux import _tri_mask
 
@@ -140,6 +156,81 @@ def potrf_rec(A: TileMatrix, uplo: str = "L",
         return potrf(sub, "L" if lower else "U").to_dense()
 
     return potrf(A, uplo, diag_kernel=nested)
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def lowmem_budget(device) -> int:
+    """The lowmem tiers' default budget: MCA ``device.hbm_fraction`` of
+    the device's memory (``ops.gemm.device_memory_bytes``)."""
+    return int(_gemm.hbm_fraction() * _gemm.device_memory_bytes(device))
+
+
+def plan_potrf_lowmem(N: int, dtype, budget_bytes: int):
+    """Blocking of the out-of-HBM tier: panel width ``nb`` and streamed
+    chunk width ``cw`` such that one (N, nb) panel, one (N, cw) chunk
+    and the update temporaries (~two more panels) fit the budget — the
+    inequality of ``analysis.memcheck.lowmem_blocking`` (the
+    reference's, line for line). ``dtype``: a numpy or torch dtype."""
+    blk = _mc.lowmem_blocking("potrf", N, _itemsize(dtype), budget_bytes)
+    return blk["nb"], blk["cw"]
+
+
+def _lowmem_upd(col, W):
+    """col -= W @ W[:width]^H, in place (W's rows align with col's)."""
+    col -= k.dot(W, W[:col.shape[1]], tb=True, conj_b=True)
+    return col
+
+
+def _lowmem_panel(col):
+    w = col.shape[1]
+    lkk = k.potrf(col[:w], lower=True)
+    if col.shape[0] > w:
+        pan = k.trsm(lkk, col[w:], side="R", lower=True, trans="C")
+        return torch.cat([lkk, pan], dim=0)
+    return lkk
+
+
+def potrf_lowmem(A, nb: int | None = None, budget_bytes: int | None = None,
+                 *, device=None):
+    """Out-of-HBM Cholesky (the reference's lowmem tier, potrf.py:293-350;
+    ref tests/Testings.cmake:147, src/zgemm_NN_gpu.jdf:243-330).
+
+    ``A`` is a host numpy array (its lower triangle is read; it is not
+    written). A left-looking panel sweep streams block columns through a
+    device working set sized to ``budget_bytes`` (default: MCA
+    ``device.hbm_fraction`` of the device's memory): per panel, the
+    finished columns come up in ``cw``-wide chunks, one update product
+    each, then the panel is factored on the device and written back.
+    Returns the host factor (lower; on the card a view of the tier's
+    pinned host copy). ``device``: the card by default, the CPU only
+    when asked; without CUDA the default raises."""
+    dev = resolve_device(device)
+    H = hostlink.HostMatrix(A, dev)
+    N = H.a.shape[0]
+    if budget_bytes is None:
+        budget_bytes = lowmem_budget(dev)
+    nb_p, cw = plan_potrf_lowmem(N, H.a.dtype, budget_bytes)
+    if nb is None:
+        nb = nb_p
+    cw = max(cw // nb * nb, nb)
+    for s in range(0, N, nb):
+        w = min(nb, N - s)
+        col = H.upload(s, N, s, s + w)
+        for j0 in range(0, s, cw):
+            _lowmem_upd(col, H.upload(s, N, j0, min(j0 + cw, s)))
+        H.download(_lowmem_panel(col), s, s)
+        del col
+    L = H.finish()
+    for r0 in range(0, N, nb):       # np.tril, in place, a row block a time
+        r1 = min(r0 + nb, N)
+        L[r0:r1, r1:] = 0
+        L[r0:r1, r0:r1] = np.tril(L[r0:r1, r0:r1])
+    return L
 
 
 def potrs(A: TileMatrix, B: TileMatrix, uplo: str = "L") -> TileMatrix:

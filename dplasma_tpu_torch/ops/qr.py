@@ -63,16 +63,31 @@ multiple of 4: 37.5·KT − 32 (chain) and 31.5·KT − 26 (tree), 268 and
 ``getrf_nopiv_blocked`` products with every dimension >= 256: 3 per
 panel at nb = 1024.
 
-``geqrf_lowmem`` and ``dag`` wait for later slices; the phase spans and
-the 2-D sharding constraint have no counterpart yet.
+The out-of-HBM tier :func:`geqrf_lowmem` (qr.py:424-481) keeps the
+matrix and the T stack on the host (``kernels.hostlink``) and runs a
+left-looking sweep: per panel its whole column goes up, then each
+finished panel's V (rows from its diagonal down, rebuilt unit-lower on
+the device in place) and T, one compact-WY apply each (three K1
+products in f32 when nb >= 256), updating the column in place; the
+panel's own rows factor by the vendor ``householder.geqrt`` (its
+``larft`` Gram one more K1 product) and go back with the R rows above
+and T. KT(KT − 1)/2 applies with KT panels: at N = 16384, nb = 512, 496
+applies and 3·496 + 32 = 1520 K1 launches.
+
+``dag`` waits for ROADMAP queue 1 item 15; the phase spans and the 2-D
+sharding constraint have no counterpart yet.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dplasma_tpu_torch import resolve_device
+from dplasma_tpu_torch.analysis import memcheck as _mc
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
@@ -343,3 +358,59 @@ def gels(A: TileMatrix, B: TileMatrix) -> TileMatrix:
         return geqrs(Af, Tf, B)
     Af, Tf = gelqf(A)
     return gelqs(Af, Tf, B)
+
+
+# -- out-of-HBM tier ---------------------------------------------------
+
+def _lowmem_qr_apply(col, V, T, s0: int):
+    """Q^H of one streamed finished panel (its compact-WY V, T; rows s0
+    and below) applied to the device column, in place — the reference
+    donates ``col`` (qr.py:424-426): the tier exists to not hold a
+    second N × nb buffer."""
+    tail = col[s0:]
+    w = k.dot(V, tail, ta=True, conj_a=True)
+    tail -= k.dot(V, k.dot(T.mH, w))
+    return col
+
+
+def geqrf_lowmem(A, nb: int = 512, budget_bytes: int | None = None, *,
+                 device=None):
+    """Out-of-HBM blocked QR (the reference's lowmem tier; ref
+    tests/Testings.cmake:147, src/zgemm_NN_gpu.jdf:243-330).
+
+    ``A`` is a square host numpy array (not written). A left-looking
+    sweep holds one column block on the device and streams each finished
+    panel's (V, T) through it, then factors the shrinking tail with the
+    vendor panel: device-live bytes stay about 3·N·nb elements;
+    ``budget_bytes`` bounds them by shrinking the panel width when
+    needed. Returns (packed host factor, host T stack (nb, KT·nb)) in
+    the ops.qr layout. ``device``: the card by default, the CPU only
+    when asked; without CUDA the default raises."""
+    dev = resolve_device(device)
+    H = hostlink.HostMatrix(A, dev)
+    N = H.a.shape[0]
+    if H.a.shape[1] != N:
+        raise ValueError(f"geqrf_lowmem: square only, got {H.a.shape}")
+    if budget_bytes is not None:
+        nb = _mc.lowmem_blocking("geqrf", N, H.a.itemsize, budget_bytes,
+                                 nb=nb)["nb"]
+    KT = -(-N // nb)
+    Ts = hostlink.HostMatrix(np.zeros((nb, KT * nb), H.a.dtype), dev)
+    for kk in range(KT):
+        s = kk * nb
+        w = min(nb, N - s)
+        col = H.upload(0, N, s, s + w)
+        for j in range(kk):
+            s0 = j * nb
+            V = H.upload(s0, N, s0, s0 + nb)
+            V.tril_(-1)
+            V.diagonal().fill_(1)
+            _lowmem_qr_apply(col, V, Ts.upload(0, nb, s0, s0 + nb), s0)
+            del V
+        packed, _, T = hh.geqrt(col[s:], rankfull=True)
+        if s:
+            H.download(col[:s], 0, s)
+        H.download(packed, s, s)
+        Ts.download(T, 0, s)
+        del col, packed, T
+    return H.finish(), Ts.finish()

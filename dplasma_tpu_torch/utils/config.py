@@ -208,6 +208,13 @@ def override_depth() -> int:
 
 
 # The knobs this package reads, with the reference's defaults.
+mca_register("device.hbm_fraction", "0.95",
+             "Fraction of accelerator memory the streaming GEMM footprint "
+             "model may plan for (analog of "
+             "device_cuda_memory_use/number_of_blocks).")
+mca_register("gemm.lookahead", "2",
+             "Pipeline lookahead depth for paced GEMM variants (analog of "
+             "dplasma_aux_getGEMMLookahead, dplasmaaux.c:92-111).")
 mca_register("sweep.lookahead", "1",
              "Lookahead depth of the pipelined factorization sweeps: how "
              "many upcoming panel columns are updated by narrow products "

@@ -1409,3 +1409,159 @@ def test_eig_chain_on_card_launches_the_counted_kernels(card, k1_on):
     ref = torch.linalg.svdvals(G.to_dense().double())
     assert float((s.double() - ref).abs().max() / ref.max()) < \
         60 * eps * n
+
+
+# -- the out-of-HBM tiers, the streamed GEMM and the DTD path ------------
+
+def _lowmem_inputs(kind, n):
+    import numpy as np
+    g = np.random.default_rng(7).standard_normal((n, n))
+    if kind == "potrf":
+        return (g @ g.T / n + 4.0 * np.eye(n)).astype(np.float32)
+    return g.astype(np.float32)
+
+
+def _lowmem_call(kind, a, device="cuda"):
+    from dplasma_tpu_torch.ops import lu, potrf, qr
+    if kind == "potrf":
+        return (potrf.potrf_lowmem(a, budget_bytes=a.nbytes // 4,
+                                   device=device),)
+    if kind == "getrf":
+        LU, perm = lu.getrf_lowmem(a, nb=256,
+                                   budget_bytes=3 * a.shape[0] * 512 * 4,
+                                   device=device)
+        return LU, perm.cpu().numpy()
+    return qr.geqrf_lowmem(a, nb=256, budget_bytes=3 * a.shape[0] * 256 * 4,
+                           device=device)
+
+
+@pytest.mark.parametrize("kind,n", [("potrf", 4096), ("getrf", 4096),
+                                    ("geqrf", 2048)])
+def test_lowmem_tier_on_the_card_within_its_budget(card, k1_on, kind, n):
+    """Each tier at a small N on the card (the default device): its
+    result within 1e-4 of the same schedule on the CPU (the LU by its
+    residual A[perm] = L U < 60), one K1 launch per
+    streamed update (potrf) / apply (getrf) / three per apply and one
+    per panel (geqrf), and its peak device memory logged beside the
+    budget and within 16 MiB over it: the budget counts the panels, the
+    chunk and the update temporaries, not cuSOLVER's and K1's split-K
+    workspaces, a few MiB that weigh at this N (geqrf 2048: 13.9 MB
+    against 6.3) and not at the sizes the tiers are for (chip_smoke
+    phase 17: under the budget)."""
+    import numpy as np
+    from dplasma_tpu_torch.kernels import hostlink
+    a = _lowmem_inputs(kind, n)
+    budget = {"potrf": a.nbytes // 4, "getrf": 3 * n * 512 * 4,
+              "geqrf": 3 * n * 256 * 4}[kind]
+    # the libraries' handles and their one-time workspaces (cuBLAS keeps
+    # 32 MiB per stream) come before the measurement
+    _lowmem_call(kind, _lowmem_inputs(kind, 1024))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hostlink.reset_stats()
+    before = pk.LAUNCHES
+    got = _lowmem_call(kind, a)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = pk.LAUNCHES - before
+    print(f"[lowmem] {kind} N={n}: peak {peak} B, budget {budget} B "
+          f"({peak / budget:.3f}x), K1 {launches}, h2d "
+          f"{hostlink.STATS.h2d_bytes} B, d2h {hostlink.STATS.d2h_bytes} B")
+    if kind == "getrf":
+        # LU of a random f32 matrix: the factors of two devices may part
+        # by kappa·u (and by a pivot), so the card's is held by A[p] = LU
+        LU, p = got
+        L = np.tril(LU, -1) + np.eye(n, dtype=np.float32)
+        r = np.abs(a[p] - L @ np.triu(LU)).max() / (
+            np.abs(a).max() * n * np.finfo(np.float32).eps)
+        assert r < 60, r
+    else:
+        want = _lowmem_call(kind, a, device="cpu")
+        for g_, w_ in zip(got, want):
+            assert np.abs(g_ - w_).max() <= 1e-4 * max(np.abs(w_).max(),
+                                                       1.0)
+    nbk = 256
+    kt = n // nbk
+    derived = {"potrf": kt * (kt - 1) // 2,             # cw = nb = 256
+               "getrf": sum(-(-k // 2) for k in range(kt)),   # cw = 512
+               "geqrf": 3 * kt * (kt - 1) // 2 + kt}[kind]
+    assert launches == derived
+    assert peak <= budget + 16 * 2**20
+
+
+@pytest.mark.parametrize("kind", ["potrf", "getrf", "geqrf"])
+def test_lowmem_overlapped_copies_equal_synchronous_ones(card, k1_on, kind,
+                                                         monkeypatch):
+    """The write-back stream with its events gives bitwise what every copy
+    blocking gives: a missing event between a panel's write-back and the
+    next panel's upload of it would read stale host rows."""
+    import numpy as np
+    from dplasma_tpu_torch.kernels import hostlink
+    a = _lowmem_inputs(kind, 2048)
+    monkeypatch.setattr(hostlink, "OVERLAP", True)
+    fast = _lowmem_call(kind, a)
+    monkeypatch.setattr(hostlink, "OVERLAP", False)
+    slow = _lowmem_call(kind, a)
+    assert all(np.array_equal(f, s) for f, s in zip(fast, slow))
+
+
+def test_getrf_lowmem_launches_k3_under_pallas(card, k1_on):
+    """N=8192, nb=512, cw=1024 under panel.kernel=pallas: K3 on the 8
+    panels with (N - s)·nb·4 <= 8 MiB, the rec panel (one K1 product) on
+    the other 8, one K1 per apply (64): A[perm] = L U."""
+    import numpy as np
+    from dplasma_tpu_torch.kernels import hostlink
+    from dplasma_tpu_torch.ops import lu
+    from dplasma_tpu_torch.utils import config as cfg
+    n, nb = 8192, 512
+    a = _lowmem_inputs("getrf", n)
+    k1, k3 = pk.LAUNCHES, plu.LAUNCHES
+    hostlink.reset_stats()
+    with cfg.override_scope({"panel.kernel": "pallas"}):
+        LU, perm = lu.getrf_lowmem(a, nb=nb, budget_bytes=3 * n * 1024 * 4)
+    torch.cuda.synchronize()
+    assert perm.device.type == "cuda"
+    assert plu.LAUNCHES - k3 == 8
+    assert pk.LAUNCHES - k1 == 64 + 8
+    assert hostlink.STATS.swapped_rows <= 2 * nb * (n // nb)
+    L = torch.tril(torch.from_numpy(LU), -1).cuda() + torch.eye(n,
+                                                                device=card)
+    U = torch.triu(torch.from_numpy(LU)).cuda()
+    A = torch.from_numpy(a).cuda()
+    r = float((A[perm] - L @ U).abs().max() / (A.abs().max() * n
+                                               * np.finfo(np.float32).eps))
+    assert r < 60, r
+
+
+def test_gemm_stream_on_the_card(card, k1_on):
+    """gemm_ex(algo="stream") at M=N=K=2048, 256-wide tiles, B=C=4, D=2:
+    4 C blocks × 4 k-chunks, one K1 launch each, within 1e-5 of
+    blas3.gemm."""
+    from dplasma_tpu_torch.ops import blas3, gemm, generators
+    from dplasma_tpu_torch.utils import config as cfg
+    A = generators.plrnt(2048, 2048, 256, 256, seed=1)
+    B = generators.plrnt(2048, 2048, 256, 256, seed=2)
+    C = generators.plrnt(2048, 2048, 256, 256, seed=3)
+    info = cfg.Info({"DPLASMA:GEMM:GPU:B": 4, "DPLASMA:GEMM:GPU:C": 4,
+                     "DPLASMA:GEMM:GPU:D": 2})
+    before = pk.LAUNCHES
+    got = gemm.gemm_ex(0.5, A, B, 2.0, C, info=info, algo="stream")
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES - before == 16
+    want = blas3.gemm(0.5, A, B, 2.0, C)
+    assert _rel(got.data, want.data) <= 1e-5
+
+
+def test_potrf_dtd_on_the_card(card, k1_on):
+    """potrf_dtd at N=2048, nb=256 (nt=8): one K1 launch per herk and gemm
+    task (28 + 56), the factor within 1e-5 of ops.potrf's."""
+    from dplasma_tpu_torch import dtd
+    from dplasma_tpu_torch.ops import generators, potrf
+    A = generators.plghe(2048.0, 2048, 256, seed=5)
+    before = pk.LAUNCHES
+    F = dtd.potrf_dtd(A, "L")
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES - before == 28 + 56
+    want = potrf.potrf(A, "L")
+    assert _rel(torch.tril(F.data), want.data) <= 1e-5

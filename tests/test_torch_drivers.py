@@ -246,7 +246,7 @@ def test_bad_invocations(capsys):
     with pytest.raises(SystemExit) as e:
         common.parse_arguments(["-N", "8", "--mtx", "2"])
     assert e.value.code == 2
-    assert main(["testing_spotrf_dtd", "-N", "8"]) == 2
+    assert main(["testing_sgetrf_nopiv", "-N", "8"]) == 2   # not ported
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
     with pytest.raises(SystemExit, match="invalid grid"):
         main(["testing_spotrf", "-N", "8", "-p", "0", "--device", "cpu"])
@@ -448,7 +448,7 @@ def test_dd_inverse_drivers_route_k2(prog, want, capsys):
 def test_registry_has_38_drivers_and_check_inv_parses():
     from dplasma_tpu.drivers import testers as ref_testers
     from dplasma_tpu_torch.drivers import testers
-    assert len(testers.DRIVERS) == 59
+    assert len(testers.DRIVERS) == 65   # 38 at PR 11, 65 with the DTD drivers
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
     for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
                  ["-N", "8", "-xX"]):

@@ -106,11 +106,9 @@ def test_timed_runs_route_the_counted_steps(argv, kw, kt):
     assert tridiag.ROUTED == runs * kt
 
 
-def test_registry_holds_59_of_the_references_66():
+def test_registry_holds_65_of_the_references_66():
     missing = set(ref_testers.DRIVERS) - set(testers.DRIVERS)
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
-    assert len(testers.DRIVERS) == 59 and len(ref_testers.DRIVERS) == 66
-    assert missing == {"potrf_dtd", "potrf_dtd_untied", "gemm_dtd",
-                       "geqrf_dtd", "geqrf_dtd_untied", "getrf_incpiv_dtd",
-                       "getrf_nopiv"}
+    assert len(testers.DRIVERS) == 65 and len(ref_testers.DRIVERS) == 66
+    assert missing == {"getrf_nopiv"}
     assert all(a in testers.DRIVERS for a in NEW)

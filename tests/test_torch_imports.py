@@ -45,7 +45,10 @@ def test_sweep_finds_the_package():
                 "kernels/pallas_ring.py", "parallel/layout.py",
                 "parallel/mesh.py", "parallel/cyclic.py",
                 "kernels/quant.py", "ops/refine.py", "ops/aux.py",
-                "ops/norms.py", "ops/blas3.py", "ops/potrf.py"):
+                "ops/norms.py", "ops/blas3.py", "ops/potrf.py",
+                "analysis/memcheck.py", "ops/gemm.py", "ops/info.py",
+                "ops/map.py", "ops/matgen.py", "adtt.py", "dtd.py",
+                "kernels/hostlink.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
