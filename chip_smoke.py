@@ -266,6 +266,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the port's CPU result (bitwise for the hash and integer types, else
    within ``MG_TOL``; latms by its singular values); ``map_tiles`` and
    ``factor_info`` on the spotrf factor at 8192.
+18. the rest of the block-cyclic catalogue on the 2x2 virtual mesh, f32
+   with K1 on: ``potrf_cyclic`` U and ``potrs_cyclic`` L and U
+   (nrhs = nb) at N=16384, nb=1024; ``getrs_cyclic`` after
+   ``getrf_cyclic``, ``trsm_cyclic`` (L, N), ``gemm_cyclic`` and
+   ``gemm_ex`` under the grid (SUMMA), ``herk``, ``trmm``, ``hemm``,
+   ``her2k``, ``lauum``, ``trtri`` and ``potri_cyclic`` at 8192, nb=512;
+   every (uplo, trans) corner of ``trsm_cyclic`` at 2048;
+   ``geqrf_cyclic`` on an 8192 x 4096 matrix with the K5 ring (KT·P
+   broadcasts), ``qr_t_factor`` + ``unmqr`` under ``check_qr`` and
+   ``check_orthogonality``, the psum route ``torch.equal`` to it, one
+   profile (at 4096 x 2048); ``heev_cyclic`` and ``gesvd_cyclic`` at 8192, nb=256 (KW and
+   KT launches counted) within ``CYC_TOL`` of the single-device port's
+   values. Each op once warm, then timed by CUDA events, every count
+   zeroed just before its first timed call and read just after (K1
+   launches equal to ``cyclic_k1_counts``, none on the FFMA kernel),
+   the single-device port op on the same inputs timed beside it, the
+   reference's check on the result, every distinct K1 product held to
+   ``gemm_reference`` and timed; ``spmd_comm_model``'s bytes logged.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -297,6 +315,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2577,7 +2596,8 @@ def ring_counts():
     P, Q = GRID
     kt_gt, kt_pc = N_GT // NB_GT, N_PC // NB_PC
     return {"getrf": (kt_gt * P, kt_gt * Q * (P - 1)),
-            "potrf": (kt_pc * P, 0)}
+            "potrf": (kt_pc * P, 0),
+            "geqrf": (N_QC_COLS // NB_QC * P, 0)}
 
 
 def k5_bound_ms(kind, n, nbytes):
@@ -2763,13 +2783,15 @@ def phase_k5(torch, pring, record):
     record["k5_cases"] = rows
     record["k5_main_path"] = out
     # per entry point and path: one factorization's launches of its one
-    # shape, each timed once, times the count
+    # shape, each timed once, times the count (geqrf_cyclic's panel at
+    # N_QC = N_GT, nb 512 is the ptgpanel's broadcast shape)
     tot = {"bcast": {}, "shift": {}}
-    for kind, path, name in (("bcast", "sgetrf_ptgpanel", "bcast_getrf"),
-                             ("shift", "sgetrf_ptgpanel", "shift_getrf"),
-                             ("bcast", "potrf_cyclic", "bcast_potrf")):
+    for kind, path, name, k in (
+            ("bcast", "sgetrf_ptgpanel", "bcast_getrf", counts["getrf"][0]),
+            ("shift", "sgetrf_ptgpanel", "shift_getrf", counts["getrf"][1]),
+            ("bcast", "potrf_cyclic", "bcast_potrf", counts["potrf"][0]),
+            ("bcast", "geqrf_cyclic", "bcast_getrf", counts["geqrf"][0])):
         t = out[name]
-        k = t["launches_per_factorization"]
         tot[kind][path] = {key: t[key] * k for key in (
             "ms", "plain_ms", "library_ms", "copy_ms", "psum_ms",
             "bound_ms")}
@@ -5847,6 +5869,444 @@ def phase_lowmem_catalogue(torch, pk, plu, record):
     return rec, k1_paths, k1_by, k3_by
 
 
+# ---------------------------------------------------------------------
+# Phase 18: the rest of the block-cyclic catalogue on the 2x2 virtual mesh
+# ---------------------------------------------------------------------
+
+# SUMMA, the solves, BLAS-3, inverses and QR at the ptgpanel's size (so
+# geqrf_cyclic's K5 broadcast is phase 2's bcast_getrf shape)
+N_QC, NB_QC = N_GT, NB_GT
+# geqrf_cyclic factors an N_QC x N_QC_COLS matrix: its CholeskyQR2 panels
+# square each panel's condition, and a square f32 matrix's last panel
+# (nb x nb random rows) takes a Gram past 1/u (tools/cyclic_qr_envelope.py;
+# ROADMAP queue 3); the tall matrix's panels keep >= N_QC - N_QC_COLS rows
+N_QC_COLS = N_QC // 2
+N_TC = 2048                # every trsm corner, held by its residual
+# heev_cyclic / gesvd_cyclic against the single-device port's values:
+# max|Δ| / max|value| (Weyl: both reductions' backward errors, a few
+# sqrt(N)·u ||A|| each, bound the distance; 1e-4 leaves ~18x at 8192)
+CYC_TOL = 1e-4
+
+
+def cyclic_k1_counts(op, n, nb, lookahead=1):
+    """K1 launches of one call of ``op`` on GRID, f32, every slab
+    dimension >= 256, derived from parallel/cyclic.py and ops/gemm.py:
+    one product a step and rank for the sweeps (two for her2k; two TRSM
+    sweeps for potrs and getrs; trtri + lauum for potri), lcm(P, Q)·2
+    SUMMA steps a rank (MCA gemm.summa_steps = 2), and for the
+    CholeskyQR2 panels two Gram products a rank plus R2·R1 and the
+    reconstruction's LU once an axis group: geqrf five a rank and step
+    (+ two at lookahead), herbt ten, ge2gb five a half-step (the shapes
+    of each call are recorded through the wrapper and timed by
+    ``k1_path_sum``, as the products of cyclic_k1_products are)."""
+    P, Q = GRID
+    R, kt = P * Q, n // nb
+    grp = 1 + nopiv_k1(nb)
+    return {
+        "potrf_U": R * kt, "trsm": R * kt, "potrs": 2 * R * kt,
+        "getrs": 2 * R * kt, "gemm_cyclic": R * kt,
+        "gemm_ex_summa": R * (P * Q // math.gcd(P, Q)) * 2,
+        "herk": R * kt, "trmm": R * kt, "hemm": R * kt, "her2k": 2 * R * kt,
+        "lauum": R * kt, "trtri": R * kt, "potri": 2 * R * kt,
+        "geqrf": kt * (5 * R + Q * grp) + lookahead * (kt - 1) * 2 * R,
+        "herbt": (kt - 1) * (10 * R + Q * grp),
+        "ge2gb": kt * (5 * R + Q * grp) + (kt - 1) * (5 * R + P * grp),
+    }[op]
+
+
+def phase_cyclic_catalogue(torch, pk, pring, record):
+    """Phase 18: the rest of the block-cyclic catalogue on the 2x2
+    virtual mesh in f32 with K1 on — potrf_cyclic U and potrs L / U at
+    the spotrf ladder's size, getrs after getrf_cyclic, trsm (one corner
+    timed, all six held by residual), gemm_cyclic and gemm_ex's SUMMA,
+    herk, trmm, hemm, her2k, lauum, trtri, potri, geqrf_cyclic on the K5
+    ring with qr_t_factor + unmqr, heev_cyclic and gesvd_cyclic. Each op
+    once warm, then timed by CUDA events (the best of two), every kernel
+    count zeroed just before the first timed call and read just after
+    it; the single-device port op on the same inputs timed beside it and
+    the reference's check run on the result. Returns (its record, the K1
+    path sums, K1 launches by path, K5 broadcasts of the geqrf call, its
+    KW launches, KW steps and KT launches)."""
+    from dplasma_tpu_torch.descriptors import Dist, TileMatrix
+    from dplasma_tpu_torch.kernels import sbr, tridiag
+    from dplasma_tpu_torch.ops import band
+    from dplasma_tpu_torch.ops import blas3, checks, eig, gemm, generators
+    from dplasma_tpu_torch.ops import lu, potrf, qr
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+
+    pk.enable(True)
+    P, Q = GRID
+    dist = Dist(P=P, Q=Q)
+    f32 = torch.float32
+    rec = {"ops": {}}
+    k1_paths, k1_by, cache = {}, {}, {}
+    eig_counts = {"kw": 0, "kw_steps": 0, "kt": 0}
+    t_phase = time.perf_counter()
+    t0 = t_phase
+
+    def lap(what):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"[phase18] {what}: {now - t0:.1f} s")
+        rec.setdefault("section_s", {})[what] = now - t0
+        t0 = now
+
+    def zero():
+        for mod in (pk, pring, sbr, tridiag):
+            mod.reset_counts()
+
+    def counts():
+        return {"k1": pk.LAUNCHES, "ffma": pk.FFMA_LAUNCHES,
+                "k5_bcast": pring.BCAST_LAUNCHES,
+                "k5_shift": pring.SHIFT_LAUNCHES, "kw": sbr.LAUNCHES,
+                "kw_steps": sbr.STEPS, "kt": tridiag.LAUNCHES}
+
+    def events_ms(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    def run_op(tag, run, want, single=None, reps=2, seed=0, timed_k1=True,
+               warm=True, single_warm=True):
+        """One warm call (unless a call of the same shapes came just
+        before: ``warm`` False), then ``reps`` timed calls (the best
+        kept; the counts of the first, zeroed just before it); ``want``
+        holds those counts (``k1`` at least); the single-device op
+        likewise (``single_warm`` False where an earlier phase ran it at
+        the same shapes);
+        every distinct K1 product recorded through the wrapper, held to
+        gemm_reference and timed (``timed_k1``)."""
+        if warm:
+            run()
+            torch.cuda.synchronize()
+        zero()
+        out, best = events_ms(run)
+        got = counts()
+        for _ in range(reps - 1):
+            best = min(best, events_ms(run)[1])
+        check(got["ffma"] == 0, f"{tag}: {got['ffma']} K1 products took "
+                                f"the FFMA kernel")
+        check(all(got[k] == v for k, v in want.items()),
+              f"{tag}: launches {got}, want {want}")
+        s_ms = s_out = None
+        if single is not None:
+            if single_warm:
+                single()
+                torch.cuda.synchronize()
+            s_out, s_ms = events_ms(single)
+            for _ in range(reps - 1):
+                s_ms = min(s_ms, events_ms(single)[1])
+        if timed_k1:
+            prods = recorded_k1_products(torch, pk, run)
+            check(sum(p[-1] for p in prods) == want["k1"],
+                  f"{tag}: {sum(p[-1] for p in prods)} K1 products "
+                  f"recorded, want {want['k1']}")
+            k1_paths[tag] = k1_path_sum(torch, pk, record, tag, prods, seed,
+                                        cache)
+        k1_by[tag] = got["k1"]
+        rec["ops"][tag] = {"ms": best, "single_device_ms": s_ms,
+                           "launches": got}
+        return out, best, s_out, s_ms
+
+    def note(tag, res, ok, what, extra=""):
+        r = rec["ops"][tag]
+        r.update(residual=float(res), check=what)
+        sd = r["single_device_ms"]
+        log(f"[cyclic] {tag}: {r['ms']:.3f} ms (single-device port op "
+            f"{'n/a' if sd is None else f'{sd:.3f} ms'}); K1 "
+            f"{r['launches']['k1']}; {what} {float(res):.3e}{extra}")
+        check(ok, f"{tag}: {what} {float(res):.3e}")
+
+    with mesh.use_grid(mesh.make_mesh(P, Q)):
+        # 1. potrf_cyclic U and potrs L / U at the spotrf ladder's size
+        A = generators.plghe(float(N_PC), N_PC, NB_PC, seed=3872)
+        C = cyclic.CyclicMatrix.from_tile(A, dist)
+        U, ms, _, _ = run_op("potrf_cyclic_U",
+                             lambda: cyclic.potrf_cyclic(C, "U"),
+                             {"k1": cyclic_k1_counts("potrf_U", N_PC,
+                                                     NB_PC),
+                              "k5_bcast": 0}, seed=1800)
+        res, ok = checks.check_potrf(A, U.to_tile(), "U")
+        spotrf = record.get("spotrf", {}).get("best_s")
+        rec["ops"]["potrf_cyclic_U"]["single_device_ms"] = (
+            None if spotrf is None else 1e3 * spotrf)
+        note("potrf_cyclic_U", res, ok and res < 60, "POTRF residual",
+             f" (the single-device time: spotrf's, phase 3; uplo=L: "
+             f"{record.get('potrf_cyclic', {}).get('s')} s, phase 10)")
+        L = cyclic.potrf_cyclic(C, "L")
+        B = generators.plrnt(N_PC, NB_PC, NB_PC, NB_PC, seed=3873)
+        Bc = cyclic.CyclicMatrix.from_tile(B, dist)
+        for uplo, F in (("L", L), ("U", U)):
+            Fs = potrf.potrf(A, uplo)
+            X, *_ = run_op(
+                f"potrs_cyclic_{uplo}",
+                lambda F=F, uplo=uplo: cyclic.potrs_cyclic(F, Bc, uplo),
+                {"k1": cyclic_k1_counts("potrs", N_PC, NB_PC)},
+                single=lambda Fs=Fs, uplo=uplo: potrf.potrs(Fs, B, uplo),
+                seed=1810)
+            res, ok = checks.check_axmb(A, B, X.to_tile())
+            note(f"potrs_cyclic_{uplo}", res, ok, "|b-Ax|")
+            del Fs, X
+        del A, C, U, L, B, Bc
+        torch.cuda.empty_cache()
+        lap("potrf_cyclic U, potrs L and U")
+
+        # 2. getrf_cyclic -> getrs_cyclic at the ptgpanel size
+        n, nb = N_QC, NB_QC
+        G = generators.plrnt(n, n, nb, nb, seed=3872)
+        Gc = cyclic.CyclicMatrix.from_tile(G, dist)
+        B = generators.plrnt(n, nb, nb, nb, seed=3874)
+        Bc = cyclic.CyclicMatrix.from_tile(B, dist)
+        F, perm = cyclic.getrf_cyclic(Gc)
+        LU1, p1 = lu.getrf_1d(G)
+        X, *_ = run_op("getrs_cyclic",
+                       lambda: cyclic.getrs_cyclic(F, perm, Bc),
+                       {"k1": cyclic_k1_counts("getrs", n, nb)},
+                       single=lambda: lu.getrs("N", LU1, p1, B), seed=1820)
+        res, ok = checks.check_axmb(G, B, X.to_tile())
+        note("getrs_cyclic", res, ok, "|b-Ax|")
+        del F, perm, LU1, p1, X
+        lap("getrs_cyclic")
+
+        # 3. trsm_cyclic: (L, N) timed at 8192, every corner at 2048
+        Ah = generators.plghe(float(n), n, nb, seed=3875)
+        Ahc = cyclic.CyclicMatrix.from_tile(Ah, dist)
+        Lc = cyclic.potrf_cyclic(Ahc, "L")
+        Ls = potrf.potrf(Ah, "L")
+        Lt = TileMatrix.from_dense(torch.tril(Lc.to_tile().to_dense()), nb, nb)
+        X, *_ = run_op("trsm_cyclic_LN",
+                       lambda: cyclic.trsm_cyclic(Lc, Bc, "N"),
+                       {"k1": cyclic_k1_counts("trsm", n, nb)},
+                       single=lambda: blas3.trsm(1.0, Ls, B, side="L",
+                                                 uplo="L", trans="N"),
+                       seed=1830)
+        res, ok = checks.check_axmb(Lt, B, X.to_tile())
+        note("trsm_cyclic_LN", res, ok, "|b-Ax|")
+        A2 = generators.plghe(float(N_TC), N_TC, nb, seed=3876)
+        A2c = cyclic.CyclicMatrix.from_tile(A2, dist)
+        B2 = generators.plrnt(N_TC, nb, nb, nb, seed=3877)
+        B2c = cyclic.CyclicMatrix.from_tile(B2, dist)
+        corners = {}
+        for uplo in ("L", "U"):
+            T2 = cyclic.potrf_cyclic(A2c, uplo)
+            Td = T2.to_tile().to_dense()
+            Td = torch.tril(Td) if uplo == "L" else torch.triu(Td)
+            for trans in ("N", "T", "C"):
+                zero()
+                X2 = cyclic.trsm_cyclic(T2, B2c, trans, uplo=uplo)
+                torch.cuda.synchronize()
+                got = counts()
+                op = Td if trans == "N" else Td.T
+                res, ok = checks.check_axmb(
+                    TileMatrix.from_dense(op, nb, nb), B2, X2.to_tile())
+                corners[uplo + trans] = {"residual": res, "k1": got["k1"]}
+                check(ok and got["k1"] == cyclic_k1_counts("trsm", N_TC, nb)
+                      and got["ffma"] == 0,
+                      f"trsm_cyclic {uplo}{trans} at {N_TC}: residual "
+                      f"{res:.3e}, K1 {got['k1']} ({got['ffma']} FFMA)")
+        log(f"[cyclic] trsm_cyclic every (uplo, trans) corner at {N_TC} "
+            f"nb={nb}: |b-Ax| " + ", ".join(
+                f"{k} {v['residual']:.3e}" for k, v in corners.items())
+            + f"; K1 {cyclic_k1_counts('trsm', N_TC, nb)} each")
+        rec["trsm_corners"] = corners
+        del A2, A2c, B2, B2c, T2, X2, X
+        lap("trsm_cyclic")
+
+        # 4. SUMMA: gemm_cyclic and gemm_ex under the grid, 8192^3
+        G2 = generators.plrnt(n, n, nb, nb, seed=3878)
+        G2c = cyclic.CyclicMatrix.from_tile(G2, dist)
+        Z = TileMatrix.zeros(n, n, nb, nb, device=G.device)
+        Cs = blas3.gemm(1.0, G, G2, 0.0, Z)
+        Cc, *_ = run_op("gemm_cyclic", lambda: cyclic.gemm_cyclic(Gc, G2c),
+                        {"k1": cyclic_k1_counts("gemm_cyclic", n, nb)},
+                        single=lambda: blas3.gemm(1.0, G, G2, 0.0, Z),
+                        seed=1840)
+        res, ok = checks.check_gemm(Cs, Cc.to_tile())
+        note("gemm_cyclic", res, ok, "check_gemm vs blas3.gemm")
+        check(gemm.plan_gemm(Z, G, G2).algo == "summa",
+              "gemm_ex under the grid does not plan SUMMA")
+        Ce, *_ = run_op("gemm_ex_summa",
+                        lambda: gemm.gemm_ex(1.0, G, G2, 0.0, Z),
+                        {"k1": cyclic_k1_counts("gemm_ex_summa", n, nb)},
+                        single=lambda: blas3.gemm(1.0, G, G2, 0.0, Z),
+                        seed=1845)
+        res, ok = checks.check_gemm(Cs, Ce)
+        note("gemm_ex_summa", res, ok, "check_gemm vs blas3.gemm")
+        del Cc, Ce, Cs
+        lap("SUMMA")
+
+        # 5. the Level-3 BLAS and the inverses on the slabs
+        blas = (
+            ("herk_cyclic", "herk", lambda: cyclic.herk_cyclic(Gc),
+             lambda: blas3.herk(1.0, G, 0.0, Z, "L"), True),
+            ("trmm_cyclic", "trmm", lambda: cyclic.trmm_cyclic(Lc, G2c),
+             lambda: blas3.trmm(1.0, Ls, G2, side="L", uplo="L"), False),
+            ("hemm_cyclic", "hemm", lambda: cyclic.hemm_cyclic(Ahc, G2c),
+             lambda: blas3.hemm(1.0, Ah, G2, 0.0, Z), False),
+            ("her2k_cyclic", "her2k", lambda: cyclic.her2k_cyclic(Gc, G2c),
+             lambda: blas3.her2k(1.0, G, G2, 0.0, Z, "L"), True),
+            ("lauum_cyclic", "lauum", lambda: cyclic.lauum_cyclic(Lc),
+             lambda: potrf.lauum(Ls, "L"), True))
+        for j, (tag, op, run, single, lower) in enumerate(blas):
+            out, _, ref, _ = run_op(tag, run,
+                                    {"k1": cyclic_k1_counts(op, n, nb)},
+                                    single=single, seed=1850 + 10 * j)
+            got = out.to_tile()
+            if lower:
+                ref = TileMatrix.from_dense(torch.tril(ref.to_dense()), nb,
+                                            nb)
+                got = TileMatrix.from_dense(torch.tril(got.to_dense()), nb,
+                                            nb)
+            res, ok = checks.check_gemm(ref, got)
+            note(tag, res, ok, "check_gemm vs the single-device op")
+            del out, ref, got
+        Xi, *_ = run_op("trtri_cyclic", lambda: cyclic.trtri_cyclic(Lc),
+                        {"k1": cyclic_k1_counts("trtri", n, nb)},
+                        single=lambda: potrf.trtri(Ls, "L"), seed=1900)
+        res, ok = checks.check_inverse(Lt, Xi.to_tile())
+        note("trtri_cyclic", res, ok, "check_inverse")
+        Pi, *_ = run_op("potri_cyclic", lambda: cyclic.potri_cyclic(Lc),
+                        {"k1": cyclic_k1_counts("potri", n, nb)},
+                        single=lambda: potrf.potri(Ls, "L"), seed=1910)
+        res, ok = checks.check_inverse(Ah, Pi.to_tile(), uplo="L")
+        note("potri_cyclic", res, ok, "check_inverse (POTRI)")
+        del Xi, Pi, Ahc, Lc, Ls, Lt, Ah, G2, G2c, Z
+        torch.cuda.empty_cache()
+        lap("herk, trmm, hemm, her2k, lauum, trtri, potri")
+
+        # 6. geqrf_cyclic on the K5 ring (an N_QC x N_QC_COLS matrix),
+        # qr_t_factor + unmqr, the psum route against it, one profile
+        nq = N_QC_COLS
+        Gq = generators.plrnt(n, nq, nb, nb, seed=3879)
+        Gqc = cyclic.CyclicMatrix.from_tile(Gq, dist)
+        check(cyclic._cyclic_ring(Gqc.desc, Gqc.dtype, mesh.active()),
+              "ring.enable=auto does not resolve to the ring on this card")
+        want_b, _ = ring_counts()["geqrf"]
+        (Fq, Ts), *_ = run_op(
+            "geqrf_cyclic", lambda: cyclic.geqrf_cyclic(Gqc),
+            {"k1": cyclic_k1_counts("geqrf", nq, nb), "k5_bcast": want_b,
+             "k5_shift": 0},
+            single=lambda: qr.geqrf(Gq), seed=1920)
+        k5_qc = rec["ops"]["geqrf_cyclic"]["launches"]["k5_bcast"]
+        packed = Fq.to_tile()
+        Tf = cyclic.qr_t_factor(Ts, Gq)
+        eye = TileMatrix.from_dense(torch.eye(n, device=Gq.device), nb, nb)
+        Qd = qr.unmqr("L", "N", packed, Tf, eye).to_dense()
+        res, ok = checks.check_qr(Gq, Qd, torch.triu(packed.to_dense()))
+        ores, ook = checks.check_orthogonality(Qd)
+        note("geqrf_cyclic", res, ok and ook, "|A-QR|",
+             f", |I-Q'Q| {ores:.3e}; {n}x{nq}; K5 {k5_qc} broadcasts (KT·P "
+             f"= {want_b})")
+        rec["ops"]["geqrf_cyclic"].update(orthogonality=ores, M=n, N=nq)
+        with cfg.override_scope({"ring.enable": "off"}):
+            before = pring.LAUNCHES
+            F0, T0 = cyclic.geqrf_cyclic(Gqc)
+            torch.cuda.synchronize()
+            check(pring.LAUNCHES == before, "ring.enable=off launched K5")
+        same = torch.equal(T0, Ts) and all(
+            torch.equal(a, b) for r0, r1 in zip(F0.data, Fq.data)
+            for a, b in zip(r0, r1))
+        log(f"[cyclic] geqrf_cyclic: ring route "
+            f"{'torch.equal' if same else 'DIFFERS FROM'} the psum route "
+            f"(factor and T stack)")
+        check(same, "geqrf_cyclic: the ring route differs from the psum "
+                    "route")
+        rec["ops"]["geqrf_cyclic"]["ring_equals_psum"] = same
+        del F0, T0, Fq, Ts, packed, Tf, eye, Qd
+        del Gqc, Gq, Gc, G, B, Bc
+        # the profile at half the size: its post-processing takes most
+        # of the section, in proportion to the launches (phase 16 does
+        # the same for its shetrd)
+        Gp = cyclic.CyclicMatrix.from_tile(generators.plrnt(
+            n // 2, nq // 2, nb, nb, seed=3879), dist)
+        _profile(torch, rec, "geqrf_cyclic_profile",
+                 f"{n // 2}x{nq // 2} nb={nb} grid {P}x{Q}",
+                 lambda: cyclic.geqrf_cyclic(Gp))
+        del Gp
+        torch.cuda.empty_cache()
+        lap("geqrf_cyclic")
+
+        # 7-8. heev_cyclic and gesvd_cyclic at phase 16's size
+        ne, nbe = N_EIG, NB_EIG
+        for algo in ("heev", "gesvd"):
+            if algo == "heev":
+                M = generators.plghe(0.0, ne, nbe, seed=3872)
+                stage, s_tag = "herbt", "herbt_cyclic"
+                stage_run = cyclic.herbt_cyclic
+                full = cyclic.heev_cyclic
+                k1c, kw, steps = herm_chain_counts(band, ne, nbe, f32)
+                want = {"k1": k1c, "kw": kw, "kw_steps": steps, "kt": 1}
+
+                def single(M=M):
+                    return eig.heev(M, method="2stage")
+            else:
+                M = generators.plrnt(ne, ne, nbe, nbe, seed=3873)
+                stage, s_tag = "ge2gb", "ge2gb_cyclic"
+                stage_run = cyclic.gebrd_ge2gb_cyclic
+                full = cyclic.gesvd_cyclic
+                want = {k: v for k, v in eig_wants(
+                    torch, band, "gesvd", ne, ne, nbe, f32).items()
+                    if k != "k2"}
+
+                def single(M=M):
+                    return eig.gesvd(M)
+            prebuild_schedules(band, "hetrd" if algo == "heev" else algo,
+                               ne, ne, nbe)
+            Mc = cyclic.CyclicMatrix.from_tile(M, dist)
+            k1s = cyclic_k1_counts(stage, ne, nbe)
+            want = dict(want, k1=want["k1"] + k1s)
+            tag = f"{algo}_cyclic"
+            # the single-device op ran at these shapes in phase 16, and
+            # the cyclic op's own calls warm its stage 1
+            w, _, ws, _ = run_op(tag, lambda Mc=Mc, f=full: f(Mc), want,
+                                 single=single, reps=1, timed_k1=False,
+                                 single_warm=False)
+            run_op(s_tag, lambda Mc=Mc, f=stage_run: f(Mc), {"k1": k1s},
+                   reps=1, warm=False, seed=1930 if algo == "heev" else 1960)
+            for k in ("kw", "kw_steps", "kt"):
+                eig_counts[k] += rec["ops"][tag]["launches"][k]
+            dist_ = float((w - ws).abs().max() / ws.abs().max())
+            rec["ops"][tag].update(vs_single_device=dist_, tol=CYC_TOL)
+            log(f"[cyclic] {tag} N={ne} nb={nbe}: {rec['ops'][tag]['ms']:.1f}"
+                f" ms (its stage 1 {rec['ops'][s_tag]['ms']:.1f} ms; the "
+                f"single-device {algo} "
+                f"{rec['ops'][tag]['single_device_ms']:.1f} ms); launches "
+                f"{rec['ops'][tag]['launches']}; values within {dist_:.3e} "
+                f"x max of the single-device port's (tol {CYC_TOL:g})")
+            check(bool(torch.isfinite(w).all()) and dist_ <= CYC_TOL,
+                  f"{tag}: {dist_:.3e} off the single-device values")
+            del M, Mc, w, ws
+            torch.cuda.empty_cache()
+            lap(tag)
+
+    # 9. the comm model's bytes at the phase's shapes (logged, not timed)
+    comm = {}
+    for op, mm, nn, bb in (("potrf", N_PC, N_PC, NB_PC),
+                           ("getrf", N_GT, N_GT, NB_GT),
+                           ("geqrf", N_QC, N_QC_COLS, NB_QC),
+                           ("gemm", N_QC, N_QC, NB_QC),
+                           ("herbt", N_EIG, N_EIG, NB_EIG),
+                           ("ge2gb", N_EIG, N_EIG, NB_EIG)):
+        desc = cyclic.CyclicDesc(mm, nn, bb, bb, dist)
+        for ring in (False, True):
+            m_ = cyclic.spmd_comm_model(desc, op, 4, ring=ring)
+            comm[f"{op}_{'ring' if ring else 'psum'}"] = m_
+    log("[cyclic] spmd_comm_model wire bytes (f32, grid 2x2): " + ", ".join(
+        f"{k} {v['bytes_total'] / 2**30:.3f} GiB" for k, v in comm.items()))
+    rec["comm_model"] = comm
+    rec["k1_paths"] = {k: {kk: v for kk, v in t_.items() if kk != "rows"}
+                       for k, t_ in k1_paths.items()}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase18] took {rec['wall_s']:.1f} s")
+    record["phase18"] = rec
+    return rec, k1_paths, k1_by, k5_qc, eig_counts
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -5952,6 +6412,11 @@ def main() -> int:
     eigr, k1eig = phase_eig(torch, pk, pdd, record)
     _, k1lm, k1lm_by, k3lm_by = phase_lowmem_catalogue(torch, pk, plu,
                                                        record)
+    _, k1cy, k1cy_by, k5b_qc, eig18 = phase_cyclic_catalogue(
+        torch, pk, pring, record)
+    for k in ("kw", "kt"):
+        eigr[f"{k}_launches"] += eig18[k]
+    eigr["kw_steps"] += eig18["kw_steps"]
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     k1_by_path = {path: dict({k: t[k] for k in keys},
                              bound_ffma_ms=t["bound_ffma_ms"],
@@ -5959,9 +6424,11 @@ def main() -> int:
                   for path, t in (("spotrf", k1tot), *k1luqr.items(),
                                   *k1cyc.items(), *k1inv.items(),
                                   *k1cx.items(), *k1hq.items(),
-                                  *k1eig.items(), *k1lm.items())}
+                                  *k1eig.items(), *k1lm.items(),
+                                  *k1cy.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
-                             "potrf_cyclic": k5b_pc},
+                             "potrf_cyclic": k5b_pc,
+                             "geqrf_cyclic": k5b_qc},
                    "shift": {"sgetrf_ptgpanel": k5s_gt}}
 
     def k5_entry(kind, line):
@@ -5994,14 +6461,15 @@ def main() -> int:
                       + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
                       + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())
-                      + sum(k1lm_by.values())),
+                      + sum(k1lm_by.values()) + sum(k1cy_by.values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
                                    "potrf_cyclic": k1_pc,
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
                                   **ir["k1"], **k1inv_by, **k1cx_by,
-                                  **k1hq_by, **eigr["k1_by"], **k1lm_by),
+                                  **k1hq_by, **eigr["k1_by"], **k1lm_by,
+                                  **k1cy_by),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
@@ -6009,7 +6477,8 @@ def main() -> int:
                             + [t["max_abs_err"] for t in k1cx.values()]
                             + [t["max_abs_err"] for t in k1hq.values()]
                             + [t["max_abs_err"] for t in k1eig.values()]
-                            + [t["max_abs_err"] for t in k1lm.values()]),
+                            + [t["max_abs_err"] for t in k1lm.values()]
+                            + [t["max_abs_err"] for t in k1cy.values()]),
          "ms": k1tot["ms"], "plain_ms": k1tot["plain_ms"],
          "bound_ms": k1tot["bound_ms"], "bound_by": "operations",
          "library_ms": k1tot["library_ms"], "by_path": k1_by_path},
@@ -6177,7 +6646,19 @@ def main() -> int:
         f"distinct product of the one timed call, held and timed once "
         f"times its count; K1's and K3's launches_by_path count each "
         f"phase 17 call (the lowmem tiers, gemm_ex stream, potrf_lapack) "
-        f"and driver run (warm-up, timed run, -x check)")
+        f"and driver run (warm-up, timed run, -x check); phase 18 (grid "
+        f"{GRID[0]}x{GRID[1]}): K1's by_path potrf_cyclic_U and "
+        f"potrs_cyclic_L/U (N={N_PC}, nb={NB_PC}), getrs_cyclic, "
+        f"trsm_cyclic_LN, gemm_cyclic, gemm_ex_summa, herk/trmm/hemm/her2k/"
+        f"lauum/trtri/potri_cyclic (N={N_QC}, nb={NB_QC}), geqrf_cyclic "
+        f"({N_QC}x{N_QC_COLS}), "
+        f"herbt_cyclic and ge2gb_cyclic (N={N_EIG}, nb={NB_EIG}) each "
+        f"distinct product of one call recorded through the wrapper, held "
+        f"and timed once times its count; their launches_by_path count "
+        f"the first timed call of each (heev_cyclic and gesvd_cyclic too, "
+        f"whose KW and KT launches add to KW's and KT's); K5's "
+        f"geqrf_cyclic its timed call's broadcasts, by_path the ptgpanel "
+        f"broadcast's shape times them")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

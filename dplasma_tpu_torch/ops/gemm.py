@@ -6,8 +6,8 @@ surface is ``dplasma_zgemm_New_ex``, which picks one of three algorithms
 
 (a) the owner-computes default: one product (``ops.blas3.gemm``);
 (b) SUMMA with pipelined broadcasts when a process grid is active
-    (``gemm_summa``; under the port's virtual mesh it is ROADMAP queue 1
-    item 11 step 1, and raises until then);
+    (:func:`gemm_summa`, on the port's virtual mesh: the ranks' blocks in
+    lockstep, the panel broadcasts as masked psums between the steps);
 (c) the footprint-paced blocked GEMM, chosen when the operands approach
     device memory (:func:`gemm_stream`), tunable through the info keys
     ``DPLASMA:GEMM:GPU:{B,C,D,LOOK_AHEAD}``.
@@ -28,6 +28,7 @@ B = C = 8, D = 4).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -38,10 +39,6 @@ from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.ops.blas3 import _op, gemm as gemm_dot
 from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config
-
-_SUMMA = ("SUMMA under an active process grid (ops.gemm.gemm_summa) is "
-          "not ported yet (ROADMAP queue 1 item 11, step 1)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
@@ -183,13 +180,71 @@ def gemm_stream(alpha, A: TileMatrix, B: TileMatrix, beta, C: TileMatrix,
 def gemm_summa(alpha, A: TileMatrix, B: TileMatrix, beta, C: TileMatrix,
                transa: str = "N", transb: str = "N",
                steps_per_panel: int | None = None) -> TileMatrix:
-    """SUMMA over the active P×Q grid (gemm.py:195-274): without an
-    active grid the one product, as in the reference; under one it
-    raises until ROADMAP queue 1 item 11, step 1 ports it."""
-    del steps_per_panel
-    if pmesh.active() is None:
+    """SUMMA over the active P×Q grid (gemm.py:195-274; the zgemm_summa
+    JDF analog). Rank (p, q) holds the (p, q) contiguous block of op(A),
+    op(B) and C. k advances in panels, each owned by one mesh column (of
+    A) and one mesh row (of B); the owner's panel is broadcast along the
+    other axis by the masked psum, and every rank adds one ``blas.dot``
+    (K1 when enabled) a step. ``steps_per_panel`` (MCA
+    ``gemm.summa_steps``, default 2) splits each owner's block into that
+    many panels. Every extent is edge-padded to the mesh quantum (K to
+    lcm(P, Q)·steps) with zeros and C is cropped back. Without an active
+    grid: the one product, as in the reference."""
+    from dplasma_tpu_torch.parallel import cyclic
+
+    m = pmesh.active()
+    if m is None:
         return gemm_dot(alpha, A, B, beta, C, transa, transb)
-    raise NotImplementedError(_SUMMA)
+    cyclic._dd_guard(C.dtype)
+    if steps_per_panel is None:
+        steps_per_panel = config.mca_get_int("gemm.summa_steps", 2)
+    Pn = m.shape[pmesh.ROW_AXIS]
+    Qn = m.shape[pmesh.COL_AXIS]
+    a = _op(A.zero_pad().data, transa)
+    bmat = _op(B.zero_pad().data, transb)
+    cmat = C.zero_pad().data
+    Mp, Kp = a.shape
+    Np = bmat.shape[1]
+    lcm = Pn * Qn // math.gcd(Pn, Qn)
+    quant = lcm * max(steps_per_panel, 1)
+    Mp2 = -(-Mp // Pn) * Pn
+    Np2 = -(-Np // Qn) * Qn
+    Kp2 = -(-Kp // quant) * quant
+
+    def pad(x, rows, cols):
+        if tuple(x.shape) == (rows, cols):
+            return x
+        out = x.new_zeros((rows, cols))
+        out[:x.shape[0], :x.shape[1]] = x
+        return out
+
+    a, bmat, cmat = pad(a, Mp2, Kp2), pad(bmat, Kp2, Np2), pad(cmat, Mp2, Np2)
+    kb = Kp2 // quant
+    nsteps = Kp2 // kb
+    kq, kp = Kp2 // Qn, Kp2 // Pn
+    mloc, nloc = Mp2 // Pn, Np2 // Qn
+    ranks = [(p, q) for p in range(Pn) for q in range(Qn)]
+    acc = {(p, q): cmat[p * mloc:(p + 1) * mloc, q * nloc:(q + 1) * nloc]
+           * beta for p, q in ranks}
+    for t in range(nsteps):
+        # A panel: global k-cols [t*kb, (t+1)*kb) live on mesh col owner_q
+        owner_q, off_q = divmod(t * kb, kq)
+        pa = cyclic._rows_q(
+            {(p, q): a[p * mloc:(p + 1) * mloc,
+                       q * kq + off_q:q * kq + off_q + kb]
+             for p, q in ranks}, Pn, Qn,
+            lambda v: cyclic._masked_psum(v, owner_q))
+        # B panel: global k-rows live on mesh row owner_p
+        owner_p, off_p = divmod(t * kb, kp)
+        pb = cyclic._cols_p(
+            {(p, q): bmat[p * kp + off_p:p * kp + off_p + kb,
+                          q * nloc:(q + 1) * nloc] for p, q in ranks},
+            Pn, Qn, lambda v: cyclic._masked_psum(v, owner_p))
+        for r in ranks:
+            acc[r] = acc[r] + alpha * k.dot(pa[r], pb[r])
+    out = torch.cat([torch.cat([acc[p, q] for q in range(Qn)], dim=1)
+                     for p in range(Pn)], dim=0)
+    return TileMatrix(out[:Mp, :Np], C.desc).zero_pad()
 
 
 def gemm_ex(alpha, A: TileMatrix, B: TileMatrix, beta, C: TileMatrix,

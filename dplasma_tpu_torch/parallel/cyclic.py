@@ -1,40 +1,51 @@
 """Realized 2-D block-cyclic distribution on a P×Q virtual grid.
 
-Ports the part of ``dplasma_tpu/parallel/cyclic.py`` that the
-distributed Cholesky and pivoted LU need (:46-166, :299-377, :379-494,
-:496-700, :1280-1384, :2172-2196). As in the reference, rank (p, q)
-holds the reference's local tile storage: the tiles {(i, j): owner(i) =
-p, owner(j) = q} packed into one (mloc, nloc) slab in cyclic order
-(``parallel/layout.py``; ref parsec_matrix_block_cyclic_t,
-tests/testing_zpotrf.c:100-103).
+Ports ``dplasma_tpu/parallel/cyclic.py`` but for its all_to_all
+conversions and the ``ring`` phase span: the conversions, the
+distributed Cholesky in both storages, the pivoted LU, the triangular
+solves and POTRS/GETRS with the slab row gather, SUMMA over slabs, the
+Level-3 BLAS (herk, trmm, hemm, her2k), the inverses (lauum, trtri,
+potri), the distributed QR (CholeskyQR2 + TSQR-HR panels) with its
+T-factor conversion, the eigen and SVD stage 1 on the slabs (herbt,
+ge2gb) with heev/gesvd finishing on one device, and the analytic comm
+model. As in the reference, rank (p, q) holds the reference's local
+tile storage: the tiles {(i, j): owner(i) = p, owner(j) = q} packed
+into one (mloc, nloc) slab in cyclic order (``parallel/layout.py``; ref
+parsec_matrix_block_cyclic_t, tests/testing_zpotrf.c:100-103).
 
-The reference runs each factorization as a ``shard_map`` program, one
-device per rank. The port has a single-controller virtual mesh
+The reference runs each op as a ``shard_map`` program, one device per
+rank. The port has a single-controller virtual mesh
 (``parallel/mesh.py``): a :class:`CyclicMatrix` is a P×Q grid of slabs
 on the mesh's one device, and the shard_map body becomes a lockstep
 loop over the ranks in one process. Per step each phase runs for every
 rank, and the collectives run between phases over the list of the
 ranks' tensors along one axis: :func:`_psum` (summed in rank order, the
-result handed to every rank), :func:`_all_gather` (stacked in rank
+result handed to every rank), :func:`_masked_psum` (the reference's
+owner-masked psum broadcast), :func:`_all_gather` (stacked in rank
 order), and the ring transfers of kernel K5 (``kernels/pallas_ring.py``)
 under MCA ``ring.enable``: the panel broadcast along 'q'
-(:func:`_bcast_q`) and the LU winner-row exchange along 'p'. A rank's
-``axis_index`` is a Python int here, so the reference's
-``jnp.where(q == qk, ...)`` is a branch with the same values. Every
-per-rank product and solve is the reference's: ``blas.dot`` (so K1 when
-it is enabled), ``blas.potrf``, ``blas.trsm``; the LU candidate election
-takes ``rec`` under ``panel.kernel=pallas`` or ``rec``, else the vendor
-LU (``ops/lu._lu_chain``, cuSOLVER by name).
+(:func:`_bcast_q`, in potrf L, getrf and geqrf) and the LU winner-row
+exchange along 'p'. A rank's ``axis_index`` is a Python int here, so
+the reference's ``jnp.where(q == qk, ...)`` is a branch with the same
+values. Every per-rank product and solve is the reference's:
+``blas.dot`` (so K1 when it is enabled), ``blas.potrf``, ``blas.trsm``;
+the LU candidate election takes ``rec`` under ``panel.kernel=pallas``
+or ``rec``, else the vendor LU (``ops/lu._lu_chain``, cuSOLVER by
+name). A value the reference computes on every rank of an axis from
+one psum's result (a CholeskyQR2 panel's Gram factor, R, the top block
+and its reconstruction) is computed once for that axis group: its
+inputs are the very same tensor, so every rank's copy would be bitwise
+the same.
 
 Conversions use the gather path (index tables from ``layout``): the
 reference's all_to_all exchange (MCA ``cyclic.convert=a2a``) bounds the
 per-device memory of a mesh over several devices, which the port does
 not have yet; the knob comes with that path.
 
-Not ported yet (ROADMAP queue 1 item 11): the U storage of
-``potrf_cyclic``, ``geqrf_cyclic`` and the other ``*_cyclic`` ops, the
-a2a conversions, ``spmd_comm_model``, the ``ring`` phase span, a mesh
-over several cards, and the dd route under a grid.
+Not ported yet (ROADMAP queue 1 item 11): the dd route under a grid
+(step 2: every op here raises under ``dd_gemm=always``), the ``ring``
+phase span and its probe (step 3), the a2a conversions and a mesh over
+several cards (step 4).
 """
 from __future__ import annotations
 
@@ -248,6 +259,14 @@ def _all_gather(xs: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack(xs)
 
 
+def _masked_psum(vals: List[torch.Tensor], root: int) -> List[torch.Tensor]:
+    """The reference's owner-masked psum broadcast along one axis:
+    ``psum(where(axis_index == root, v, 0))`` — the root's value plus
+    the other ranks' zeros, handed to every rank."""
+    return _psum([v if i == root else torch.zeros_like(v)
+                  for i, v in enumerate(vals)])
+
+
 def _bcast_q(vals: List[torch.Tensor], qk: int, ring: bool,
              rchunks: int = 0) -> List[torch.Tensor]:
     """Panel broadcast along 'q' from owner column ``qk``: the K5 ring
@@ -259,8 +278,7 @@ def _bcast_q(vals: List[torch.Tensor], qk: int, ring: bool,
         from dplasma_tpu_torch.kernels import pallas_ring as _pring
         return _pring.ring_bcast(vals, root=qk,
                                  chunks=rchunks if rchunks > 0 else None)
-    return _psum([v if q == qk else torch.zeros_like(v)
-                  for q, v in enumerate(vals)])
+    return _masked_psum(vals, qk)
 
 
 def _rows_q(vals: Dict[Tuple[int, int], torch.Tensor], P: int, Q: int,
@@ -286,8 +304,8 @@ def _cols_p(vals: Dict[Tuple[int, int], torch.Tensor], P: int, Q: int,
 def _dd_guard(dtype) -> None:
     if kb._dd_active(dtype):
         raise NotImplementedError(
-            "the block-cyclic factorizations under dd_gemm=always (the dd "
-            f"route under a grid) are not ported yet ({_QUEUED})")
+            "the block-cyclic ops under dd_gemm=always (the dd route under "
+            f"a grid) are not ported yet ({_QUEUED}, step 2)")
 
 
 # ---------------------------------------------------------------------
@@ -343,9 +361,8 @@ def _potrf_cyclic(A: CyclicMatrix, lookahead: int = 0, ring: bool = False,
         pan = pan_next if pan_next is not None else _rows_q(
             cs, P, Q, partial(_bcast_q, qk=qk, ring=ring, rchunks=rchunks))
         # 2) broadcast the diagonal tile along 'p' (masked psum)
-        ddt = _cols_p({(p, q): pan[p, q][rk] if p == pk
-                       else torch.zeros((mb, mb), dtype=A.dtype, device=dev)
-                       for p, q in ranks}, P, Q, _psum)
+        ddt = _cols_p({r: pan[r][rk] for r in ranks}, P, Q,
+                      partial(_masked_psum, root=pk))
         Lpan, Lbelow = {}, {}
         for p, q in ranks:
             Lkk = kb.potrf(ddt[p, q], lower=True)
@@ -590,19 +607,1157 @@ def getrf_cyclic(A: CyclicMatrix):
     return CyclicMatrix(out, desc), perm[:Mp]
 
 
+# ---------------------------------------------------------------------
+# Shared per-rank helpers of the ops below
+# ---------------------------------------------------------------------
+
+def _ranks(d: Dist):
+    return [(p, q) for p in range(d.P) for q in range(d.Q)]
+
+
+def _ct(x: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose (a plain transpose for real data)."""
+    return x.mH if x.is_complex() else x.T
+
+
+def _cj(x: torch.Tensor) -> torch.Tensor:
+    return x.conj() if x.is_complex() else x
+
+
+def _blk(lslot: int, mb: int) -> slice:
+    return slice(lslot * mb, (lslot + 1) * mb)
+
+
+def _put_rows(like: torch.Tensor, blk: torch.Tensor, lslot: int,
+              mb: int) -> torch.Tensor:
+    """Zeros shaped like ``like`` with ``blk`` at local row slot
+    ``lslot`` (the reference's dynamic_update_slice into zeros)."""
+    z = torch.zeros_like(like)
+    z[_blk(lslot, mb)] = blk
+    return z
+
+
+def _put_cols(like: torch.Tensor, blk: torch.Tensor, lslot: int,
+              mb: int) -> torch.Tensor:
+    z = torch.zeros_like(like)
+    z[:, _blk(lslot, mb)] = blk
+    return z
+
+
+def _zero_unless(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def _col_pick(desc: CyclicDesc, gcol: torch.Tensor, nloc: int,
+              mloc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Index table mapping my local COLUMN ids (global tile ``gcol`` per
+    element) into a 'p'-axis all_gather of column slabs reshaped
+    (P·mloc, ·): the herk/potrf row formation's cyclic pick, clamped as
+    the reference's gather clamps; and which columns name a real row
+    tile (< MT)."""
+    d = desc.dist
+    jt = gcol
+    pj = (jt // d.kp + d.ip) % d.P
+    lj = (jt // (d.kp * d.P)) * d.kp + jt % d.kp
+    idx = (pj * mloc + lj * desc.mb
+           + torch.arange(nloc, device=gcol.device) % desc.mb)
+    return idx.clamp(0, d.P * mloc - 1), jt < desc.MT
+
+
+def _row_pick(desc: CyclicDesc, gid: torch.Tensor, nloc_src: int):
+    """Index table mapping my local ROW ids (global column coordinate
+    ``gid`` per element) into a 'q'-axis all_gather of a row slab
+    reshaped (mb, Q·nloc_src) (cyclic.py:1635-1647): the entry for
+    global id g is q_owner(g)·nloc_src + local_col(g), clamped; and
+    which rows name a real column tile (< NT)."""
+    d = desc.dist
+    t = gid // desc.nb
+    qj = (t // d.kq + d.jq) % d.Q
+    lj = (t // (d.kq * d.Q)) * d.kq + t % d.kq
+    idx = qj * nloc_src + lj * desc.nb + gid % desc.nb
+    return idx.clamp(0, d.Q * nloc_src - 1), t < desc.NT
+
+
+def _gather_q_rows(vals: Dict[Tuple[int, int], torch.Tensor], P: int,
+                   Q: int) -> Dict[int, torch.Tensor]:
+    """all_gather along 'q' of (mb, nloc) row blocks, laid out (mb,
+    Q·nloc) as the reference's ``transpose(1, 0, 2).reshape``: one
+    tensor per process row."""
+    out = {}
+    for p in range(P):
+        allr = _all_gather([vals[p, q] for q in range(Q)])
+        out[p] = allr.transpose(0, 1).reshape(allr.shape[1], -1)
+    return out
+
+
+def _gather_p_cols(vals: Dict[Tuple[int, int], torch.Tensor], P: int,
+                   Q: int) -> Dict[int, torch.Tensor]:
+    """all_gather along 'p' of (mloc, w) column blocks, laid out
+    (P·mloc, w): one tensor per process column."""
+    out = {}
+    for q in range(Q):
+        allg = _all_gather([vals[p, q] for p in range(P)])
+        out[q] = allg.reshape(-1, allg.shape[-1])
+    return out
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _out(S: Dict[Tuple[int, int], torch.Tensor], d: Dist):
+    return [[S[p, q] for q in range(d.Q)] for p in range(d.P)]
+
+
+# ---------------------------------------------------------------------
+# Distributed Cholesky (upper)
+# ---------------------------------------------------------------------
+
+def _potrf_cyclic_upper(A: CyclicMatrix) -> List[List[torch.Tensor]]:
+    """The reference's ``_potrf_cyclic_upper_jit`` body
+    (cyclic.py:2099-2170) in lockstep: A = U^H U, the lower sweep with
+    the axes' roles mirrored — the row panel broadcast along 'p', the
+    diagonal tile along 'q' (masked psums), the local row-panel solve,
+    the owners' write-back, the column by all_gather along 'q' and a
+    cyclic pick (clamped as the reference's gather clamps), and one
+    local trailing product per rank. No ring and no lookahead, as in
+    the reference."""
+    desc = A.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = min(desc.MT, desc.NT)
+    mloc = desc.MTL * mb
+    nloc = desc.NTL * mb
+    dev = A.device
+    ranks = _ranks(d)
+    S = {(p, q): A.data[p][q].clone() for p, q in ranks}
+    grow = {p: _grow(desc.MTL, mb, p, P, d.kp, d.ip, dev) for p in range(P)}
+    gcol = {q: _grow(desc.NTL, mb, q, Q, d.kq, d.jq, dev) for q in range(Q)}
+    # column formation's pick: row tile it of my rows sits on rank qi at
+    # local column li*mb + i % mb of the gathered row panels
+    pick = {}
+    for p in range(P):
+        it = grow[p]
+        qi = (it // d.kq + d.jq) % Q
+        li = (it // (d.kq * Q)) * d.kq + it % d.kq
+        pick[p] = (qi * nloc + li * mb + torch.arange(mloc, device=dev)
+                   % mb).clamp(0, Q * nloc - 1)
+    for k in range(KT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        rk = _blk(layout.local_index(k, P, d.kp), mb)
+        lck = layout.local_index(k, Q, d.kq)
+        # 1) block row k along 'p'; 2) the diagonal tile along 'q'
+        rs = {r: S[r][rk] for r in ranks}
+        pan = _cols_p(rs, P, Q, partial(_masked_psum, root=pk))
+        ddt = _rows_q({r: pan[r][:, _blk(lck, mb)] for r in ranks}, P, Q,
+                      partial(_masked_psum, root=qk))
+        Upan = {}
+        for p, q in ranks:
+            r = (p, q)
+            Ukk = kb.potrf(ddt[r], lower=False)
+            # 3) local row-panel solve (columns strictly right of k)
+            sol = kb.trsm(Ukk, pan[r], side="L", lower=False, trans="C")
+            right = (gcol[q] > k)[None, :]
+            up = _zero_unless(right, sol)
+            if q == qk:
+                diagcol = (gcol[q] == k)[None, :]
+                up = torch.where(diagcol, _put_cols(pan[r], Ukk, lck, mb),
+                                 up)
+            Upan[r] = up
+            # 4) owners write the factored row panel back
+            if p == pk:
+                S[r][rk] = torch.where((gcol[q] >= k)[None, :], up, rs[r])
+        # 5) column formation: all_gather along 'q' + cyclic pick
+        flat = _gather_q_rows(Upan, P, Q)
+        for p, q in ranks:
+            r = (p, q)
+            # W[i, t] = U[k*mb+t, gid_i]; trailing A_ij -= conj(W_i) U_j
+            W = _zero_unless((grow[p] > k)[:, None], flat[p][:, pick[p]].T)
+            Uright = _zero_unless((gcol[q] > k)[None, :], Upan[r])
+            S[r] = S[r] - kb.dot(W, Uright, conj_a=True)
+    return _out(S, d)
+
+
+# ---------------------------------------------------------------------
+# Distributed triangular solves, POTRS, the slab row gather and GETRS
+# ---------------------------------------------------------------------
+
+def _trsm_cyclic(A: CyclicMatrix, B: CyclicMatrix, uplo: str, trans: str,
+                 unit: bool) -> List[List[torch.Tensor]]:
+    """The reference's ``_trsm_cyclic_jit`` body (cyclic.py:1387-1473)
+    in lockstep: op(T) X = B for T the named stored triangle, every
+    (uplo, trans). Per step the block column of T along 'q' and its
+    diagonal tile along 'p' (masked psums), for trans T/C the partial
+    sums of the solved rows along 'p' (psum), the owner's tile solve
+    handed to its process column (psum), and for trans N one local
+    product per rank."""
+    lower = uplo == "L"
+    desc, bdesc = A.desc, B.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = min(desc.MT, desc.NT)
+    dev = A.device
+    ranks = _ranks(d)
+    # op(T) is lower (forward substitution) for (L, N) and (U, T/C)
+    forward = lower == (trans == "N")
+    X = {(p, q): B.data[p][q] for p, q in ranks}
+    grow = {p: _grow(desc.MTL, mb, p, P, d.kp, d.ip, dev) for p in range(P)}
+    for k in (range(KT) if forward else range(KT - 1, -1, -1)):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        rk = _blk(layout.local_index(k, P, d.kp), mb)
+        ck = _blk(layout.local_index(k, Q, d.kq), mb)
+        pan = _rows_q({(p, q): A.data[p][q][:, ck] for p, q in ranks}, P, Q,
+                      partial(_masked_psum, root=qk))
+        Tkk = _cols_p({r: pan[r][rk] for r in ranks}, P, Q,
+                      partial(_masked_psum, root=pk))
+        Tb, rhs = {}, {}
+        for p, q in ranks:
+            # off-diagonal rows of the panel that couple with X_k
+            off = (grow[p] > k) if lower else (grow[p] < k)
+            Tb[p, q] = _zero_unless(off[:, None], pan[p, q])
+        if trans != "N":
+            # X_k = op(T)_kk^-1 (B_k - sum_i op(T)_ik X_i): the partial
+            # sums ride one psum along 'p'; the coupling blocks follow the
+            # solve's op (plain transpose for T, conjugate for C)
+            part = {r: kb.dot(Tb[r], X[r], ta=True,
+                              conj_a=(trans == "C" and X[r].is_complex()))
+                    for r in ranks}
+            s = _cols_p(part, P, Q, _psum)
+        xk = {}
+        for p, q in ranks:
+            r = (p, q)
+            bk = X[r][rk]
+            rh = bk if trans == "N" else bk - s[r]
+            Tk = Tkk[r] if lower else torch.triu(Tkk[r])
+            xk[r] = kb.trsm(Tk, rh if p == pk else torch.zeros_like(rh),
+                            side="L", lower=lower, trans=trans, unit=unit)
+        xk = _cols_p(xk, P, Q, _psum)
+        for p, q in ranks:
+            r = (p, q)
+            if p == pk:
+                X[r] = X[r].clone()
+                X[r][rk] = xk[r]
+            if trans == "N":
+                # B_off -= T_ik X_k (one local product per rank)
+                X[r] = X[r] - kb.dot(Tb[r], xk[r])
+    return _out(X, d)
+
+
+def trsm_cyclic(A: CyclicMatrix, B: CyclicMatrix, trans: str = "N",
+                unit: bool = False, uplo: str = "L") -> CyclicMatrix:
+    """Distributed op(T) X = B on block-cyclic local storage (left side;
+    every (uplo, trans) corner, with ``unit``; ref src/ztrsm_LLN.jdf).
+    A and B share the grid and row tiling; B keeps its column
+    blocking."""
+    _mesh_of(A)
+    _check(A.desc.dist == B.desc.dist and A.desc.mb == B.desc.mb
+           and A.desc.M == B.desc.M, "trsm_cyclic: mismatched descs")
+    u, t = uplo.upper(), trans.upper()
+    _check(u in ("L", "U"), f"uplo must be L or U, got {uplo!r}")
+    _check(t in ("N", "T", "C"), f"trans must be N, T or C, got {trans!r}")
+    _dd_guard(A.dtype)
+    return CyclicMatrix(_trsm_cyclic(A, B, u, t, unit), B.desc)
+
+
+def potrs_cyclic(L: CyclicMatrix, B: CyclicMatrix,
+                 uplo: str = "L") -> CyclicMatrix:
+    """Solve A X = B from the distributed Cholesky factor without leaving
+    the slabs (the pdpotrs / zpotrs_wrapper.c composition of two
+    distributed TRSMs). ``uplo`` names the factor's storage: A = L L^H
+    (L) or A = U^H U (U)."""
+    u = uplo.upper()
+    _check(u in ("L", "U"), f"uplo must be L or U, got {uplo!r}")
+    if u == "U":
+        return trsm_cyclic(L, trsm_cyclic(L, B, "C", uplo="U"), "N",
+                           uplo="U")
+    return trsm_cyclic(L, trsm_cyclic(L, B, "N"), "C")
+
+
+def laswp_cyclic(A: CyclicMatrix, perm) -> CyclicMatrix:
+    """Apply a global row permutation to cyclic slabs: out global row r =
+    in global row perm[r] (cyclic.py:2036-2082). One all_gather along
+    'p' of the column slabs and a cyclic pick per rank — never the
+    natural-order global array."""
+    _mesh_of(A)
+    _dd_guard(A.dtype)
+    desc = A.desc
+    d = desc.dist
+    P = d.P
+    mb = desc.mb
+    mloc = desc.MTL * mb
+    dev = A.device
+    if not isinstance(perm, torch.Tensor):
+        perm = torch.from_numpy(np.array(perm, dtype=np.int64))
+    pm = perm.to(dev).reshape(-1).long()
+    Mp = pm.shape[0]
+    allg = _gather_p_cols({(p, q): A.data[p][q] for p, q in _ranks(d)},
+                          P, d.Q)
+    out = []
+    for p in range(P):
+        gid = (_grow(desc.MTL, mb, p, P, d.kp, d.ip, dev) * mb
+               + torch.arange(mloc, device=dev) % mb)
+        src = pm[gid.clamp(0, Mp - 1)]               # global source row
+        t = src // mb
+        ps = (t // d.kp + d.ip) % P
+        ls = (t // (d.kp * P)) * d.kp + t % d.kp
+        idx = ps * mloc + ls * mb + src % mb
+        keep = (gid < Mp)[:, None]
+        out.append([torch.where(keep, allg[q][idx], A.data[p][q])
+                    for q in range(d.Q)])
+    return CyclicMatrix(out, desc)
+
+
+def getrs_cyclic(LU: CyclicMatrix, perm, B: CyclicMatrix) -> CyclicMatrix:
+    """Solve A X = B from :func:`getrf_cyclic`'s output without leaving
+    the slabs (pdgetrs): the factor rows live at their original positions
+    with the elimination order in ``perm``, so one distributed row gather
+    puts the factor and B in elimination order, then the unit-lower and
+    upper TRSM sweeps run on the slabs."""
+    Lp = laswp_cyclic(LU, perm)
+    Bp = laswp_cyclic(B, perm)
+    Y = trsm_cyclic(Lp, Bp, "N", unit=True)
+    return trsm_cyclic(Lp, Y, "N", uplo="U")
+
+
+# ---------------------------------------------------------------------
+# SUMMA and the Level-3 BLAS over slabs
+# ---------------------------------------------------------------------
+
+def gemm_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
+    """Distributed C = A @ B on block-cyclic local storage: the SUMMA
+    loop over slabs (cyclic.py:1503-1558; ref src/zsumma_NN.jdf) — per
+    contraction tile one masked-psum broadcast of A's block column along
+    'q', one of B's block row along 'p', one local product per rank. A's
+    column tiling must match B's row tiling."""
+    _mesh_of(A)
+    ad, bd = A.desc, B.desc
+    _check(ad.dist == bd.dist and ad.nb == bd.mb and ad.N == bd.M,
+           "gemm_cyclic: mismatched descs")
+    _dd_guard(A.dtype)
+    d = ad.dist
+    P, Q = d.P, d.Q
+    ranks = _ranks(d)
+    C = {r: A.data[r[0]][r[1]].new_zeros(
+        (ad.MTL * ad.mb, bd.NTL * bd.nb)) for r in ranks}
+    for k in range(ad.NT):
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        pk = layout.owner(k, P, d.kp, d.ip)
+        ac = _blk(layout.local_index(k, Q, d.kq), ad.nb)
+        br = _blk(layout.local_index(k, P, d.kp), bd.mb)
+        acol = _rows_q({(p, q): A.data[p][q][:, ac] for p, q in ranks},
+                       P, Q, partial(_masked_psum, root=qk))
+        brow = _cols_p({(p, q): B.data[p][q][br] for p, q in ranks},
+                       P, Q, partial(_masked_psum, root=pk))
+        for r in ranks:
+            C[r] = C[r] + kb.dot(acol[r], brow[r])
+    return CyclicMatrix(_out(C, d), CyclicDesc(ad.M, bd.N, ad.mb, bd.nb,
+                                               d))
+
+
+def _stored_triangle(C: Dict[Tuple[int, int], torch.Tensor],
+                     desc: CyclicDesc, cdesc: CyclicDesc,
+                     lower: bool = True):
+    """Keep the stored triangle of each rank's C slab (element ids of
+    ``desc``'s rows against ``cdesc``'s columns)."""
+    d = desc.dist
+    out = {}
+    for p, q in C:
+        dev = C[p, q].device
+        _, _, gid, _ = _slab_coords(desc, p, q, dev)
+        _, _, _, gcid = _slab_coords(cdesc, p, q, dev)
+        keep = (gid[:, None] >= gcid[None, :]) if lower else \
+            (gid[:, None] <= gcid[None, :])
+        out[p, q] = _zero_unless(keep, C[p, q])
+    return _out(out, d)
+
+
+def herk_cyclic(A: CyclicMatrix) -> CyclicMatrix:
+    """Distributed C = A A^H (lower stored, M×M) on block-cyclic local
+    storage (cyclic.py:1561-1632; ref src/zherk_LN.jdf): the POTRF
+    trailing-update collectives as a standalone rank-k sweep — per
+    column tile the block column along 'q' (masked psum), the row
+    formation by all_gather along 'p' and a cyclic pick, one local
+    product per rank. A may be rectangular: C's columns follow the M×M
+    descriptor."""
+    _mesh_of(A)
+    desc = A.desc
+    _check(desc.mb == desc.nb, "herk_cyclic needs square tiles")
+    _dd_guard(A.dtype)
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mloc = desc.MTL * desc.mb
+    cdesc = CyclicDesc(desc.M, desc.M, desc.mb, desc.mb, d)
+    ncloc = cdesc.NTL * cdesc.nb
+    dev = A.device
+    ranks = _ranks(d)
+    pick = {q: _col_pick(desc, _grow(cdesc.NTL, cdesc.nb, q, Q, d.kq, d.jq,
+                                     dev), ncloc, mloc) for q in range(Q)}
+    C = {r: A.data[r[0]][r[1]].new_zeros((mloc, ncloc)) for r in ranks}
+    for k in range(desc.NT):
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        ck = _blk(layout.local_index(k, Q, d.kq), desc.nb)
+        acol = _rows_q({(p, q): A.data[p][q][:, ck] for p, q in ranks},
+                       P, Q, partial(_masked_psum, root=qk))
+        allg = _gather_p_cols(acol, P, Q)
+        for p, q in ranks:
+            idx, valid = pick[q]
+            W = _zero_unless(valid[:, None], allg[q][idx])   # (ncloc, nb)
+            C[p, q] = C[p, q] + kb.dot(acol[p, q], W, tb=True, conj_b=True)
+    return CyclicMatrix(_stored_triangle(C, desc, cdesc), cdesc)
+
+
+def _tri_keep(gid: torch.Tensor, ke: torch.Tensor, x: torch.Tensor,
+              strict, unit: bool) -> torch.Tensor:
+    """The reference's triangle mask of a (rows, mb) operand against
+    block-k element ids ``ke``: keep where ``strict`` holds, the
+    diagonal as-is (or 1 when ``unit``), zeros elsewhere."""
+    dg = gid[:, None] == ke[None, :]
+    diag = torch.ones((), dtype=x.dtype, device=x.device) if unit else x
+    return torch.where(strict, x, torch.where(
+        dg, diag, torch.zeros((), dtype=x.dtype, device=x.device)))
+
+
+def trmm_cyclic(A: CyclicMatrix, B: CyclicMatrix, trans: str = "N",
+                unit: bool = False, uplo: str = "L") -> CyclicMatrix:
+    """Distributed B <- op(T) B on block-cyclic local storage (left side;
+    cyclic.py:1650-1757, ref src/ztrmm_LLN.jdf family). trans=N is the
+    SUMMA loop with T's block column element-masked to its triangle;
+    trans=C (and T, for real data) forms the lhs conj(T(k, r)) from T's
+    block row along 'p', gathered along 'q' and picked by column
+    coordinate."""
+    _mesh_of(A)
+    desc, bdesc = A.desc, B.desc
+    _check(desc.dist == bdesc.dist and desc.mb == bdesc.mb
+           and desc.M == bdesc.M, "trmm_cyclic: mismatched descs")
+    _check(desc.mb == desc.nb, "trmm_cyclic needs square tiles")
+    t = trans.upper()
+    lower = uplo.upper() == "L"
+    _check(uplo.upper() in ("L", "U"), f"uplo must be L or U, got {uplo!r}")
+    # 'T' aliases 'C' only for real data: the non-N branch conjugates
+    _check(t in ("N", "C") or (t == "T" and not A.dtype.is_complex),
+           "trmm_cyclic: complex plain-transpose not implemented")
+    _dd_guard(A.dtype)
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = min(desc.MT, desc.NT)
+    nloc = desc.NTL * mb
+    dev = A.device
+    ranks = _ranks(d)
+    gid = {p: _slab_coords(desc, p, 0, dev)[2] for p in range(P)}
+    rpick = {p: _row_pick(desc, gid[p], nloc) for p in range(P)}
+    C = {r: B.data[r[0]][r[1]].new_zeros(B.data[r[0]][r[1]].shape)
+         for r in ranks}
+    for k in range(KT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        rk = _blk(layout.local_index(k, P, d.kp), mb)
+        ck = _blk(layout.local_index(k, Q, d.kq), mb)
+        ke = k * mb + torch.arange(mb, device=dev)
+        # B block row k -> everyone in the column ('p' broadcast)
+        brow = _cols_p({(p, q): B.data[p][q][rk] for p, q in ranks}, P, Q,
+                       partial(_masked_psum, root=pk))
+        if t == "N":
+            # T's block column k ('q' broadcast), element-masked
+            acol = _rows_q({(p, q): A.data[p][q][:, ck] for p, q in ranks},
+                           P, Q, partial(_masked_psum, root=qk))
+            for p, q in ranks:
+                g = gid[p]
+                keep = (g[:, None] > ke[None, :]) if lower else \
+                    (g[:, None] < ke[None, :])
+                lhs = _tri_keep(g, ke, acol[p, q], keep, unit)
+                C[p, q] = C[p, q] + kb.dot(lhs, brow[p, q])
+        else:
+            # lhs = conj(T(k, gid_r)): T's row slab k ('p' broadcast),
+            # gathered along 'q', column-coordinate pick
+            rowk = _cols_p({(p, q): A.data[p][q][rk] for p, q in ranks},
+                           P, Q, partial(_masked_psum, root=pk))
+            flat = _gather_q_rows(rowk, P, Q)
+            for p, q in ranks:
+                g = gid[p]
+                idx, valid = rpick[p]
+                Wl = _zero_unless(valid[:, None], _cj(flat[p][:, idx].T))
+                # Wl[r, t] = conj(T(ke_t, gid_r)): lower T has T(ke, r)
+                # nonzero for ke >= r, upper for ke <= r
+                keep = (g[:, None] < ke[None, :]) if lower else \
+                    (g[:, None] > ke[None, :])
+                lhs = _tri_keep(g, ke, Wl, keep, unit)
+                C[p, q] = C[p, q] + kb.dot(lhs, brow[p, q])
+    return CyclicMatrix(_out(C, d), bdesc)
+
+
+def hemm_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
+    """Distributed C = A B with A Hermitian stored lower (left side;
+    cyclic.py:1760-1836, ref src/zhemm.jdf): per step the stored block
+    column serves rows >= k directly and rows < k through its
+    conjugate-transposed row strip (the 'q' gather + column-coordinate
+    pick); one local product per rank."""
+    _mesh_of(A)
+    desc, bdesc = A.desc, B.desc
+    _check(desc.dist == bdesc.dist and desc.mb == bdesc.mb
+           and desc.M == bdesc.M and desc.M == desc.N,
+           "hemm_cyclic: mismatched descs")
+    _check(desc.mb == desc.nb, "hemm_cyclic needs square tiles")
+    _dd_guard(A.dtype)
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    nloc = desc.NTL * mb
+    dev = A.device
+    ranks = _ranks(d)
+    gid = {p: _slab_coords(desc, p, 0, dev)[2] for p in range(P)}
+    rpick = {p: _row_pick(desc, gid[p], nloc) for p in range(P)}
+    C = {r: B.data[r[0]][r[1]].new_zeros(B.data[r[0]][r[1]].shape)
+         for r in ranks}
+    for k in range(desc.MT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        rk = _blk(layout.local_index(k, P, d.kp), mb)
+        ck = _blk(layout.local_index(k, Q, d.kq), mb)
+        ke = k * mb + torch.arange(mb, device=dev)
+        brow = _cols_p({(p, q): B.data[p][q][rk] for p, q in ranks}, P, Q,
+                       partial(_masked_psum, root=pk))
+        # the stored lower column block k: rows >= k (diagonal included)
+        acol = _rows_q({(p, q): A.data[p][q][:, ck] for p, q in ranks},
+                       P, Q, partial(_masked_psum, root=qk))
+        # rows < k: A(r, ke) = conj(A_stored(ke, r)) — row slab k
+        # gathered along 'q', picked at my rows' global columns
+        rowk = _cols_p({(p, q): A.data[p][q][rk] for p, q in ranks}, P, Q,
+                       partial(_masked_psum, root=pk))
+        flat = _gather_q_rows(rowk, P, Q)
+        for p, q in ranks:
+            g = gid[p]
+            idx, valid = rpick[p]
+            lo = _zero_unless(g[:, None] >= ke[None, :], acol[p, q])
+            Wl = _zero_unless(valid[:, None], _cj(flat[p][:, idx].T))
+            Wl = _zero_unless(g[:, None] < ke[None, :], Wl)
+            C[p, q] = C[p, q] + kb.dot(lo + Wl, brow[p, q])
+    return CyclicMatrix(_out(C, d), bdesc)
+
+
+def her2k_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
+    """Distributed C = A B^H + B A^H (lower stored, M×M) on block-cyclic
+    local storage (cyclic.py:1839-1914, ref src/zher2k_LN.jdf): the
+    herk_cyclic collectives doubled — per column tile one 'q' broadcast
+    and one 'p'-gather row formation of each operand, two local products
+    per rank."""
+    _mesh_of(A)
+    desc = A.desc
+    _check(desc.dist == B.desc.dist and desc.mb == B.desc.mb
+           and desc.M == B.desc.M and desc.N == B.desc.N,
+           "her2k_cyclic: mismatched descs")
+    _check(desc.mb == desc.nb, "her2k_cyclic needs square tiles")
+    _dd_guard(A.dtype)
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mloc = desc.MTL * desc.mb
+    cdesc = CyclicDesc(desc.M, desc.M, desc.mb, desc.mb, d)
+    ncloc = cdesc.NTL * cdesc.nb
+    dev = A.device
+    ranks = _ranks(d)
+    pick = {q: _col_pick(desc, _grow(cdesc.NTL, cdesc.nb, q, Q, d.kq, d.jq,
+                                     dev), ncloc, mloc) for q in range(Q)}
+    C = {r: A.data[r[0]][r[1]].new_zeros((mloc, ncloc)) for r in ranks}
+    for k in range(desc.NT):
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        ck = _blk(layout.local_index(k, Q, d.kq), desc.nb)
+
+        def colof(X):
+            c = _rows_q({(p, q): X.data[p][q][:, ck] for p, q in ranks},
+                        P, Q, partial(_masked_psum, root=qk))
+            allg = _gather_p_cols(c, P, Q)
+            W = {}
+            for p, q in ranks:
+                idx, valid = pick[q]
+                W[p, q] = _zero_unless(valid[:, None], allg[q][idx])
+            return c, W
+        acol, Wa = colof(A)
+        bcol, Wb = colof(B)
+        for r in ranks:
+            C[r] = (C[r] + kb.dot(acol[r], Wb[r], tb=True, conj_b=True)
+                    + kb.dot(bcol[r], Wa[r], tb=True, conj_b=True))
+    return CyclicMatrix(_stored_triangle(C, desc, cdesc), cdesc)
+
+
+# ---------------------------------------------------------------------
+# The inverses: LAUUM, TRTRI, POTRI
+# ---------------------------------------------------------------------
+
+def lauum_cyclic(A: CyclicMatrix) -> CyclicMatrix:
+    """Distributed L^H L (lower stored) on block-cyclic local storage
+    (cyclic.py:1917-1975, ref src/zlauum_L.jdf): a Gram sweep over row
+    blocks — the lhs conj(L(k, r)) by the 'q' gather pick, the rhs the
+    row slab broadcast along 'p', one local product per rank."""
+    _mesh_of(A)
+    desc = A.desc
+    _check(desc.mb == desc.nb and desc.M == desc.N,
+           "lauum_cyclic needs a square matrix of square tiles")
+    _dd_guard(A.dtype)
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    nloc = desc.NTL * mb
+    dev = A.device
+    ranks = _ranks(d)
+    gid = {p: _slab_coords(desc, p, 0, dev)[2] for p in range(P)}
+    gcid = {q: _slab_coords(desc, 0, q, dev)[3] for q in range(Q)}
+    rpick = {p: _row_pick(desc, gid[p], nloc) for p in range(P)}
+    C = {r: A.data[r[0]][r[1]].new_zeros(A.data[r[0]][r[1]].shape)
+         for r in ranks}
+    for k in range(desc.MT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        rk = _blk(layout.local_index(k, P, d.kp), mb)
+        ke = k * mb + torch.arange(mb, device=dev)
+        rowk = _cols_p({(p, q): A.data[p][q][rk] for p, q in ranks}, P, Q,
+                       partial(_masked_psum, root=pk))
+        # stored lower: row k holds columns <= k
+        rowk = {(p, q): _zero_unless(ke[:, None] >= gcid[q][None, :],
+                                     rowk[p, q]) for p, q in ranks}
+        flat = _gather_q_rows(rowk, P, Q)
+        for p, q in ranks:
+            idx, valid = rpick[p]
+            Wl = _zero_unless(valid[:, None], _cj(flat[p][:, idx].T))
+            Wl = _zero_unless(ke[None, :] >= gid[p][:, None], Wl)
+            C[p, q] = C[p, q] + kb.dot(Wl, rowk[p, q])
+    return CyclicMatrix(_stored_triangle(C, desc, desc), desc)
+
+
+def _identity_cyclic(A: CyclicMatrix) -> CyclicMatrix:
+    """The identity on A's slabs (cyclic.py:1978-1993): ones where the
+    global row and column ids meet below min(M, N)."""
+    desc = A.desc
+    K = min(desc.M, desc.N)
+    out = {}
+    for p, q in _ranks(desc.dist):
+        _, _, gid, gcid = _slab_coords(desc, p, q, A.device)
+        eye = (gid[:, None] == gcid[None, :]) & (gid < K)[:, None]
+        out[p, q] = eye.to(A.dtype)
+    return CyclicMatrix(_out(out, desc.dist), desc)
+
+
+def _tri_mask_cyclic(A: CyclicMatrix, lower: bool) -> CyclicMatrix:
+    """The named triangle of A's slabs, zeros elsewhere
+    (cyclic.py:1996-2010)."""
+    S = {(p, q): A.data[p][q] for p, q in _ranks(A.desc.dist)}
+    return CyclicMatrix(_stored_triangle(S, A.desc, A.desc, lower), A.desc)
+
+
+def trtri_cyclic(A: CyclicMatrix, unit: bool = False,
+                 uplo: str = "L") -> CyclicMatrix:
+    """Distributed triangular inverse on block-cyclic local storage
+    (cyclic.py:2013-2026, ref src/ztrtri_L.jdf): the solve-shaped sweep
+    op(T) X = I over the trsm_cyclic collectives, masked to the
+    triangle."""
+    _mesh_of(A)
+    eye = _identity_cyclic(A)
+    X = trsm_cyclic(A, eye, "N", unit=unit, uplo=uplo.upper())
+    return _tri_mask_cyclic(X, uplo.upper() == "L")
+
+
+def potri_cyclic(L: CyclicMatrix) -> CyclicMatrix:
+    """Distributed POTRI from the cyclic Cholesky factor: A^-1 =
+    L^-H L^-1 = lauum(trtri(L)) without leaving the slabs (ref
+    src/zpotri_wrapper.c composing ztrtri + zlauum)."""
+    return lauum_cyclic(trtri_cyclic(L))
+
+
+# ---------------------------------------------------------------------
+# Distributed QR: CholeskyQR2 + TSQR-HR panels
+# ---------------------------------------------------------------------
+
+def _cqr2_panel(xs: List[torch.Tensor], M: int, mb: int, eps: float,
+                pdiag: int, ldiag: int):
+    """The reference's ``_cqr2_panel`` (cyclic.py:704-744) over one axis
+    group: ``xs`` are the masked local panel rows of the group's ranks in
+    axis order (the QR, herbt and ge2gb sweeps pass a process column's
+    ranks, the ge2gb LQ half a process row's); ``pdiag``/``ldiag`` the
+    owner rank and local tile slot of the diagonal tile along that axis.
+    CholeskyQR2 with the shift 11·(M·mb + mb(mb+1))·eps·trace(G) on the
+    first pass, then TSQR-HR (``householder_reconstruct``). The Gram's
+    factor, R, the top block and its reconstruction come from one psum's
+    result, so they are computed once for the group.
+
+    Returns (packedtop, V1, T, Ub, q2 per rank)."""
+    from dplasma_tpu_torch.kernels import householder as hh
+
+    x0 = xs[0]
+    eye = torch.eye(mb, dtype=x0.dtype, device=x0.device)
+
+    def cqr(xx, shift):
+        g = _psum([kb.dot(x, x, ta=True, conj_a=True)
+                   for x in xx])[0]
+        if shift:
+            sft = 11.0 * (M * mb + mb * (mb + 1)) * eps
+            g = g + (sft * torch.trace(g).real) * eye
+        ell = kb.potrf(g, lower=True)
+        return [kb.trsm(ell, x, side="R", lower=True, trans="C")
+                for x in xx], ell
+
+    q1, l1 = cqr(xs, True)
+    q2, l2 = cqr(q1, False)
+    R = _ct(kb.dot(l1, l2))               # R2 R1
+    topq = _masked_psum([q[_blk(ldiag, mb)] for q in q2], pdiag)[0]
+    packedtop, V1, T, Ub = hh.householder_reconstruct(topq, R,
+                                                      return_u=True)
+    return packedtop, V1, T, Ub, q2
+
+
+def _geqrf_cyclic(A: CyclicMatrix, lookahead: int = 0, ring: bool = False,
+                  rchunks: int = 0):
+    """The reference's ``_geqrf_cyclic_jit`` body (cyclic.py:747-864) in
+    lockstep — distributed blocked Householder QR over cyclic slabs: per
+    step the panel broadcast along 'q' (K5 under ``ring``, else the
+    masked psum; or the lookahead-carried pre-updated column), the
+    CholeskyQR2 + TSQR-HR panel along 'p' for each process column, the
+    local V (V1 on the diagonal owner, q2 Ub^-1 below), V^H C by psum
+    along 'p' and one local compact-WY apply per rank. Pad columns are
+    identity-seeded (zero pad panels break the Gram).
+
+    Returns (factor slabs, Ts (KT, mb, mb), rank (0, 0)'s)."""
+    desc = A.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = min(desc.MT, desc.NT)
+    dev = A.device
+    ranks = _ranks(d)
+    eps = float(torch.finfo(A.dtype).eps)
+    co = {r: _slab_coords(desc, r[0], r[1], dev) for r in ranks}
+    S = {r: _seed_pad_diag(A.data[r[0]][r[1]], desc, co[r][2], co[r][3])
+         for r in ranks}
+    Ts = []
+    pan_next = None
+    for k in range(KT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        lrk = layout.local_index(k, P, d.kp)
+        ck = _blk(layout.local_index(k, Q, d.kq), mb)
+        cs = {r: S[r][:, ck] for r in ranks}
+        pan = pan_next if pan_next is not None else _rows_q(
+            cs, P, Q, partial(_bcast_q, qk=qk, ring=ring, rchunks=rchunks))
+        x = {r: _zero_unless((co[r][2] >= k * mb)[:, None], pan[r])
+             for r in ranks}
+        grp = {q: _cqr2_panel([x[p, q] for p in range(P)], desc.M, mb, eps,
+                              pk, lrk) for q in range(Q)}
+        Ts.append(grp[0][2])
+        V, Wp = {}, {}
+        for p, q in ranks:
+            r = (p, q)
+            _, V1, T, Ub, q2 = grp[q]
+            below = (co[r][2] >= (k + 1) * mb)[:, None]
+            V2 = kb.trsm(Ub, q2[p], side="R", lower=False)
+            Vl = _zero_unless(below, V2)
+            if p == pk:
+                diagrow = (co[r][0] == k)[:, None]
+                Vl = torch.where(diagrow, _put_rows(V2, V1, lrk, mb), Vl)
+            V[r] = (Vl, V2)
+            Wp[r] = kb.dot(Vl, S[r], ta=True, conj_a=True)
+        # trailing + R12 update: C <- C - V (T^H (V^H C))
+        W = _cols_p(Wp, P, Q, _psum)
+        if lookahead > 0 and k + 1 < KT:
+            qk1 = layout.owner(k + 1, Q, d.kq, d.jq)
+            c1 = _blk(layout.local_index(k + 1, Q, d.kq), mb)
+            nxt = {}
+            for p, q in ranks:
+                r = (p, q)
+                T = grp[q][2]
+                updn = kb.dot(V[r][0], kb.dot(T, W[r][:, c1], ta=True,
+                                              conj_a=True))
+                nxt[r] = S[r][:, c1] - updn
+            pan_next = _rows_q(nxt, P, Q, partial(
+                _bcast_q, qk=qk1, ring=ring, rchunks=rchunks))
+        else:
+            pan_next = None
+        for p, q in ranks:
+            r = (p, q)
+            packedtop, _, T, _, _ = grp[q]
+            Vl, V2 = V[r]
+            upd = kb.dot(Vl, kb.dot(T, W[r], ta=True, conj_a=True))
+            trail = (co[r][3] >= (k + 1) * mb)[None, :]
+            S[r] = S[r] - _zero_unless(trail, upd)
+            # owners write the packed panel column
+            if q == qk:
+                below = (co[r][2] >= (k + 1) * mb)[:, None]
+                newcs = cs[r]
+                if p == pk:
+                    diagrow = (co[r][0] == k)[:, None]
+                    newcs = torch.where(
+                        diagrow, _put_rows(newcs, packedtop, lrk, mb), newcs)
+                S[r][:, ck] = torch.where(below, V2, newcs)
+    return _out(S, d), torch.stack(Ts)
+
+
+def geqrf_cyclic(A: CyclicMatrix):
+    """Distributed blocked QR on block-cyclic local storage (the pdgeqrf
+    / zgeqrf_param shape; cyclic.py:1262-1277). Returns (factor
+    CyclicMatrix in the ops.qr packed layout, Ts (KT, mb, mb) T-factor
+    stack — :func:`qr_t_factor` converts it to the ops.qr T
+    TileMatrix)."""
+    m = _mesh_of(A)
+    _check(A.desc.mb == A.desc.nb, "geqrf_cyclic needs square tiles")
+    _dd_guard(A.dtype)
+    ring = _cyclic_ring(A.desc, A.dtype, m)
+    out, Ts = _geqrf_cyclic(A, _cyclic_lookahead(), ring, _ring_chunks(ring))
+    return CyclicMatrix(out, A.desc), Ts
+
+
+def qr_t_factor(Ts, A: TileMatrix) -> TileMatrix:
+    """Convert a geqrf_cyclic T-factor stack (KT, mb, mb) into the ops.qr
+    T TileMatrix (unmqr/ormqr-ready), padded to the T descriptor of
+    ``A`` (cyclic.py:1250-1259)."""
+    from dplasma_tpu_torch.ops import qr as qr_mod
+    Td = torch.cat([Ts[i] for i in range(Ts.shape[0])], dim=1)
+    Tm = qr_mod.t_desc(A)
+    if Td.shape[1] < Tm.desc.Np:
+        Td = torch.cat([Td, Td.new_zeros((Td.shape[0],
+                                          Tm.desc.Np - Td.shape[1]))], dim=1)
+    return TileMatrix(Td.to(Tm.device), Tm.desc)
+
+
+# ---------------------------------------------------------------------
+# Eigen and SVD stage 1 on the slabs
+# ---------------------------------------------------------------------
+
+def _herbt_cyclic(A: CyclicMatrix) -> List[List[torch.Tensor]]:
+    """The reference's ``_herbt_cyclic_jit`` body (cyclic.py:867-991) in
+    lockstep: panel k QR-factors block column k below the first
+    subdiagonal tile by the distributed CholeskyQR2 + TSQR-HR panel,
+    then applies the two-sided compact-WY update A <- Q^H A Q with four
+    collectives: S = psum_p(V^H A); Vc by all_gather along 'p' and the
+    cyclic pick; Y = psum_q(A Vc), Z = psum_q(P1 Vc); A -= V (T^H S) +
+    mask((Y - V Z) T) Vc^H. Leaves the bandwidth-mb band, both
+    triangles."""
+    desc = A.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    mloc = desc.MTL * mb
+    nloc = desc.NTL * mb
+    dev = A.device
+    ranks = _ranks(d)
+    eps = float(torch.finfo(A.dtype).eps)
+    co = {r: _slab_coords(desc, r[0], r[1], dev) for r in ranks}
+    S = {r: _seed_pad_diag(A.data[r[0]][r[1]], desc, co[r][2], co[r][3])
+         for r in ranks}
+    # column-space pick tables; unused ceil-uniform slots (gcol >= MT)
+    # pick zero, as in the reference
+    pick = {q: _col_pick(desc, co[0, q][1], nloc, mloc) for q in range(Q)}
+    for k in range(desc.MT - 1):
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        lck = layout.local_index(k, Q, d.kq)
+        pk = layout.owner(k, P, d.kp, d.ip)
+        lrk = layout.local_index(k, P, d.kp)
+        pk1 = layout.owner(k + 1, P, d.kp, d.ip)
+        lrk1 = layout.local_index(k + 1, P, d.kp)
+        qk1 = layout.owner(k + 1, Q, d.kq, d.jq)
+        lck1 = layout.local_index(k + 1, Q, d.kq)
+        e = (k + 1) * mb
+        # 1) panel broadcast along 'q', masked below the band
+        cs = {r: S[r][:, _blk(lck, mb)] for r in ranks}
+        pan = _rows_q(cs, P, Q, partial(_masked_psum, root=qk))
+        x = {r: _zero_unless((co[r][2] >= e)[:, None], pan[r])
+             for r in ranks}
+        # 2) distributed CholeskyQR2 + TSQR-HR (diagonal tile k+1); the
+        # applied Q gives the sign-adjusted R of the reconstruction
+        grp = {q: _cqr2_panel([x[p, q] for p in range(P)], desc.M, mb, eps,
+                              pk1, lrk1) for q in range(Q)}
+        Vloc, Sp = {}, {}
+        for p, q in ranks:
+            r = (p, q)
+            _, V1, T, Ub, q2 = grp[q]
+            strict = (co[r][2] >= e + mb)[:, None]
+            V2 = kb.trsm(Ub, q2[p], side="R", lower=False)
+            Vl = _zero_unless(strict, V2)
+            if p == pk1:
+                diagrow1 = (co[r][0] == k + 1)[:, None]
+                Vl = torch.where(diagrow1, _put_rows(V2, V1, lrk1, mb), Vl)
+            Vloc[r] = Vl
+            Sp[r] = kb.dot(Vl, S[r], ta=True, conj_a=True)
+        # 3) the two-sided update
+        Sm = _cols_p(Sp, P, Q, _psum)                     # (mb, nloc)
+        P1 = {r: kb.dot(grp[r[1]][2], Sm[r], ta=True, conj_a=True)
+              for r in ranks}
+        allv = _gather_p_cols(Vloc, P, Q)
+        Vc = {}
+        for p, q in ranks:
+            idx, valid = pick[q]
+            Vc[p, q] = _zero_unless(valid[:, None], allv[q][idx])
+        Y = _rows_q({r: kb.dot(S[r], Vc[r]) for r in ranks}, P, Q, _psum)
+        Z = _rows_q({r: kb.dot(P1[r], Vc[r]) for r in ranks}, P, Q, _psum)
+        for p, q in ranks:
+            r = (p, q)
+            T = grp[q][2]
+            W2 = kb.dot(Y[r] - kb.dot(Vloc[r], Z[r]), T)
+            W2 = _zero_unless((co[r][2] >= e)[:, None], W2)
+            S[r] = (S[r] - kb.dot(Vloc[r], P1[r])
+                    - kb.dot(W2, Vc[r], tb=True, conj_b=True))
+        # 4) owners write the reduced panel column (R at tile k+1, zeros
+        # below) and its mirror row strip
+        for p, q in ranks:
+            r = (p, q)
+            Rw = torch.triu(grp[q][0])
+            if q == qk:
+                below = (co[r][2] >= e)[:, None]
+                fill = torch.zeros_like(cs[r])
+                if p == pk1:
+                    diagrow1 = (co[r][0] == k + 1)[:, None]
+                    fill = _zero_unless(diagrow1,
+                                        _put_rows(cs[r], Rw, lrk1, mb))
+                S[r][:, _blk(lck, mb)] = torch.where(below, fill, cs[r])
+            if p == pk:
+                rows = S[r][_blk(lrk, mb)]
+                keep = (co[r][3] < e)[None, :]
+                strip = _zero_unless(keep, rows)
+                if q == qk1:
+                    strip = torch.where(
+                        ~keep, _put_cols(rows, _ct(Rw), lck1, mb), strip)
+                S[r][_blk(lrk, mb)] = strip
+    return _out(S, d)
+
+
+def herbt_cyclic(A: CyclicMatrix) -> CyclicMatrix:
+    """Distributed dense Hermitian -> band (bandwidth mb) reduction on
+    block-cyclic local storage (dplasma_zherbt over
+    parsec_matrix_block_cyclic; stage 1 of the zheev chain). ``A`` must
+    store both triangles (full Hermitian slabs), with N % mb == 0: the
+    last panel needs a full mb real rows below the band."""
+    _mesh_of(A)
+    desc = A.desc
+    _check(desc.mb == desc.nb and desc.M == desc.N,
+           "herbt_cyclic needs a square matrix of square tiles")
+    _check(desc.M % desc.mb == 0, "herbt_cyclic: need N % mb == 0")
+    _dd_guard(A.dtype)
+    return CyclicMatrix(_herbt_cyclic(A), desc)
+
+
+def _band_extract_cyclic(B: CyclicMatrix) -> torch.Tensor:
+    """Lower band (bandwidth mb) of a Hermitian cyclic matrix as per-row
+    diagonal storage, out[global row i, d] = A(i, i-d), d = 0..mb
+    (cyclic.py:1008-1060): one masked psum along 'q' (each rank
+    contributes the band entries whose columns it owns) and an
+    all_gather along 'p' — O(N·mb) moved, never the whole matrix."""
+    desc = B.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    nloc = desc.NTL * mb
+    dev = B.device
+    ranks = _ranks(d)
+    offs = torch.arange(mb + 1, device=dev)
+    band = {}
+    for p, q in ranks:
+        _, _, gid, _ = _slab_coords(desc, p, q, dev)
+        tgt = gid[:, None] - offs[None, :]              # (mloc, mb+1)
+        t = tgt.clamp(0, desc.N - 1)
+        ct_ = t // mb
+        qj = (ct_ // d.kq + d.jq) % Q
+        lj = (ct_ // (d.kq * Q)) * d.kq + ct_ % d.kq
+        colpos = (lj * mb + t % mb).clamp(0, nloc - 1)
+        mine = (qj == q) & (tgt >= 0)
+        vals = torch.take_along_dim(B.data[p][q], colpos, dim=1)
+        band[p, q] = _zero_unless(mine, vals)
+    band = _rows_q(band, P, Q, _psum)
+    # every rank holds the same gather; take rank (0, 0)'s and reorder
+    # the cyclic row slots to natural order
+    stacked = _gather_p_cols(band, P, Q)[0]              # (P*mloc, mb+1)
+    own = np.array([layout.owner(i, P, d.kp, d.ip) for i in range(desc.MT)])
+    locr = np.array([layout.local_index(i, P, d.kp)
+                     for i in range(desc.MT)])
+    idx = (own[:, None] * desc.MTL + locr[:, None]) * mb + \
+        np.arange(mb)[None, :]
+    return stacked[torch.as_tensor(idx.reshape(-1), device=dev)][:desc.M]
+
+
+def _dense_band(band: torch.Tensor) -> torch.Tensor:
+    """The dense Hermitian band matrix of per-row diagonal storage:
+    B[i, i-d] = band[i, d] and its mirror, built by index tensors on
+    band's device (the reference's loop of mb + 1 scatters in one)."""
+    N, w = band.shape
+    dev = band.device
+    i = torch.arange(N, device=dev)[:, None].expand(N, w)
+    j = i - torch.arange(w, device=dev)[None, :]
+    ok = j >= 0
+    dense = band.new_zeros((N, N))
+    dense[i[ok], j[ok]] = band[ok]
+    up = ok.clone()
+    up[:, 0] = False
+    dense[j[up], i[up]] = _cj(band[up])
+    return dense
+
+
+def heev_cyclic(A: CyclicMatrix) -> torch.Tensor:
+    """Distributed Hermitian eigenvalues (the dplasma_zheev composition,
+    ref src/zheev_wrapper.c:96-103; cyclic.py:1063-1094): herbt on the
+    slabs, the band alone off the slabs, and the band's reduction
+    (``ops.eig.hbrdt``: KW for the b <= 128 sweeps) and the tridiagonal
+    eigenvalues (KT) on one device, as the reference ships its
+    tridiagonal to rank 0. N % mb == 0. Returns ascending eigenvalues
+    (N,)."""
+    from dplasma_tpu_torch.kernels import tridiag
+    from dplasma_tpu_torch.ops import eig as eig_mod
+
+    B = herbt_cyclic(A)
+    band = _band_extract_cyclic(B)
+    mb = B.desc.mb
+    Bt = TileMatrix.from_dense(_dense_band(band), mb, mb)
+    d_, e_ = eig_mod.hbrdt(Bt, mb)
+    if d_.shape[0] == 1:
+        return d_
+    return tridiag.eigh_tridiagonal(d_, e_)
+
+
+def _ge2gb_cyclic(A: CyclicMatrix) -> List[List[torch.Tensor]]:
+    """The reference's ``_ge2gb_cyclic_jit`` body (cyclic.py:1097-1225)
+    in lockstep. Panel k alternates a QR half on column block k (rows >=
+    k; the geqrf_cyclic step, CholeskyQR2 + TSQR-HR along 'p' per
+    process column, trailing A <- Q^H A by psum_p(V^H A)) and an LQ half
+    on row block k (columns >= k+1; the same panel algebra along 'q' per
+    process row on the conjugate-transposed row strip, trailing A <- A H
+    by psum_q(A V)). Leaves R_k on the diagonal tiles and ct(Rtilde) on
+    the first superdiagonal tiles: a band with A's singular values, in
+    complex too (where the reference's LQ update is conjugated)."""
+    desc = A.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = desc.MT
+    dev = A.device
+    ranks = _ranks(d)
+    eps = float(torch.finfo(A.dtype).eps)
+    co = {r: _slab_coords(desc, r[0], r[1], dev) for r in ranks}
+    S = {r: _seed_pad_diag(A.data[r[0]][r[1]], desc, co[r][2], co[r][3])
+         for r in ranks}
+    for k in range(KT):
+        pk = layout.owner(k, P, d.kp, d.ip)
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        lrk = layout.local_index(k, P, d.kp)
+        lck = layout.local_index(k, Q, d.kq)
+        e = k * mb
+        # ---- QR half: column block k, rows >= k ----
+        cs = {r: S[r][:, _blk(lck, mb)] for r in ranks}
+        pan = _rows_q(cs, P, Q, partial(_masked_psum, root=qk))
+        x = {r: _zero_unless((co[r][2] >= e)[:, None], pan[r])
+             for r in ranks}
+        grp = {q: _cqr2_panel([x[p, q] for p in range(P)], desc.M, mb, eps,
+                              pk, lrk) for q in range(Q)}
+        Vloc, Sp = {}, {}
+        for p, q in ranks:
+            r = (p, q)
+            _, V1, T, Ub, q2 = grp[q]
+            V2 = kb.trsm(Ub, q2[p], side="R", lower=False)
+            Vl = _zero_unless((co[r][2] >= e + mb)[:, None], V2)
+            if p == pk:
+                diagrow = (co[r][0] == k)[:, None]
+                Vl = torch.where(diagrow, _put_rows(V2, V1, lrk, mb), Vl)
+            Vloc[r] = Vl
+            Sp[r] = kb.dot(Vl, S[r], ta=True, conj_a=True)
+        Sm = _cols_p(Sp, P, Q, _psum)
+        for p, q in ranks:
+            r = (p, q)
+            T = grp[q][2]
+            upd = kb.dot(Vloc[r], kb.dot(T, Sm[r], ta=True, conj_a=True))
+            trail = (co[r][3] >= e + mb)[None, :]
+            S[r] = S[r] - _zero_unless(trail, upd)
+            # column k: R on the diagonal tile, zeros below
+            if q == qk:
+                act = (co[r][2] >= e)[:, None]
+                fill = torch.zeros_like(cs[r])
+                if p == pk:
+                    diagrow = (co[r][0] == k)[:, None]
+                    fill = _zero_unless(diagrow, _put_rows(
+                        cs[r], torch.triu(grp[q][0]), lrk, mb))
+                S[r][:, _blk(lck, mb)] = torch.where(act, fill, cs[r])
+        if k == KT - 1:
+            break
+        # ---- LQ half: row block k, columns >= k+1 ----
+        qk1 = layout.owner(k + 1, Q, d.kq, d.jq)
+        lck1 = layout.local_index(k + 1, Q, d.kq)
+        strip = _cols_p({r: S[r][_blk(lrk, mb)] for r in ranks}, P, Q,
+                        partial(_masked_psum, root=pk))
+        xq = {r: _zero_unless((co[r][3] >= e + mb)[:, None],
+                              _ct(strip[r])) for r in ranks}
+        grq = {p: _cqr2_panel([xq[p, q] for q in range(Q)], desc.N, mb, eps,
+                              qk1, lck1) for p in range(P)}
+        Vq, Yp = {}, {}
+        for p, q in ranks:
+            r = (p, q)
+            _, V1q, Tq, Ubq, q2q = grq[p]
+            V2q = kb.trsm(Ubq, q2q[q], side="R", lower=False)
+            Vl = _zero_unless((co[r][3] >= e + 2 * mb)[:, None], V2q)
+            if q == qk1:
+                diagcol = (co[r][1] == k + 1)[:, None]
+                Vl = torch.where(diagcol, _put_rows(V2q, V1q, lck1, mb), Vl)
+            Vq[r] = Vl
+            Yp[r] = kb.dot(S[r], Vl)
+        # trailing rows > k: A <- A H = A - (A Vq) Tq Vq^H, H = I - Vq Tq
+        # Vq^H the reflector of the strip's conjugate transpose. The
+        # reference applies conj(A Vq Tq Vq^H) there (cyclic.py:1198-1199):
+        # the same operations on real data, the wrong band in complex
+        Y = _rows_q(Yp, P, Q, _psum)
+        for p, q in ranks:
+            r = (p, q)
+            Tq = grq[p][2]
+            updr = kb.dot(kb.dot(Y[r], Tq), Vq[r], tb=True, conj_b=True)
+            S[r] = S[r] - _zero_unless((co[r][2] >= e + mb)[:, None], updr)
+            # row k: ct(Rtilde) on the superdiagonal tile (held by the
+            # owner column of tile k+1 alone), zeros to its right
+            if p == pk:
+                rows = S[r][_blk(lrk, mb)]
+                at_c1 = torch.zeros_like(rows)
+                if q == qk1:
+                    at_c1 = _put_cols(rows, _ct(torch.triu(grq[p][0])), lck1,
+                                      mb)
+                keepleft = (co[r][3] < e + mb)[None, :]
+                S[r][_blk(lrk, mb)] = torch.where(keepleft, rows, at_c1)
+    return _out(S, d)
+
+
+def gebrd_ge2gb_cyclic(A: CyclicMatrix) -> CyclicMatrix:
+    """Distributed dense -> band-bidiagonal reduction (SVD stage 1) on
+    block-cyclic local storage (ref src/zgebrd_ge2gb.jdf). Square with
+    N % mb == 0 (the LQ panels need full real blocks, as herbt)."""
+    _mesh_of(A)
+    desc = A.desc
+    _check(desc.mb == desc.nb and desc.M == desc.N,
+           "ge2gb_cyclic needs a square matrix of square tiles")
+    _check(desc.M % desc.mb == 0, "ge2gb_cyclic: need N % mb == 0")
+    _dd_guard(A.dtype)
+    return CyclicMatrix(_ge2gb_cyclic(A), desc)
+
+
+def gesvd_cyclic(A: CyclicMatrix) -> torch.Tensor:
+    """Distributed singular values (the dplasma_zgesvd composition, ref
+    src/zgesvd_wrapper.c; cyclic.py:1238-1247): ge2gb on the cyclic
+    slabs, then the band finishes on one device through the
+    single-device SVD chain (``ops.eig.gesvd``), which runs its own
+    stage 1 on the band again, as the reference's does. Returns
+    descending singular values (N,)."""
+    from dplasma_tpu_torch.ops import eig as eig_mod
+    return eig_mod.gesvd(gebrd_ge2gb_cyclic(A).to_tile())
+
+
 def potrf_cyclic(A: CyclicMatrix, uplo: str = "L") -> CyclicMatrix:
     """Distributed right-looking Cholesky on block-cyclic local storage
-    (the pdpotrf shape; ref src/zpotrf_L.jdf over
-    parsec_matrix_block_cyclic). Lower storage; the global-array
-    :func:`dplasma_tpu_torch.ops.potrf.potrf` remains the single-device
-    path."""
+    (the pdpotrf shape; ref src/zpotrf_L.jdf / zpotrf_U.jdf over
+    parsec_matrix_block_cyclic), in both storages: A = L L^H (L, with the
+    lookahead carry and the K5 ring) or A = U^H U (U, neither, as in the
+    reference). N % nb == 0: the pad diagonal is not seeded. The
+    global-array :func:`dplasma_tpu_torch.ops.potrf.potrf` remains the
+    single-device path."""
     if uplo.upper() not in ("L", "U"):
         raise ValueError(f"uplo must be L or U, got {uplo!r}")
     m = _mesh_of(A)
-    if uplo.upper() == "U":
-        raise NotImplementedError(
-            f"potrf_cyclic uplo=U is not ported yet ({_QUEUED})")
+    _check(A.desc.mb == A.desc.nb and A.desc.M == A.desc.N,
+           "potrf_cyclic needs a square matrix of square tiles")
     _dd_guard(A.dtype)
+    if uplo.upper() == "U":
+        return CyclicMatrix(_potrf_cyclic_upper(A), A.desc)
     ring = _cyclic_ring(A.desc, A.dtype, m)
     out = _potrf_cyclic(A, _cyclic_lookahead(), ring, _ring_chunks(ring))
     return CyclicMatrix(out, A.desc)
@@ -652,3 +1807,116 @@ def _mesh_of(A: CyclicMatrix):
         raise ValueError(f"mesh {ms} != dist grid "
                          f"{(A.desc.dist.P, A.desc.dist.Q)}")
     return m
+
+
+# ---------------------------------------------------------------------
+# Analytic SPMD comm-volume model (the instruments read it)
+# ---------------------------------------------------------------------
+
+def spmd_comm_model(desc: CyclicDesc, op: str, itemsize: int,
+                    kt: int | None = None, ring: bool = False) -> dict:
+    """Per-collective wire-byte model of the cyclic programs
+    (cyclic.py:2202-2320), pure arithmetic over ``desc``.
+
+    Per panel step: a masked psum along 'q' (panel broadcast), a masked
+    psum along 'p' (diagonal or top-block broadcast), and an all_gather
+    along 'p' or 'q' (row or column panel formation), priced with the
+    standard ring costs (an all-reduce moves 2(n-1)/n of the payload per
+    rank, an all-gather (n-1)/n of the gathered output). Bytes are TOTAL
+    wire bytes over all ranks and steps; a 1x1 grid prices to zero.
+
+    ``ring=True`` prices the K5 schedule under MCA ``ring.enable``: the
+    panel broadcast as a store-and-forward ring (each link carries the
+    panel once) and the LU winner-row exchange as n-1 shift-and-add
+    hops. A size-1 axis keeps its psum class.
+
+    Known ``op`` values: potrf, getrf, geqrf, gemm, herbt, ge2gb; any
+    other raises KeyError."""
+    d = desc.dist
+    P, Q, R = d.P, d.Q, d.P * d.Q
+    mb = desc.mb
+    mloc = desc.MTL * mb
+    nloc = desc.NTL * desc.nb
+    KT = min(desc.MT, desc.NT)
+
+    def psum(payload_elems: float, n: int) -> float:
+        return R * 2.0 * (n - 1) / max(n, 1) * payload_elems * itemsize
+
+    def agather(payload_elems: float, n: int) -> float:
+        # per-rank output is n*payload; ring moves (n-1)*payload/rank
+        return R * (n - 1) * payload_elems * itemsize
+
+    def rbcast(payload_elems: float, n: int) -> float:
+        # each of the n-1 links in a ring row carries the payload once
+        return R * (n - 1) / max(n, 1) * payload_elems * itemsize
+
+    def rshift_sum(payload_elems: float, n: int) -> float:
+        # n-1 shift-and-add hops, every rank sends the payload per hop
+        return R * (n - 1) * payload_elems * itemsize
+
+    ring_q = ring and Q > 1
+    ring_p = ring and P > 1
+
+    def bcast_q_entry(payload_elems: float) -> tuple:
+        if ring_q:
+            return "panel_ring_bcast_q", KT * rbcast(payload_elems, Q)
+        return "panel_bcast_psum_q", KT * psum(payload_elems, Q)
+
+    if op == "potrf":
+        key, val = bcast_q_entry(mloc * mb)
+        by = {
+            key: val,
+            "diag_bcast_psum_p": KT * psum(mb * mb, P),
+            "row_panel_allgather_p": KT * agather(mloc * mb, P),
+        }
+    elif op == "getrf":
+        key, val = bcast_q_entry(mloc * mb)
+        by = {
+            key: val,
+            "candidate_allgather_p": KT * (
+                agather(mb * mb, P) + agather(mb, P)),
+        }
+        if ring_p:
+            by["pivot_row_ring_shift_p"] = KT * rshift_sum(mb * nloc, P)
+        else:
+            by["pivot_row_exchange_psum_p"] = KT * psum(mb * nloc, P)
+    elif op == "geqrf":
+        key, val = bcast_q_entry(mloc * mb)
+        by = {
+            key: val,
+            # CholeskyQR2: two Gram psums + the top-block psum along 'p'
+            "gram_psum_p": KT * 3 * psum(mb * mb, P),
+            "trailing_vhc_psum_p": KT * psum(mb * nloc, P),
+        }
+    elif op == "gemm":
+        # SUMMA over slabs: per contraction step one A-column broadcast
+        # along 'q' and one B-row broadcast along 'p'; ``kt`` carries the
+        # contraction tile count (default: the square case)
+        KT = kt if kt is not None else KT
+        by = {
+            "a_col_bcast_psum_q": KT * psum(mloc * desc.nb, Q),
+            "b_row_bcast_psum_p": KT * psum(desc.nb * nloc, P),
+        }
+    elif op == "herbt":
+        by = {
+            "panel_bcast_psum_q": (KT - 1) * psum(mloc * mb, Q),
+            "gram_psum_p": (KT - 1) * 3 * psum(mb * mb, P),
+            "inner_products_psum_p": (KT - 1) * psum(mb * nloc, P),
+            "v_allgather_p": (KT - 1) * agather(mloc * mb, P),
+            "two_sided_psum_q": (KT - 1) * 2 * psum(mloc * mb, Q),
+        }
+    elif op == "ge2gb":
+        by = {
+            "qr_panel_bcast_psum_q": KT * psum(mloc * mb, Q),
+            "qr_gram_psum_p": KT * 3 * psum(mb * mb, P),
+            "qr_trailing_psum_p": KT * psum(mb * nloc, P),
+            "lq_row_bcast_psum_p": KT * psum(mb * nloc, P),
+            "lq_gram_psum_q": KT * 3 * psum(mb * mb, Q),
+            "lq_trailing_psum_q": KT * psum(mloc * mb, Q),
+        }
+    else:
+        raise KeyError(f"no spmd comm model for op {op!r}")
+    by = {k: float(v) for k, v in by.items()}
+    return {"model": "spmd_ring", "steps": KT,
+            "bytes_total": float(sum(by.values())),
+            "bytes_by_collective": by}

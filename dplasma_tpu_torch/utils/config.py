@@ -215,6 +215,10 @@ mca_register("device.hbm_fraction", "0.95",
 mca_register("gemm.lookahead", "2",
              "Pipeline lookahead depth for paced GEMM variants (analog of "
              "dplasma_aux_getGEMMLookahead, dplasmaaux.c:92-111).")
+mca_register("gemm.summa_steps", "2",
+             "SUMMA broadcast panels per owner block (pipelined "
+             "lookahead; >1 overlaps a step's matmul with the next "
+             "panel's broadcast)")
 mca_register("sweep.lookahead", "1",
              "Lookahead depth of the pipelined factorization sweeps: how "
              "many upcoming panel columns are updated by narrow products "

@@ -20,7 +20,7 @@ SLICE_KNOBS = ["sweep.lookahead", "qr.agg_depth", "trsm_inv", "dd_gemm",
                "lu.pallas_panel", "lu.panel_ib", "lu.panel_chunk",
                "lu.agg_depth", "panel.kernel", "panel.tree_leaf",
                "panel.rec_base", "qr_panel", "ir.precision",
-               "ir.max_iters", "ir.tol"]
+               "ir.max_iters", "ir.tol", "gemm.summa_steps"]
 
 
 @pytest.fixture

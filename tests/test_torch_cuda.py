@@ -61,7 +61,11 @@ sweep (herm 64, 16, 4; bidiag 127, 31, 7) in each dtype in one launch
 ``torch.equal`` to its one-step launches, the narrow ones' warp and
 block forms too; an shetrd and an sgesvd on the card with one KW launch
 a sweep over the steps, the KT / K1 launches the schedules give, and
-the spectrum of the dense solver.
+the spectrum of the dense solver. The block-cyclic catalogue:
+geqrf_cyclic's K5 ring route ``torch.equal`` to its psum route and,
+against the float64 factor, within 4x the CPU f32 route's error;
+SUMMA's K1 launches all on the tensor cores; heev_cyclic's KW and KT
+launches.
 """
 import pytest
 import torch
@@ -711,11 +715,12 @@ def test_k5_shift_matches_plain_version_bitwise(card, n):
         xs = got
 
 
-@pytest.mark.parametrize("op", ["potrf", "getrf"])
+@pytest.mark.parametrize("op", ["potrf", "getrf", "geqrf"])
 def test_cyclic_ring_route_equals_psum_route_on_card(card, op):
     """2x2 grid on the card, f32: ring.enable=on launches K5 (KT per
     process row for the broadcasts, KT·Q·(P−1) LU shifts) and gives
-    torch.equal factors (and perm) to ring.enable=off."""
+    torch.equal factors (and perm, or geqrf's T stack) to
+    ring.enable=off."""
     from dplasma_tpu_torch.descriptors import Dist
     from dplasma_tpu_torch.ops import generators
     from dplasma_tpu_torch.parallel import cyclic, mesh
@@ -730,7 +735,8 @@ def test_cyclic_ring_route_equals_psum_route_on_card(card, op):
             with cfg.override_scope({"ring.enable": mode}):
                 before = pring.LAUNCHES
                 res[mode] = (cyclic.potrf_cyclic(C), None) \
-                    if op == "potrf" else cyclic.getrf_cyclic(C)
+                    if op == "potrf" else cyclic.geqrf_cyclic(C) \
+                    if op == "geqrf" else cyclic.getrf_cyclic(C)
                 torch.cuda.synchronize()
                 launches[mode] = pring.LAUNCHES - before
     KT = N // nb
@@ -739,8 +745,113 @@ def test_cyclic_ring_route_equals_psum_route_on_card(card, op):
     (F0, p0), (F1, p1) = res["off"], res["on"]
     for r0, r1 in zip(F0.data, F1.data):
         assert all(torch.equal(a, b) for a, b in zip(r0, r1))
-    if op == "getrf":
+    if op != "potrf":
         assert torch.equal(p0, p1)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1])
+def test_geqrf_cyclic_on_card_ring_psum_and_the_cpu(card, k1_on, lookahead):
+    """geqrf_cyclic on a 2x2 grid at N=1024, nb=256, f32 with K1 on: the
+    K5 ring route torch.equal to the psum route (factor and T stack),
+    and within f32 tolerance of the CPU's plain route: against the
+    float64 factor of the same input, the card's error (packed factor
+    and T stack, max norm) at most 4x the CPU f32 route's — the
+    CholeskyQR2 + TSQR-HR panel carries its products' rounding by the
+    panels' condition (the CPU's own T is ~3e-3 off float64 here), and
+    the 3xTF32 products round as often as f32 ones, in another order;
+    |A - QR| passes the reference's check."""
+    from dplasma_tpu_torch.descriptors import Dist, TileMatrix
+    from dplasma_tpu_torch.ops import checks, generators, qr
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+    N, nb = 1024, 256
+    A = generators.plrnt(N, N, nb, nb, seed=21)
+    res = {}
+    for dev, mode, dt in (("cuda", "off", torch.float32),
+                          ("cuda", "on", torch.float32),
+                          ("cpu", "off", torch.float32),
+                          ("cpu", "off", torch.float64)):
+        Ad = A if dev == "cuda" else generators.plrnt(
+            N, N, nb, nb, seed=21, device="cpu", dtype=dt)
+        with mesh.use_grid(mesh.make_mesh(2, 2, dev)), \
+                cfg.override_scope({"ring.enable": mode,
+                                    "sweep.lookahead": lookahead}):
+            C = cyclic.CyclicMatrix.from_tile(Ad, Dist(P=2, Q=2))
+            before = pring.BCAST_LAUNCHES
+            F, T = cyclic.geqrf_cyclic(C)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert pring.BCAST_LAUNCHES - before == \
+                    (2 * N // nb if mode == "on" else 0)
+            res[dev, mode, dt] = (F, T)
+    (F0, T0), (F1, T1) = (res["cuda", "off", torch.float32],
+                          res["cuda", "on", torch.float32])
+    assert torch.equal(T0, T1)
+    for r0, r1 in zip(F0.data, F1.data):
+        assert all(torch.equal(a, b) for a, b in zip(r0, r1))
+    Fc, Tc = res["cpu", "off", torch.float32]
+    F64, T64 = res["cpu", "off", torch.float64]
+
+    def err(F, T):
+        p = F.to_tile().data.cpu().double()
+        return (float((p - F64.to_tile().data).abs().max()),
+                float((T.cpu().double() - T64).abs().max()))
+    card, cpu = err(F1, T1), err(Fc, Tc)
+    assert card[0] <= 4 * cpu[0] and card[1] <= 4 * cpu[1], (card, cpu)
+    packed = F1.to_tile()
+    Tf = cyclic.qr_t_factor(T1, A)
+    eye = torch.eye(N, device="cuda")
+    Q = qr.unmqr("L", "N", packed, Tf,
+                 TileMatrix.from_dense(eye, nb, nb)).to_dense()
+    r, ok = checks.check_qr(A, Q, torch.triu(packed.to_dense()))
+    assert ok, r
+
+
+def test_summa_k1_launches_are_tensor_core_launches(card, k1_on):
+    """gemm_ex under a 2x2 grid at M=N=K=2048, nb=256 runs SUMMA:
+    lcm(2, 2)·2 = 4 broadcast steps a rank, each one K1 launch on the
+    tensor-core kernel (none on FFMA), within 1e-5 of blas3.gemm."""
+    from dplasma_tpu_torch.ops import blas3, gemm, generators
+    from dplasma_tpu_torch.parallel import mesh
+    A = generators.plrnt(2048, 2048, 256, 256, seed=1)
+    B = generators.plrnt(2048, 2048, 256, 256, seed=2)
+    C = generators.plrnt(2048, 2048, 256, 256, seed=3)
+    pk.reset_counts()
+    with mesh.use_grid(mesh.make_mesh(2, 2)):
+        assert gemm.plan_gemm(C, A, B).algo == "summa"
+        got = gemm.gemm_ex(0.5, A, B, 2.0, C)
+        torch.cuda.synchronize()
+    assert (pk.LAUNCHES, pk.WGMMA_LAUNCHES, pk.FFMA_LAUNCHES) == (16, 16, 0)
+    want = blas3.gemm(0.5, A, B, 2.0, C)
+    assert _rel(got.data, want.data) <= 1e-5
+
+
+def test_heev_cyclic_on_card_takes_kw_and_kt(card, k1_on):
+    """heev_cyclic on a 2x2 grid at N=1024, nb=256: herbt on the slabs
+    (its ten products a rank and step and R2·R1 a process column on
+    K1), then the band's SBR chain on one device with KW once a sweep of
+    b <= 128 (herm 64, 16, 4) over all its steps and KT once; the
+    spectrum within the drivers' -x gate of the dense solver's."""
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.kernels import sbr, tridiag
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    n, nb = 1024, 256
+    (hl, hs), _ = _eig_kw_counts(n, nb)
+    A = generators.plghe(0.0, n, nb, seed=3)
+    with mesh.use_grid(mesh.make_mesh(2, 2)):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=2, Q=2))
+        pk.reset_counts()
+        before = (sbr.LAUNCHES, sbr.STEPS, tridiag.LAUNCHES)
+        w = cyclic.heev_cyclic(C)
+        torch.cuda.synchronize()
+    assert (sbr.LAUNCHES - before[0], sbr.STEPS - before[1],
+            tridiag.LAUNCHES - before[2]) == (hl, hs, 1)
+    assert pk.FFMA_LAUNCHES == 0 and pk.LAUNCHES >= (n // nb - 1) * 42
+    ref = torch.linalg.eigvalsh(A.to_dense().double())
+    eps = torch.finfo(torch.float32).eps
+    assert float((w.double() - ref).abs().max() / ref.abs().max()) < \
+        60 * eps * n
 
 
 def _record_k1(monkeypatch, rows):

@@ -12,9 +12,15 @@ so both factor the very same local storage. Gates:
 - f32 factors within 1e-4 relative to max|factor|: the two packages sum
   the same products in another order (torch's CPU BLAS against XLA's);
 - ``ring.enable=on`` against ``off`` on the port alone: ``torch.equal``
-  on factor and perm. The broadcast's owner mask is one-hot and the
-  winner rows have one owner each, so both sums are exact (−0.0 and
-  +0.0 compare equal).
+  on factor and perm (potrf, getrf) or T stack (geqrf). The broadcast's
+  owner mask is one-hot and the winner rows have one owner each, so both
+  sums are exact (−0.0 and +0.0 compare equal);
+- the K1 products of every cyclic op, counted as its code derives them;
+- every op of the catalogue raising under ``dd_gemm=always``.
+
+The rest of the catalogue's parity is in ``test_torch_cyclic_solve.py``,
+``test_torch_cyclic_blas3.py``, ``test_torch_cyclic_qr_eig.py`` and
+``test_torch_comm_model.py``.
 """
 import contextlib
 import dataclasses
@@ -32,6 +38,7 @@ from dplasma_tpu.parallel import mesh as ref_mesh
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import Dist, TileMatrix
 from dplasma_tpu_torch.kernels import pallas_ring as pring
+from dplasma_tpu_torch.ops import gemm as port_gemm
 from dplasma_tpu_torch.parallel import cyclic, layout, mesh
 from dplasma_tpu_torch.utils import config as cfg
 from torch_threads import one_torch_thread  # noqa: F401
@@ -183,12 +190,19 @@ def test_potrf_cyclic_f32_matches_reference(devices8):
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
 
-def test_potrf_cyclic_upper_names_the_queue():
-    A = TileMatrix.from_dense(torch.eye(8, dtype=torch.float64) * 4, 4, 4)
-    with mesh.use_grid(mesh.make_mesh(2, 2, "cpu")):
-        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=2, Q=2))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cyclic.potrf_cyclic(C, "U")
+@pytest.mark.parametrize("dist", FACTOR_DISTS, ids=str)
+def test_potrf_cyclic_upper_storage_matches_reference(devices8, dist):
+    """uplo=U on the plghe matrix (both triangles stored; the sweep
+    reads the upper one): the mirrored sweep gives the reference's slabs
+    (the U path has no lookahead or ring, as in the reference)."""
+    N, mb = 6 * 8, 8
+    A = ref_gen.plghe(float(N), N, mb, seed=3872, dtype=jnp.float64)
+    A = RTile(A.data, A.desc.with_shape(N, N))
+    with _grids(dist):
+        C = ref_cyclic.CyclicMatrix.from_tile(A, RDist(**dist))
+        want = np.asarray(ref_cyclic.potrf_cyclic(C, "U").data)
+        got = _slabs_np(cyclic.potrf_cyclic(_port_slabs(C), "U"))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 # ---------------------------------------------------------------------
@@ -279,12 +293,14 @@ def _port_cyclic(dist, N, mb, dtype, op):
         C = cyclic.CyclicMatrix.from_tile(A, Dist(**dist))
         if op == "potrf":
             return cyclic.potrf_cyclic(C, "L"), None
+        if op == "geqrf":
+            return cyclic.geqrf_cyclic(C)
         return cyclic.getrf_cyclic(C)
 
 
 @pytest.mark.parametrize("dist", [dict(P=2, Q=2), dict(P=2, Q=4, kp=2),
                                   dict(P=4, Q=1), dict(P=1, Q=4)], ids=str)
-@pytest.mark.parametrize("op", ["potrf", "getrf"])
+@pytest.mark.parametrize("op", ["potrf", "getrf", "geqrf"])
 @pytest.mark.parametrize("lookahead", [0, 1])
 def test_ring_on_equals_psum_path(dist, op, lookahead):
     res = {}
@@ -303,7 +319,7 @@ def test_ring_on_equals_psum_path(dist, op, lookahead):
     for row0, row1 in zip(F0.data, F1.data):
         for a, b in zip(row0, row1):
             assert torch.equal(a, b)
-    if op == "getrf":
+    if op != "potrf":             # getrf's perm, geqrf's T stack
         assert torch.equal(p0, p1)
     assert routed["off"] == 0
     KT = 8
@@ -322,23 +338,171 @@ def test_f64_slabs_take_the_psum_path():
         assert pring.ROUTED == before
 
 
-@pytest.mark.parametrize("op", ["potrf", "getrf"])
+def _nopiv_k1(n, base=32):
+    """K1 products of one ``blas.getrf_nopiv_blocked`` of an n×n f32
+    tile (the TSQR-HR reconstruction's LU): its Schur product a level
+    when every dimension is at least 256."""
+    if n <= base:
+        return 0
+    n1 = n // 2
+    return (int(min(n1, n - n1) >= 256) + _nopiv_k1(n1, base)
+            + _nopiv_k1(n - n1, base))
+
+
+def _k1_want(op, P, Q, KT, mb, lookahead):
+    """K1 products of one call of ``op`` on the P×Q grid, f32, every slab
+    dimension >= 256, as the code derives them: one product a step and
+    rank for the sweeps (two for her2k; two TRSM sweeps for potrs,
+    getrs, and trtri + lauum for potri; lcm(P, Q)·summa_steps steps for
+    SUMMA); the CholeskyQR2 panels two Gram products a rank, and R2 R1
+    plus the reconstruction's LU once an axis group."""
+    R = P * Q
+    grp = 1 + _nopiv_k1(mb)
+    summa_steps = P * Q // np.gcd(P, Q) * 2
+    return {
+        "potrf": R * (KT + lookahead * (KT - 1)),
+        "getrf": R * (KT + lookahead * (KT - 1)),
+        "potrf_U": R * KT, "trsm_N": R * KT, "trsm_T": R * KT,
+        "trsm_C": R * KT, "potrs_L": 2 * R * KT, "potrs_U": 2 * R * KT,
+        "getrs": 2 * R * KT, "gemm_cyclic": R * KT,
+        "gemm_ex_summa": R * summa_steps, "herk": R * KT, "trmm_N": R * KT,
+        "trmm_C": R * KT, "hemm": R * KT, "her2k": 2 * R * KT,
+        "lauum": R * KT, "trtri": R * KT, "potri": 2 * R * KT,
+        "geqrf": KT * (5 * R + Q * grp) + lookahead * (KT - 1) * 2 * R,
+        "herbt": (KT - 1) * (10 * R + Q * grp),
+        "ge2gb": KT * (5 * R + Q * grp) + (KT - 1) * (5 * R + P * grp),
+    }[op]
+
+
+K1_OPS = ["potrf", "getrf", "potrf_U", "trsm_N", "trsm_T", "trsm_C",
+          "potrs_L", "potrs_U", "getrs", "gemm_cyclic", "gemm_ex_summa",
+          "herk", "trmm_N", "trmm_C", "hemm", "her2k", "lauum", "trtri",
+          "potri", "geqrf", "herbt", "ge2gb"]
+
+
+def _k1_run(op, dist, N, mb):
+    """A call of ``op`` on f32 inputs at N (square tiles mb) on ``dist``;
+    its operands (factors included) are made before the call."""
+    from dplasma_tpu_torch.ops import generators
+    if op in ("potrf", "getrf", "geqrf"):
+        return lambda: _port_cyclic(dist, N, mb, torch.float32, op)
+    P, Q = dist["P"], dist["Q"]
+    m = mesh.make_mesh(P, Q, "cpu")
+    d = Dist(**dist)
+    A = generators.plghe(float(N), N, mb, seed=11, device="cpu")
+    G = generators.plrnt(N, N, mb, mb, seed=12, device="cpu")
+    B = generators.plrnt(N, mb, mb, mb, seed=13, device="cpu")
+    with mesh.use_grid(m):
+        Ac, Gc, Bc = (cyclic.CyclicMatrix.from_tile(X, d) for X in (A, G, B))
+        L = cyclic.potrf_cyclic(Ac, "L")
+        U = cyclic.potrf_cyclic(Ac, "U")
+        F, perm = cyclic.getrf_cyclic(Gc)
+    run = {
+        "potrf_U": lambda: cyclic.potrf_cyclic(Ac, "U"),
+        "trsm_N": lambda: cyclic.trsm_cyclic(Gc, Bc, "N"),
+        "trsm_T": lambda: cyclic.trsm_cyclic(Gc, Bc, "T", uplo="U"),
+        "trsm_C": lambda: cyclic.trsm_cyclic(Gc, Bc, "C"),
+        "potrs_L": lambda: cyclic.potrs_cyclic(L, Bc, "L"),
+        "potrs_U": lambda: cyclic.potrs_cyclic(U, Bc, "U"),
+        "getrs": lambda: cyclic.getrs_cyclic(F, perm, Bc),
+        "gemm_cyclic": lambda: cyclic.gemm_cyclic(Gc, Gc),
+        "gemm_ex_summa": lambda: port_gemm.gemm_ex(1.0, G, G, 0.0, G),
+        "herk": lambda: cyclic.herk_cyclic(Gc),
+        "trmm_N": lambda: cyclic.trmm_cyclic(Gc, Gc, "N"),
+        "trmm_C": lambda: cyclic.trmm_cyclic(Gc, Gc, "C", uplo="U"),
+        "hemm": lambda: cyclic.hemm_cyclic(Ac, Gc),
+        "her2k": lambda: cyclic.her2k_cyclic(Gc, Gc),
+        "lauum": lambda: cyclic.lauum_cyclic(L),
+        "trtri": lambda: cyclic.trtri_cyclic(L),
+        "potri": lambda: cyclic.potri_cyclic(L),
+        "herbt": lambda: cyclic.herbt_cyclic(Ac),
+        "ge2gb": lambda: cyclic.gebrd_ge2gb_cyclic(Gc),
+    }[op]
+
+    def under_grid():
+        with mesh.use_grid(m):
+            return run()
+    return under_grid
+
+
+@pytest.mark.parametrize("op", K1_OPS)
 @pytest.mark.parametrize("lookahead", [0, 1])
 def test_k1_products_per_factorization(op, lookahead):
-    """Every rank's trailing product, and at lookahead 1 its narrow
-    lookahead product, takes the K1 route: per rank KT products, plus
-    KT − 1 at lookahead 1 (the count chip_smoke.py asserts on the card).
-    Slab-wide f32 products of 256 or more in every dimension pass K1's
-    gate."""
+    """Every rank's slab-wide product takes the K1 route (the counts
+    chip_smoke.py asserts on the card): per rank KT trailing products,
+    plus KT − 1 at lookahead 1 for potrf L and getrf; the other ops'
+    counts as :func:`_k1_want` derives them. Slab-wide f32 products of
+    256 or more in every dimension pass K1's gate."""
     from dplasma_tpu_torch.kernels import pallas_kernels as pk
     dist, N, mb = dict(P=2, Q=2), 1024, 256
+    with cfg.override_scope({"sweep.lookahead": lookahead}):
+        run = _k1_run(op, dist, N, mb)
+        pk.enable(True)
+        try:
+            before = pk.ROUTED
+            run()
+            routed = pk.ROUTED - before
+        finally:
+            pk.enable(False)
+    assert routed == _k1_want(op, 2, 2, N // mb, mb, lookahead)
+
+
+def test_k1_count_of_the_reconstruction_at_nb_512():
+    """At nb = 512 the TSQR-HR reconstruction's LU has one K1 product
+    (its top-level Schur update, 256 wide), once an axis group."""
+    from dplasma_tpu_torch.kernels import pallas_kernels as pk
+    dist, N, mb = dict(P=2, Q=2), 1024, 512
     pk.enable(True)
     try:
-        with cfg.override_scope({"sweep.lookahead": lookahead}):
+        with cfg.override_scope({"sweep.lookahead": 0}):
             before = pk.ROUTED
-            _port_cyclic(dist, N, mb, torch.float32, op)
+            _port_cyclic(dist, N, mb, torch.float32, "geqrf")
             routed = pk.ROUTED - before
     finally:
         pk.enable(False)
-    KT, ranks = N // mb, dist["P"] * dist["Q"]
-    assert routed == ranks * (KT + lookahead * (KT - 1))
+    assert _nopiv_k1(mb) == 1
+    assert routed == _k1_want("geqrf", 2, 2, N // mb, mb, 0)
+
+
+# ---------------------------------------------------------------------
+# the dd route under a grid (ROADMAP queue 1 item 11, step 2)
+# ---------------------------------------------------------------------
+
+DD_OPS = {
+    "potrf_U": lambda A, B: cyclic.potrf_cyclic(A, "U"),
+    "trsm": lambda A, B: cyclic.trsm_cyclic(A, B),
+    "potrs": lambda A, B: cyclic.potrs_cyclic(A, B),
+    "laswp": lambda A, B: cyclic.laswp_cyclic(B, torch.arange(16)),
+    "getrs": lambda A, B: cyclic.getrs_cyclic(A, torch.arange(16), B),
+    "gemm_cyclic": lambda A, B: cyclic.gemm_cyclic(A, B),
+    "gemm_ex": lambda A, B: port_gemm.gemm_ex(
+        1.0, A.to_tile(), A.to_tile(), 0.0, A.to_tile()),
+    "herk": lambda A, B: cyclic.herk_cyclic(A),
+    "trmm": lambda A, B: cyclic.trmm_cyclic(A, B),
+    "hemm": lambda A, B: cyclic.hemm_cyclic(A, B),
+    "her2k": lambda A, B: cyclic.her2k_cyclic(A, A),
+    "lauum": lambda A, B: cyclic.lauum_cyclic(A),
+    "trtri": lambda A, B: cyclic.trtri_cyclic(A),
+    "potri": lambda A, B: cyclic.potri_cyclic(A),
+    "geqrf": lambda A, B: cyclic.geqrf_cyclic(A),
+    "herbt": lambda A, B: cyclic.herbt_cyclic(A),
+    "heev": lambda A, B: cyclic.heev_cyclic(A),
+    "ge2gb": lambda A, B: cyclic.gebrd_ge2gb_cyclic(A),
+    "gesvd": lambda A, B: cyclic.gesvd_cyclic(A),
+}
+
+
+@pytest.mark.parametrize("op", sorted(DD_OPS))
+def test_cyclic_ops_raise_under_dd_gemm_always(op):
+    """Each op of the catalogue names the step that ports the dd route
+    under a grid, as potrf_cyclic and getrf_cyclic do."""
+    A = TileMatrix.from_dense(torch.eye(16, dtype=torch.float64) * 4, 4, 4)
+    B = TileMatrix.from_dense(torch.ones(16, 4, dtype=torch.float64), 4, 4)
+    with mesh.use_grid(mesh.make_mesh(2, 2, "cpu")):
+        Ac = cyclic.CyclicMatrix.from_tile(A, Dist(P=2, Q=2))
+        Bc = cyclic.CyclicMatrix.from_tile(B, Dist(P=2, Q=2))
+        with cfg.override_scope({"dd_gemm": "always"}):
+            with pytest.raises(NotImplementedError,
+                               match="dd route under a grid.*item 11, "
+                                     "step 2"):
+                DD_OPS[op](Ac, Bc)

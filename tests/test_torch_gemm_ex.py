@@ -10,7 +10,8 @@ every transa/transb pair in s/d/c/z on a ragged problem (C 37×29 with
 edge blocks and a zero-padded last chunk) within 1e-5 (s/c) / 1e-12
 (d/z) relative to the largest entry; the one ``blas.dot`` (K1 when
 enabled) per chunk; the ``summa`` plan under a virtual mesh, whose
-``gemm_ex`` raises naming ROADMAP item 11.
+``gemm_ex`` runs SUMMA and gives the reference's ``gemm_summa``
+(test_torch_cyclic_blas3.py holds it on more grids and dtypes).
 """
 import dataclasses
 
@@ -22,6 +23,7 @@ import torch
 
 from dplasma_tpu.ops import gemm as ref_gemm
 from dplasma_tpu.ops import generators as ref_gen
+from dplasma_tpu.parallel import mesh as ref_mesh
 from dplasma_tpu.utils import config as ref_cfg
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import pallas_kernels as pk
@@ -167,13 +169,16 @@ def test_gemm_stream_one_dot_per_chunk():
         1e-5 * float(want.abs().max())
 
 
-def test_summa_plan_under_a_grid_raises_until_item_11():
+def test_summa_plan_under_a_grid_matches_reference(devices8):
     A, B, C = _operands("s", "N", "N")
     At, Bt, Ct = _tile(A), _tile(B), _tile(C)
-    with mesh.use_grid(mesh.make_mesh(2, 2, "cpu")):
+    with mesh.use_grid(mesh.make_mesh(2, 2, "cpu")), \
+            ref_mesh.use_grid(ref_mesh.make_mesh(2, 2)):
         assert gemm.plan_gemm(Ct, At, Bt).algo == "summa"
-        with pytest.raises(NotImplementedError, match="item 11"):
-            gemm.gemm_ex(1.0, At, Bt, 0.0, Ct)
+        want = ref_gemm.gemm_summa(1.0, A, B, 0.5, C)
+        got = gemm.gemm_ex(1.0, At, Bt, 0.5, Ct)
+    assert np.abs(got.data.numpy() - np.asarray(want.data)).max() <= \
+        1e-5 * np.abs(np.asarray(want.data)).max()
     # without a grid gemm_summa is the one product, as in the reference
     want = ref_gemm.gemm_summa(1.0, A, B, 0.5, C)
     got = gemm.gemm_summa(1.0, At, Bt, 0.5, Ct)
