@@ -284,6 +284,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the single-device port op on the same inputs timed beside it, the
    reference's check on the result, every distinct K1 product held to
    ``gemm_reference`` and timed; ``spmd_comm_model``'s bytes logged.
+19. the drivers' instruments: the card's peaks probed with the
+   reference's keys (K1's 3xTF32 rate, bf16 ``matmul``, ``torch._int_mm``,
+   FP64 ``addmm``, all at 8192³; the limb route's bound from the int8
+   rate; a device copy for HBM and the virtual mesh's transfers; a
+   pinned copy; an empty launch) and written as a peaks file; then
+   ``testing_spotrf -N 16384 -t 1024``, ``testing_sgetrf`` and
+   ``sgeqrf -N 8192 -t 256`` (``panel.kernel=pallas``), ``testing_dpotrf
+   -N 8192 -t 512`` under ``dd_gemm=always`` and natively,
+   ``testing_dposv_ir`` at phase 12's size (f32) and
+   ``testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2`` (``ring.enable=on``),
+   each with -x once plain and once with ``--report --profile
+   --phase-profile --peaks-file``, counts zeroed just before each and
+   read just after: every report loads, each op carries its phase
+   table, its comm model and a roofline entry, the phase rows are the
+   ones ``sweep_rows`` / ``potrf_rows`` derive (held against the port's
+   ledger by the CPU tests), coverage in (0, 1.05] (0 for the dd route,
+   which has no span, as in the reference), no span above 1.05 of its
+   bound, every kernel's launches per timed run equal to the plain
+   run's, the ring probe's KT·P K5 broadcasts inside the attributed
+   pass; spotrf with ``--jaxtrace`` (K1 events in the trace), and
+   ``potrf_cyclic`` at N=16384, nb=1024 on 2×2 under
+   ``phases.profiling()`` (one ``ring`` row, KT·P = 32 K5 in the probe).
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -6307,6 +6329,358 @@ def phase_cyclic_catalogue(torch, pk, pring, record):
     return rec, k1_paths, k1_by, k5_qc, eig_counts
 
 
+# phase 19: the drivers' instruments (--report --profile --phase-profile
+# --peaks-file, the ring span and its probe) on the card
+N_PEAK = 8192                 # one product of each type for the peaks
+def phase19_drivers():
+    """(tag, argv, MCA scope) of each driver phase 19 runs."""
+    return (
+        ("spotrf", ["testing_spotrf", "-N", str(N_MAIN), "-t",
+                    str(NB_MAIN), "-x"], {}),
+        ("sgetrf", ["testing_sgetrf", "-N", str(N_LU), "-t", str(NB_LU),
+                    "-x"], {"panel.kernel": "pallas"}),
+        ("sgeqrf", ["testing_sgeqrf", "-N", str(N_QR), "-t", str(NB_QR),
+                    "-x"], {"panel.kernel": "pallas"}),
+        ("dpotrf_dd", ["testing_dpotrf", "-N", str(N_DD), "-t", str(NB_DD),
+                       "-x"], {"dd_gemm": "always"}),
+        ("dpotrf", ["testing_dpotrf", "-N", str(N_DD), "-t", str(NB_DD),
+                    "-x"], {}),
+        ("dposv_ir", ["testing_dposv_ir", "-N", str(N_IR), "-t",
+                      str(NB_IR_POSV), "-K", str(NRHS_IR), "-x"],
+         {"ir.precision": "f32"}),
+        ("sgetrf_ptgpanel", ["testing_sgetrf_ptgpanel", "-N", str(N_GT),
+                             "-t", str(NB_GT), "-p", str(GRID[0]), "-q",
+                             str(GRID[1]), "-x"], {"ring.enable": "on"}),
+    )
+
+
+#: a span above this share of its roofline bound means a priced count or
+#: a peak is wrong (every expectation is a lower bound)
+ACHIEVED_MAX = 1.05
+
+
+def sweep_rows(KT, NT, la, d):
+    """The (phase, count) rows of one ``ops._sweep.pipelined_sweep`` at
+    KT panels over NT column blocks, lookahead ``la`` and far-flush
+    aggregation ``d`` (1 without an ``agg_apply``), with the one
+    ``assemble`` of ``assemble_sweep``: its control flow walked on
+    counts alone (the CPU tests hold it to the port's ledger)."""
+    rows = {}
+
+    def add(name):
+        rows[name] = rows.get(name, 0) + 1
+
+    pending, ahead, far = 0, 0, NT
+
+    def peel():
+        nonlocal far
+        far -= 1
+        if pending:
+            add("catchup")
+
+    for _ in range(min(1 + la, NT)):
+        peel()
+        ahead += 1
+    for kk in range(KT):
+        ahead -= 1
+        add("panel")
+        pending += 1
+        if ahead:
+            add("lookahead")
+        if pending >= d or kk == KT - 1:
+            if far:
+                add("far_flush")
+            pending = 0
+        while ahead < 1 + la and far > 0:
+            peel()
+            ahead += 1
+    add("assemble")
+    return rows
+
+
+def potrf_rows(nt, la):
+    """The (phase, count) rows of one left-looking ``ops.potrf.potrf``
+    at nt block columns and lookahead ``la``."""
+    rows = {"panel": nt, "assemble": 1}
+    far = sum(1 for kk in range(nt) if la > 0 and kk - la > 0)
+    look = sum(1 for kk in range(nt)
+               if (max(kk - la, 0) if la > 0 else 0) < kk)
+    if far:
+        rows["far_flush"] = far
+    if look:
+        rows["lookahead"] = look
+    return rows
+
+
+def driver_rows(tag, la, agg, refine=None):
+    """The rows each phase 19 driver's attributed pass must give."""
+    if tag == "spotrf":
+        return potrf_rows(N_MAIN // NB_MAIN, la)
+    if tag == "dpotrf":
+        return potrf_rows(N_DD // NB_DD, la)
+    if tag == "dpotrf_dd":          # the limb route has no span, as in
+        return {}                   # the reference (ops/potrf.py:71-79)
+    if tag in ("sgetrf", "sgeqrf"):
+        kt = N_LU // NB_LU if tag == "sgetrf" else N_QR // NB_QR
+        rows = sweep_rows(kt, kt, la, agg if tag == "sgeqrf" else 1)
+        rows["assemble"] += 1      # the pivot / T-factor stitching
+        return rows
+    if tag == "dposv_ir":
+        rows = potrf_rows(N_IR // NB_IR_POSV, la)
+        rows.update(factor=1, solve=1,
+                    residual=len(refine["backward_errors"]))
+        if refine["iterations"]:
+            rows["correct"] = refine["iterations"]
+        return rows
+    return {"ring": 1}              # the cyclic factorizations
+
+
+def probe_peaks(torch, pk):
+    """The card's peaks with the reference's keys (roofline.resolve_peaks
+    reads them), each the best of the CUDA-event times of a few calls."""
+    from dplasma_tpu_torch.kernels import dd
+    n = N_PEAK
+    flops = 2.0 * n ** 3
+    g = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    a = torch.randn(n, n, device="cuda", generator=g)
+    b = torch.randn(n, n, device="cuda", generator=g)
+    pk.enable(True)
+    out["f32_highest_gflops"] = flops / time_ms(
+        torch, lambda: pk.gemm(a, b)) / 1e6
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    out["bf16_gflops"] = flops / time_ms(
+        torch, lambda: torch.matmul(ah, bh)) / 1e6
+    del ah, bh
+    a8 = torch.randint(-127, 128, (n, n), dtype=torch.int8, device="cuda")
+    b8 = torch.randint(-127, 128, (n, n), dtype=torch.int8,
+                       device="cuda").T   # K-contiguous, as dd._imm wants
+    out["int8_gops"] = flops / time_ms(
+        torch, lambda: torch._int_mm(a8, b8)) / 1e6
+    del a8, b8
+    a64, b64 = a.double(), b.double()
+    c64 = torch.zeros_like(a64)
+    out["f64_gflops"] = flops / time_ms(
+        torch, lambda: torch.addmm(c64, a64, b64)) / 1e6
+    del a64, b64, c64
+    nl = dd._plan(n, 53)[1]
+    out["f64equiv_bound_gflops"] = out["int8_gops"] / (nl * (nl + 1) // 2)
+    src = torch.empty(2 ** 28, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    out["hbm_gbps"] = 2 * src.numel() * 4 / time_ms(
+        torch, lambda: dst.copy_(src)) / 1e6
+    # the virtual mesh's transfers between ranks are device copies
+    out["ici_gbps"] = out["hbm_gbps"]
+    del src, dst
+    h = torch.empty(2 ** 28, dtype=torch.float32, pin_memory=True)
+    d = torch.empty(2 ** 28, dtype=torch.float32, device="cuda")
+    out["host_gbps"] = h.numel() * 4 / time_ms(
+        torch, lambda: d.copy_(h, non_blocking=True)) / 1e6
+    del h, d
+    one = torch.zeros(1, device="cuda")
+
+    def launches():
+        for _ in range(1000):
+            one.add_(1.0)
+    out["latency_us"] = time_ms(torch, launches) # 1000 launches: ms = us
+    return out
+
+
+def phase_instruments(torch, pk, plu, pqr, pdd, pring, record):
+    """Phase 19: the drivers' instruments on the card. Probes the peaks,
+    writes them as a peaks file, runs each phase19_drivers() entry once
+    plain and once with --report --profile --phase-profile
+    --peaks-file (counts zeroed just before each and read just after),
+    and potrf_cyclic under phases.profiling(); checks the reports, the
+    phase rows, coverage, every span's achieved fraction, the ring span
+    with its K5 probe, the timed runs' launches against the plain run's,
+    the K1 events of the spotrf --jaxtrace trace and the profiles."""
+    from dplasma_tpu_torch import native
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.observability import comm, phases
+    from dplasma_tpu_torch.observability import report as rep_mod
+    from dplasma_tpu_torch.observability import roofline
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.ops._sweep import sweep_params
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.utils import config as cfg
+    t_phase = time.perf_counter()
+    scratch = os.path.join(HERE, "build", "phase19")
+    os.makedirs(scratch, exist_ok=True)
+    peaks = probe_peaks(torch, pk)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    peaks_path = os.path.join(scratch, "peaks.json")
+    with open(peaks_path, "w") as f:
+        json.dump({"peaks": peaks, "device": smi}, f, indent=1)
+    log(f"[peaks] {smi}: " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in peaks.items()))
+    pk.enable(True)
+    la, agg = sweep_params()
+    out = {"peaks": peaks, "device": smi, "drivers": {}}
+    launches_by = {lab: 0 for lab, _ in common.KERNELS}
+    launches_by.update(k5_bcast=0, k5_shift=0)
+    for tag, argv, mca in phase19_drivers():
+        res = {}
+        for mode in ("plain", "flags"):
+            extra = []
+            if mode == "flags":
+                extra = ["--report=" + os.path.join(scratch, tag + ".json"),
+                         "--profile=" + os.path.join(scratch, tag + ".prof"),
+                         "--phase-profile", "--peaks-file=" + peaks_path]
+            with cfg.override_scope(mca):
+                common.RUNS.clear()
+                for _, mod in common.KERNELS:
+                    mod.reset_counts()
+                rc = main(argv + extra)
+                torch.cuda.synchronize()
+                counts = {lab: mod.LAUNCHES for lab, mod in common.KERNELS}
+                counts.update(k5_bcast=pring.BCAST_LAUNCHES,
+                              k5_shift=pring.SHIFT_LAUNCHES)
+            check(rc == 0, f"[phase19] {tag} ({mode}) exited {rc}")
+            run = common.RUNS[-1]
+            check(run["checks"] and all(c["ok"] for c in run["checks"]),
+                  f"[phase19] {tag} ({mode}): checks {run['checks']}")
+            res[mode] = (run, counts)
+        run, counts = res["flags"]
+        plain_op, op = res["plain"][0]["ops"][0], run["ops"][0]
+        for lab, _ in common.KERNELS:
+            check(op[f"{lab}_launches"] == plain_op[f"{lab}_launches"],
+                  f"[phase19] {tag}: {lab} launches per timed run "
+                  f"{op[f'{lab}_launches']} with the flags, "
+                  f"{plain_op[f'{lab}_launches']} without")
+        for lab in launches_by:
+            launches_by[lab] += counts[lab]
+        doc = rep_mod.load_report(os.path.join(scratch, tag + ".json"))
+        (rop,) = doc["ops"]
+        ph = rop["phases"]
+        check(ph is not None, f"[phase19] {tag}: phases is null")
+        algo = common._algo_of(argv[0])
+        if comm.OP_CLASS.get(algo) is not None:
+            check(rop["comm"] is not None, f"[phase19] {tag}: comm is null")
+        check(len(doc.get("roofline") or []) == 1
+              and doc["roofline"][0]["expected_s"] > 0,
+              f"[phase19] {tag}: no roofline entry")
+        rows = {s["phase"]: s["count"] for s in ph["spans"]}
+        want = driver_rows(tag, la, agg,
+                           run["refine"][-1] if run["refine"] else None)
+        check(rows == want, f"[phase19] {tag}: phase rows {rows}, want "
+                            f"{want}")
+        cov = ph["coverage"]
+        check((0 < cov <= 1.05) if want else cov == 0.0,
+              f"[phase19] {tag}: coverage {cov}")
+        worst = max([s["achieved_frac"] or 0.0 for s in ph["spans"]]
+                    + [doc["roofline"][0]["achieved_frac"] or 0.0])
+        check(worst <= ACHIEVED_MAX, f"[phase19] {tag}: achieved fraction "
+                                     f"{worst:.3f} > {ACHIEVED_MAX}")
+        events, info = native.read_trace(os.path.join(scratch, tag + ".prof"))
+        check(info.get("driver") == argv[0] and any(
+            e[0].startswith("phase:") for e in events),
+            f"[phase19] {tag}: profile without its spans")
+        if tag == "sgetrf_ptgpanel":
+            # warm-up + timed factorizations, then the attributed pass:
+            # one factorization and the probe's KT·P broadcasts
+            nfact = len(op["k5_launches"]) + 1
+            per = plain_op["k5_launches"][0]
+            probe = counts["k5"] - (nfact + 1) * per
+            check(probe == (N_GT // NB_GT) * GRID[0],
+                  f"[phase19] {tag}: the ring probe launched K5 {probe} "
+                  f"times, want KT·P = {(N_GT // NB_GT) * GRID[0]}")
+        log(f"[phase19] {tag}: best {op['best_s']:.5f} s with the flags, "
+            f"{plain_op['best_s']:.5f} s without; attributed run "
+            f"{ph['attributed_run_s']:.5f} s, coverage {cov:.3f}; roofline "
+            f"{doc['roofline'][0]['bound']} expected "
+            f"{doc['roofline'][0]['expected_s']:.5g} s achieved "
+            f"{doc['roofline'][0]['achieved_frac']:.4f}")
+        for s in ph["spans"]:
+            log(f"[phase19]   {tag} {s['phase']:<10} n={s['count']:4d} "
+                f"measured {s['measured_s']:.6f} s expected "
+                f"{s['expected_s']:.6g} s bound {s['bound']:<7} achieved "
+                f"{s['achieved_frac']:.4f}")
+        out["drivers"][tag] = {
+            "argv": argv, "mca": mca, "best_s": op["best_s"],
+            "plain_best_s": plain_op["best_s"], "phases": ph,
+            "roofline": doc["roofline"][0], "comm": rop["comm"],
+            **{f"{lab}_launches": op[f"{lab}_launches"]
+               for lab, _ in common.KERNELS}}
+
+    # the --jaxtrace trace of spotrf holds K1's kernel events
+    tag, argv, _ = phase19_drivers()[0]
+    for _, mod in common.KERNELS:
+        mod.reset_counts()
+    common.RUNS.clear()
+    rc = main(argv + ["--jaxtrace=" + os.path.join(scratch, "trace")])
+    torch.cuda.synchronize()
+    check(rc == 0, f"[phase19] {tag} --jaxtrace exited {rc}")
+    for lab, mod in common.KERNELS:
+        launches_by[lab] += mod.LAUNCHES
+    timed_k1 = sum(common.RUNS[-1]["ops"][0]["k1_launches"])
+    with open(os.path.join(scratch, "trace", "trace.json")) as f:
+        trace = json.load(f)
+    k1_events = sum(1 for e in trace.get("traceEvents", [])
+                    if "k1_gemm" in str(e.get("name", "")))
+    # CUPTI may miss a kernel right after the profiler starts (a run of
+    # this phase traced 28 of the 29): the trace must hold K1's events,
+    # never more than the traced run launched
+    check(0 < k1_events <= timed_k1,
+          f"[phase19] the spotrf torch trace holds {k1_events} K1 events "
+          f"for the {timed_k1} K1 launches of the traced run")
+    log(f"[phase19] spotrf --jaxtrace: {k1_events} K1 kernel events in "
+        f"the torch.profiler trace of its timed run ({timed_k1} K1 "
+        f"launches)")
+
+    # potrf_cyclic under a ledger: the ring span once, K5 KT·P inside it
+    P, Q = GRID
+    A = generators.plghe(float(N_PC), N_PC, NB_PC, seed=3872)
+    with mesh.use_grid(mesh.make_mesh(P, Q)), \
+            cfg.override_scope({"ring.enable": "on"}):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=P, Q=Q))
+        cyclic.potrf_cyclic(C)
+        torch.cuda.synchronize()
+        pring.reset_counts()
+        cyclic.potrf_cyclic(C)
+        torch.cuda.synchronize()
+        k5_plain = pring.BCAST_LAUNCHES
+        pring.reset_counts()
+        t0 = time.perf_counter()
+        with phases.profiling() as led:
+            cyclic.potrf_cyclic(C)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5_all = pring.BCAST_LAUNCHES
+    launches_by["k5"] += k5_all
+    launches_by["k5_bcast"] += k5_all
+    rows = {r["phase"]: r for r in led.summary()}
+    kt = N_PC // NB_PC
+    check(set(rows) == {"ring"} and rows["ring"]["count"] == 1,
+          f"[phase19] potrf_cyclic: ledger rows {led.summary()}")
+    check(k5_all - k5_plain == kt * P,
+          f"[phase19] potrf_cyclic: the ring probe launched K5 "
+          f"{k5_all - k5_plain} times, want KT·P = {kt * P}")
+    model = roofline.phase_model("potrf", N_PC, N_PC, NB_PC, 4,
+                                 grid=(P, Q))
+    (ring,) = roofline.attribute_phases(
+        led, model, roofline.resolve_peaks(peaks_path, "s")[0])
+    check(ring["achieved_frac"] <= ACHIEVED_MAX,
+          f"[phase19] potrf_cyclic: ring achieved {ring['achieved_frac']}")
+    log(f"[phase19] potrf_cyclic N={N_PC} nb={NB_PC} grid {P}x{Q} ring on: "
+        f"the ring span measured {ring['measured_s']:.6f} s (of {wall:.4f} s "
+        f"for the call), expected {ring['expected_s']:.6g} s bound "
+        f"{ring['bound']} achieved {ring['achieved_frac']:.4f}; K5 "
+        f"{k5_all} = {k5_plain} (the factorization) + {k5_all - k5_plain} "
+        f"(the probe, KT·P = {kt * P})")
+    out["potrf_cyclic"] = {"ring": ring, "k5_factorization": k5_plain,
+                           "k5_probe": k5_all - k5_plain, "call_s": wall}
+    out["launches_by_kernel"] = launches_by
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase19] took {out['seconds']:.1f} s")
+    record["instruments"] = out
+    return launches_by
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -6414,6 +6788,7 @@ def main() -> int:
                                                        record)
     _, k1cy, k1cy_by, k5b_qc, eig18 = phase_cyclic_catalogue(
         torch, pk, pring, record)
+    inst = phase_instruments(torch, pk, plu, pqr, pdd, pring, record)
     for k in ("kw", "kt"):
         eigr[f"{k}_launches"] += eig18[k]
     eigr["kw_steps"] += eig18["kw_steps"]
@@ -6428,8 +6803,10 @@ def main() -> int:
                                   *k1cy.items())}
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc,
-                             "geqrf_cyclic": k5b_qc},
-                   "shift": {"sgetrf_ptgpanel": k5s_gt}}
+                             "geqrf_cyclic": k5b_qc,
+                             "instruments": inst["k5_bcast"]},
+                   "shift": {"sgetrf_ptgpanel": k5s_gt,
+                             "instruments": inst["k5_shift"]}}
 
     def k5_entry(kind, line):
         paths = k5tot[kind]
@@ -6461,7 +6838,8 @@ def main() -> int:
                       + ddf["k1"]["dgeqrf_dd"] + sum(ir["k1"].values())
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
                       + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())
-                      + sum(k1lm_by.values()) + sum(k1cy_by.values())),
+                      + sum(k1lm_by.values()) + sum(k1cy_by.values())
+                      + inst["k1"]),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
@@ -6469,7 +6847,7 @@ def main() -> int:
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
                                   **ir["k1"], **k1inv_by, **k1cx_by,
                                   **k1hq_by, **eigr["k1_by"], **k1lm_by,
-                                  **k1cy_by),
+                                  **k1cy_by, instruments=inst["k1"]),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
@@ -6488,11 +6866,12 @@ def main() -> int:
          "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
                       + sum(ir["k2"].values()) + sum(k2inv_by.values())
                       + sum(k2cx_by.values()) + sum(k2hq_by.values())
-                      + sum(eigr["k2_by"].values())),
+                      + sum(eigr["k2_by"].values()) + inst["k2"]),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
                                    "dgemm_dd": k2_dgemm}, **ddf["k2"],
                                   **ir["k2"], **k2inv_by, **k2cx_by,
-                                  **k2hq_by, **eigr["k2_by"]),
+                                  **k2hq_by, **eigr["k2_by"],
+                                  instruments=inst["k2"]),
          "max_abs_err": max([k2tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k2cx.values()]
                             + [t["max_abs_err"] for t in k2hq.values()]),
@@ -6515,10 +6894,12 @@ def main() -> int:
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
          "launches": (k3_sgetrf + ddf["k3"]["dgetrf_dd"]
-                      + ir["k3"]["gesv_ir"] + sum(k3lm_by.values())),
+                      + ir["k3"]["gesv_ir"] + sum(k3lm_by.values())
+                      + inst["k3"]),
          "launches_by_path": {"sgetrf": k3_sgetrf,
                               "dgetrf_dd": ddf["k3"]["dgetrf_dd"],
-                              "gesv_ir": ir["k3"]["gesv_ir"], **k3lm_by},
+                              "gesv_ir": ir["k3"]["gesv_ir"], **k3lm_by,
+                              "instruments": inst["k3"]},
          "max_abs_err": k3tot["max_abs_err"],
          "ms": k3tot["ms"], "plain_ms": k3tot["plain_ms"],
          "bound_ms": k3tot["bound_ms"],
@@ -6527,9 +6908,10 @@ def main() -> int:
         {"name": "k4_geqrt_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/geqrt_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_qr.py:123",
-         "launches": k4_sgeqrf + ir["k4"]["gels_ir"],
+         "launches": k4_sgeqrf + ir["k4"]["gels_ir"] + inst["k4"],
          "launches_by_path": {"sgeqrf": k4_sgeqrf,
-                              "gels_ir": ir["k4"]["gels_ir"]},
+                              "gels_ir": ir["k4"]["gels_ir"],
+                              "instruments": inst["k4"]},
          "max_abs_err": k4tot["max_abs_err"],
          "ms": k4tot["ms"], "plain_ms": k4tot["plain_ms"],
          "bound_ms": k4tot["bound_ms"],
@@ -6658,7 +7040,11 @@ def main() -> int:
         f"the first timed call of each (heev_cyclic and gesvd_cyclic too, "
         f"whose KW and KT launches add to KW's and KT's); K5's "
         f"geqrf_cyclic its timed call's broadcasts, by_path the ptgpanel "
-        f"broadcast's shape times them")
+        f"broadcast's shape times them; phase 19: each kernel's "
+        f"launches_by_path instruments counts the phase 19 driver runs "
+        f"with the instruments' flags (warm-up, timed run, attributed "
+        f"pass, -x check) and, for K5, the ring probe of the potrf_cyclic "
+        f"call under a ledger")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

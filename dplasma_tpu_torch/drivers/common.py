@@ -22,9 +22,26 @@ run times, GFLOP/s and the launches of each hand-written kernel
 (:data:`KERNELS`) in each timed run; per ``-x`` check its residual and
 verdict; per mixed-precision IR solve its ``"refine"`` summary
 (:meth:`Driver.report_refine`).
+
+The reference's instruments (common.py:213-255, :300-325, :507-560,
+:795-812, :1027-1080, :1363-1386): every run keeps a DTPUPROF1
+:class:`~dplasma_tpu_torch.utils.profiling.Profile` (``enq``,
+``warmup`` and ``run[i]`` spans) and a
+:class:`~dplasma_tpu_torch.observability.report.RunReport` (one op
+entry a timed op: timings, model flops, GFLOP/s, the comm model; the
+checks and IR summaries; the metrics registry), written at
+:meth:`Driver.close` by ``--profile[=file]`` and ``--report[=file]``.
+``--phase-profile`` adds one attributed pass after the timed loop under
+a phase ledger (the only place spans fence), met with the roofline
+model on the peaks of ``--peaks-file`` (default: the conservative
+built-ins); ``-v 2`` prints its table. ``--jaxtrace[=dir]`` keeps the
+reference's spelling and writes a ``torch.profiler`` trace of the timed
+loop. The timed loop itself never fences: it launches what it launched
+without the flags.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from dataclasses import dataclass
@@ -41,8 +58,14 @@ from dplasma_tpu_torch.kernels import pallas_ring as _pring
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import sbr as _sbr
 from dplasma_tpu_torch.kernels import tridiag as _tridiag
+from dplasma_tpu_torch.observability import phases as _phases
+from dplasma_tpu_torch.observability import roofline as _rl
+from dplasma_tpu_torch.observability.comm import OP_CLASS
+from dplasma_tpu_torch.observability.report import RunReport
+from dplasma_tpu_torch.ops._sweep import sweep_params
 from dplasma_tpu_torch.parallel import mesh as _pmesh
 from dplasma_tpu_torch.utils import config as _cfg
+from dplasma_tpu_torch.utils.profiling import Profile, torch_trace
 
 PRECISIONS = {"s": torch.float32, "d": torch.float64,
               "c": torch.complex64, "z": torch.complex128}
@@ -90,6 +113,13 @@ class IParam:
     alpha: float = -1.0
     gpus: int = 0
     device: str = "cuda"
+    # observability outputs (--profile/--report/--jaxtrace)
+    profile: Optional[str] = None    # DTPUPROF1 binary trace
+    report: Optional[str] = None     # versioned JSON run-report
+    jaxtrace: Optional[str] = None   # torch.profiler trace directory
+    # performance attribution (--phase-profile/--peaks-file)
+    phase_profile: bool = False
+    peaks_file: Optional[str] = None
     prec: str = "d"
 
     @property
@@ -122,8 +152,29 @@ Optional arguments:
  --nruns           : number of timed runs
  --nowarmup        : skip the untimed warm run before the timed loop
  --device          : cuda (default) or cpu
+ --profile[=file]  : write the binary DTPUPROF1 run trace (default
+                     file: run.prof)
+ --report[=file]   : write the versioned JSON run-report (timings,
+                     per-run stats, comm model, checks, IR summaries,
+                     phases, roofline; default file: report.json)
+ --jaxtrace[=dir]  : a torch.profiler trace of the timed loop (CPU and
+                     CUDA activities) into dir/trace.json (default:
+                     jax_trace; the reference's spelling)
+ --phase-profile   : one extra attributed pass after the timed loop,
+                     its phase spans fenced at exit and met with the
+                     roofline model; the table prints at -v>=2 and
+                     lands in the run-report. The timed loop stays
+                     fence-free
+ --peaks-file=FILE : peaks for the roofline (a JSON doc with a "peaks"
+                     section, or a raw dict: mxu_gflops, hbm_gbps,
+                     ici_gbps, host_gbps, latency_us and the probed
+                     per-type rates); default: conservative built-ins
  -v --verbose[=n]  : verbosity ladder
  -h --help         : this message
+Not ported yet (a usage error names the ROADMAP queue 1 item):
+ --devprof --telemetry (item 14, second part), --dot --dagcheck
+ --spmdcheck --hlocheck --memcheck (item 15), --autotune (item 9b),
+ --abft --inject --max-retries --run-timeout (item 13).
 MCA knobs come from the environment, DPLASMA_MCA_<NAME> (dots as
 underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision drivers
 on the f64-equivalent limb route; DPLASMA_MCA_IR_PRECISION=int8|bf16|
@@ -160,6 +211,27 @@ _LONG = {
     "nruns": ("nruns", _int),
     "gpus": ("gpus", _int),
     "device": ("device", str),
+    "phase-profile": ("phase_profile", None),
+    "peaks-file": ("peaks_file", str),
+}
+
+#: "--name[=value]" options whose value is optional -> (field, default)
+_OPTIONAL_VALUE = {"profile": ("profile", "run.prof"),
+                   "report": ("report", "report.json"),
+                   "jaxtrace": ("jaxtrace", "jax_trace")}
+
+#: the reference's flags of layers not ported yet -> the ROADMAP item
+_DEFERRED = {
+    "devprof": "ROADMAP queue 1 item 14, second part",
+    "telemetry": "ROADMAP queue 1 item 14, second part",
+    "dot": "ROADMAP queue 1 item 15", "dagcheck": "ROADMAP queue 1 item 15",
+    "spmdcheck": "ROADMAP queue 1 item 15",
+    "hlocheck": "ROADMAP queue 1 item 15",
+    "memcheck": "ROADMAP queue 1 item 15",
+    "autotune": "ROADMAP queue 1 item 9b",
+    "abft": "ROADMAP queue 1 item 13", "inject": "ROADMAP queue 1 item 13",
+    "max-retries": "ROADMAP queue 1 item 13",
+    "run-timeout": "ROADMAP queue 1 item 13",
 }
 
 _SHORT = {
@@ -191,6 +263,12 @@ def parse_arguments(argv: list[str], ip: Optional[IParam] = None) -> IParam:
                 ip.loud = _int(val) if eq else 2
             elif name == "nowarmup":
                 ip.warmup = False
+            elif name in _OPTIONAL_VALUE:
+                field_, default = _OPTIONAL_VALUE[name]
+                setattr(ip, field_, val if eq else default)
+            elif name in _DEFERRED:
+                _usage_exit(f"option --{name} is not ported yet "
+                            f"({_DEFERRED[name]})")
             elif name in _LONG:
                 field_, conv = _LONG[name]
                 if conv is None:
@@ -243,6 +321,46 @@ def parse_arguments(argv: list[str], ip: Optional[IParam] = None) -> IParam:
     return ip
 
 
+def _pct(frac) -> str:
+    """Format an achieved fraction as a percent (None -> n/a)."""
+    return "n/a" if frac is None else f"{100.0 * frac:.1f}%"
+
+
+def _algo_of(name: str) -> str:
+    """Precision-less algo name of a driver: testing_dpotrf -> potrf."""
+    base = name.rsplit("/", 1)[-1]
+    if base.startswith("testing_"):
+        rest = base[8:]
+        if rest[:1] in PRECISIONS and rest[1:]:
+            return rest[1:]
+        return rest
+    return base
+
+
+def _itemsize(prec: str) -> int:
+    return torch.empty((), dtype=PRECISIONS[prec]).element_size()
+
+
+@contextlib.contextmanager
+def _trace_guard(logdir: str):
+    """``--jaxtrace`` around the timed loop: a profiler that fails to
+    start or stop degrades to a warning, never a failed run."""
+    cm = torch_trace(logdir)
+    try:
+        cm.__enter__()
+    except Exception as exc:
+        sys.stderr.write(f"#! torch profiler unavailable: {exc}\n")
+        yield
+        return
+    try:
+        yield
+    finally:
+        try:
+            cm.__exit__(None, None, None)
+        except Exception as exc:
+            sys.stderr.write(f"#! torch profiler stop failed: {exc}\n")
+
+
 class Driver:
     """Per-run context: device, scoped knobs, timing, reporting."""
 
@@ -261,6 +379,14 @@ class Driver:
                        "device": str(self.device), "ops": [],
                        "checks": [], "refine": []}
         RUNS.append(self.record)
+        # one profile + one run-report per driver run, written at
+        # close() when --profile / --report ask for them
+        self.prof = Profile(rank=0)
+        self.prof.save_info("driver", name)
+        self.prof.save_info("prec", ip.prec)
+        self.report = RunReport(name, ip)
+        self._peaks_cache = None
+        self._pipe_printed = False
         self._frames = []
         self._grid = None
         if self.mesh is not None:
@@ -269,6 +395,19 @@ class Driver:
         if ip.lookahead >= 0:
             self._frames.append(_cfg.push_overrides(
                 {"sweep.lookahead": ip.lookahead}, label="--lookahead"))
+        # the pipeline shape from the now-active configuration, the
+        # source every sweep and panel reads (schema v4/v9/v11/v12)
+        la, agg = sweep_params()
+        self.pipeline = {
+            "sweep.lookahead": la, "qr.agg_depth": agg,
+            "lu.agg_depth": _cfg.mca_get_int("lu.agg_depth", 4),
+            "panel.kernel": _panels.panel_kernel_config(),
+            "panel.qr": _panels.panel_kernel("qr"),
+            "panel.lu": _panels.panel_kernel("lu"),
+            "panel.tree_leaf": _cfg.mca_get_int("panel.tree_leaf", 2),
+            "panel.rec_base": _cfg.mca_get_int("panel.rec_base", 8),
+            "ring.enable": _cfg.mca_get("ring.enable") or "auto"}
+        self.report.pipeline = dict(self.pipeline)
         if ip.loud >= 2:
             where = (torch.cuda.get_device_name(self.device)
                      if self.device.type == "cuda" else "cpu")
@@ -289,6 +428,21 @@ class Driver:
         for frame in reversed(self._frames):
             _cfg.pop_overrides(frame)
         self._frames = []
+        ip = self.ip
+        if ip.profile:
+            try:
+                self.prof.write(ip.profile)
+                if ip.loud >= 1:
+                    print(f"#+ profile trace written to {ip.profile}")
+            except OSError as exc:
+                sys.stderr.write(f"#! cannot write profile: {exc}\n")
+        if ip.report:
+            try:
+                self.report.write(ip.report)
+                if ip.loud >= 1:
+                    print(f"#+ run-report written to {ip.report}")
+            except OSError as exc:
+                sys.stderr.write(f"#! cannot write report: {exc}\n")
         if self._grid is not None:
             self._grid.__exit__(None, None, None)
             self._grid = None
@@ -319,38 +473,173 @@ class Driver:
                               for lab, mod in KERNELS},
                            "kw_steps": _sbr.STEPS - steps}
 
+    def _comm_model(self):
+        """The analytic comm-volume model of this driver's op class, or
+        None when it fails (the report shows an explicit null)."""
+        from dplasma_tpu_torch.descriptors import Dist
+        from dplasma_tpu_torch.observability.comm import comm_volume_model
+        ip = self.ip
+        try:
+            return comm_volume_model(
+                _algo_of(self.name), ip.M, ip.N, ip.K, ip.MB, ip.NB,
+                _itemsize(ip.prec), Dist(P=ip.P, Q=ip.Q))
+        except Exception:
+            return None
+
+    def _peaks(self):
+        """The roofline peaks, resolved once a run (``--peaks-file``,
+        else the conservative built-ins); an unreadable file degrades
+        to the built-ins with a warning."""
+        if self._peaks_cache is None:
+            try:
+                self._peaks_cache = _rl.resolve_peaks(self.ip.peaks_file,
+                                                      prec=self.ip.prec)
+            except (OSError, ValueError) as exc:
+                sys.stderr.write(f"#! cannot read peaks file: {exc}\n")
+                self._peaks_cache = (dict(_rl.DEFAULT_PEAKS), "default")
+        return self._peaks_cache
+
+    def _phase_attribution(self, fn, args, name):
+        """``--phase-profile``: one extra attributed pass after the timed
+        loop, under a phase ledger whose spans fence at exit, met with
+        the roofline model's per-phase expectations. Returns the
+        schema-v5 ``"phases"`` dict, or None when the pass fails."""
+        ip = self.ip
+        t0 = time.perf_counter()
+        try:
+            with _phases.profiling() as led, \
+                    self.prof.span(f"phase:{name}"):
+                fn(*args)
+                self.sync()
+        except Exception as exc:
+            sys.stderr.write(
+                f"#! phase attribution failed for {name}: {exc!r}\n")
+            return None
+        total = time.perf_counter() - t0
+        peaks, src = self._peaks()
+        model = _rl.phase_model(
+            OP_CLASS.get(_algo_of(self.name)), ip.M, ip.N, ip.NB,
+            _itemsize(ip.prec), lookahead=self.pipeline["sweep.lookahead"],
+            agg_depth=self.pipeline["qr.agg_depth"], nrhs=ip.K,
+            peaks=peaks, grid=(ip.P, ip.Q))
+        spans = _rl.attribute_phases(led, model, peaks)
+        ssum = led.total()
+        return {"attributed_run_s": total, "sum_s": ssum,
+                "coverage": (ssum / total) if total > 0 else None,
+                "peaks_source": src, "spans": spans}
+
     def progress(self, fn: Callable, args: tuple, flops: float,
                  label: Optional[str] = None):
         """Warm up, run ``nruns`` timed, print the reference-format perf
-        line. Returns (output, gflops)."""
+        line; every harness phase lands in ``self.prof`` and one op
+        entry in ``self.report``. Returns (output, gflops)."""
         ip, name = self.ip, label or self.name
+        if ip.loud >= 2 and not self._pipe_printed:
+            self._pipe_printed = True
+            print("#+ pipeline: sweep.lookahead=%d qr.agg_depth=%d "
+                  "panel.qr=%s panel.lu=%s"
+                  % (self.pipeline["sweep.lookahead"],
+                     self.pipeline["qr.agg_depth"],
+                     self.pipeline["panel.qr"], self.pipeline["panel.lu"]))
+        # ENQ: nothing traces or compiles here, the span is empty
+        t = time.time_ns()
+        self.prof.add_event(f"enq:{name}", t, t)
         warm = None
         if ip.warmup:
-            _, warm, _ = self._timed(fn, args)
+            with self.prof.span(f"warmup:{name}"):
+                _, warm, _ = self._timed(fn, args)
         times = []
         launches = {lab: [] for lab, _ in KERNELS}
         kw_steps = []
         out = None
-        for _ in range(max(ip.nruns, 1)):
-            out, secs, n = self._timed(fn, args)
-            times.append(secs)
-            for lab in launches:
-                launches[lab].append(n[lab])
-            kw_steps.append(n["kw_steps"])
+        trace_cm = _trace_guard(ip.jaxtrace) if ip.jaxtrace \
+            else contextlib.nullcontext()
+        with trace_cm:
+            for i in range(max(ip.nruns, 1)):
+                with self.prof.span(f"run[{i}]:{name}", flops=flops,
+                                    track=self.prof.TRACK_RUN):
+                    out, secs, n = self._timed(fn, args)
+                times.append(secs)
+                for lab in launches:
+                    launches[lab].append(n[lab])
+                kw_steps.append(n["kw_steps"])
         best = min(times)
         gflops = (flops / 1e9) / best
         enq = dest = 0.0
         total = enq + best + dest
+        want_attrib = bool(ip.report or ip.phase_profile)
+        comm = self._comm_model() if want_attrib else None
+        # the attributed pass runs AFTER the timed loop, so the stats
+        # above come from the fence-free path
+        phase_info = (self._phase_attribution(fn, args, name)
+                      if ip.phase_profile else None)
+        entry = self.report.add_op(
+            name, prec=ip.prec, flops=flops, enq_s=enq, warmup_s=warm,
+            dest_s=dest, runs_s=times, gflops=gflops, xla=None,
+            comm=comm, dag=None, phases=phase_info)
+        rl_entry = None
+        if want_attrib:
+            peaks, src = self._peaks()
+            rl_entry = self.report.add_roofline(_rl.op_roofline(
+                name, OP_CLASS.get(_algo_of(self.name)), ip.M, ip.N,
+                ip.K, _itemsize(ip.prec), flops, comm, best, peaks, src))
+        stats = entry["timings"]
+        reg = self.report.metrics
+        lbl = dict(op=name, prec=ip.prec)
+        reg.counter("runs_total", **lbl).inc(len(times))
+        hist = reg.histogram("run_seconds", **lbl)
+        for t_ in times:
+            hist.observe(t_)
+        reg.gauge("gflops_best", **lbl).set(gflops)
+        reg.gauge("enq_seconds", **lbl).set(enq)
+        reg.gauge("model_flops", **lbl).set(flops)
+        if comm and comm.get("dag_model"):
+            reg.gauge("comm_bytes_dag_model", **lbl).set(
+                comm["dag_model"]["bytes_total"])
+        if rl_entry is not None and rl_entry["achieved_frac"] is not None:
+            reg.gauge("roofline_achieved_frac", **lbl).set(
+                rl_entry["achieved_frac"])
+        if phase_info is not None:
+            for sp in phase_info["spans"]:
+                reg.gauge("phase_seconds", phase=sp["phase"],
+                          **lbl).set(sp["measured_s"])
+        self.prof.save_dinfo(f"GFLOPS:{name}", gflops)
         self.record["ops"].append({
             "op": name, "flops": flops, "warmup_s": warm, "runs_s": times,
             "best_s": best, "gflops": gflops,
             **{f"{lab}_launches": n for lab, n in launches.items()},
-            "kw_steps": kw_steps})
+            "kw_steps": kw_steps, "phases": phase_info,
+            "roofline": rl_entry})
         if ip.loud >= 2:
             print(f"#+ kernels[{name}]: " + ", ".join(
                 f"{lab.upper()} launches per run = {n}"
                 for lab, n in launches.items())
                 + f", KW steps per run = {kw_steps}")
+            for i, t_ in enumerate(times):
+                print(f"#+ run {i}: {t_:12.5f} s : "
+                      f"{(flops / 1e9) / t_:14f} gflops")
+            if len(times) > 1:
+                print("#+ runs %d : min/median/max %g/%g/%g s stddev %g"
+                      % (len(times), stats["min_s"], stats["median_s"],
+                         stats["max_s"], stats["stddev_s"]))
+            if rl_entry is not None:
+                print("#+ roofline[%s]: bound=%s expected %.5g s "
+                      "measured %.5g s achieved %s (peaks: %s)"
+                      % (name, rl_entry["bound"], rl_entry["expected_s"],
+                         best, _pct(rl_entry["achieved_frac"]),
+                         rl_entry["peaks_source"]))
+            if phase_info is not None:
+                print("#+ phases[%s]: attributed run %.5f s, spans %.5f s "
+                      "(coverage %s)"
+                      % (name, phase_info["attributed_run_s"],
+                         phase_info["sum_s"],
+                         _pct(phase_info["coverage"])))
+                for sp in phase_info["spans"]:
+                    print("#+   %-10s n=%3d measured %10.5f s expected "
+                          "%10.5g s achieved %7s bound=%s"
+                          % (sp["phase"], sp["count"], sp["measured_s"],
+                             sp["expected_s"], _pct(sp["achieved_frac"]),
+                             sp["bound"]))
         print("[****] TIME(s) %12.5f : %s\tPxQxg= %3d %-3d %d NB= %4d "
               "N= %7d : %14f gflops - ENQ&PROG&DEST %12.5f : %14f gflops"
               " - ENQ %12.5f - DEST %12.5f"
@@ -361,11 +650,24 @@ class Driver:
 
     def report_refine(self, summary: dict) -> dict:
         """Record one mixed-precision IR solve (``ops.refine.summarize``)
-        in the record's ``"refine"`` list, and at -v >= 2 print the
-        ``#+ refine[op]:`` line."""
+        in the record's and the run-report's ``"refine"`` lists and the
+        refine_* metrics, and at -v >= 2 print the ``#+ refine[op]:``
+        line."""
         self.record["refine"].append(summary)
+        self.report.add_refine(summary)
+        reg = self.report.metrics
+        lbl = dict(op=summary.get("op", self.name), prec=self.ip.prec)
+        reg.gauge("refine_iterations", **lbl).set(
+            summary.get("iterations", 0))
+        reg.counter("refine_escalations_total", **lbl).inc(
+            1 if summary.get("escalated") else 0)
+        hist = summary.get("backward_errors") or []
+        if hist:
+            reg.gauge("refine_backward_error", **lbl).set(hist[-1])
+        if summary.get("quant_guard_max") is not None:
+            reg.gauge("quant_guard_max", **lbl).set(
+                summary["quant_guard_max"])
         if self.ip.loud >= 2:
-            hist = summary.get("backward_errors") or []
             tail = f" bwd={hist[-1]:.3e}" if hist else ""
             print("#+ refine[%s]: precision=%s iters=%d %s%s"
                   % (summary.get("op", self.name),
@@ -382,6 +684,7 @@ class Driver:
         passed = bool(ok)
         self.record["checks"].append(
             {"check": what, "residual": res, "ok": passed})
+        self.report.add_check(what, res, passed)
         if not passed:
             self.check_failures += 1
         print(f"[{'SUCCESS' if passed else 'FAILED'}] {what} residual = "

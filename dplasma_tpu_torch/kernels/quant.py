@@ -37,6 +37,7 @@ import torch
 
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.utils import config as _cfg
 
 _F32 = torch.float32
@@ -103,19 +104,24 @@ def qgemm(a, b, tile: Optional[int] = None):
                          f" @ {tuple(b.shape)}")
     if m == 0 or n == 0 or kk == 0:
         return torch.zeros((m, n), dtype=_F32, device=a.device)
-    qa, sa = quantize(a, t)
-    qbt, sbt = quantize(b.T, t)          # Bᵀ's tiles: both K-contiguous
+    with phases.span("quantize") as _f:
+        qa, sa = quantize(a, t)
+        qbt, sbt = quantize(b.T, t)      # Bᵀ's tiles: both K-contiguous
+        _f(qa)
+        _f(qbt)
     kt = sa.shape[1]
     acc = torch.zeros((qa.shape[0], qbt.shape[0]), dtype=_F32,
                       device=a.device)
     for j in range(kt):
         blk = slice(j * t, (j + 1) * t)
         # exact int32 contraction within one K block ...
-        p = _dd._imm(qa[:, blk], qbt[:, blk].T).to(_F32)
+        p = _dd._imm(qa[:, blk], qbt[:, blk].T)
         # ... dequantized by the row-scale x col-scale outer product
-        p.mul_(sa[:, j].repeat_interleave(t)[:, None])
-        p.mul_(sbt[:, j].repeat_interleave(t)[None, :])
-        acc.add_(p)
+        with phases.span("dequantize") as _f:
+            p = p.to(_F32)
+            p.mul_(sa[:, j].repeat_interleave(t)[:, None])
+            p.mul_(sbt[:, j].repeat_interleave(t)[None, :])
+            _f(acc.add_(p))
         del p
     return acc[:m, :n]
 

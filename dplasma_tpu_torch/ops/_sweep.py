@@ -1,8 +1,8 @@
 """Pipeline shape and engine of the factorization sweeps.
 
 Ports ``sweep_params``, ``pipelined_sweep`` and ``assemble_sweep`` of
-``dplasma_tpu/ops/_sweep.py`` (:44-171), without the phase spans
-(ROADMAP queue 1 item 14). ``dag_pipelined`` waits for item 15.
+``dplasma_tpu/ops/_sweep.py`` (:44-171). ``dag_pipelined`` waits for
+ROADMAP queue 1 item 15.
 
 The right-looking sweeps (getrf, getrf_nopiv) keep the trailing
 submatrix as a fresh tensor per step and stitch the packed factor
@@ -12,11 +12,17 @@ block column is updated first by a narrow apply, then the rest of the
 trailing matrix by one wide apply, so the chain panel -> column update
 -> panel does not wait for the wide product. ``lookahead=0`` is the
 serialized sweep's exact op order.
+
+The engine's regions carry the reference's phase spans
+(:mod:`dplasma_tpu_torch.observability.phases`: ``catchup``,
+``panel``, ``lookahead``, ``far_flush``, ``assemble``), no-ops unless a
+driver's ``--phase-profile`` pass has a ledger active.
 """
 from __future__ import annotations
 
 import torch
 
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.utils import config as _cfg
 
 
@@ -68,9 +74,12 @@ def pipelined_sweep(rest, bw: int, KT: int, NT: int, panel, apply_block,
         far = far[:, w:]
         idx = far_col
         far_col += 1
-        for s, st in pending:          # catch up to the window
-            top, blk = apply_block(st, blk)
-            pieces[s][idx] = top
+        if pending:                    # catch up to the window
+            with phases.span("catchup") as _f:
+                for s, st in pending:
+                    top, blk = apply_block(st, blk)
+                    pieces[s][idx] = top
+                _f(blk)
         return [idx, blk]
 
     for _ in range(min(1 + la, NT)):   # window: panel + la columns
@@ -78,22 +87,30 @@ def pipelined_sweep(rest, bw: int, KT: int, NT: int, panel, apply_block,
 
     for kk in range(KT):
         _, c = ahead.pop(0)
-        pack, st = panel(c)
+        with phases.span("panel") as _f:
+            pack, st = panel(c)
+            _f((pack, st))
         packs.append(pack)
         pending.append((kk, st))
-        for slot in ahead:             # narrow lookahead-column updates
-            top, slot[1] = apply_block(st, slot[1])
-            pieces[kk][slot[0]] = top
+        if ahead:                      # narrow lookahead-column updates
+            with phases.span("lookahead") as _f:
+                for slot in ahead:
+                    top, slot[1] = apply_block(st, slot[1])
+                    pieces[kk][slot[0]] = top
+                    _f((top, slot[1]))
         if len(pending) >= d or kk == KT - 1:   # far flush
             if far.shape[1]:
-                if agg_apply is not None and len(pending) > 1:
-                    tops, far = agg_apply([s for _, s in pending], far)
-                    for (s, _), top in zip(pending, tops):
-                        pieces[s][far_col] = top
-                else:
-                    for s, st in pending:
-                        top, far = apply_block(st, far)
-                        pieces[s][far_col] = top
+                with phases.span("far_flush") as _f:
+                    if agg_apply is not None and len(pending) > 1:
+                        tops, far = agg_apply([s for _, s in pending],
+                                              far)
+                        for (s, _), top in zip(pending, tops):
+                            pieces[s][far_col] = top
+                    else:
+                        for s, st in pending:
+                            top, far = apply_block(st, far)
+                            pieces[s][far_col] = top
+                    _f(far)
             pending.clear()
         while len(ahead) < 1 + la and far.shape[1] > 0:
             ahead.append(peel())       # refill the window
@@ -113,16 +130,17 @@ def assemble_sweep(packs, urows, KT: int, NT: int, nb: int, reorder=None):
     right of it. ``reorder``, when given, maps a column-block index to
     the row-gather indices of its below-diagonal part (deferred
     pivoting)."""
-    outcols = []
-    for kk in range(NT):
-        pieces = [urows[j][:, (kk - j - 1) * nb:(kk - j) * nb]
-                  for j in range(min(kk, KT))]
-        if kk < KT:
-            pan = packs[kk]
-            pieces.append(pan[:nb])
-            if pan.shape[0] > nb:
-                pieces.append(pan[nb:] if reorder is None
-                              else pan[reorder(kk)])
-        outcols.append(pieces[0] if len(pieces) == 1
-                       else torch.cat(pieces, dim=0))
-    return torch.cat(outcols, dim=1)
+    with phases.span("assemble") as _f:
+        outcols = []
+        for kk in range(NT):
+            pieces = [urows[j][:, (kk - j - 1) * nb:(kk - j) * nb]
+                      for j in range(min(kk, KT))]
+            if kk < KT:
+                pan = packs[kk]
+                pieces.append(pan[:nb])
+                if pan.shape[0] > nb:
+                    pieces.append(pan[nb:] if reorder is None
+                                  else pan[reorder(kk)])
+            outcols.append(pieces[0] if len(pieces) == 1
+                           else torch.cat(pieces, dim=0))
+        return _f(torch.cat(outcols, dim=1))

@@ -89,6 +89,7 @@ from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.ops import _sweep, blas3
 from dplasma_tpu_torch.ops.potrf import lowmem_budget
 from dplasma_tpu_torch.parallel import cyclic
@@ -275,8 +276,11 @@ def _base_lu(panel, chunk: int | None = None, kind: str | None = None):
 
 def _lu_finish(packs, urows, step_ids, ids, Mp, KT, NT, bw):
     """Deferred-pivot stitching: the final row order and each step's
-    reorder of its panel rows into it, then the assembly."""
-    final_ids = torch.cat([si[:bw] for si in step_ids] + [ids])
+    reorder of its panel rows into it, then the assembly. The pivot
+    bookkeeping is the ``assemble`` phase (a sibling of the span inside
+    ``assemble_sweep``)."""
+    with phases.span("assemble") as _f:
+        final_ids = _f(torch.cat([si[:bw] for si in step_ids] + [ids]))
 
     def reorder(kk):
         sids = step_ids[kk]

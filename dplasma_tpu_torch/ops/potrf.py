@@ -56,6 +56,7 @@ from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.ops import blas3
 from dplasma_tpu_torch.ops import gemm as _gemm
 from dplasma_tpu_torch.ops._sweep import sweep_params
@@ -90,6 +91,8 @@ def potrf(A: TileMatrix, uplo: str = "L", *, diag_kernel=None,
 
     # cols[j]: finished block column j (lower: rows j*mb.., width mb;
     # upper: the mirrored row block), diagonal tile at the top/left.
+    # Regions carry the reference's phase spans, no-ops unless a
+    # --phase-profile pass has a ledger active.
     cols = []
     for kk in range(nt):
         s = kk * mb
@@ -97,49 +100,65 @@ def potrf(A: TileMatrix, uplo: str = "L", *, diag_kernel=None,
         if lower:
             col = X[s:, s:s + mb]
             if fresh_from > 0:
-                W = torch.cat([cols[j][s - j * mb:]
-                               for j in range(fresh_from)], dim=1)
-                B = torch.cat([cols[j][s - j * mb:s - j * mb + mb]
-                               for j in range(fresh_from)], dim=1)
-                col = col - _quant.update_dot(W, B, tb=True, conj_b=True)
-            for j in range(fresh_from, kk):
-                Lj = cols[j]
-                off = s - j * mb
-                col = col - _quant.update_dot(
-                    Lj[off:, :], Lj[off:off + mb, :], tb=True, conj_b=True)
-            lkk = dk(col[:mb], lower=True)
-            if s + mb < Mp:
-                pan = k.trsm(lkk, col[mb:], side="R", lower=True,
-                             trans="C")
-                cols.append(torch.cat([lkk, pan], dim=0))
-            else:
-                cols.append(lkk)
+                with phases.span("far_flush") as _f:
+                    W = torch.cat([cols[j][s - j * mb:]
+                                   for j in range(fresh_from)], dim=1)
+                    B = torch.cat([cols[j][s - j * mb:s - j * mb + mb]
+                                   for j in range(fresh_from)], dim=1)
+                    col = _f(col - _quant.update_dot(W, B, tb=True,
+                                                     conj_b=True))
+            if fresh_from < kk:
+                with phases.span("lookahead") as _f:
+                    for j in range(fresh_from, kk):
+                        Lj = cols[j]
+                        off = s - j * mb
+                        col = col - _quant.update_dot(
+                            Lj[off:, :], Lj[off:off + mb, :], tb=True,
+                            conj_b=True)
+                    _f(col)
+            with phases.span("panel") as _f:
+                lkk = dk(col[:mb], lower=True)
+                if s + mb < Mp:
+                    pan = k.trsm(lkk, col[mb:], side="R", lower=True,
+                                 trans="C")
+                    cols.append(_f(torch.cat([lkk, pan], dim=0)))
+                else:
+                    cols.append(_f(lkk))
         else:
             row = X[s:s + mb, s:]
             if fresh_from > 0:
-                W = torch.cat([cols[j][:, s - j * mb:]
-                               for j in range(fresh_from)], dim=0)
-                B = torch.cat([cols[j][:, s - j * mb:s - j * mb + mb]
-                               for j in range(fresh_from)], dim=0)
-                row = row - _quant.update_dot(B, W, ta=True, conj_a=True)
-            for j in range(fresh_from, kk):
-                Uj = cols[j]
-                off = s - j * mb
-                row = row - _quant.update_dot(
-                    Uj[:, off:off + mb], Uj[:, off:], ta=True, conj_a=True)
-            ukk = dk(row[:, :mb], lower=False)
-            if s + mb < Mp:
-                pan = k.trsm(ukk, row[:, mb:], side="L", lower=False,
-                             trans="C")
-                cols.append(torch.cat([ukk, pan], dim=1))
+                with phases.span("far_flush") as _f:
+                    W = torch.cat([cols[j][:, s - j * mb:]
+                                   for j in range(fresh_from)], dim=0)
+                    B = torch.cat([cols[j][:, s - j * mb:s - j * mb + mb]
+                                   for j in range(fresh_from)], dim=0)
+                    row = _f(row - _quant.update_dot(B, W, ta=True,
+                                                     conj_a=True))
+            if fresh_from < kk:
+                with phases.span("lookahead") as _f:
+                    for j in range(fresh_from, kk):
+                        Uj = cols[j]
+                        off = s - j * mb
+                        row = row - _quant.update_dot(
+                            Uj[:, off:off + mb], Uj[:, off:], ta=True,
+                            conj_a=True)
+                    _f(row)
+            with phases.span("panel") as _f:
+                ukk = dk(row[:, :mb], lower=False)
+                if s + mb < Mp:
+                    pan = k.trsm(ukk, row[:, mb:], side="L", lower=False,
+                                 trans="C")
+                    cols.append(_f(torch.cat([ukk, pan], dim=1)))
+                else:
+                    cols.append(_f(ukk))
+    with phases.span("assemble") as _f:
+        full = torch.zeros_like(X)
+        for j, c in enumerate(cols):
+            if lower:
+                full[j * mb:, j * mb:(j + 1) * mb] = c
             else:
-                cols.append(ukk)
-    full = torch.zeros_like(X)
-    for j, c in enumerate(cols):
-        if lower:
-            full[j * mb:, j * mb:(j + 1) * mb] = c
-        else:
-            full[j * mb:(j + 1) * mb, j * mb:] = c
+                full[j * mb:(j + 1) * mb, j * mb:] = c
+        _f(full)
     return TileMatrix(full, A.desc)
 
 

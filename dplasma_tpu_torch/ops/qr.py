@@ -91,6 +91,7 @@ from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import householder as hh
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.ops import _sweep, blas3
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -217,10 +218,14 @@ def geqrf(A: TileMatrix, *, panel_kernel=None, lookahead=None,
         agg_depth=agg, agg_apply=agg_apply if agg > 1 else None)
     full = _sweep.assemble_sweep(packs, rrows, KT, NT, nb)
     Tm = t_desc(A)
-    Td = torch.cat(Ts, dim=1)
-    if Td.shape[1] < Tm.desc.Np:
-        Td = torch.cat([Td, Td.new_zeros((nb, Tm.desc.Np - Td.shape[1]))],
-                       dim=1)
+    # T-factor stitching rides the assemble phase (a sibling of the span
+    # inside assemble_sweep)
+    with phases.span("assemble") as _f:
+        Td = torch.cat(Ts, dim=1)
+        if Td.shape[1] < Tm.desc.Np:
+            Td = torch.cat([Td, Td.new_zeros((nb, Tm.desc.Np
+                                              - Td.shape[1]))], dim=1)
+        _f(Td)
     return TileMatrix(full, A.desc), TileMatrix(Td, Tm.desc)
 
 

@@ -42,13 +42,18 @@ backward error) and escalation by running the full-precision route
 (``potrf`` + ``potrs``, ``getrf_ptgpanel`` + ``getrs``, ``qr.gels``:
 native FP64 under ``dd_gemm=auto``, the dd route under ``always``). The
 reference's traced masked loop (refine.py:235-264) exists for
-``jax.jit``, and the port has no jit. The phase spans and the analytic
-``dag`` wait for ROADMAP items 14 and 15.
+``jax.jit``, and the port has no jit. The analytic ``dag`` waits for
+ROADMAP queue 1 item 15. The solvers carry the reference's phase spans
+(``factor``, which encloses the inner factorization's own spans,
+``solve``, ``residual``, ``correct``, ``escalate``), no-ops unless a
+``--phase-profile`` pass has a ledger active.
 
 One difference from the reference: posv_ir's and gesv_ir's escalation
 refines the full-precision solve on the same exact residuals, with the
-full-precision factor as the correction solver (:func:`_refined`). The
-reference returns that solve as it is, and its normwise backward error
+full-precision factor as the correction solver (:func:`_refined`), so an
+escalating solve's ``escalate`` span encloses ``residual`` and
+``correct`` spans the reference's does not have. The reference returns
+that solve as it is, and its normwise backward error
 (~n·u) fails the 100·u ``check_solve`` gate its own testers apply once
 n is a few hundred; refined, an escalated solve meets the gate like a
 converged one. gels_ir's escalation (``qr.gels``) already passes its
@@ -63,6 +68,7 @@ import torch
 from dplasma_tpu_torch.descriptors import TileMatrix
 from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import quant as _quant
+from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.ops import blas3, norms
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -139,7 +145,8 @@ def ir_solve(x, *, residual, correct, backward, escalate, tol: float,
     nsolves = 0
     prev = None
     for _ in range(max_iters):
-        r = residual(x)
+        with phases.span("residual") as _f:
+            r = _f(residual(x))
         bwd = float(backward(r, x))
         bwds.append(bwd)
         if bwd <= tol:
@@ -149,18 +156,21 @@ def ir_solve(x, *, residual, correct, backward, escalate, tol: float,
             # divergence: stop burning iterations, escalation owns it
             break
         prev = bwd
-        x = x + correct(r)
+        with phases.span("correct") as _f:
+            x = _f(x + correct(r))
         nsolves += 1
     else:
         # budget exhausted right after a correction: a solve converging
         # at exactly max_iters steps is a convergence, not a divergence
-        r = residual(x)
+        with phases.span("residual") as _f:
+            r = _f(residual(x))
         bwd = float(backward(r, x))
         bwds.append(bwd)
         converged = bwd <= tol
     escalated = False
     if not converged and escalate is not None:
-        x = escalate()
+        with phases.span("escalate") as _f:
+            x = _f(escalate())
         escalated = True
     hist = [b if math.isfinite(b) else -1.0 for b in bwds]
     hist += [-1.0] * (max_iters + 1 - len(hist))
@@ -266,12 +276,14 @@ def posv_ir(A: TileMatrix, B: TileMatrix, uplo: str = "L", *,
     bd = B.to_dense().to(_F64)
     tiny = torch.finfo(_F64).tiny
 
-    Aw = _tile(_round_wp(af, prec), A)
-    Lw, guards = _factor(prec, potrf_mod.potrf, Aw, "L")
-    if prec == "bf16":
-        Lw = Lw.like(_round_wp(Lw.data, prec))
-    elif prec == "f32x2":
-        Lw = _tile(_factor_refine_chol(af, Lw.to_dense()), A)
+    with phases.span("factor") as _f:
+        Aw = _tile(_round_wp(af, prec), A)
+        Lw, guards = _factor(prec, potrf_mod.potrf, Aw, "L")
+        if prec == "bf16":
+            Lw = Lw.like(_round_wp(Lw.data, prec))
+        elif prec == "f32x2":
+            Lw = _tile(_factor_refine_chol(af, Lw.to_dense()), A)
+        _f(Lw.data)
 
     def solve_w(rhs):
         rw = rhs if prec == "f32x2" else _round_wp(rhs, prec)
@@ -290,8 +302,10 @@ def posv_ir(A: TileMatrix, B: TileMatrix, uplo: str = "L", *,
 
         return _refined(solve(bd), solve, residual, backward, tol_, iters)
 
+    with phases.span("solve") as _f:
+        x0 = _f(solve_w(bd))
     x, info = ir_solve(
-        solve_w(bd), residual=residual, correct=solve_w, backward=backward,
+        x0, residual=residual, correct=solve_w, backward=backward,
         escalate=escalate_fn if escalate else None,
         tol=tol_, max_iters=iters)
     return _tile(x, B), _with_guard(info, prec, guards)
@@ -313,18 +327,20 @@ def gesv_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
     bd = B.to_dense().to(_F64)
     tiny = torch.finfo(_F64).tiny
 
-    Aw = _tile(_round_wp(ad, prec), A)
-    (LUw, perm), guards = _factor(prec, lu_mod.getrf_ptgpanel, Aw)
-    if prec == "bf16":
-        LUw = LUw.like(_round_wp(LUw.data, prec))
-    elif prec == "f32x2":
-        pk = LUw.data
-        L32 = torch.tril(pk, -1).to(_F64)
-        L32.diagonal().fill_(1)
-        U32 = torch.triu(pk).to(_F64)
-        pp = A.pad_diag().data.to(_F64)[perm]
-        L, U = _dd.lu_ir(pp, L32, U32, refine=1, bits=32)
-        LUw = LUw.like(torch.triu(U) + torch.tril(L, -1))
+    with phases.span("factor") as _f:
+        Aw = _tile(_round_wp(ad, prec), A)
+        (LUw, perm), guards = _factor(prec, lu_mod.getrf_ptgpanel, Aw)
+        if prec == "bf16":
+            LUw = LUw.like(_round_wp(LUw.data, prec))
+        elif prec == "f32x2":
+            pk = LUw.data
+            L32 = torch.tril(pk, -1).to(_F64)
+            L32.diagonal().fill_(1)
+            U32 = torch.triu(pk).to(_F64)
+            pp = A.pad_diag().data.to(_F64)[perm]
+            L, U = _dd.lu_ir(pp, L32, U32, refine=1, bits=32)
+            LUw = LUw.like(torch.triu(U) + torch.tril(L, -1))
+        _f(LUw.data)
 
     def solve_w(rhs):
         rw = rhs if prec == "f32x2" else _round_wp(rhs, prec)
@@ -344,8 +360,10 @@ def gesv_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
 
         return _refined(solve(bd), solve, residual, backward, tol_, iters)
 
+    with phases.span("solve") as _f:
+        x0 = _f(solve_w(bd))
     x, info = ir_solve(
-        solve_w(bd), residual=residual, correct=solve_w, backward=backward,
+        x0, residual=residual, correct=solve_w, backward=backward,
         escalate=escalate_fn if escalate else None,
         tol=tol_, max_iters=iters)
     return _tile(x, B), _with_guard(info, prec, guards)
@@ -372,12 +390,15 @@ def gels_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
     bd = B.to_dense().to(_F64)[:A.desc.M]
     tiny = torch.finfo(_F64).tiny
 
-    Aw = _tile(_round_wp(ad, prec), A)
-    (Afw, _), guards = _factor(prec, qr_mod.geqrf, Aw)
-    r32 = torch.triu(Afw.to_dense()[:N, :N])
-    if prec == "bf16":
-        r32 = _round_wp(r32, prec)
-    Rw = _tile(_factor_refine_r(ad, r32) if prec == "f32x2" else r32, A)
+    with phases.span("factor") as _f:
+        Aw = _tile(_round_wp(ad, prec), A)
+        (Afw, _), guards = _factor(prec, qr_mod.geqrf, Aw)
+        r32 = torch.triu(Afw.to_dense()[:N, :N])
+        if prec == "bf16":
+            r32 = _round_wp(r32, prec)
+        Rw = _tile(_factor_refine_r(ad, r32) if prec == "f32x2" else r32,
+                   A)
+        _f(Rw.data)
 
     def snd_solve(s):
         """d = R^-1 R^-T s by the blocked trsm."""
@@ -402,8 +423,10 @@ def gels_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
         return qr_mod.gels(A, B).to_dense().to(_F64)[:N]
 
     # x0 from the semi-normal equations directly (Rᵀ R x = Aᵀ b)
+    with phases.span("solve") as _f:
+        x0 = _f(snd_solve(_dd.gemm_f64(ad.T, bd)))
     x, info = ir_solve(
-        snd_solve(_dd.gemm_f64(ad.T, bd)), residual=residual,
+        x0, residual=residual,
         correct=snd_solve, backward=backward,
         escalate=escalate_fn if escalate else None,
         tol=tol_, max_iters=iters)

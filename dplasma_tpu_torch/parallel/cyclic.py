@@ -1,14 +1,15 @@
 """Realized 2-D block-cyclic distribution on a P×Q virtual grid.
 
 Ports ``dplasma_tpu/parallel/cyclic.py`` but for its all_to_all
-conversions and the ``ring`` phase span: the conversions, the
+conversions: the conversions, the
 distributed Cholesky in both storages, the pivoted LU, the triangular
 solves and POTRS/GETRS with the slab row gather, SUMMA over slabs, the
 Level-3 BLAS (herk, trmm, hemm, her2k), the inverses (lauum, trtri,
 potri), the distributed QR (CholeskyQR2 + TSQR-HR panels) with its
 T-factor conversion, the eigen and SVD stage 1 on the slabs (herbt,
-ge2gb) with heev/gesvd finishing on one device, and the analytic comm
-model. As in the reference, rank (p, q) holds the reference's local
+ge2gb) with heev/gesvd finishing on one device, the analytic comm
+model, and the ``ring`` phase span with its panel-broadcast probe
+(:func:`_panel_bcast_probe`, timed only under a phase ledger). As in the reference, rank (p, q) holds the reference's local
 tile storage: the tiles {(i, j): owner(i) = p, owner(j) = q} packed
 into one (mloc, nloc) slab in cyclic order (``parallel/layout.py``; ref
 parsec_matrix_block_cyclic_t, tests/testing_zpotrf.c:100-103).
@@ -43,9 +44,8 @@ per-device memory of a mesh over several devices, which the port does
 not have yet; the knob comes with that path.
 
 Not ported yet (ROADMAP queue 1 item 11): the dd route under a grid
-(step 2: every op here raises under ``dd_gemm=always``), the ``ring``
-phase span and its probe (step 3), the a2a conversions and a mesh over
-several cards (step 4).
+(step 2: every op here raises under ``dd_gemm=always``), the a2a
+conversions and a mesh over several cards (step 4).
 """
 from __future__ import annotations
 
@@ -580,8 +580,10 @@ def getrf_cyclic(A: CyclicMatrix):
     if pk == "pallas":   # the reference's rule: no fused panel here
         pk = "rec"
     ring = _cyclic_ring(A.desc, A.dtype, m, need_row=True)
+    rch = _ring_chunks(ring)
+    _ring_span(A, ring, rch)
     out, wins, active = _getrf_cyclic(A, _cyclic_lookahead(), pk, ring,
-                                      _ring_chunks(ring))
+                                      rch)
     desc = A.desc
     d = desc.dist
     mb = desc.mb
@@ -1403,7 +1405,9 @@ def geqrf_cyclic(A: CyclicMatrix):
     _check(A.desc.mb == A.desc.nb, "geqrf_cyclic needs square tiles")
     _dd_guard(A.dtype)
     ring = _cyclic_ring(A.desc, A.dtype, m)
-    out, Ts = _geqrf_cyclic(A, _cyclic_lookahead(), ring, _ring_chunks(ring))
+    rch = _ring_chunks(ring)
+    _ring_span(A, ring, rch)
+    out, Ts = _geqrf_cyclic(A, _cyclic_lookahead(), ring, rch)
     return CyclicMatrix(out, A.desc), Ts
 
 
@@ -1759,7 +1763,9 @@ def potrf_cyclic(A: CyclicMatrix, uplo: str = "L") -> CyclicMatrix:
     if uplo.upper() == "U":
         return CyclicMatrix(_potrf_cyclic_upper(A), A.desc)
     ring = _cyclic_ring(A.desc, A.dtype, m)
-    out = _potrf_cyclic(A, _cyclic_lookahead(), ring, _ring_chunks(ring))
+    rch = _ring_chunks(ring)
+    _ring_span(A, ring, rch)
+    out = _potrf_cyclic(A, _cyclic_lookahead(), ring, rch)
     return CyclicMatrix(out, A.desc)
 
 
@@ -1788,6 +1794,47 @@ def _ring_chunks(ring: bool) -> int:
     """Resolve MCA ``ring.chunks`` once per factorization; 0 on the psum
     path."""
     return _cfg.mca_get_int("ring.chunks", 4) if ring else 0
+
+
+def _panel_bcast_probe(A: CyclicMatrix, ring: bool = False,
+                       rchunks: int = 0) -> List[List[torch.Tensor]]:
+    """The factorizations' panel-broadcast schedule alone
+    (cyclic.py:1306-1342): for each of the KT steps and each process
+    row, the owner column's (mloc, mb) block column broadcast along 'q'
+    by :func:`_bcast_q` — the K5 ring when ``ring``, else the masked
+    psum — summed into one (mloc, mb) slab a rank, which keeps every
+    transfer live. KT·P ring broadcasts; the ``ring`` span times it."""
+    desc = A.desc
+    d = desc.dist
+    P, Q = d.P, d.Q
+    mb = desc.mb
+    KT = min(desc.MT, desc.NT)
+    ranks = _ranks(d)
+    acc = {r: torch.zeros((desc.MTL * mb, mb), dtype=A.dtype,
+                          device=A.device) for r in ranks}
+    for k in range(KT):
+        qk = layout.owner(k, Q, d.kq, d.jq)
+        lck = layout.local_index(k, Q, d.kq)
+        cs = {(p, q): A.data[p][q][:, lck * mb:(lck + 1) * mb]
+              for p, q in ranks}
+        got = _rows_q(cs, P, Q, partial(_bcast_q, qk=qk, ring=ring,
+                                        rchunks=rchunks))
+        for r in ranks:
+            acc[r] = acc[r] + got[r]
+    return [[acc[p, q] for q in range(Q)] for p in range(P)]
+
+
+def _ring_span(A: CyclicMatrix, ring: bool, rchunks: int = 0) -> None:
+    """The ``ring`` phase span (cyclic.py:1352-1364): one fenced pass of
+    :func:`_panel_bcast_probe`, only while a phase ledger is active —
+    the default path never runs the probe, so the timed loop is
+    untouched. Its seconds meet the roofline's ``ici`` bound priced
+    from :func:`spmd_comm_model`'s panel-broadcast bytes."""
+    from dplasma_tpu_torch.observability import phases as _phases
+    if _phases.active() is None:
+        return
+    with _phases.span("ring") as fence:
+        fence(_panel_bcast_probe(A, ring, rchunks))
 
 
 def _cyclic_lookahead() -> int:

@@ -1676,3 +1676,66 @@ def test_potrf_dtd_on_the_card(card, k1_on):
     assert pk.LAUNCHES - before == 28 + 56
     want = potrf.potrf(A, "L")
     assert _rel(torch.tril(F.data), want.data) <= 1e-5
+
+
+# ---------------------------------------------------------------------
+# the instruments on the card
+# ---------------------------------------------------------------------
+
+def test_span_under_a_ledger_waits_for_its_k1_product(card, k1_on):
+    """A span fences at exit only under a ledger: a K1 product launched
+    in it has retired when the span ends (the stream is idle)."""
+    from dplasma_tpu_torch.observability import phases
+    g = torch.Generator(device=card).manual_seed(3)
+    a = torch.randn(4096, 4096, device=card, generator=g)
+    b = torch.randn(4096, 4096, device=card, generator=g)
+    torch.cuda.synchronize()
+    launches = pk.LAUNCHES
+    with phases.profiling() as led:
+        with phases.span("far_flush") as fence:
+            c = fence(pk.gemm(a, b))
+        assert torch.cuda.current_stream().query()
+    assert pk.LAUNCHES == launches + 1
+    assert [(r["phase"], r["count"]) for r in led.summary()] == \
+        [("far_flush", 1)]
+    assert led.summary()[0]["measured_s"] > 0
+    assert torch.isfinite(c).all()
+
+
+def test_torch_trace_captures_k1_kernel_events(card, k1_on, tmp_path):
+    import json
+
+    from dplasma_tpu_torch.utils import profiling
+    a = torch.randn(2048, 2048, device=card)
+    pk.gemm(a, a)
+    torch.cuda.synchronize()
+    with profiling.torch_trace(str(tmp_path / "tr")) as prof:
+        pk.gemm(a, a)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert any("k1_gemm" in n for n in names), sorted(names)[:20]
+    doc = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    assert any("k1_gemm" in str(e.get("name", ""))
+               for e in doc["traceEvents"])
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (2, 4)])
+def test_panel_bcast_probe_ring_equals_psum_on_card(card, grid):
+    """The ``ring`` span's probe: the K5 ring route torch.equal to the
+    masked psum, with KT·P broadcasts."""
+    from dplasma_tpu_torch.descriptors import Dist
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    P, Q = grid
+    N, nb = 2048, 256
+    A = generators.plrnt(N, N, nb, nb, seed=11)
+    with mesh.use_grid(mesh.make_mesh(P, Q)):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=P, Q=Q))
+        before = pring.LAUNCHES
+        ring = cyclic._panel_bcast_probe(C, True, 4)
+        torch.cuda.synchronize()
+        launches = pring.LAUNCHES - before
+        psum = cyclic._panel_bcast_probe(C, False, 0)
+    assert launches == (N // nb) * P
+    for r0, r1 in zip(ring, psum):
+        assert all(torch.equal(a, b) for a, b in zip(r0, r1))

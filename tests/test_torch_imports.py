@@ -48,7 +48,11 @@ def test_sweep_finds_the_package():
                 "ops/norms.py", "ops/blas3.py", "ops/potrf.py",
                 "analysis/memcheck.py", "ops/gemm.py", "ops/info.py",
                 "ops/map.py", "ops/matgen.py", "adtt.py", "dtd.py",
-                "kernels/hostlink.py"):
+                "kernels/hostlink.py", "native.py", "utils/profiling.py",
+                "observability/__init__.py", "observability/metrics.py",
+                "observability/phases.py", "observability/comm.py",
+                "observability/roofline.py", "observability/report.py",
+                "observability/chrome.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
