@@ -306,6 +306,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    pass; spotrf with ``--jaxtrace`` (K1 events in the trace), and
    ``potrf_cyclic`` at N=16384, nb=1024 on 2×2 under
    ``phases.profiling()`` (one ``ring`` row, KT·P = 32 K5 in the probe).
+20. the live and measured instruments: ``testing_spotrf -N 16384 -t
+   1024 -x`` and ``testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2 -x``
+   (``ring.enable=on``), each once plain and once with ``--devprof
+   --telemetry --report --peaks-file`` (phase 19's peaks), the
+   ptgpanel twice flagged: under ``devprof.backend`` ``auto`` and
+   ``torch``; counts zeroed just before each run and read just after.
+   spotrf's devprof entry is a ``torch`` capture whose K1 events equal
+   one timed run's K1 launches, compute > 0, coverage <= 1.02; the
+   ptgpanel's is synthetic with a note under ``auto`` and, under
+   ``torch``, holds its K5 events in ``ici`` (as many as one timed run's
+   K5 launches) with the ring classes reconciled ``==`` against the
+   schedule (the psum and all_gather classes have no device op on one
+   card: logged, not gated); the Prometheus file parses and its
+   counters and gauges equal the report's metrics; the flight ring
+   holds ``run_start``, ``op_start`` and ``op_done``; the provenance
+   names torch, CUDA, ``backend: cuda``, the card and the commit (when
+   the checkout has its own ``.git``); every kernel's launches per
+   timed run are equal with and without the flags, and the best times
+   of both are logged. Then 8 ``torch`` captures of 3 potrf runs each
+   (N=16384, nb=1024), late in the process: every run's window holds
+   its K1 launches as K1 events; the marker kernels at each edge of the
+   capture are counted and logged.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -6681,6 +6703,238 @@ def phase_instruments(torch, pk, plu, pqr, pdd, pring, record):
     return launches_by
 
 
+# phase 20: the live and measured instruments (--devprof --telemetry,
+# the provenance stamp) on the card
+def phase20_drivers():
+    """(tag, argv, MCA scope) of phase 20's drivers: phase 19's spotrf
+    and sgetrf_ptgpanel."""
+    return tuple(d for d in phase19_drivers()
+                 if d[0] in ("spotrf", "sgetrf_ptgpanel"))
+
+
+#: a device timeline of the best run holds at most the run's time,
+#: with this slack for the profiler's clock alignment
+COVERAGE_MAX = 1.02
+#: torch captures of spotrf's factorization late in the process, and
+#: the timed runs in each (the capture's edges, phase 20)
+EDGE_CAPTURES = 8
+EDGE_RUNS = 3
+
+
+def phase_live_instruments(torch, pk, pring, record, peaks_path):
+    """Phase 20: ``--devprof`` and ``--telemetry`` on the card, with
+    the provenance stamp of every ``--report`` (module docstring)."""
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.observability import report as rep_mod
+    from dplasma_tpu_torch.observability import devprof as dp_mod
+    from dplasma_tpu_torch.observability import telemetry
+    from dplasma_tpu_torch.ops import generators
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+    from dplasma_tpu_torch.utils import config as cfg
+    t_phase = time.perf_counter()
+    # a checkout with its own .git knows its commit; a copy does not
+    commit_known = os.path.isdir(os.path.join(HERE, ".git"))
+    scratch = os.path.join(HERE, "build", "phase20")
+    os.makedirs(scratch, exist_ok=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    pk.enable(True)
+    out = {"device": smi, "drivers": {}}
+    launches_by = {lab: 0 for lab, _ in common.KERNELS}
+    launches_by.update(k5_bcast=0, k5_shift=0)
+
+    def drive(tag, argv, mca, mode):
+        extra, mca = [], dict(mca)
+        if mode != "plain":
+            mca["devprof.backend"] = mode
+            extra = ["--devprof",
+                     f"--telemetry={scratch}/{tag}_{mode}.prom",
+                     f"--report={scratch}/{tag}_{mode}.json",
+                     f"--peaks-file={peaks_path}"]
+        with cfg.override_scope(mca):
+            common.RUNS.clear()
+            for _, mod in common.KERNELS:
+                mod.reset_counts()
+            rc = main(argv + extra)
+            torch.cuda.synchronize()
+            for lab, mod in common.KERNELS:
+                launches_by[lab] += mod.LAUNCHES
+            launches_by["k5_bcast"] += pring.BCAST_LAUNCHES
+            launches_by["k5_shift"] += pring.SHIFT_LAUNCHES
+        check(rc == 0, f"[phase20] {tag} ({mode}) exited {rc}")
+        run = common.RUNS[-1]
+        check(run["checks"] and all(c["ok"] for c in run["checks"]),
+              f"[phase20] {tag} ({mode}): checks {run['checks']}")
+        check(pk.FFMA_LAUNCHES == 0,
+              f"[phase20] {tag} ({mode}): a K1 product took the FFMA kernel")
+        return run["ops"][0]
+
+    def events(rows, kernel):
+        return sum(r["count"] for r in rows or () if kernel in r["name"])
+
+    for tag, argv, mca in phase20_drivers():
+        modes = ("plain", "torch") if tag == "spotrf" \
+            else ("plain", "auto", "torch")
+        ops = {mode: drive(tag, argv, mca, mode) for mode in modes}
+        plain = ops["plain"]
+        res = {"argv": argv, "mca": mca, "plain_best_s": plain["best_s"]}
+        for mode in modes[1:]:
+            op = ops[mode]
+            for lab, _ in common.KERNELS:
+                check(op[f"{lab}_launches"] == plain[f"{lab}_launches"],
+                      f"[phase20] {tag} ({mode}): {lab} launches per timed "
+                      f"run {op[f'{lab}_launches']} with the flags, "
+                      f"{plain[f'{lab}_launches']} without")
+            doc = rep_mod.load_report(f"{scratch}/{tag}_{mode}.json")
+            (dp,) = doc["devprof"]
+            best = op["runs_s"].index(op["best_s"])
+            # the Prometheus file against the report's metrics
+            fams = telemetry.parse_prometheus_text(
+                open(f"{scratch}/{tag}_{mode}.prom").read())
+            for m in doc["metrics"]:
+                if m["type"] == "histogram":
+                    want = [(m["name"] + "_count", m["count"]),
+                            (m["name"] + "_sum", m["sum"])]
+                else:
+                    want = [(m["name"], m["value"])]
+                for name, value in want:
+                    got = [v for n, lab, v in fams[m["name"]]["samples"]
+                           if n == name and lab == m["labels"]]
+                    check(got == [value], f"[phase20] {tag} ({mode}): "
+                          f"{name}{m['labels']} exported {got}, report "
+                          f"{value}")
+            tel = doc["telemetry"]
+            kinds = [e["kind"] for e in tel["flight_recorder"]["events"]]
+            check(kinds[:3] == ["run_start", "op_start", "op_done"],
+                  f"[phase20] {tag} ({mode}): flight ring {kinds}")
+            prov = doc["provenance"]
+            check(prov["backend"] == "cuda" and prov["torch"]
+                  and prov["cuda"] and prov["device_name"]
+                  == torch.cuda.get_device_name(0),
+                  f"[phase20] {tag} ({mode}): provenance {prov}")
+            if commit_known:
+                check((prov["git"] or {}).get("sha"),
+                      f"[phase20] {tag} ({mode}): no commit in {prov}")
+            cats = dp["categories"]
+            rec = dp["reconciliation"]
+            top = dp.get("device_ops") or []
+            k1_ev, k5_ev = events(top, "k1_gemm"), events(top, "k5_ring_")
+            if mode == "auto":
+                check(dp["backend"] == "synthetic" and "virtual mesh"
+                      in dp.get("note", ""),
+                      f"[phase20] {tag} (auto): backend {dp['backend']}, "
+                      f"note {dp.get('note')!r}")
+            else:
+                check(dp["backend"] == "torch",
+                      f"[phase20] {tag} (torch): backend {dp['backend']}, "
+                      f"note {dp.get('note')!r}: the capture recorded no "
+                      f"device event")
+                check(cats["compute"] > 0 and dp["coverage"]
+                      <= COVERAGE_MAX, f"[phase20] {tag} (torch): compute "
+                      f"{cats['compute']} s, coverage {dp['coverage']}")
+                check(k1_ev == op["k1_launches"][best],
+                      f"[phase20] {tag}: {k1_ev} K1 events in the best "
+                      f"run's timeline, {op['k1_launches'][best]} K1 "
+                      f"launches in that run; note {dp.get('note')!r}")
+                if tag == "sgetrf_ptgpanel":
+                    check(k5_ev == op["k5_launches"][best] > 0
+                          and cats["ici"] > 0,
+                          f"[phase20] {tag}: {k5_ev} K5 events, "
+                          f"{op['k5_launches'][best]} K5 launches, ici "
+                          f"{cats['ici']} s")
+                    exp, ing = rec["expected"], rec["ingested"]
+                    for cls in ("ring_bcast@q", "ring_shift@p"):
+                        check(exp.get(cls) and ing.get(cls) == exp[cls],
+                              f"[phase20] {tag}: {cls} ingested "
+                              f"{ing.get(cls)}, expected {exp.get(cls)}")
+            log(f"[phase20] {tag} devprof.backend={mode} -> {dp['backend']}:"
+                f" best {op['best_s']:.5f} s with --devprof --telemetry, "
+                f"{plain['best_s']:.5f} s without; coverage "
+                f"{dp['coverage']:.4f}, relation {rec['relation']}; "
+                + ", ".join(f"{c} {v:.6f} s" for c, v in cats.items())
+                + (f"; note: {dp['note']}" if dp.get("note") else ""))
+            for d in dp["diagnostics"]:
+                log(f"[phase20]   {tag} ({mode}) diagnostic {d['kind']} "
+                    f"{d['op']}: {d['message']}")
+            for c in dp["collectives"]:
+                log(f"[phase20]   {tag} ({mode}) {c['cls']:<14} n="
+                    f"{c['count']} measured {c['measured_s']:.6f} s achieved "
+                    f"{c['achieved_frac']}")
+            for r in top[:8]:
+                log(f"[phase20]   {tag} top op {r['category']:<10} "
+                    f"n={r['count']:5d} {r['seconds'] * 1e3:9.3f} ms "
+                    f"{r['name'][:90]}")
+            if mode == modes[-1]:
+                log(f"[phase20] {tag}: provenance git {prov['git']} (the "
+                    f"checkout {'has' if commit_known else 'has no'} .git),"
+                    f" torch "
+                    f"{prov['torch']}, cuda {prov['cuda']}, backend "
+                    f"{prov['backend']}, device {prov['device_name']}; "
+                    f"{tel['exporter']['flushes']} snapshot(s); flight "
+                    f"{kinds}; K1 events {k1_ev}, K5 events {k5_ev}")
+            res[mode] = {"best_s": op["best_s"], "devprof": {
+                k: dp.get(k) for k in ("backend", "note", "coverage",
+                                       "categories", "reconciliation",
+                                       "collectives", "skew", "ok")},
+                "device_ops": top[:20], "k1_events": k1_ev,
+                "k5_events": k5_ev,
+                "k1_launches": op["k1_launches"],
+                "k5_launches": op["k5_launches"],
+                "provenance": prov, "flight": kinds}
+        out["drivers"][tag] = res
+
+    # the capture's edges late in the process: repeated torch captures
+    # of spotrf's factorization, EDGE_RUNS timed runs each. Every run's
+    # window must hold its K1 launches; the marker kernels at the edges
+    # (DevprofCapture._pad: a fill, CAPTURE_MARKERS adds, and at the
+    # head the sentinel) are counted: a lost one is a record the
+    # profiler dropped at an edge
+    card = torch.device("cuda")
+    A = generators.plghe(float(N_MAIN), N_MAIN, NB_MAIN, seed=3872)
+    potrf_mod.potrf(A, "L")
+    torch.cuda.synchronize()
+    edges = []
+    want_edges = [dp_mod.CAPTURE_MARKERS + 2, dp_mod.CAPTURE_MARKERS + 1]
+    for c in range(EDGE_CAPTURES):
+        cap = dp_mod.DevprofCapture(backend="torch", device=card)
+        launched = []
+        with cap:
+            for i in range(EDGE_RUNS):
+                with cap.run(i):
+                    torch.cuda.synchronize()
+                    n0 = pk.LAUNCHES
+                    potrf_mod.potrf(A, "L")
+                    torch.cuda.synchronize()
+                    launched.append(pk.LAUNCHES - n0)
+        runs = [cap.select(i) for i in range(EDGE_RUNS)]
+        k1 = [events(dp_mod.device_ops(ops), "k1_gemm") for ops in runs]
+        every = cap.captured()
+        first = min(o["begin_ns"] for o in runs[0]) if runs[0] else 0
+        last = max(o["end_ns"] for o in runs[-1]) if runs[-1] else 0
+        edge_ops = [sum(o["end_ns"] <= first for o in every),
+                    sum(o["begin_ns"] >= last for o in every)]
+        launches_by["k1"] += sum(launched)
+        edges.append({"k1_events": k1, "k1_launches": launched,
+                      "edge_ops": edge_ops})
+        check(k1 == launched, f"[phase20] edge capture {c}: K1 events "
+              f"{k1} per run, K1 launches {launched}; edge marker ops "
+              f"held {edge_ops} of {want_edges} (start, end); note "
+              f"{cap.note!r}")
+    log(f"[phase20] {EDGE_CAPTURES} torch captures of {EDGE_RUNS} potrf "
+        f"runs (N={N_MAIN}, nb={NB_MAIN}): every run's K1 events equal "
+        f"its launches ({edges[0]['k1_launches'][0]} a run); edge marker "
+        f"ops held (start, end) {[e['edge_ops'] for e in edges]} of "
+        f"{want_edges} a capture")
+    out["edge_captures"] = edges
+    out["launches_by_kernel"] = launches_by
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase20] took {out['seconds']:.1f} s ({smi})")
+    record["live_instruments"] = out
+    return launches_by
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -6789,6 +7043,9 @@ def main() -> int:
     _, k1cy, k1cy_by, k5b_qc, eig18 = phase_cyclic_catalogue(
         torch, pk, pring, record)
     inst = phase_instruments(torch, pk, plu, pqr, pdd, pring, record)
+    live = phase_live_instruments(
+        torch, pk, pring, record,
+        os.path.join(HERE, "build", "phase19", "peaks.json"))
     for k in ("kw", "kt"):
         eigr[f"{k}_launches"] += eig18[k]
     eigr["kw_steps"] += eig18["kw_steps"]
@@ -6804,9 +7061,11 @@ def main() -> int:
     k5_launches = {"bcast": {"sgetrf_ptgpanel": k5b_gt,
                              "potrf_cyclic": k5b_pc,
                              "geqrf_cyclic": k5b_qc,
-                             "instruments": inst["k5_bcast"]},
+                             "instruments": inst["k5_bcast"],
+                             "live_instruments": live["k5_bcast"]},
                    "shift": {"sgetrf_ptgpanel": k5s_gt,
-                             "instruments": inst["k5_shift"]}}
+                             "instruments": inst["k5_shift"],
+                             "live_instruments": live["k5_shift"]}}
 
     def k5_entry(kind, line):
         paths = k5tot[kind]
@@ -6839,7 +7098,7 @@ def main() -> int:
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
                       + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())
                       + sum(k1lm_by.values()) + sum(k1cy_by.values())
-                      + inst["k1"]),
+                      + inst["k1"] + live["k1"]),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
@@ -6847,7 +7106,8 @@ def main() -> int:
                                    "dgeqrf_dd": ddf["k1"]["dgeqrf_dd"]},
                                   **ir["k1"], **k1inv_by, **k1cx_by,
                                   **k1hq_by, **eigr["k1_by"], **k1lm_by,
-                                  **k1cy_by, instruments=inst["k1"]),
+                                  **k1cy_by, instruments=inst["k1"],
+                                  live_instruments=live["k1"]),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
@@ -7044,7 +7304,10 @@ def main() -> int:
         f"launches_by_path instruments counts the phase 19 driver runs "
         f"with the instruments' flags (warm-up, timed run, attributed "
         f"pass, -x check) and, for K5, the ring probe of the potrf_cyclic "
-        f"call under a ledger")
+        f"call under a ledger; phase 20: K1's and K5's launches_by_path "
+        f"live_instruments count its spotrf and sgetrf_ptgpanel driver runs "
+        f"(plain and with --devprof --telemetry: warm-up, timed run, -x "
+        f"check)")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

@@ -38,6 +38,20 @@ built-ins); ``-v 2`` prints its table. ``--jaxtrace[=dir]`` keeps the
 reference's spelling and writes a ``torch.profiler`` trace of the timed
 loop. The timed loop itself never fences: it launches what it launched
 without the flags.
+
+The live and measured instruments (common.py:553-562, :748-776,
+:1141-1143, :1292-1308, :1389-1480): ``--telemetry[=file]`` opens a
+:class:`~dplasma_tpu_torch.observability.telemetry.Telemetry` for the
+run (its exporter rewrites the Prometheus snapshot of the run's
+metrics in ``file``; its flight recorder keeps ``run_start``,
+``op_start``, ``op_done`` and the devprof events), closed into the
+report's ``"telemetry"`` section. ``--devprof`` wraps the timed loop in
+a :class:`~dplasma_tpu_torch.observability.devprof.DevprofCapture`
+(a ``torch.profiler`` capture of the best run on the card, the
+synthetic timeline elsewhere; MCA ``devprof.backend``) and attributes
+it into the ``"devprof"`` section; a failed attribution is a flight
+event and a line on stderr, never a failed run. Every ``--report`` is
+stamped with its provenance.
 """
 from __future__ import annotations
 
@@ -117,8 +131,12 @@ class IParam:
     profile: Optional[str] = None    # DTPUPROF1 binary trace
     report: Optional[str] = None     # versioned JSON run-report
     jaxtrace: Optional[str] = None   # torch.profiler trace directory
-    # performance attribution (--phase-profile/--peaks-file)
+    # live telemetry (--telemetry[=prom-file]): streaming metrics
+    # exporter + flight recorder, the report's "telemetry" section
+    telemetry: Optional[str] = None
+    # performance attribution (--phase-profile/--devprof/--peaks-file)
     phase_profile: bool = False
+    devprof: bool = False            # device timeline attribution (v14)
     peaks_file: Optional[str] = None
     prec: str = "d"
 
@@ -160,6 +178,24 @@ Optional arguments:
  --jaxtrace[=dir]  : a torch.profiler trace of the timed loop (CPU and
                      CUDA activities) into dir/trace.json (default:
                      jax_trace; the reference's spelling)
+ --telemetry[=file]: live telemetry for this run: a daemon thread
+                     rewrites the Prometheus text snapshot of the run's
+                     metrics in file (default: telemetry.prom) every MCA
+                     telemetry.interval_s seconds, and a bounded flight
+                     recorder of structured events (run and op starts,
+                     op finishes, devprof diagnostics) lands in the
+                     run-report ("telemetry" section)
+ --devprof         : the device timeline of the best timed run: a
+                     torch.profiler capture on the card (CUDA kernels,
+                     memcpy, memset), else a synthetic timeline from the
+                     measured run, the collective schedule and the comm
+                     model (MCA devprof.backend: auto, torch, synthetic;
+                     auto is torch on a card with a 1x1 grid), binned
+                     into compute/collective/ici/host, reconciled per
+                     collective class against the schedule and the comm
+                     model (MCA devprof.ici_floor), with per-rank skew
+                     and the critical path; lands in the run-report
+                     ("devprof" section) and the devprof_* metrics
  --phase-profile   : one extra attributed pass after the timed loop,
                      its phase spans fenced at exit and met with the
                      roofline model; the table prints at -v>=2 and
@@ -172,9 +208,9 @@ Optional arguments:
  -v --verbose[=n]  : verbosity ladder
  -h --help         : this message
 Not ported yet (a usage error names the ROADMAP queue 1 item):
- --devprof --telemetry (item 14, second part), --dot --dagcheck
- --spmdcheck --hlocheck --memcheck (item 15), --autotune (item 9b),
- --abft --inject --max-retries --run-timeout (item 13).
+ --dot --dagcheck --spmdcheck --hlocheck --memcheck (item 15),
+ --autotune (item 9b), --abft --inject --max-retries --run-timeout
+ (item 13).
 MCA knobs come from the environment, DPLASMA_MCA_<NAME> (dots as
 underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision drivers
 on the f64-equivalent limb route; DPLASMA_MCA_IR_PRECISION=int8|bf16|
@@ -212,18 +248,18 @@ _LONG = {
     "gpus": ("gpus", _int),
     "device": ("device", str),
     "phase-profile": ("phase_profile", None),
+    "devprof": ("devprof", None),
     "peaks-file": ("peaks_file", str),
 }
 
 #: "--name[=value]" options whose value is optional -> (field, default)
 _OPTIONAL_VALUE = {"profile": ("profile", "run.prof"),
                    "report": ("report", "report.json"),
-                   "jaxtrace": ("jaxtrace", "jax_trace")}
+                   "jaxtrace": ("jaxtrace", "jax_trace"),
+                   "telemetry": ("telemetry", "telemetry.prom")}
 
 #: the reference's flags of layers not ported yet -> the ROADMAP item
 _DEFERRED = {
-    "devprof": "ROADMAP queue 1 item 14, second part",
-    "telemetry": "ROADMAP queue 1 item 14, second part",
     "dot": "ROADMAP queue 1 item 15", "dagcheck": "ROADMAP queue 1 item 15",
     "spmdcheck": "ROADMAP queue 1 item 15",
     "hlocheck": "ROADMAP queue 1 item 15",
@@ -341,6 +377,30 @@ def _itemsize(prec: str) -> int:
     return torch.empty((), dtype=PRECISIONS[prec]).element_size()
 
 
+#: drivers whose op the collective schedule and the comm model price
+#: (the reference's ``_HLOCHECK_MODEL_ALGOS``, common.py:460-466)
+_MODEL_ALGOS = {
+    "potrf": "potrf", "posv": "potrf",
+    "getrf_ptgpanel": "getrf",
+    "geqrf": "geqrf", "gels": "geqrf",
+    "gemm": "gemm",
+}
+
+
+def _model_op_kt(algo: str, ip) -> tuple:
+    """(op class, KT) of the schedule's model, or (None, 0)
+    (common.py:468-482). SUMMA gemm steps over ``ceil(K / NB)``
+    contraction steps, the factorizations over ``ceil(min(M, N) / NB)``
+    panels."""
+    cls = _MODEL_ALGOS.get(algo)
+    nb = max(ip.NB, 1)
+    if cls == "gemm":
+        return "gemm", max(-(-max(ip.K, 1) // nb), 1)
+    if cls is not None:
+        return cls, max(-(-min(ip.M, ip.N) // nb), 1)
+    return None, 0
+
+
 @contextlib.contextmanager
 def _trace_guard(logdir: str):
     """``--jaxtrace`` around the timed loop: a profiler that fails to
@@ -385,6 +445,17 @@ class Driver:
         self.prof.save_info("driver", name)
         self.prof.save_info("prec", ip.prec)
         self.report = RunReport(name, ip)
+        # --telemetry: the live instruments — the Prometheus exporter
+        # over the run's metrics registry and a flight recorder of the
+        # run's events (the report's "telemetry" section)
+        self.telemetry = None
+        if ip.telemetry:
+            from dplasma_tpu_torch.observability.telemetry import Telemetry
+            self.telemetry = Telemetry(rank=0)
+            self.telemetry.start_exporter(self.report.metrics, ip.telemetry)
+            self.telemetry.flight.record(
+                "run_start", driver=name, prec=ip.prec, N=ip.N, NB=ip.NB,
+                grid=[ip.P, ip.Q])
         self._peaks_cache = None
         self._pipe_printed = False
         self._frames = []
@@ -429,6 +500,16 @@ class Driver:
             _cfg.pop_overrides(frame)
         self._frames = []
         ip = self.ip
+        if self.telemetry is not None:
+            # the exporter's last flush and the section, before the
+            # report is written below
+            self.telemetry.close()
+            self.report.add_telemetry(self.telemetry.summary())
+            if ip.loud >= 1 and self.telemetry.exporter:
+                ex = self.telemetry.exporter
+                print(f"#+ telemetry: {ex.flushes} snapshot(s) exported "
+                      f"to {ex.path}")
+            self.telemetry = None
         if ip.profile:
             try:
                 self.prof.write(ip.profile)
@@ -438,6 +519,11 @@ class Driver:
                 sys.stderr.write(f"#! cannot write profile: {exc}\n")
         if ip.report:
             try:
+                # the attribution stamp, collected at close() so the MCA
+                # snapshot holds the knobs the run ended with
+                self.report.stamp_provenance(
+                    family=self.report.name, mesh_shape=[ip.P, ip.Q],
+                    peaks_source="file" if ip.peaks_file else "default")
                 self.report.write(ip.report)
                 if ip.loud >= 1:
                     print(f"#+ run-report written to {ip.report}")
@@ -528,6 +614,53 @@ class Driver:
                 "coverage": (ssum / total) if total > 0 else None,
                 "peaks_source": src, "spans": spans}
 
+    def _devprof_attribution(self, name, best, cap):
+        """``--devprof``: attribute the captured timeline of the best
+        run (or a synthetic one) with the schedule and the comm model
+        of this driver's op, priced with the ring gate the cyclic
+        kernels consult (``cyclic._cyclic_ring``). Returns the
+        ``"devprof"`` entry, or None when the attribution fails: that
+        is a flight event and a line on stderr, never a failed run."""
+        from dplasma_tpu_torch.observability import devprof as _dp
+        ip, tel = self.ip, self.telemetry
+        op_cls, op_kt = _model_op_kt(_algo_of(self.name), ip)
+        try:
+            ring = False
+            if op_cls is not None and ip.P * ip.Q > 1:
+                from dplasma_tpu_torch.descriptors import Dist
+                from dplasma_tpu_torch.parallel import cyclic as _cyc
+                desc = _cyc.CyclicDesc(ip.M, ip.N, max(ip.MB, 1),
+                                       max(ip.NB, 1), Dist(P=ip.P, Q=ip.Q))
+                ring = _cyc._cyclic_ring(desc, ip.prec_dtype, self.mesh,
+                                         need_row=(op_cls == "getrf"))
+            entry = _dp.attribute(
+                name, op_cls, best, (ip.P, ip.Q), ip.M, ip.N,
+                max(ip.NB, 1), itemsize=_itemsize(ip.prec),
+                kt=op_kt or None, ring=ring,
+                lookahead=self.pipeline["sweep.lookahead"],
+                peaks=self._peaks()[0], timeline=cap.events or None,
+                backend=cap.used)
+        except Exception as exc:
+            if tel is not None:
+                tel.flight.record("devprof_error", op=name, error=repr(exc))
+            sys.stderr.write(f"#! devprof attribution failed for {name}: "
+                             f"{exc!r}\n")
+            return None
+        if cap.note:
+            entry["note"] = cap.note
+        if entry["backend"] == "torch":
+            entry["device_ops"] = _dp.device_ops(cap.events)
+        self.report.add_devprof(entry)
+        if tel is not None:
+            for d in entry["diagnostics"]:
+                tel.flight.record("devprof_diag", op=name, diag=d["kind"],
+                                  target=d["op"])
+            if not entry["ok"]:
+                tel.flight.record(
+                    "devprof_mismatch", op=name,
+                    relation=entry["reconciliation"]["relation"])
+        return entry
+
     def progress(self, fn: Callable, args: tuple, flops: float,
                  label: Optional[str] = None):
         """Warm up, run ``nruns`` timed, print the reference-format perf
@@ -541,6 +674,9 @@ class Driver:
                   % (self.pipeline["sweep.lookahead"],
                      self.pipeline["qr.agg_depth"],
                      self.pipeline["panel.qr"], self.pipeline["panel.lu"]))
+        tel = self.telemetry
+        if tel is not None:
+            tel.flight.record("op_start", op=name, flops=flops)
         # ENQ: nothing traces or compiles here, the span is empty
         t = time.time_ns()
         self.prof.add_event(f"enq:{name}", t, t)
@@ -554,16 +690,27 @@ class Driver:
         out = None
         trace_cm = _trace_guard(ip.jaxtrace) if ip.jaxtrace \
             else contextlib.nullcontext()
-        with trace_cm:
+        # --devprof: the device-timeline capture around the same window,
+        # each run in a range of its own (the best run's ops are kept)
+        dp_cap = None
+        if ip.devprof:
+            from dplasma_tpu_torch.observability import devprof as _dp
+            dp_cap = _dp.DevprofCapture(device=self.device,
+                                        grid=(ip.P, ip.Q))
+        with trace_cm, (dp_cap or contextlib.nullcontext()):
             for i in range(max(ip.nruns, 1)):
                 with self.prof.span(f"run[{i}]:{name}", flops=flops,
-                                    track=self.prof.TRACK_RUN):
+                                    track=self.prof.TRACK_RUN), \
+                        (dp_cap.run(i) if dp_cap is not None
+                         else contextlib.nullcontext()):
                     out, secs, n = self._timed(fn, args)
                 times.append(secs)
                 for lab in launches:
                     launches[lab].append(n[lab])
                 kw_steps.append(n["kw_steps"])
         best = min(times)
+        if dp_cap is not None:
+            dp_cap.select(times.index(best))
         gflops = (flops / 1e9) / best
         enq = dest = 0.0
         total = enq + best + dest
@@ -577,12 +724,17 @@ class Driver:
             name, prec=ip.prec, flops=flops, enq_s=enq, warmup_s=warm,
             dest_s=dest, runs_s=times, gflops=gflops, xla=None,
             comm=comm, dag=None, phases=phase_info)
+        if tel is not None:
+            tel.flight.record("op_done", op=name, best_s=best,
+                              gflops=gflops, nruns=len(times))
         rl_entry = None
         if want_attrib:
             peaks, src = self._peaks()
             rl_entry = self.report.add_roofline(_rl.op_roofline(
                 name, OP_CLASS.get(_algo_of(self.name)), ip.M, ip.N,
                 ip.K, _itemsize(ip.prec), flops, comm, best, peaks, src))
+        dp_entry = (self._devprof_attribution(name, best, dp_cap)
+                    if dp_cap is not None else None)
         stats = entry["timings"]
         reg = self.report.metrics
         lbl = dict(op=name, prec=ip.prec)
@@ -603,13 +755,22 @@ class Driver:
             for sp in phase_info["spans"]:
                 reg.gauge("phase_seconds", phase=sp["phase"],
                           **lbl).set(sp["measured_s"])
+        if dp_entry is not None:
+            dp_fracs = [c["achieved_frac"] for c in dp_entry["collectives"]
+                        if c["achieved_frac"] is not None]
+            if dp_fracs:
+                reg.gauge("devprof_ici_achieved_frac", **lbl).set(
+                    min(dp_fracs))
+            reg.gauge("devprof_skew", **lbl).set(dp_entry["skew"]["value"])
+            for c, v in dp_entry["categories"].items():
+                reg.gauge("devprof_seconds", category=c, **lbl).set(v)
         self.prof.save_dinfo(f"GFLOPS:{name}", gflops)
         self.record["ops"].append({
             "op": name, "flops": flops, "warmup_s": warm, "runs_s": times,
             "best_s": best, "gflops": gflops,
             **{f"{lab}_launches": n for lab, n in launches.items()},
             "kw_steps": kw_steps, "phases": phase_info,
-            "roofline": rl_entry})
+            "roofline": rl_entry, "devprof": dp_entry})
         if ip.loud >= 2:
             print(f"#+ kernels[{name}]: " + ", ".join(
                 f"{lab.upper()} launches per run = {n}"
@@ -628,6 +789,21 @@ class Driver:
                       % (name, rl_entry["bound"], rl_entry["expected_s"],
                          best, _pct(rl_entry["achieved_frac"]),
                          rl_entry["peaks_source"]))
+            if dp_entry is not None:
+                dps = dp_entry["skew"]
+                print("#+ devprof[%s]: backend=%s coverage %s relation=%s "
+                      "skew %.3f (slowest rank %d: %s) critical-path %s"
+                      % (name, dp_entry["backend"],
+                         _pct(dp_entry["coverage"]),
+                         dp_entry["reconciliation"]["relation"],
+                         dps["value"], dps["slowest_rank"],
+                         dps["dominating_category"],
+                         _pct(dp_entry["critical_path"]["frac"])))
+                for c in dp_entry["collectives"]:
+                    print("#+   %-16s n=%3s measured %10.5f s achieved "
+                          "%7s of ICI peak"
+                          % (c["cls"], c["count"], c["measured_s"],
+                             _pct(c["achieved_frac"])))
             if phase_info is not None:
                 print("#+ phases[%s]: attributed run %.5f s, spans %.5f s "
                       "(coverage %s)"
@@ -640,6 +816,12 @@ class Driver:
                           % (sp["phase"], sp["count"], sp["measured_s"],
                              sp["expected_s"], _pct(sp["achieved_frac"]),
                              sp["bound"]))
+        if dp_entry is not None and not dp_entry["ok"] and ip.loud >= 1:
+            # a priced collective the timeline lost is worth a line at
+            # the default loudness
+            for d in dp_entry["diagnostics"]:
+                if d["kind"] in ("missing-collective", "count-mismatch"):
+                    print(f"#! devprof[{name}]: {d['message']}")
         print("[****] TIME(s) %12.5f : %s\tPxQxg= %3d %-3d %d NB= %4d "
               "N= %7d : %14f gflops - ENQ&PROG&DEST %12.5f : %14f gflops"
               " - ENQ %12.5f - DEST %12.5f"

@@ -33,7 +33,11 @@ the kernel. ``on`` also walks the ring route on a CPU mesh, through the plain ve
 identical either way). On a CUDA tensor the wrapper launches K5 or
 raises; only a CPU tensor takes the plain version. ``ROUTED`` counts
 calls on any device, ``LAUNCHES`` the CUDA launches
-(``BCAST_LAUNCHES`` + ``SHIFT_LAUNCHES``).
+(``BCAST_LAUNCHES`` + ``SHIFT_LAUNCHES``). The caller names the mesh
+axis (``axis=``); while a ``torch.profiler`` capture records, a launch
+runs inside a ``k5[ring_<kind>@<axis>]`` range
+(``analysis.hlo_names.K5_RANGE``), from which ``--devprof`` classes
+its kernel.
 
 The RingOp programs of the reference (``bcast_program``,
 ``shift_program``, ``allreduce_program``, ``kernel_programs``) need the
@@ -51,6 +55,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from dplasma_tpu_torch.analysis.hlo_names import K5_RANGE
 from dplasma_tpu_torch.utils import config as _cfg
 
 _cfg.mca_register(
@@ -432,9 +437,10 @@ def _new_launch(kind, xs, root, chunks):
                    _coresident(x0.device))
 
 
-def _launch(ent, xs, root: int = 0):
+def _launch(ent, xs, root: int = 0, axis: Optional[str] = None):
     """One K5 launch of a cached shape: new contiguous outputs, the
-    pointers filled in, the epoch bumped."""
+    pointers filled in, the epoch bumped; inside its ``K5_RANGE``
+    range while a profiler records."""
     global LAUNCHES, BCAST_LAUNCHES, SHIFT_LAUNCHES
     x0 = xs[root]
     outs = x0.new_empty(ent.shape).unbind(0)
@@ -461,7 +467,12 @@ def _launch(ent, xs, root: int = 0):
     slot[1] += 1
     ent.target.value = ent.geo.blocks * slot[1]
     ent.stream.value = torch._C._cuda_getCurrentRawStream(ent.dev)
-    err = ent.fn(*ent.args)
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(
+                K5_RANGE.format(f"ring_{ent.kind}@{axis or '?'}")):
+            err = ent.fn(*ent.args)
+    else:
+        err = ent.fn(*ent.args)
     if err != 0:
         slot[1] -= 1
         raise RuntimeError(f"K5 ring_{ent.kind} launch failed: cudaError "
@@ -476,13 +487,15 @@ def _launch(ent, xs, root: int = 0):
 
 
 def ring_bcast(xs: List[torch.Tensor], *, root: int,
-               chunks: Optional[int] = None) -> List[torch.Tensor]:
+               chunks: Optional[int] = None,
+               axis: Optional[str] = None) -> List[torch.Tensor]:
     """Broadcast rank ``root``'s 2-D block to every rank of one mesh
     axis: ``xs`` holds the n ranks' blocks in axis order (only the
     root's is read; it may be a strided view with unit-stride columns);
     returns n new contiguous blocks equal to ``xs[root]``. The rows go
     in ``chunks`` pieces (MCA ``ring.chunks`` by default, clamped down
-    to a divisor of the rows)."""
+    to a divisor of the rows). ``axis`` names the mesh axis for a
+    profiler capture."""
     global ROUTED
     want = chunks if chunks is not None \
         else _cfg.mca_get_int("ring.chunks", 4)
@@ -490,7 +503,7 @@ def ring_bcast(xs: List[torch.Tensor], *, root: int,
     ent = _LAUNCHES.get(key)
     if ent is not None:          # a CUDA launch shape seen (and checked)
         ROUTED += 1
-        return _launch(ent, xs, root)
+        return _launch(ent, xs, root, axis)
     _check(xs, "ring_bcast")
     n = len(xs)
     if not 0 <= root < n:
@@ -505,19 +518,21 @@ def ring_bcast(xs: List[torch.Tensor], *, root: int,
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on cuda (or cpu), not {dev}")
     ent = _LAUNCHES[key] = _new_launch("bcast", xs, root, c)
-    return _launch(ent, xs, root)
+    return _launch(ent, xs, root, axis)
 
 
-def ring_shift(xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """One neighbour hop along one mesh axis: every rank sends its block
-    to ``(r+1) % n`` and returns the block received from ``(r-1) % n``
-    (n new contiguous blocks)."""
+def ring_shift(xs: List[torch.Tensor], *,
+               axis: Optional[str] = None) -> List[torch.Tensor]:
+    """One neighbour hop along one mesh axis (``axis``, named for a
+    profiler capture): every rank sends its block to ``(r+1) % n`` and
+    returns the block received from ``(r-1) % n`` (n new contiguous
+    blocks)."""
     global ROUTED
     key = ("shift", 0, 1, _signature(xs))
     ent = _LAUNCHES.get(key)
     if ent is not None:          # a CUDA launch shape seen (and checked)
         ROUTED += 1
-        return _launch(ent, xs)
+        return _launch(ent, xs, axis=axis)
     _check(xs, "ring_shift")
     n = len(xs)
     if n == 1:
@@ -529,17 +544,18 @@ def ring_shift(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     if dev.type != "cuda":
         raise ValueError(f"K5 runs on cuda (or cpu), not {dev}")
     ent = _LAUNCHES[key] = _new_launch("shift", xs, 0, 1)
-    return _launch(ent, xs)
+    return _launch(ent, xs, axis=axis)
 
 
-def ring_allreduce(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def ring_allreduce(xs: List[torch.Tensor], *,
+                   axis: Optional[str] = None) -> List[torch.Tensor]:
     """Sum the ranks' blocks by n−1 shift-and-add ring steps (the cyclic
-    LU's winner-row exchange): each rank keeps an accumulator and a
-    carry; per step the carry hops one rank right and is added, so
-    after n−1 steps every rank holds the full sum, accumulated in
-    rank-relative order (r, r−1, ...)."""
+    LU's winner-row exchange) along mesh axis ``axis``: each rank keeps
+    an accumulator and a carry; per step the carry hops one rank right
+    and is added, so after n−1 steps every rank holds the full sum,
+    accumulated in rank-relative order (r, r−1, ...)."""
     acc, carry = list(xs), list(xs)
     for _ in range(len(xs) - 1):
-        carry = ring_shift(carry)
+        carry = ring_shift(carry, axis=axis)
         acc = [a + c for a, c in zip(acc, carry)]
     return acc

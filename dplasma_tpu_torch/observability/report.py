@@ -15,11 +15,14 @@ history), so the reference's readers (``load_report``,
 * each op's ``"xla"`` is an explicit null — the reference's meaning,
   "the backend declined to answer": the port compiles nothing.
 
+The drivers fill ``telemetry`` (``--telemetry``), ``devprof``
+(``--devprof``) and ``provenance`` (:meth:`RunReport.stamp_provenance`
+at every ``--report``; ``observability.trend.collect_provenance``).
 The sections of layers not ported yet (resilience, dagcheck,
-spmdcheck, hlocheck, memcheck, tuning, autopilot, telemetry, devprof,
-admission, provenance; ROADMAP queue 1 items 13-15) stay absent, as
-they are in a reference run that does not ask for them; their
-``add_*`` methods are kept, so a later slice only calls them.
+spmdcheck, hlocheck, memcheck, tuning, autopilot, admission; ROADMAP
+queue 1 items 9b, 12, 13 and 15) stay absent, as they are in a
+reference run that does not ask for them; their ``add_*`` methods are
+kept, so a later slice only calls them.
 """
 from __future__ import annotations
 
@@ -195,6 +198,18 @@ class RunReport:
         subkey)."""
         self.admission = summary
         return summary
+
+    def stamp_provenance(self, **kw) -> dict:
+        """Collect and attach the attribution stamp (schema v18; see
+        observability.trend.collect_provenance — git SHA + dirty
+        flag, torch/CUDA versions, backend + device count + the card's
+        name, mesh shape, peaks source, active MCA snapshot, ladder
+        family). Keyword arguments pass through (``family=``,
+        ``mesh_shape=``, ``peaks_source=``)."""
+        from dplasma_tpu_torch.observability.trend import \
+            collect_provenance
+        self.provenance = collect_provenance(**kw)
+        return self.provenance
 
     def add_roofline(self, entry: dict) -> dict:
         """Record one per-op roofline ledger entry (schema v5; see

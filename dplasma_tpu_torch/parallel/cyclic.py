@@ -277,7 +277,8 @@ def _bcast_q(vals: List[torch.Tensor], qk: int, ring: bool,
     if ring and len(vals) > 1:
         from dplasma_tpu_torch.kernels import pallas_ring as _pring
         return _pring.ring_bcast(vals, root=qk,
-                                 chunks=rchunks if rchunks > 0 else None)
+                                 chunks=rchunks if rchunks > 0 else None,
+                                 axis=pmesh.COL_AXIS)
     return _masked_psum(vals, qk)
 
 
@@ -469,7 +470,8 @@ def _getrf_cyclic(A: CyclicMatrix, lookahead: int = 0, panel: str = "chain",
             return _panels.lu_panel_rec(x)
         return _lu._lu_chain(x)
 
-    exchange = _pring.ring_allreduce if ring and P > 1 else _psum
+    exchange = partial(_pring.ring_allreduce, axis=pmesh.ROW_AXIS) \
+        if ring and P > 1 else _psum
     pan_next = None
     for k in range(KT):
         qk = layout.owner(k, Q, d.kq, d.jq)

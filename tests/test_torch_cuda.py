@@ -1739,3 +1739,69 @@ def test_panel_bcast_probe_ring_equals_psum_on_card(card, grid):
     assert launches == (N // nb) * P
     for r0, r1 in zip(ring, psum):
         assert all(torch.equal(a, b) for a, b in zip(r0, r1))
+
+
+def _devprof_capture(card, body, grid=(1, 1), nruns=2):
+    """``body`` in ``nruns`` timed runs under a ``torch`` capture, each
+    run fenced at both ends as the drivers' timed loop is."""
+    from dplasma_tpu_torch.observability import devprof as dp
+    cap = dp.DevprofCapture(backend="torch", device=card, grid=grid)
+    with cap:
+        for i in range(nruns):
+            with cap.run(i):
+                torch.cuda.synchronize()
+                body()
+                torch.cuda.synchronize()
+    return cap
+
+
+def test_devprof_capture_of_one_k1_product(card, k1_on):
+    """The ``torch`` backend holds one K1 launch a run, binned compute,
+    a device copy binned host, each run's ops inside its own window."""
+    from dplasma_tpu_torch.observability import devprof as dp
+    a = torch.randn(2048, 2048, device=card)
+    pk.gemm(a, a)
+    torch.cuda.synchronize()
+    before = pk.LAUNCHES
+    cap = _devprof_capture(card, lambda: (pk.gemm(a, a), a.clone()))
+    assert pk.LAUNCHES - before == 2
+    runs = [cap.select(i) for i in range(2)]
+    assert cap.used == "torch" and not cap.note
+    for ops in runs:
+        rows = dp.device_ops(ops)
+        k1 = [r for r in rows if "k1_gemm" in r["name"]]
+        assert sum(r["count"] for r in k1) == 1, rows
+        assert {r["category"] for r in k1} == {"compute"}
+        assert any(r["category"] == "host" for r in rows), rows
+    assert max(o["end_ns"] for o in runs[0]) <= \
+        min(o["begin_ns"] for o in runs[1])
+    entry = dp.ingest(runs[1], 1.0, 1, backend="torch")
+    assert entry["categories"]["compute"] > 0
+    assert entry["reconciliation"]["relation"] == "no-collectives"
+
+
+@pytest.mark.parametrize("kind", ["bcast", "shift"])
+@pytest.mark.parametrize("axis", ["q", "p"])
+def test_devprof_capture_of_one_k5_launch(card, kind, axis):
+    """A K5 broadcast (shift) along ``axis`` is one ``ici`` op of class
+    ring_bcast@axis (ring_shift@axis), from the range its launch opens,
+    carrying the rings of its axis on a 2×3 mesh."""
+    from dplasma_tpu_torch.observability import devprof as dp
+    xs = [torch.randn(512, 256, device=card) for _ in range(3)]
+
+    def body():
+        if kind == "bcast":
+            pring.ring_bcast(xs, root=1, axis=axis)
+        else:
+            pring.ring_shift(xs, axis=axis)
+    body()
+    torch.cuda.synchronize()
+    before = pring.LAUNCHES
+    cap = _devprof_capture(card, body, grid=(2, 3))
+    assert pring.LAUNCHES - before == 2
+    ops = cap.select(1)
+    k5 = [o for o in ops if o.get("cls")]
+    want = (f"ring_{kind}@{axis}", 2 if axis == "q" else 3)
+    assert [(o["cls"], o["rings"], o["category"]) for o in k5] == \
+        [want + ("ici",)], ops
+    assert f"k5_ring_{kind}_kernel" in k5[0]["name"]
