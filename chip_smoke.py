@@ -328,6 +328,47 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (N=16384, nb=1024), late in the process: every run's window holds
    its K1 launches as K1 events; the marker kernels at each edge of the
    capture are counted and logged.
+21. the f64-equivalent route under the 2x2 grid and the resilience
+   layer. (a) ``potrf_cyclic`` (L) in f64 under ``dd_gemm=always`` at
+   N=8192, nb=512 (dpotrf_f64equiv's size): one warm-up (every
+   distinct limb product recorded through the wrapper, held bitwise on
+   its own operands and timed times its count), then the best of
+   ``NRUNS_DDC`` calls timed by CUDA events, the counts zeroed just
+   before the first and read after the last, K2's launches per call
+   equal to ``cyclic_k2_launches`` (1276 at lookahead 1), none unfused,
+   no K1; ``check_potrf`` and the
+   single-device dd factor (``ops.potrf.potrf`` under ``always``)
+   within ``DD_TOL``; beside it on the same card native FP64
+   ``potrf_cyclic``, single-device dd and native ``potrf`` (its
+   profile: ``tools/dd_profile.py --grid 2x2``).
+   ``testing_dgetrf_ptgpanel -N 8192 -t 256 -p 2 -q 2 -x`` under dd
+   (K2 per timed run = ``cyclic_k2_launches``) beside native FP64. The
+   other 19 ops of the catalogue (potrf U, trsm, potrs, laswp, getrs,
+   gemm_cyclic, SUMMA, herk, trmm, hemm, her2k, lauum, trtri, potri,
+   geqrf, herbt, heev, ge2gb, gesvd) once native and once under dd at
+   N=2048, nb=512 (first calls), each within ``DDC_TOL`` of its native
+   run with its K2 launches counted as derived. (b) ``testing_spotrf
+   -N 16384 -t 1024 -x --abft`` with K1 on and three plans, each
+   primary attempt's K1 launches per run the 31 products of the
+   17408-row bordered matrix (spotrf's 29 plus the border's two):
+   ``--inject=bitflip@gemm:1:1`` at the default seed (logged: its
+   flip lands below the ABFT floor); the same plan at the seed
+   ``overflow_flip_seed`` derives (gated: bit 30 of a trailing-update
+   product, finite itself but 2^128 times too large, so the factor
+   goes non-finite: classed ``numerical``, ABFT flags it, the retry
+   heals it); and ``--inject=bitflip@potrf:1:1`` at the seed
+   ``silent_flip_seed`` derives from the floor formula (gated: a
+   diagonal entry of the first tile factor moved by more than the
+   floor and left finite: classed ``silent``, flagged by ABFT alone,
+   healed on the retry). -x passes in all three. (c) ``testing_dpotrf
+   -N 8192 -t 512 -x --abft`` under dd with no plan: one attempt, no
+   rung, its time beside the plain dd run. (d) ``testing_spotrf -N
+   4096 -t 512 -x --inject=reject@potrf:1:1``: the ladder walks to
+   ``kernel_fallback`` (no K1 launch in the surviving attempt), and
+   K1 is on again once the driver has closed; the same spotrf under
+   ``--abft`` with K1's launch made to fail raises, K1 still on.
+   (e) ``tracecat`` on phase 19's spotrf DTPUPROF1 file, merged with
+   its report's phase table.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -358,6 +399,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -474,6 +516,57 @@ def cyclic_k1_products():
             ("lookahead", mloc, nb, nb, "cols" if view is False else view,
              (kt - 1) * P * Q)]
     return out
+
+
+def nopiv_nodes(n, base=32):
+    """Recursion nodes of one ``blas.getrf_nopiv_blocked`` of an n×n
+    tile that split it (each a U solve, an L solve and a Schur
+    product)."""
+    if n <= base:
+        return 0
+    n1 = n // 2
+    return 1 + nopiv_nodes(n1, base) + nopiv_nodes(n - n1, base)
+
+
+def cyclic_k2_launches(op, P, Q, KT, lookahead=1, summa_steps=2, nb=8):
+    """K2 launches of one call of the block-cyclic ``op`` on the P×Q grid
+    under ``dd_gemm=always`` (f64), as the code derives them: every
+    rank's product is one limb product (its slab-wide K = nb is far under
+    the chunk depth ``dd.KC``); ``dd.potrf_f64`` makes 16 (``trtri_f64``'s
+    two Newton steps of two, then three refinements of four),
+    ``dd.trsm_f64`` two residuals and ``dd.trtri_f64`` four. Per rank and
+    step: potrf L its tile factor, panel solve and trailing product, plus
+    the lookahead's narrow product at steps k < KT − 1; getrf its two
+    solves and the Schur product (the election LUs are vendor f64); the
+    triangular solves a solve and a product (potrs and getrs two sweeps,
+    trtri one against I, potri trtri then lauum); the BLAS-3 sweeps one
+    product (her2k two); SUMMA lcm(P, Q)·summa_steps products a rank.
+    The CholeskyQR2 panels of geqrf, herbt and ge2gb: per rank the Gram
+    products, the solves and the applies (11 for a QR or LQ panel, 16
+    for herbt's two-sided step), per axis group the two tile Choleskys,
+    R2·R1 (33) and the TSQR-HR reconstruction's f64 LU of an nb tile
+    (``getrf_nopiv_blocked``: two solves and a product a node, 5·
+    ``nopiv_nodes(nb)``); geqrf's lookahead two products a rank and step. heev
+    finishes on one device with no limb product (its second stage stays
+    native FP64); gesvd adds the single-device SVD's stage 1 on the band
+    (8·KT − 7)."""
+    R = P * Q
+    la = lookahead * (KT - 1)
+    summa = R * (P * Q // math.gcd(P, Q)) * summa_steps
+    grp = 33 + 5 * nopiv_nodes(nb)
+    qr = KT * (11 * R + grp * Q)
+    lq = (KT - 1) * (11 * R + grp * P)
+    return {
+        "potrf_L": R * (19 * KT + la), "getrf": R * (5 * KT + la),
+        "potrf_U": 19 * R * KT, "trsm": 3 * R * KT, "potrs": 6 * R * KT,
+        "getrs": 6 * R * KT, "laswp": 0, "gemm_cyclic": R * KT,
+        "gemm_ex": summa, "herk": R * KT, "trmm": R * KT, "hemm": R * KT,
+        "her2k": 2 * R * KT, "lauum": R * KT, "trtri": 3 * R * KT,
+        "potri": 4 * R * KT, "geqrf": qr + 2 * R * la,
+        "herbt": (KT - 1) * (16 * R + grp * Q),
+        "heev": (KT - 1) * (16 * R + grp * Q),
+        "ge2gb": qr + lq, "gesvd": qr + lq + 8 * KT - 7,
+    }[op]
 
 
 def lu_bound_ms(M, nb):
@@ -6935,6 +7028,455 @@ def phase_live_instruments(torch, pk, pring, record, peaks_path):
     return launches_by
 
 
+# phase 21: the dd route under the process grid, the resilience layer
+# and tracecat
+N_DDC, NB_DDC = N_DD, NB_DD    # potrf_cyclic dd at dpotrf_f64equiv's size
+NB_DDC_LU = 256                # the dd LU passes -x at nb=256 (PERF.md)
+N_DDC_OPS, NB_DDC_OPS = 2048, 512   # the rest of the catalogue under dd
+#: dd vs native f64 of the catalogue's ops at N=2048, max|Δ| /
+#: max|native|: both are f64-accurate; the stage-1 reductions (herbt,
+#: ge2gb) carry their panels' rounding through every later step
+DDC_TOL = 1e-10
+N_REJ, NB_REJ = 4096, 512      # the reject plan's spotrf
+NRUNS_DDC = 3                  # potrf_cyclic dd: best of, after a warm-up
+
+#: the block-cyclic catalogue under dd: name -> call(lib, M) on the
+#: inputs ``M`` (the CyclicMatrix of each name, the LU factor F with its
+#: perm, the TileMatrix Gt and its SUMMA ``summa``); ``lib`` is the
+#: cyclic module of either package (tests/test_torch_cyclic_dd.py holds
+#: the port to the reference with it)
+DDC_OPS = {
+    "potrf_L": lambda lib, M: lib.potrf_cyclic(M["A"], "L"),
+    "potrf_U": lambda lib, M: lib.potrf_cyclic(M["U"], "U"),
+    "trsm": lambda lib, M: lib.trsm_cyclic(M["T"], M["B"]),
+    "potrs": lambda lib, M: lib.potrs_cyclic(M["L"], M["B"]),
+    "laswp": lambda lib, M: lib.laswp_cyclic(M["B"], M["perm"]),
+    "getrs": lambda lib, M: lib.getrs_cyclic(M["F"], M["perm"], M["B"]),
+    "gemm_cyclic": lambda lib, M: lib.gemm_cyclic(M["G"], M["T"]),
+    "gemm_ex": lambda lib, M: M["summa"](1.5, M["Gt"], M["Gt"], 0.5,
+                                         M["Gt"]),
+    "herk": lambda lib, M: lib.herk_cyclic(M["G"]),
+    "trmm": lambda lib, M: lib.trmm_cyclic(M["T"], M["G"]),
+    "hemm": lambda lib, M: lib.hemm_cyclic(M["A"], M["G"]),
+    "her2k": lambda lib, M: lib.her2k_cyclic(M["G"], M["T"]),
+    "lauum": lambda lib, M: lib.lauum_cyclic(M["L"]),
+    "trtri": lambda lib, M: lib.trtri_cyclic(M["L"]),
+    "potri": lambda lib, M: lib.potri_cyclic(M["L"]),
+    "geqrf": lambda lib, M: lib.geqrf_cyclic(M["G"]),
+    "herbt": lambda lib, M: lib.herbt_cyclic(M["A"]),
+    "heev": lambda lib, M: lib.heev_cyclic(M["A"]),
+    "ge2gb": lambda lib, M: lib.gebrd_ge2gb_cyclic(M["G"]),
+    "gesvd": lambda lib, M: lib.gesvd_cyclic(M["G"]),
+    "getrf": lambda lib, M: lib.getrf_cyclic(M["G"]),
+}
+
+#: the first --seed the derived plans are searched from (the drivers')
+SEED0 = 3872
+
+
+def flip_bits_above_floor(n):
+    """Bits of an f32 ``L_jj`` whose flip moves ``A_jj = L_jj²`` past
+    the ABFT probe's floor ``THRESHOLD·eps·N·max|A w|`` of spotrf's
+    plghe matrix (N on the diagonal, |off-diagonal| <= 1/2, so
+    max|A w| <= 1.5 N) for every ``L_jj`` the first tile can hold
+    (sqrt(N - 1) to sqrt(N + 1/2), the power of two between included),
+    and leave it in [1, 2^40]: finite, and the factor below it positive
+    definite. Returns (bits, floor)."""
+    import math
+    import torch
+    from dplasma_tpu_torch.ops.checks import THRESHOLD
+    from dplasma_tpu_torch.resilience import inject
+    floor = THRESHOLD * torch.finfo(torch.float32).eps * n * 1.5 * n
+    lo, hi = math.sqrt(n - 1), math.sqrt(n + 0.5)
+    vals = [float(v) for v in torch.linspace(lo, hi, 64)]
+    p2 = 2.0 ** math.floor(math.log2(hi))
+    if lo <= p2:
+        vals += [p2, math.nextafter(p2, 0.0)]
+    v = torch.tensor(vals, dtype=torch.float32)
+    bits = []
+    for bit in range(16, 32):
+        f = inject._bitflip(v, bit).double()
+        d = f * f - v.double() ** 2
+        if bool((f.isfinite() & (f >= 1) & (f <= 2.0 ** 40)
+                 & (d.abs() > floor)).all()):
+            bits.append(bit)
+    return bits, floor
+
+
+def silent_flip_seed(n, nb):
+    """The first --seed from SEED0 whose ``bitflip@potrf:1:1`` plan, in
+    spotrf's first tile factor (nb, nb) of an N-row matrix, flips a
+    diagonal entry at a bit of :func:`flip_bits_above_floor`: a finite,
+    silent fault that the ABFT probe must flag. Returns (seed, index,
+    bit)."""
+    import itertools
+    import torch
+    from dplasma_tpu_torch.resilience import inject
+    bits, _ = flip_bits_above_floor(n)
+    for seed in itertools.count(SEED0):
+        (i, j), bit = inject.bitflip_at(seed, "potrf", 0, (nb, nb),
+                                        torch.float32)
+        if i == j and bit in bits:
+            return seed, (i, j), bit
+
+
+def overflow_flip_seed(n, nb):
+    """The first --seed from SEED0 whose ``bitflip@gemm:1:1`` plan flips
+    bit 30, the top exponent bit, of an entry of spotrf's first
+    trailing-update product (n, nb) above the border rows: every such
+    product is below 2 in magnitude, so the flip multiplies it by
+    2^128, and the factor built on it overflows. Returns (seed, index,
+    bit)."""
+    import itertools
+    import torch
+    from dplasma_tpu_torch.resilience import inject
+    for seed in itertools.count(SEED0):
+        (i, j), bit = inject.bitflip_at(seed, "gemm", 0, (n, nb),
+                                        torch.float32)
+        if bit == 30 and i < n - nb:
+            return seed, (i, j), bit
+
+
+def _resilience(path):
+    with open(path) as f:
+        return json.load(f)["resilience"]
+
+
+def phase_dd_grid_resilience(torch, pk, pdd, dd, record):
+    """Phase 21 (module docstring): (a) the dd route under the 2x2 grid,
+    (b)-(d) the resilience layer on the card, (e) tracecat."""
+    from dplasma_tpu_torch.descriptors import Dist, TileMatrix
+    from dplasma_tpu_torch.drivers import common, main
+    from dplasma_tpu_torch.ops import checks, gemm, generators
+    from dplasma_tpu_torch.ops import potrf as potrf_mod
+    from dplasma_tpu_torch.parallel import cyclic, mesh
+    from dplasma_tpu_torch.resilience import guard
+    from dplasma_tpu_torch.tools import tracecat
+    from dplasma_tpu_torch.utils import config as cfg
+
+    P, Q = GRID
+    scratch = os.path.join(HERE, "build", "phase21")
+    os.makedirs(scratch, exist_ok=True)
+    always = {"dd_gemm": "always"}
+    la = cyclic._cyclic_lookahead()
+    out = {"k2": {}, "k1": {}, "k2_paths": {}}
+    res = {}
+    sec = {}
+    t_sec = time.perf_counter()
+
+    def ev_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return r, start.elapsed_time(end)
+
+    def best_ms(fn):
+        """One warm-up, then the best of NRUNS_DDC calls."""
+        fn()
+        runs = [ev_ms(fn) for _ in range(NRUNS_DDC)]
+        return runs[-1][0], min(t_ for _, t_ in runs)
+
+    # (a1) potrf_cyclic (L), f64 under dd_gemm=always, N=8192 nb=512, 2x2
+    kt = N_DDC // NB_DDC
+    A = generators.plghe(float(N_DDC), N_DDC, NB_DDC, seed=3872,
+                         dtype=torch.float64)
+    m = mesh.make_mesh(P, Q)
+    with mesh.use_grid(m):
+        C = cyclic.CyclicMatrix.from_tile(A, Dist(P=P, Q=Q))
+        _, native_ms = best_ms(lambda: cyclic.potrf_cyclic(C))
+        with cfg.override_scope(always):
+            # the warm-up records every limb product through the wrapper
+            # (each distinct shape held bitwise on its own operands)
+            seen = recorded_k2_products(torch, pdd,
+                                        lambda: cyclic.potrf_cyclic(C))
+            pdd.reset_counts()
+            pk.reset_counts()
+            runs_ms = []
+            for _ in range(NRUNS_DDC):
+                L, t_ = ev_ms(lambda: cyclic.potrf_cyclic(C))
+                runs_ms.append(t_)
+            best = min(runs_ms)
+            k2, unfused, k1 = pdd.LAUNCHES, pdd.UNFUSED, pk.LAUNCHES
+            single, single_ms = best_ms(lambda: potrf_mod.potrf(A, "L"))
+    _, native1_ms = best_ms(lambda: potrf_mod.potrf(A, "L"))
+    want = cyclic_k2_launches("potrf_L", P, Q, kt, la)
+    Lt = L.to_tile()
+    r_, ok = checks.check_potrf(A, Lt, "L")
+    got_l = torch.tril(Lt.to_dense())
+    want_l = torch.tril(single.to_dense())
+    diff = float((got_l - want_l).abs().max() / want_l.abs().max())
+    from dplasma_tpu_torch.utils import flops
+    gfl = flops.potrf(N_DDC, False) / 1e9 / (best / 1e3)
+    log(f"[potrf_cyclic_dd] N={N_DDC} nb={NB_DDC} grid {P}x{Q} dd_gemm="
+        f"always: best of {NRUNS_DDC} after a warm-up {best:.3f} ms "
+        f"(runs {[round(t_, 3) for t_ in runs_ms]}; {gfl:.1f} GFLOP/s "
+        f"LAWN-41), K2 {k2} launches in {NRUNS_DDC} calls (want {want} a "
+        f"call), unfused {unfused}, K1 {k1}; POTRF residual "
+        f"{float(r_):.3e}; max|L - L_single_dd| / max|L| {diff:.3e}; on "
+        f"this card, best of {NRUNS_DDC} after a warm-up: native FP64 "
+        f"potrf_cyclic {native_ms:.3f} ms, "
+        f"single-device dd potrf {single_ms:.3f} ms, native FP64 "
+        f"potrf {native1_ms:.3f} ms")
+    check(k2 == want * NRUNS_DDC and unfused == 0 and k1 == 0,
+          f"potrf_cyclic dd: K2 {k2} in {NRUNS_DDC} calls (want {want} a "
+          f"call), unfused {unfused}, K1 {k1}")
+    check(bool(ok) and float(r_) < 60, f"potrf_cyclic dd: check_potrf "
+                                       f"{float(r_)}")
+    check(diff <= DD_TOL, f"potrf_cyclic dd vs single-device dd: {diff}")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out["k2_paths"]["potrf_cyclic_dd"] = k2_path_sum(
+        torch, dd, pdd, g, "potrf_cyclic_dd", seen, N_DDC)
+    out["k2"]["potrf_cyclic_dd"] = k2
+    res["potrf_cyclic_dd"] = {
+        "N": N_DDC, "nb": NB_DDC, "grid": [P, Q], "ms": best,
+        "runs_ms": runs_ms, "gflops": gfl, "k2": k2,
+        "k2_want_per_call": want, "residual": float(r_),
+        "rel_diff_single_dd": diff,
+        "native_potrf_cyclic_ms": native_ms, "single_dd_ms": single_ms,
+        "native_single_ms": native1_ms}
+    del C, L, Lt, single, got_l, want_l, A
+    sec["potrf_cyclic_dd"] = time.perf_counter() - t_sec
+
+    # (a2) testing_dgetrf_ptgpanel under dd, nb=256, beside native FP64
+    t_sec = time.perf_counter()
+    argv = ["testing_dgetrf_ptgpanel", "-N", str(N_DDC), "-t",
+            str(NB_DDC_LU), "-p", str(P), "-q", str(Q), "-x"]
+    want = cyclic_k2_launches("getrf", P, Q, N_DDC // NB_DDC_LU, la)
+    ptg = dd_driver(torch, pdd, argv, always, 0, want, False)
+    ptg_native = dd_driver(torch, pdd, argv, {}, 0, 0, False)
+    out["k2"]["getrf_ptgpanel_dd"] = sum(ptg["k2_launches"])
+    res["getrf_ptgpanel_dd"] = {"dd": ptg, "native": ptg_native,
+                                "k2_want": want}
+    sec["getrf_ptgpanel_dd"] = time.perf_counter() - t_sec
+
+    # (a3) the rest of the catalogue under dd at N=2048, nb=512
+    t_sec = time.perf_counter()
+    n, nb = N_DDC_OPS, NB_DDC_OPS
+    kt = n // nb
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(r, c):
+        return torch.randn(r, c, generator=gen, device="cuda",
+                           dtype=torch.float64)
+    a0 = rnd(n, n)
+    spd = a0 @ a0.T + n * torch.eye(n, device="cuda", dtype=torch.float64)
+    dense = {"A": spd, "U": torch.triu(spd),
+             "L": torch.linalg.cholesky(spd),
+             "T": rnd(n, n) + 2 * n * torch.eye(n, device="cuda",
+                                                dtype=torch.float64),
+             "G": rnd(n, n), "B": rnd(n, nb)}
+    rows = {}
+    with mesh.use_grid(m):
+        M = {k: cyclic.CyclicMatrix.from_tile(
+            TileMatrix.from_dense(v, nb, nb), Dist(P=P, Q=Q))
+            for k, v in dense.items()}
+        M["F"], M["perm"] = cyclic.getrf_cyclic(M["G"])
+        M["Gt"] = TileMatrix.from_dense(dense["G"], nb, nb)
+        M["summa"] = gemm.gemm_ex
+        for op, fn in DDC_OPS.items():
+            if op in ("potrf_L", "getrf"):
+                continue            # (a1) and (a2), at full size
+            call = functools.partial(fn, cyclic, M)
+            # one call each, no warm-up (K2 is built, the shapes are
+            # the op's own): the times are first calls
+            want_o, nat_ms = ev_ms(call)
+            with cfg.override_scope(always):
+                pdd.reset_counts()
+                got_o, dd_ms = ev_ms(call)
+                k2o, unf = pdd.LAUNCHES, pdd.UNFUSED
+            err = 0.0
+            for gt, wt in zip(guard._leaves(got_o), guard._leaves(want_o)):
+                if gt.is_floating_point():
+                    err = max(err, float((gt - wt).abs().max()
+                                         / wt.abs().max().clamp_min(1e-300)))
+                else:
+                    check(torch.equal(gt, wt), f"{op} dd: integers differ")
+            wk = cyclic_k2_launches(op, P, Q, kt, la, nb=nb)
+            log(f"[cyclic_dd] {op:12s} N={n} nb={nb}: dd {dd_ms:9.3f} ms "
+                f"native {nat_ms:9.3f} ms, max rel diff {err:.3e}, K2 "
+                f"{k2o} (want {wk}), unfused {unf}")
+            check(k2o == wk and unf == 0, f"{op} dd: K2 {k2o} (want {wk}),"
+                                          f" unfused {unf}")
+            check(err <= DDC_TOL, f"{op} dd vs native: {err:.3e}")
+            rows[op] = {"dd_ms": dd_ms, "native_ms": nat_ms,
+                        "rel_diff": err, "k2": k2o}
+        del M
+    out["k2"]["cyclic_dd_ops"] = sum(r["k2"] for r in rows.values())
+    res["cyclic_dd_ops"] = {"N": n, "nb": nb, "ops": rows}
+    del dense, spd, a0
+    sec["cyclic_dd_ops"] = time.perf_counter() - t_sec
+
+    # (b) testing_spotrf -N 16384 -t 1024 --abft under three bitflip
+    # plans: the default seed's (logged), and two whose seeds are derived
+    # from the fault's size against the ABFT floor (gated)
+    t_sec = time.perf_counter()
+    pk.enable(True)
+    k1_primary = len(main_path_products(N_MAIN + NB_MAIN, NB_MAIN))
+    bits, floor = flip_bits_above_floor(N_MAIN)
+    o_seed, o_idx, o_bit = overflow_flip_seed(N_MAIN, NB_MAIN)
+    s_seed, s_idx, s_bit = silent_flip_seed(N_MAIN, NB_MAIN)
+    log(f"[spotrf_abft] ABFT probe floor at N={N_MAIN}: {floor:.1f} "
+        f"(60·eps·N·1.5N); L_jj bits whose flip passes it and stays "
+        f"finite: {bits}; derived seeds: gemm bit 30 --seed {o_seed} "
+        f"{o_idx}, potrf diagonal --seed {s_seed} {s_idx} bit {s_bit}")
+    cases = (("default", "gemm", SEED0, None),
+             ("overflow", "gemm", o_seed, (o_idx, "numerical")),
+             ("silent", "potrf", s_seed, (s_idx, "silent")))
+    abft_runs = {}
+    for key, stage, seed, want in cases:
+        rep = os.path.join(scratch, f"spotrf_abft_{key}.json")
+        common.RUNS.clear()
+        rc = main(["testing_spotrf", "-N", str(N_MAIN), "-t", str(NB_MAIN),
+                   "-x", "--abft", f"--inject=bitflip@{stage}:1:1",
+                   "--seed", str(seed), f"--report={rep}", "-v"])
+        torch.cuda.synchronize()
+        run = common.RUNS[-1]
+        op = run["ops"][0]
+        r = _resilience(rep)[0]
+        faults = r["injection"]["faults"]
+        acts = [(a["action"], a["ok"], a["classification"],
+                 bool((a["abft"] or {}).get("detected")))
+                for a in r["attempts"]]
+        log(f"[spotrf_abft] {key} bitflip@{stage} --seed {seed}: faults "
+            f"{faults}, attempts {acts}, outcome {r['outcome']}, K1 per "
+            f"attempt {[(a['action'], a['k1']) for a in op['attempts']]}, "
+            f"best {op['best_s']:.5f} s, checks " + ", ".join(
+                f"{c['check']}={c['residual']:.3e}" for c in run["checks"]))
+        check(rc == 0 and all(c["ok"] for c in run["checks"]),
+              f"spotrf --abft {key}: rc {rc}, {run['checks']}")
+        check(op["attempts"][0]["k1"] == [k1_primary] * len(
+            op["attempts"][0]["k1"]),
+              f"spotrf --abft {key}: primary K1 {op['attempts'][0]['k1']} "
+              f"(want {k1_primary} a run)")
+        if want is not None:
+            idx, cls = want
+            check([tuple(f["index"]) for f in faults] == [idx]
+                  and acts == [("primary", False, cls, True),
+                               ("retry", True, None, False)]
+                  and r["outcome"] == "remediated",
+                  f"spotrf --abft {key}: fault {faults} (want {idx}), the "
+                  f"ladder walked {acts} (want {cls}, flagged, healed on "
+                  f"the retry)")
+        abft_runs[key] = {"stage": stage, "seed": seed, "faults": faults,
+                          "attempts": acts, "outcome": r["outcome"],
+                          "best_s": op["best_s"],
+                          "k1_per_attempt": [a["k1"]
+                                             for a in op["attempts"]]}
+        out["k1"][f"spotrf_abft_{key}"] = sum(
+            sum(a["k1"]) for a in op["attempts"])
+    res["spotrf_abft"] = dict(abft_runs, k1_primary_want=k1_primary,
+                              floor=floor, bits=bits)
+    sec["spotrf_abft"] = time.perf_counter() - t_sec
+
+    # (c) testing_dpotrf -N 8192 -t 512 --abft under dd, no plan
+    t_sec = time.perf_counter()
+    rep = os.path.join(scratch, "dpotrf_dd_abft.json")
+    k2_aug = len(dd_k2_shapes(N_DD + NB_DD, NB_DD))
+    plain = dd_driver(torch, pdd, ["testing_dpotrf", "-N", str(N_DD), "-t",
+                                   str(NB_DD)], always, 0,
+                      len(dd_k2_shapes(N_DD, NB_DD)), False)
+    ab = dd_driver(torch, pdd, ["testing_dpotrf", "-N", str(N_DD), "-t",
+                                str(NB_DD), "-x", "--abft",
+                                f"--report={rep}"], always, 0, k2_aug,
+                   False)
+    r = _resilience(rep)[0]
+    log(f"[dpotrf_dd_abft] N={N_DD} nb={NB_DD} --abft, no plan: attempts "
+        f"{[(a['action'], a['ok']) for a in r['attempts']]}, outcome "
+        f"{r['outcome']}, faults detected {r['faults_detected']}; best "
+        f"{ab['best_s']:.5f} s beside plain dd {plain['best_s']:.5f} s "
+        f"(K2 per run {ab['k2_launches']} on the {N_DD + NB_DD}-row "
+        f"bordered matrix, {plain['k2_launches']} plain)")
+    check(len(r["attempts"]) == 1 and r["attempts"][0]["action"] ==
+          "primary" and r["attempts"][0]["ok"] and r["outcome"] == "clean"
+          and r["faults_detected"] == 0,
+          f"dpotrf dd --abft took a rung on a clean run: {r}")
+    out["k2"]["dpotrf_dd_abft"] = sum(ab["k2_launches"]) + sum(
+        plain["k2_launches"])
+    res["dpotrf_dd_abft"] = {"abft": ab, "plain": plain,
+                             "outcome": r["outcome"]}
+    sec["dpotrf_dd_abft"] = time.perf_counter() - t_sec
+
+    # (d) a reject@potrf:1:1 plan walks to the kernel-fallback rung,
+    # which the driver's close undoes; a K1 launch that fails under
+    # --abft is no ladder class and fails the run
+    t_sec = time.perf_counter()
+    rep = os.path.join(scratch, "spotrf_reject.json")
+    common.RUNS.clear()
+    try:
+        rc = main(["testing_spotrf", "-N", str(N_REJ), "-t", str(NB_REJ),
+                   "-x", "--inject=reject@potrf:1:1", f"--report={rep}",
+                   "-v"])
+        torch.cuda.synchronize()
+        after = (pk.enabled(), cfg.mca_snapshot().get("panel.kernel"))
+    finally:
+        pk.enable(True)
+        cfg.mca_unset("panel.kernel")
+    run = common.RUNS[-1]
+    op = run["ops"][0]
+    r = _resilience(rep)[0]
+    acts = [(a["action"], a["ok"], a["classification"])
+            for a in r["attempts"]]
+    log(f"[spotrf_reject] N={N_REJ} nb={NB_REJ} reject@potrf:1:1: "
+        f"attempts {acts}, outcome {r['outcome']}, winner {r['winner']}, "
+        f"K1 per run of the surviving attempt {op['k1_launches']}; after "
+        f"the driver closed: K1 enabled, panel.kernel = {after}")
+    check(rc == 0 and all(c["ok"] for c in run["checks"]),
+          f"spotrf reject: rc {rc}, {run['checks']}")
+    check(acts == [("primary", False, "compile"),
+                   ("kernel_fallback", True, None)]
+          and r["outcome"] == "remediated"
+          and [a["action"] for a in op["attempts"]] == ["kernel_fallback"]
+          and not any(op["k1_launches"]) and after == (True, None),
+          f"spotrf reject: the ladder walked {acts}, K1 "
+          f"{op['k1_launches']}, after the close {after}")
+    real_kernel = pk._kernel
+    pk._kernel = lambda: (lambda args: 700)     # cudaErrorIllegalAddress
+    try:
+        main(["testing_spotrf", "-N", str(N_REJ), "-t", str(NB_REJ), "-x",
+              "--abft"])
+        err = None
+    except RuntimeError as exc:
+        err = str(exc)
+    finally:
+        pk._kernel = real_kernel
+    log(f"[spotrf_k1_fails] --abft with K1's launch failing: raised "
+        f"{err!r}; K1 enabled after {pk.enabled()}")
+    check(err is not None and "launch failed: cudaError 700" in err
+          and pk.enabled() and cfg.mca_get("panel.kernel") != "chain",
+          f"spotrf --abft with a failing K1: raised {err!r}, K1 "
+          f"{pk.enabled()}")
+    res["spotrf_reject"] = {"attempts": acts, "outcome": r["outcome"],
+                            "k1_failure_raised": err}
+    sec["spotrf_reject"] = time.perf_counter() - t_sec
+
+    # (e) tracecat on phase 19's DTPUPROF1 file
+    t_sec = time.perf_counter()
+    prof = os.path.join(HERE, "build", "phase19", "spotrf.prof")
+    doc = tracecat.convert(prof)
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    merged = tracecat.merge(
+        [prof], phases=[os.path.join(HERE, "build", "phase19",
+                                     "spotrf.json")])
+    with open(os.path.join(scratch, "spotrf.trace.json"), "w") as f:
+        json.dump(merged, f)
+    phase_rows = [e for e in merged["traceEvents"]
+                  if e["ph"] == "X" and e.get("cat") == "phase"]
+    log(f"[tracecat] {prof}: {len(spans)} spans "
+        f"({sorted({e['name'].split(':')[0] for e in spans})}), merged "
+        f"with its report's phase table: {len(phase_rows)} phase rows")
+    check(spans and any(e["name"].startswith("run[") for e in spans)
+          and phase_rows, "tracecat: no run spans or phase rows")
+    sec["tracecat"] = time.perf_counter() - t_sec
+
+    log("[phase21] section seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sec.items()))
+    record["phase21"] = dict(res, section_s=sec)
+    return out
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -7046,6 +7588,7 @@ def main() -> int:
     live = phase_live_instruments(
         torch, pk, pring, record,
         os.path.join(HERE, "build", "phase19", "peaks.json"))
+    p21 = phase_dd_grid_resilience(torch, pk, pdd, dd, record)
     for k in ("kw", "kt"):
         eigr[f"{k}_launches"] += eig18[k]
     eigr["kw_steps"] += eig18["kw_steps"]
@@ -7098,7 +7641,7 @@ def main() -> int:
                       + sum(k1inv_by.values()) + sum(k1cx_by.values())
                       + sum(k1hq_by.values()) + sum(eigr["k1_by"].values())
                       + sum(k1lm_by.values()) + sum(k1cy_by.values())
-                      + inst["k1"] + live["k1"]),
+                      + inst["k1"] + live["k1"] + sum(p21["k1"].values())),
          "launches_by_path": dict({"spotrf": k1_spotrf, "sgetrf": k1_sgetrf,
                                    "sgeqrf": k1_sgeqrf,
                                    "sgetrf_ptgpanel": k1_gt,
@@ -7107,7 +7650,7 @@ def main() -> int:
                                   **ir["k1"], **k1inv_by, **k1cx_by,
                                   **k1hq_by, **eigr["k1_by"], **k1lm_by,
                                   **k1cy_by, instruments=inst["k1"],
-                                  live_instruments=live["k1"]),
+                                  live_instruments=live["k1"], **p21["k1"]),
          "max_abs_err": max([k1tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k1cyc.values()]
                             + [t["max_abs_err"] for t in k1luqr.values()]
@@ -7126,15 +7669,18 @@ def main() -> int:
          "launches": (k2_dpotrf + k2_dgemm + sum(ddf["k2"].values())
                       + sum(ir["k2"].values()) + sum(k2inv_by.values())
                       + sum(k2cx_by.values()) + sum(k2hq_by.values())
-                      + sum(eigr["k2_by"].values()) + inst["k2"]),
+                      + sum(eigr["k2_by"].values()) + inst["k2"]
+                      + sum(p21["k2"].values())),
          "launches_by_path": dict({"dpotrf_dd": k2_dpotrf,
                                    "dgemm_dd": k2_dgemm}, **ddf["k2"],
                                   **ir["k2"], **k2inv_by, **k2cx_by,
                                   **k2hq_by, **eigr["k2_by"],
-                                  instruments=inst["k2"]),
+                                  instruments=inst["k2"], **p21["k2"]),
          "max_abs_err": max([k2tot["max_abs_err"]]
                             + [t["max_abs_err"] for t in k2cx.values()]
-                            + [t["max_abs_err"] for t in k2hq.values()]),
+                            + [t["max_abs_err"] for t in k2hq.values()]
+                            + [t["max_abs_err"]
+                               for t in p21["k2_paths"].values()]),
          "ms": k2tot["ms"], "plain_ms": k2tot["plain_ms"],
          "bound_ms": k2tot["bound_ms"], "bound_by": k2tot["bound_by"],
          "library_ms": k2tot["library_ms"],
@@ -7149,7 +7695,8 @@ def main() -> int:
                                                       *k2ir.items(),
                                                       *k2inv.items(),
                                                       *k2cx.items(),
-                                                      *k2hq.items())}},
+                                                      *k2hq.items(),
+                                                      *p21["k2_paths"].items())}},
         {"name": "k3_lu_panel", "route": "cuda",
          "source": "dplasma_tpu_torch/kernels/csrc/lu_panel.cu",
          "replaces": "dplasma_tpu/kernels/pallas_lu.py:121",
@@ -7307,7 +7854,17 @@ def main() -> int:
         f"call under a ledger; phase 20: K1's and K5's launches_by_path "
         f"live_instruments count its spotrf and sgetrf_ptgpanel driver runs "
         f"(plain and with --devprof --telemetry: warm-up, timed run, -x "
-        f"check)")
+        f"check); phase 21 (grid {GRID[0]}x{GRID[1]}, dd_gemm=always): "
+        f"K2's by_path potrf_cyclic_dd (N={N_DDC}, nb={NB_DDC}) each "
+        f"distinct limb product of one call, recorded through the wrapper, "
+        f"held bitwise and timed times its count; its launches_by_path "
+        f"potrf_cyclic_dd its {NRUNS_DDC} timed calls, getrf_ptgpanel_dd "
+        f"the driver's timed run (nb={NB_DDC_LU}), cyclic_dd_ops the other "
+        f"ops' one call each (N={N_DDC_OPS}, nb={NB_DDC_OPS}), "
+        f"dpotrf_dd_abft the plain and --abft dd dpotrf timed runs; K1's "
+        f"spotrf_abft_<case> every run of every attempt of the --abft "
+        f"--inject=bitflip spotrf runs (default, overflow, silent; the "
+        f"primary on the {N_MAIN + NB_MAIN}-row bordered matrix)")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
     log(smi)
     log(json.dumps(kernels))

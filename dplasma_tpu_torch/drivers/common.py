@@ -52,10 +52,30 @@ synthetic timeline elsewhere; MCA ``devprof.backend``) and attributes
 it into the ``"devprof"`` section; a failed attribution is a flight
 event and a line on stderr, never a failed run. Every ``--report`` is
 stamped with its provenance.
+
+Resilience (common.py:1115-1350, :1554-1596, :1695-1698): ``--inject``
+(or env ``DPLASMA_INJECT``) arms a fault plan
+(:mod:`~dplasma_tpu_torch.resilience.inject`) on each execution of the
+first attempt, ``--abft`` puts the gemm, potrf, getrf and getrf_nopiv
+testers on their checksum-carried variants, ``--run-timeout`` sets the
+watchdog of the timed loop. With any of them the run is guarded: after
+the timed loop a health scan and the op's ABFT verification gate the
+output, and a failed attempt walks the ladder
+(:mod:`~dplasma_tpu_torch.resilience.guard`: retry within
+``--max-retries``, kernel fallback, the body's algorithm fallbacks),
+each rung re-running the op. An injected ``reject`` raised by an
+attempt is the reference's ``compile`` class (its trace-time failure);
+any other exception fails the run. The kernel-fallback rung is taken
+only after an injected fault, and :meth:`Driver.close` undoes it. The
+report's
+``"resilience"`` section, the ``resilience_*`` counters and the
+telemetry flight events record every attempt; :attr:`Driver.winner`
+names the function whose output ``progress`` returns.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -138,6 +158,11 @@ class IParam:
     phase_profile: bool = False
     devprof: bool = False            # device timeline attribution (v14)
     peaks_file: Optional[str] = None
+    # resilience (--abft/--inject/--max-retries/--run-timeout)
+    abft: bool = False               # checksum-carried op variants
+    inject: Optional[str] = None     # fault plan KIND@STAGE[:RATE[:COUNT]]
+    max_retries: int = 2             # the ladder's retry budget
+    run_timeout: float = 0.0         # watchdog on the timed loop (s)
     prec: str = "d"
 
     @property
@@ -205,16 +230,30 @@ Optional arguments:
                      section, or a raw dict: mxu_gflops, hbm_gbps,
                      ici_gbps, host_gbps, latency_us and the probed
                      per-type rates); default: conservative built-ins
+ --abft            : checksum-carried (ABFT) op variants where
+                     available (gemm/potrf/getrf/getrf_nopiv): detect
+                     and locate a corrupted tile in O(n^2), correct it
+                     for GEMM
+ --inject=SPEC     : deterministic fault injection,
+                     SPEC = KIND@STAGE[:RATE[:COUNT]] with KIND in
+                     bitflip|nan|inf|zero|delay|reject and STAGE a kernel
+                     stage (gemm/trsm/potrf/getrf/any); seeded by --seed
+ --max-retries     : retry-rung budget of the remediation ladder
+                     (default: 2; the kernel/algorithm fallback rungs
+                     are one-shot and not counted)
+ --run-timeout     : watchdog limit (seconds) on the timed loop;
+                     overruns classify as timeout for the ladder
  -v --verbose[=n]  : verbosity ladder
  -h --help         : this message
 Not ported yet (a usage error names the ROADMAP queue 1 item):
  --dot --dagcheck --spmdcheck --hlocheck --memcheck (item 15),
- --autotune (item 9b), --abft --inject --max-retries --run-timeout
- (item 13).
+ --autotune (item 9b).
 MCA knobs come from the environment, DPLASMA_MCA_<NAME> (dots as
 underscores): DPLASMA_MCA_DD_GEMM=always puts the d-precision drivers
 on the f64-equivalent limb route; DPLASMA_MCA_IR_PRECISION=int8|bf16|
 f32|f32x2 picks the working precision of posv_ir, gesv_ir and gels_ir.
+ENVIRONMENT
+  DPLASMA_INJECT   : default fault plan when --inject is not given
 """
 
 
@@ -250,6 +289,9 @@ _LONG = {
     "phase-profile": ("phase_profile", None),
     "devprof": ("devprof", None),
     "peaks-file": ("peaks_file", str),
+    "abft": ("abft", None), "inject": ("inject", str),
+    "max-retries": ("max_retries", _int),
+    "run-timeout": ("run_timeout", float),
 }
 
 #: "--name[=value]" options whose value is optional -> (field, default)
@@ -265,9 +307,6 @@ _DEFERRED = {
     "hlocheck": "ROADMAP queue 1 item 15",
     "memcheck": "ROADMAP queue 1 item 15",
     "autotune": "ROADMAP queue 1 item 9b",
-    "abft": "ROADMAP queue 1 item 13", "inject": "ROADMAP queue 1 item 13",
-    "max-retries": "ROADMAP queue 1 item 13",
-    "run-timeout": "ROADMAP queue 1 item 13",
 }
 
 _SHORT = {
@@ -428,6 +467,9 @@ class Driver:
         self.ip = ip
         self.name = name
         self.check_failures = 0
+        # the function whose output the last progress() returned: the
+        # primary's name or a ladder fallback's label
+        self.winner = name
         if ip.P < 1 or ip.Q < 1:
             raise SystemExit(f"invalid grid {ip.P}x{ip.Q}")
         self.device = resolve_device(ip.device)
@@ -459,6 +501,7 @@ class Driver:
         self._peaks_cache = None
         self._pipe_printed = False
         self._frames = []
+        self._ladders = []
         self._grid = None
         if self.mesh is not None:
             self._grid = _pmesh.use_grid(self.mesh)
@@ -496,6 +539,11 @@ class Driver:
                       f" ({dt})")
 
     def close(self):
+        # the kernel-fallback rungs first: they write over the frames'
+        # MCA keys
+        for ladder in reversed(self._ladders):
+            ladder.restore()
+        self._ladders = []
         for frame in reversed(self._frames):
             _cfg.pop_overrides(frame)
         self._frames = []
@@ -661,25 +709,12 @@ class Driver:
                     relation=entry["reconciliation"]["relation"])
         return entry
 
-    def progress(self, fn: Callable, args: tuple, flops: float,
-                 label: Optional[str] = None):
-        """Warm up, run ``nruns`` timed, print the reference-format perf
-        line; every harness phase lands in ``self.prof`` and one op
-        entry in ``self.report``. Returns (output, gflops)."""
-        ip, name = self.ip, label or self.name
-        if ip.loud >= 2 and not self._pipe_printed:
-            self._pipe_printed = True
-            print("#+ pipeline: sweep.lookahead=%d qr.agg_depth=%d "
-                  "panel.qr=%s panel.lu=%s"
-                  % (self.pipeline["sweep.lookahead"],
-                     self.pipeline["qr.agg_depth"],
-                     self.pipeline["panel.qr"], self.pipeline["panel.lu"]))
-        tel = self.telemetry
-        if tel is not None:
-            tel.flight.record("op_start", op=name, flops=flops)
-        # ENQ: nothing traces or compiles here, the span is empty
-        t = time.time_ns()
-        self.prof.add_event(f"enq:{name}", t, t)
+    def _attempt(self, fn: Callable, args: tuple, name: str, flops: float,
+                 wd):
+        """Warm-up and timed loop of one attempt (under the watchdog
+        ``wd`` when there is one): (output, warm-up seconds, run times,
+        {label: launches per run}, KW steps per run, devprof capture)."""
+        ip = self.ip
         warm = None
         if ip.warmup:
             with self.prof.span(f"warmup:{name}"):
@@ -697,7 +732,8 @@ class Driver:
             from dplasma_tpu_torch.observability import devprof as _dp
             dp_cap = _dp.DevprofCapture(device=self.device,
                                         grid=(ip.P, ip.Q))
-        with trace_cm, (dp_cap or contextlib.nullcontext()):
+        with trace_cm, (dp_cap or contextlib.nullcontext()), \
+                (wd or contextlib.nullcontext()):
             for i in range(max(ip.nruns, 1)):
                 with self.prof.span(f"run[{i}]:{name}", flops=flops,
                                     track=self.prof.TRACK_RUN), \
@@ -708,6 +744,123 @@ class Driver:
                 for lab in launches:
                     launches[lab].append(n[lab])
                 kw_steps.append(n["kw_steps"])
+        return out, warm, times, launches, kw_steps, dp_cap
+
+    def progress(self, fn: Callable, args: tuple, flops: float,
+                 label: Optional[str] = None, verify_fn: Callable = None,
+                 fallbacks=()):
+        """Warm up, run ``nruns`` timed, print the reference-format perf
+        line; every harness phase lands in ``self.prof`` and one op
+        entry in ``self.report``. Returns (output, gflops).
+
+        Under a resilience flag the attempt is guarded (module
+        docstring): the armed plan corrupts each execution of the first
+        attempt; a health scan and ``verify_fn`` (the op's ABFT
+        verification, which may return a corrected output) gate it; a
+        failed attempt walks the ladder, each rung re-running the op
+        (``fallbacks``: the body's ``(label, fn)`` alternates). Stats
+        and the perf line come from the surviving attempt; ``self.winner``
+        names its function."""
+        from dplasma_tpu_torch.resilience import guard
+        from dplasma_tpu_torch.resilience import inject as rinject
+        ip, name = self.ip, label or self.name
+        if ip.loud >= 2 and not self._pipe_printed:
+            self._pipe_printed = True
+            print("#+ pipeline: sweep.lookahead=%d qr.agg_depth=%d "
+                  "panel.qr=%s panel.lu=%s"
+                  % (self.pipeline["sweep.lookahead"],
+                     self.pipeline["qr.agg_depth"],
+                     self.pipeline["panel.qr"], self.pipeline["panel.lu"]))
+        tel = self.telemetry
+        if tel is not None:
+            tel.flight.record("op_start", op=name, flops=flops)
+        # ENQ: nothing traces or compiles here, the span is empty
+        t = time.time_ns()
+        self.prof.add_event(f"enq:{name}", t, t)
+        resil = guard.enabled(ip)
+        ladder = guard.Ladder(ip, name, fallbacks) if resil else None
+        if ladder is not None:
+            self._ladders.append(ladder)   # close() undoes its demotion
+        plan = (rinject.parse_plan(ip.inject, seed=ip.seed)
+                if resil and ip.inject else None)
+        injection = {"plan": plan.spec(), "faults": []} if plan else None
+        cur_fn, cur_label = fn, name
+        action = guard.ACTION_PRIMARY
+        attempt_launches = []
+        while True:
+            t0 = time.perf_counter()
+            armed = plan is not None and action == guard.ACTION_PRIMARY
+            run_fn, fired = cur_fn, []
+            if armed:
+                # each execution of the first attempt carries the same
+                # faults, as each run of the reference's compiled
+                # executable does
+                def run_fn(*a, _f=cur_fn):
+                    rinject.arm(plan)
+                    try:
+                        return _f(*a)
+                    finally:
+                        fired[:] = rinject.disarm()
+            wd = guard.Watchdog(ip.run_timeout, name) if resil else None
+            try:
+                out, warm, times, launches, kw_steps, dp_cap = \
+                    self._attempt(run_fn, args, name, flops, wd)
+            except rinject.InjectedReject as exc:
+                # the reference's trace-time failure: its faults never
+                # ran to an output, so they are not reported. Any other
+                # exception (a kernel that fails to build or launch)
+                # fails the run.
+                if ladder is None:
+                    raise
+                ladder.record(action, cur_label, ok=False,
+                              classification=guard.CLASS_COMPILE,
+                              error=repr(exc),
+                              elapsed_s=time.perf_counter() - t0)
+                nxt = ladder.advance(guard.CLASS_COMPILE, bool(fired))
+                if nxt is None:
+                    self._finish_resilience(ladder, injection)
+                    raise
+                action, cur_label, nfn = nxt
+                cur_fn = nfn or cur_fn
+                continue
+            if armed:
+                injection["faults"].extend(fired)
+            attempt_launches.append({"action": action, "label": cur_label,
+                                     **launches})
+            if not resil:
+                break
+            # the post-run gate: non-finite census + the op's ABFT
+            # verification (which may hand back a corrected output);
+            # an algorithm fallback returns its own plain contract
+            health = guard.health_scan(out)
+            ok = health["ok"]
+            verify_rep = None
+            if verify_fn is not None \
+                    and action != guard.ACTION_ALGO_FALLBACK:
+                out, verify_rep = verify_fn(out)
+                ok = ok and verify_rep.get("ok", True)
+            timed_out = wd.timed_out
+            ok = ok and not timed_out
+            if ok:
+                ladder.record(action, cur_label, True, health=health,
+                              abft=verify_rep, elapsed_s=sum(times))
+                ladder.winner = cur_label
+                break
+            cls = ladder.classify(health, verify_rep, timed_out)
+            ladder.record(action, cur_label, False, classification=cls,
+                          health=health, abft=verify_rep,
+                          elapsed_s=sum(times))
+            nxt = ladder.advance(cls, bool(fired))
+            if nxt is None:
+                # ladder exhausted: keep the last output (the -x check
+                # and the exit code report the failure)
+                ladder.winner = cur_label
+                break
+            action, cur_label, nfn = nxt
+            cur_fn = nfn or cur_fn
+        if resil:
+            self._finish_resilience(ladder, injection)
+        fn = cur_fn
         best = min(times)
         if dp_cap is not None:
             dp_cap.select(times.index(best))
@@ -770,7 +923,8 @@ class Driver:
             "best_s": best, "gflops": gflops,
             **{f"{lab}_launches": n for lab, n in launches.items()},
             "kw_steps": kw_steps, "phases": phase_info,
-            "roofline": rl_entry, "devprof": dp_entry})
+            "roofline": rl_entry, "devprof": dp_entry,
+            "attempts": attempt_launches})
         if ip.loud >= 2:
             print(f"#+ kernels[{name}]: " + ", ".join(
                 f"{lab.upper()} launches per run = {n}"
@@ -830,6 +984,50 @@ class Driver:
         sys.stdout.flush()
         return out, gflops
 
+    def _finish_resilience(self, ladder, injection):
+        """Fold one progress() call's ladder walk into the run-report
+        (``"resilience"`` section), the metrics, the flight recorder and
+        the -v >= 2 lines."""
+        from dplasma_tpu_torch.resilience import guard
+        summary = ladder.summary(injection)
+        self.winner = ladder.winner
+        self.report.add_resilience(summary)
+        tel = self.telemetry
+        if tel is not None:
+            for f in (injection or {}).get("faults") or []:
+                tel.flight.record("inject", op=ladder.name, fault=f)
+            for a in summary["attempts"]:
+                tel.flight.record(
+                    "ladder", op=ladder.name, action=a["action"],
+                    label=a["label"], ok=a["ok"],
+                    classification=a["classification"])
+            tel.flight.record("remediation", op=ladder.name,
+                              outcome=summary["outcome"],
+                              winner=summary["winner"])
+            if summary["outcome"] != "clean":
+                # a walked ladder dumps its evidence to disk (MCA
+                # telemetry.flight_path)
+                path = tel.flight_dump_path()
+                if path:
+                    tel.flight.dump(path)
+        reg = self.report.metrics
+        lbl = dict(op=ladder.name, prec=self.ip.prec)
+        reg.counter("resilience_attempts_total", **lbl).inc(
+            len(ladder.attempts))
+        reg.counter("resilience_faults_total", **lbl).inc(
+            summary["faults_detected"])
+        if injection:
+            reg.counter("resilience_injected_total", **lbl).inc(
+                len(injection["faults"]))
+        ip = self.ip
+        noteworthy = summary["outcome"] != "clean" \
+            or summary["faults_detected"] \
+            or (injection and injection["faults"])
+        if ip.loud >= 3 or (ip.loud >= 2 and noteworthy):
+            for line in guard.format_lines(summary):
+                print(line)
+            sys.stdout.flush()
+
     def report_refine(self, summary: dict) -> dict:
         """Record one mixed-precision IR solve (``ops.refine.summarize``)
         in the record's and the run-report's ``"refine"`` lists and the
@@ -886,6 +1084,16 @@ def run_driver(name: str, body: Callable[[Driver], int],
     if ip.N <= 0:
         sys.stderr.write("missing matrix dimension (-N)\n" + _USAGE)
         return 2
+    if ip.inject is None:
+        # the env tier of the fault plan (ambient; the CLI wins)
+        ip.inject = os.environ.get("DPLASMA_INJECT") or None
+    if ip.inject:
+        from dplasma_tpu_torch.resilience import inject as _rinject
+        try:
+            _rinject.parse_plan(ip.inject, seed=ip.seed)
+        except ValueError as exc:
+            sys.stderr.write(f"bad --inject spec: {exc}\n")
+            return 2
     drv = Driver(ip, base)
     try:
         ret = body(drv) or 0

@@ -2,7 +2,8 @@
 ``gemm``, ``symm``, ``hemm``, ``syrk``, ``herk``, ``syr2k``, ``her2k``,
 ``trmm`` and ``trsm``; the Cholesky family ``potrf``, ``potrs``,
 ``posv``, ``potri``, ``poinv``, ``trtri`` and ``lauum``; ``getrf`` (=
-``getrf_1d``), ``gesv``, ``getrf_ptgpanel`` (the distributed panel
+``getrf_1d``), ``getrf_nopiv`` (its ladder escalating to the
+butterfly and the LU/QR hybrid), ``gesv``, ``getrf_ptgpanel`` (the distributed panel
 under ``-p P -q Q``), ``getrf_incpiv``, ``gesv_incpiv`` and
 ``getrf_qrf`` (``--criteria`` and ``-a/--alpha``); the QR family
 ``geqrf``, ``gelqf``, ``ungqr``, ``unglq``, ``unmqr``, ``unmlq`` and
@@ -14,7 +15,8 @@ and the tree checker ``pivgen``; the LDLᴴ and butterfly solvers
 ``heev``, ``hetrd``, ``gesvd``, ``gebrd`` and its stages ``hbrdt`` and
 ``gebrd_ge2gb``; the mixed-precision IR
 solvers ``posv_ir``, ``gesv_ir`` and ``gels_ir`` (working precision
-from MCA ``ir.precision``); the norms ``lange``, ``lanhe``, ``lansy``,
+from MCA ``ir.precision``; their ladder's fallback rung is the
+full-precision solve); the norms ``lange``, ``lanhe``, ``lansy``,
 ``lantr``, ``lanm2`` and the aux ops ``geadd``, ``tradd``, ``print``;
 the insert-task (DTD) runtime paths ``potrf_dtd``, ``potrf_dtd_untied``,
 ``gemm_dtd``, ``geqrf_dtd``, ``geqrf_dtd_untied`` and
@@ -28,12 +30,13 @@ only, as in the reference) runs in all four precisions s, d, c and z.
 
 Ports ``dplasma_tpu/drivers/testers.py`` (:24, :31-41, :68-287,
 :290-381, :395-450, :454-455, :510-607, :609-713, :771-798,
-:720-768, :801-868, :871-930, :932-975, :980-1067; the IR drivers
-without the autopilot and the ladder's fallback rung, whose escape the
-solvers' own escalation already takes): seeded generation → timed run
-with the GFLOPS print → optional ``-x`` residual verification against
-the regenerated input, with the reference's flop counts and
-thresholds.
+:720-768, :801-868, :871-930, :932-975, :980-1067, :458-490; the IR
+drivers without the autopilot, ROADMAP queue 1 item 9b): seeded
+generation → timed run with the GFLOPS print → optional ``-x``
+residual verification against the regenerated input, with the
+reference's flop counts and thresholds. ``--abft`` puts gemm, potrf,
+getrf and getrf_nopiv on their checksum-carried variants
+(``resilience.abft``), verified after each attempt.
 """
 from __future__ import annotations
 
@@ -69,9 +72,18 @@ def gemm(drv: Driver):
     B = _gen(drv, ip.K, ip.N, 1)
     C = _gen(drv, ip.M, ip.N, 2)
     alpha, beta = (0.51, -0.42)
+    fn = lambda a, b, c: blas3.gemm(alpha, a, b, beta, c)  # noqa: E731
+    verify = None
+    if ip.abft:
+        from dplasma_tpu_torch.resilience import abft as _abft
+        fn = lambda a, b, c: _abft.gemm_checksummed(  # noqa: E731
+            alpha, a, b, beta, c)
+        verify = lambda out: _abft.gemm_verify(  # noqa: E731
+            out, alpha, A, B, beta, C)
     out, _ = drv.progress(
-        lambda a, b, c: blas3.gemm(alpha, a, b, beta, c), (A, B, C),
-        lawn41.gemm(ip.M, ip.N, ip.K, ip.prec_dtype.is_complex))
+        fn, (A, B, C),
+        lawn41.gemm(ip.M, ip.N, ip.K, ip.prec_dtype.is_complex),
+        verify_fn=verify)
     if ip.check:
         ref = alpha * (A.to_dense() @ B.to_dense()) + beta * C.to_dense()
         got = out.to_dense()
@@ -165,8 +177,15 @@ def potrf(drv: Driver):
     ip = drv.ip
     A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
     hnb = max(ip.HNB, 0)  # -z/--HNB: recursive diagonal-tile variant
-    L, _ = drv.progress(lambda a: potrf_mod.potrf_rec(a, "L", hnb), (A0,),
-                        lawn41.potrf(ip.N, ip.prec_dtype.is_complex))
+    fn = lambda a: potrf_mod.potrf_rec(a, "L", hnb)  # noqa: E731
+    verify = None
+    if ip.abft:
+        from dplasma_tpu_torch.resilience import abft as _abft
+        fn = lambda a: _abft.potrf_checksummed(a, "L", hnb)  # noqa: E731
+        verify = lambda out: _abft.potrf_verify(out, A0, "L")  # noqa: E731
+    L, _ = drv.progress(fn, (A0,),
+                        lawn41.potrf(ip.N, ip.prec_dtype.is_complex),
+                        verify_fn=verify)
     ret = 0
     if ip.check:
         r, ok = checks.check_potrf(A0, L, "L")
@@ -247,13 +266,71 @@ def lauum(drv: Driver):
     return 0
 
 
+def _lu_flops(ip):
+    return lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex)
+
+
+def getrf_nopiv(drv: Driver):
+    """testing_?getrf_nopiv: LU without pivoting of a diagonally
+    dominant matrix. The ladder's algorithm escalation (a failed attempt
+    only): RBT-preconditioned nopiv, then the LU/QR hybrid by
+    ``--criteria``; the -x check follows the winner's contract."""
+    ip = drv.ip
+    A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
+    depth = max(ip.butterfly_level, 2)
+    crit = CRITERIA.get(ip.criteria, "higham_sum")
+    qalpha = ip.alpha if ip.alpha > 0 else 100.0
+    fn = lu.getrf_nopiv
+    verify = None
+    if ip.abft:
+        from dplasma_tpu_torch.resilience import abft as _abft
+        fn = _abft.getrf_nopiv_checksummed
+        verify = lambda out: _abft.getrf_nopiv_verify(out, A0)  # noqa: E731
+    fallbacks = [
+        ("getrf_rbt", lambda a: lu.getrf_nopiv(
+            rbt.hebut(a, seed=ip.seed, depth=depth))),
+        ("getrf_qrf", lambda a: lu.getrf_qrf(
+            a, criterion=crit, alpha=qalpha)),
+    ]
+    out, _ = drv.progress(fn, (A0,), _lu_flops(ip), verify_fn=verify,
+                          fallbacks=fallbacks)
+    if ip.check:
+        B = _gen(drv, ip.N, ip.K, 1)
+        if drv.winner == "getrf_qrf":
+            LU, Tm, lu_tab = out
+            X = lu.getrs_qrf(LU, Tm, lu_tab, B)
+            return drv.report_check("GETRF_QRF |b-Ax|",
+                                    *checks.check_axmb(A0, B, X))
+        if drv.winner == "getrf_rbt":
+            # the factor is of the butterflied Ã = Uᵀ A U:
+            # x = U Ã⁻¹ Uᵀ b
+            Y = rbt.gebmm(B, seed=ip.seed, depth=depth, trans="T")
+            Y = blas3.trsm(1.0, out, Y, side="L", uplo="L", trans="N",
+                           diag="U")
+            Y = blas3.trsm(1.0, out, Y, side="L", uplo="U", trans="N")
+            X = rbt.gebmm(Y, seed=ip.seed, depth=depth, trans="N")
+            return drv.report_check("GETRF_RBT |b-Ax|",
+                                    *checks.check_axmb(A0, B, X))
+        Y = blas3.trsm(1.0, out, B, side="L", uplo="L", trans="N",
+                       diag="U")
+        X = blas3.trsm(1.0, out, Y, side="L", uplo="U", trans="N")
+        return drv.report_check("GETRF_NOPIV |b-Ax|",
+                                *checks.check_axmb(A0, B, X))
+    return 0
+
+
 def getrf_1d(drv: Driver):
     ip = drv.ip
     A0 = _gen(drv, ip.N, ip.N)
     hnb = max(ip.HNB, 0)  # -z/--HNB: recursive-panel variant
-    (LU, perm), _ = drv.progress(
-        lambda a: lu.getrf_rec(a, hnb), (A0,),
-        lawn41.getrf(ip.M, ip.N, ip.prec_dtype.is_complex))
+    fn = lambda a: lu.getrf_rec(a, hnb)  # noqa: E731
+    verify = None
+    if ip.abft:
+        from dplasma_tpu_torch.resilience import abft as _abft
+        fn = lambda a: _abft.getrf_checksummed(a, hnb)  # noqa: E731
+        verify = lambda out: _abft.getrf_verify(out, A0)  # noqa: E731
+    (LU, perm), _ = drv.progress(fn, (A0,), _lu_flops(ip),
+                                 verify_fn=verify)
     if ip.check:
         B = _gen(drv, ip.N, ip.K, 1)
         X = lu.getrs("N", LU, perm, B)
@@ -722,9 +799,15 @@ def posv_ir(drv: Driver):
     ip = drv.ip
     A0 = _gen(drv, ip.N, ip.N, 0, kind="he")
     B = _gen(drv, ip.N, ip.K, 1)
-    (X, info), _ = drv.progress(lambda a, b: refine.posv_ir(a, b, "L"),
-                                (A0, B), _refine_flops(ip, "posv"))
-    drv.report_refine(refine.summarize(info, op=drv.name))
+    fallbacks = [("posv_dd", lambda a, b: potrf_mod.posv(a, b, "L"))]
+    out, _ = drv.progress(lambda a, b: refine.posv_ir(a, b, "L"),
+                          (A0, B), _refine_flops(ip, "posv"),
+                          fallbacks=fallbacks)
+    if drv.winner == "posv_dd":
+        X = out[1]
+    else:
+        X, info = out
+        drv.report_refine(refine.summarize(info, op=drv.name))
     if ip.check:
         r, ok = checks.check_solve(A0, B, X, uplo="L")
         return drv.report_check("POSV_IR backward error", r, ok)
@@ -737,9 +820,20 @@ def gesv_ir(drv: Driver):
     ip = drv.ip
     A0 = _gen(drv, ip.N, ip.N)
     B = _gen(drv, ip.N, ip.K, 1)
-    (X, info), _ = drv.progress(refine.gesv_ir, (A0, B),
-                                _refine_flops(ip, "gesv"))
-    drv.report_refine(refine.summarize(info, op=drv.name))
+
+    def _gesv_ptg(a, b):
+        # the full-precision route the solver's own escalation takes
+        F, p = lu.getrf_ptgpanel(a)
+        return F, p, lu.getrs("N", F, p, b)
+
+    out, _ = drv.progress(refine.gesv_ir, (A0, B),
+                          _refine_flops(ip, "gesv"),
+                          fallbacks=[("gesv_dd", _gesv_ptg)])
+    if drv.winner == "gesv_dd":
+        X = out[-1]
+    else:
+        X, info = out
+        drv.report_refine(refine.summarize(info, op=drv.name))
     if ip.check:
         r, ok = checks.check_solve(A0, B, X)
         return drv.report_check("GESV_IR backward error", r, ok)
@@ -756,11 +850,17 @@ def gels_ir(drv: Driver):
                          "testing_?gels for the minimum-norm path")
     A0 = _gen(drv, ip.M, ip.N)
     B = _gen(drv, ip.M, ip.K, 1)
-    (X, info), _ = drv.progress(refine.gels_ir, (A0, B),
-                                _refine_flops(ip, "gels"))
-    drv.report_refine(refine.summarize(info, op=drv.name))
+    out, _ = drv.progress(refine.gels_ir, (A0, B),
+                          _refine_flops(ip, "gels"),
+                          fallbacks=[("gels_dd", qr.gels)])
+    if drv.winner == "gels_dd":
+        Xd = out.to_dense()[:ip.N]
+    else:
+        X, info = out
+        drv.report_refine(refine.summarize(info, op=drv.name))
+        Xd = X.to_dense()
     if ip.check:
-        r, ok = checks.check_gels(A0, B, X.to_dense())
+        r, ok = checks.check_gels(A0, B, Xd)
         return drv.report_check("GELS_IR normal eq", r, ok)
     return 0
 
@@ -905,7 +1005,7 @@ DRIVERS = {
     "pivgen": pivgen, "hetrf": hetrf, "hebut": hebut,
     "heev": heev, "hetrd": hetrd, "gesvd": gesvd, "gebrd": gebrd,
     "hbrdt": hbrdt, "gebrd_ge2gb": gebrd_ge2gb,
-    "getrf": getrf_1d, "getrf_1d": getrf_1d,
+    "getrf": getrf_1d, "getrf_1d": getrf_1d, "getrf_nopiv": getrf_nopiv,
     "getrf_ptgpanel": getrf_ptgpanel, "gesv": gesv,
     "getrf_incpiv": getrf_incpiv, "getrf_qrf": getrf_qrf,
     "gesv_incpiv": gesv_incpiv,

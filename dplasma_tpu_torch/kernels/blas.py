@@ -18,6 +18,12 @@ products closed by kernel K2. The LU and QR sweeps take the dd panels
 themselves (``ops.lu._panel_lu_dd``, ``dd.geqrt_f64``) for float64;
 complex128 factorizations keep the plain sweeps, every product a pair of
 2K-deep limb products (``dd.mm``).
+
+Every route's output passes a fault tap (``resilience.inject.tap``) at
+the reference's choke points: ``dot`` and ``gemm`` (stage ``gemm``; K1,
+the limb route and torch alike), ``potrf``, ``trsm`` and
+``getrf_nopiv`` (stage ``getrf``). With no plan armed a tap is one
+attribute check.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import pallas_kernels as _pk
+from dplasma_tpu_torch.resilience import inject as _inject
 from dplasma_tpu_torch.utils import config as _cfg
 
 
@@ -57,12 +64,12 @@ def dot(a, b, ta: bool = False, tb: bool = False, conj_a: bool = False,
     if tb:
         b = b.mT
     if a.ndim > 2 or b.ndim > 2:
-        return torch.matmul(a, b)
+        return _inject.tap("gemm", torch.matmul(a, b))
     if _dd_active(res_dtype):
-        return _dd.mm(a, b)
+        return _inject.tap("gemm", _dd.mm(a, b))
     if _pk.eligible(a, b):
-        return _pk.matmul(a, b).to(res_dtype)
-    return torch.matmul(a, b).to(res_dtype)
+        return _inject.tap("gemm", _pk.matmul(a, b).to(res_dtype))
+    return _inject.tap("gemm", torch.matmul(a, b).to(res_dtype))
 
 
 def gemm(alpha, a, b, beta, c, ta=False, tb=False, conj_a=False,
@@ -75,8 +82,9 @@ def gemm(alpha, a, b, beta, c, ta=False, tb=False, conj_a=False,
         aa = a.T if ta else a
         bb = b.T if tb else b
         if _pk.eligible(aa, bb, c):
-            return _pk.gemm(aa, bb, c, alpha=float(alpha),
-                            beta=float(beta))
+            return _inject.tap("gemm", _pk.gemm(aa, bb, c,
+                                                alpha=float(alpha),
+                                                beta=float(beta)))
     return alpha * dot(a, b, ta, tb, conj_a, conj_b) + beta * c
 
 
@@ -102,12 +110,12 @@ def potrf(a, lower: bool = True):
     zeroed; when the tile is not positive definite its triangle is all
     NaN (as ``lax.linalg.cholesky`` gives)."""
     if _dd_active(a.dtype):
-        return _dd.potrf_f64(a, lower=lower)
+        return _inject.tap("potrf", _dd.potrf_f64(a, lower=lower))
     if lower:
         f, info = torch.linalg.cholesky_ex(torch.tril(a))
-        return torch.tril(_nan_unless(info == 0, f))
+        return _inject.tap("potrf", torch.tril(_nan_unless(info == 0, f)))
     f, info = torch.linalg.cholesky_ex(torch.triu(a), upper=True)
-    return torch.triu(_nan_unless(info == 0, f))
+    return _inject.tap("potrf", torch.triu(_nan_unless(info == 0, f)))
 
 
 def _inv_trsm_active() -> bool:
@@ -128,8 +136,9 @@ def trsm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
     """Triangular solve: op(A) X = alpha B (side=L) or X op(A) = alpha B
     (side=R). CORE_ztrsm semantics; reads only the named triangle."""
     if _dd_active(torch.promote_types(a.dtype, b.dtype)):
-        return _dd.trsm_f64(a, b, side=side, lower=lower, trans=trans,
-                            unit=unit, alpha=alpha)
+        return _inject.tap("trsm", _dd.trsm_f64(
+            a, b, side=side, lower=lower, trans=trans, unit=unit,
+            alpha=alpha))
     op_a, op_lower = _op_tri(a, lower, trans)
     if _inv_trsm_active():
         n = a.shape[0]
@@ -137,11 +146,11 @@ def trsm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
         inv_op = torch.linalg.solve_triangular(
             op_a, eye, upper=not op_lower, left=True, unitriangular=unit)
         if side == "L":
-            return dot(inv_op, alpha * b)
-        return dot(alpha * b, inv_op)
-    return torch.linalg.solve_triangular(
+            return _inject.tap("trsm", dot(inv_op, alpha * b))
+        return _inject.tap("trsm", dot(alpha * b, inv_op))
+    return _inject.tap("trsm", torch.linalg.solve_triangular(
         op_a, alpha * b, upper=not op_lower, left=(side == "L"),
-        unitriangular=unit)
+        unitriangular=unit))
 
 
 def trmm(a, b, *, side="L", lower=True, trans="N", unit=False, alpha=1.0):
@@ -180,7 +189,7 @@ def getrf_nopiv(a):
         lcol = m[kk + 1:, kk] * (1.0 / m[kk, kk])
         m[kk + 1:, kk + 1:] -= torch.outer(lcol, m[kk, kk + 1:])
         m[kk + 1:, kk] = lcol
-    return m
+    return _inject.tap("getrf", m)
 
 
 def getrf_nopiv_blocked(a, base: int = 32):

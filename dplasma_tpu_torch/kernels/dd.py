@@ -32,8 +32,10 @@ changes a number:
   the TPU's MXU prefers), and works on the live rows of each block
   column (the reference's fixed (N, nb) slab and rolled scales exist for
   XLA's compile cache).
-* ``_pin_cat_axis`` has no counterpart: it only matters under a device
-  mesh, which waits for the distribution slice.
+* ``_pin_cat_axis`` has no counterpart: it pins a sharding for XLA's
+  partitioner, and the port's mesh (``parallel.mesh``) is an eager
+  lockstep loop with none; under a grid each rank's limb products are
+  plain calls of this module.
 * Complex128 ``mm`` is the reference's two 2K-deep real limb products
   (two K2 launches); ``trtri_f64``, ``trsm_f64`` and ``potrf_f64`` take
   c64 seeds. ``lu_ir`` and the geqrt panels stay real-only, as the

@@ -9,8 +9,8 @@ on a (pid, tid) = (rank, track) grid; run metadata (the
 ``args`` so Perfetto queries can compute achieved rates per span.
 
 :func:`merge_to_chrome` is the multi-source fusion: per-rank DTPUPROF1 traces, serving span
-documents (the reference's ``Tracer.to_doc()`` format: the serving
-tracer waits for ROADMAP queue 1 item 14's second part),
+documents (``observability.tracing.Tracer.to_doc()``, the reference's
+format),
 and phase-ledger tables land in ONE document with distinct
 (pid, tid) = (rank, track) lanes, every timestamp rebased to the
 earliest real event and the event stream sorted time-monotone — a

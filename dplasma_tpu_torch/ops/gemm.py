@@ -195,7 +195,6 @@ def gemm_summa(alpha, A: TileMatrix, B: TileMatrix, beta, C: TileMatrix,
     m = pmesh.active()
     if m is None:
         return gemm_dot(alpha, A, B, beta, C, transa, transb)
-    cyclic._dd_guard(C.dtype)
     if steps_per_panel is None:
         steps_per_panel = config.mca_get_int("gemm.summa_steps", 2)
     Pn = m.shape[pmesh.ROW_AXIS]

@@ -43,9 +43,17 @@ reference's all_to_all exchange (MCA ``cyclic.convert=a2a``) bounds the
 per-device memory of a mesh over several devices, which the port does
 not have yet; the knob comes with that path.
 
-Not ported yet (ROADMAP queue 1 item 11): the dd route under a grid
-(step 2: every op here raises under ``dd_gemm=always``), the a2a
-conversions and a mesh over several cards (step 4).
+Under MCA ``dd_gemm=always`` every op here runs the f64-equivalent limb
+route, as the reference's shard_map bodies do: each rank's products go
+through ``blas.dot`` to ``dd.mm`` (kernel K2), its solves to
+``dd.trsm_f64`` and its tile factors to ``dd.potrf_f64``; the eigen/SVD
+second stages stay native FP64, as on one device. The f64 slabs keep the
+psum path: K5 moves f32/bf16 only (``pallas_ring.ring_active``). The
+reference's ``_pin_cat_axis`` (a sharding pin on the limb products) has
+no counterpart: the mesh is an eager lockstep loop with no partitioner.
+
+Not ported yet (ROADMAP queue 1 item 11, step 4): the a2a conversions
+and a mesh over several cards.
 """
 from __future__ import annotations
 
@@ -62,8 +70,6 @@ from dplasma_tpu_torch.kernels import blas as kb
 from dplasma_tpu_torch.parallel import layout
 from dplasma_tpu_torch.parallel import mesh as pmesh
 from dplasma_tpu_torch.utils import config as _cfg
-
-_QUEUED = "ROADMAP queue 1 item 11"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,13 +306,6 @@ def _cols_p(vals: Dict[Tuple[int, int], torch.Tensor], P: int, Q: int,
         res = fn([vals[p, q] for p in range(P)])
         out.update({(p, q): res[p] for p in range(P)})
     return out
-
-
-def _dd_guard(dtype) -> None:
-    if kb._dd_active(dtype):
-        raise NotImplementedError(
-            "the block-cyclic ops under dd_gemm=always (the dd route under "
-            f"a grid) are not ported yet ({_QUEUED}, step 2)")
 
 
 # ---------------------------------------------------------------------
@@ -577,7 +576,6 @@ def getrf_cyclic(A: CyclicMatrix):
     ``perm``."""
     from dplasma_tpu_torch.kernels import panels as _panels
     m = _mesh_of(A)
-    _dd_guard(A.dtype)
     pk = _panels.panel_kernel("lu")
     if pk == "pallas":   # the reference's rule: no fused panel here
         pk = "rec"
@@ -865,7 +863,6 @@ def trsm_cyclic(A: CyclicMatrix, B: CyclicMatrix, trans: str = "N",
     u, t = uplo.upper(), trans.upper()
     _check(u in ("L", "U"), f"uplo must be L or U, got {uplo!r}")
     _check(t in ("N", "T", "C"), f"trans must be N, T or C, got {trans!r}")
-    _dd_guard(A.dtype)
     return CyclicMatrix(_trsm_cyclic(A, B, u, t, unit), B.desc)
 
 
@@ -889,7 +886,6 @@ def laswp_cyclic(A: CyclicMatrix, perm) -> CyclicMatrix:
     'p' of the column slabs and a cyclic pick per rank — never the
     natural-order global array."""
     _mesh_of(A)
-    _dd_guard(A.dtype)
     desc = A.desc
     d = desc.dist
     P = d.P
@@ -943,7 +939,6 @@ def gemm_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
     ad, bd = A.desc, B.desc
     _check(ad.dist == bd.dist and ad.nb == bd.mb and ad.N == bd.M,
            "gemm_cyclic: mismatched descs")
-    _dd_guard(A.dtype)
     d = ad.dist
     P, Q = d.P, d.Q
     ranks = _ranks(d)
@@ -992,7 +987,6 @@ def herk_cyclic(A: CyclicMatrix) -> CyclicMatrix:
     _mesh_of(A)
     desc = A.desc
     _check(desc.mb == desc.nb, "herk_cyclic needs square tiles")
-    _dd_guard(A.dtype)
     d = desc.dist
     P, Q = d.P, d.Q
     mloc = desc.MTL * desc.mb
@@ -1046,7 +1040,6 @@ def trmm_cyclic(A: CyclicMatrix, B: CyclicMatrix, trans: str = "N",
     # 'T' aliases 'C' only for real data: the non-N branch conjugates
     _check(t in ("N", "C") or (t == "T" and not A.dtype.is_complex),
            "trmm_cyclic: complex plain-transpose not implemented")
-    _dd_guard(A.dtype)
     d = desc.dist
     P, Q = d.P, d.Q
     mb = desc.mb
@@ -1108,7 +1101,6 @@ def hemm_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
            and desc.M == bdesc.M and desc.M == desc.N,
            "hemm_cyclic: mismatched descs")
     _check(desc.mb == desc.nb, "hemm_cyclic needs square tiles")
-    _dd_guard(A.dtype)
     d = desc.dist
     P, Q = d.P, d.Q
     mb = desc.mb
@@ -1157,7 +1149,6 @@ def her2k_cyclic(A: CyclicMatrix, B: CyclicMatrix) -> CyclicMatrix:
            and desc.M == B.desc.M and desc.N == B.desc.N,
            "her2k_cyclic: mismatched descs")
     _check(desc.mb == desc.nb, "her2k_cyclic needs square tiles")
-    _dd_guard(A.dtype)
     d = desc.dist
     P, Q = d.P, d.Q
     mloc = desc.MTL * desc.mb
@@ -1202,7 +1193,6 @@ def lauum_cyclic(A: CyclicMatrix) -> CyclicMatrix:
     desc = A.desc
     _check(desc.mb == desc.nb and desc.M == desc.N,
            "lauum_cyclic needs a square matrix of square tiles")
-    _dd_guard(A.dtype)
     d = desc.dist
     P, Q = d.P, d.Q
     mb = desc.mb
@@ -1405,7 +1395,6 @@ def geqrf_cyclic(A: CyclicMatrix):
     TileMatrix)."""
     m = _mesh_of(A)
     _check(A.desc.mb == A.desc.nb, "geqrf_cyclic needs square tiles")
-    _dd_guard(A.dtype)
     ring = _cyclic_ring(A.desc, A.dtype, m)
     rch = _ring_chunks(ring)
     _ring_span(A, ring, rch)
@@ -1538,7 +1527,6 @@ def herbt_cyclic(A: CyclicMatrix) -> CyclicMatrix:
     _check(desc.mb == desc.nb and desc.M == desc.N,
            "herbt_cyclic needs a square matrix of square tiles")
     _check(desc.M % desc.mb == 0, "herbt_cyclic: need N % mb == 0")
-    _dd_guard(A.dtype)
     return CyclicMatrix(_herbt_cyclic(A), desc)
 
 
@@ -1733,7 +1721,6 @@ def gebrd_ge2gb_cyclic(A: CyclicMatrix) -> CyclicMatrix:
     _check(desc.mb == desc.nb and desc.M == desc.N,
            "ge2gb_cyclic needs a square matrix of square tiles")
     _check(desc.M % desc.mb == 0, "ge2gb_cyclic: need N % mb == 0")
-    _dd_guard(A.dtype)
     return CyclicMatrix(_ge2gb_cyclic(A), desc)
 
 
@@ -1761,7 +1748,6 @@ def potrf_cyclic(A: CyclicMatrix, uplo: str = "L") -> CyclicMatrix:
     m = _mesh_of(A)
     _check(A.desc.mb == A.desc.nb and A.desc.M == A.desc.N,
            "potrf_cyclic needs a square matrix of square tiles")
-    _dd_guard(A.dtype)
     if uplo.upper() == "U":
         return CyclicMatrix(_potrf_cyclic_upper(A), A.desc)
     ring = _cyclic_ring(A.desc, A.dtype, m)

@@ -15,12 +15,12 @@ so both factor the very same local storage. Gates:
   on factor and perm (potrf, getrf) or T stack (geqrf). The broadcast's
   owner mask is one-hot and the winner rows have one owner each, so both
   sums are exact (−0.0 and +0.0 compare equal);
-- the K1 products of every cyclic op, counted as its code derives them;
-- every op of the catalogue raising under ``dd_gemm=always``.
+- the K1 products of every cyclic op, counted as its code derives them.
 
 The rest of the catalogue's parity is in ``test_torch_cyclic_solve.py``,
 ``test_torch_cyclic_blas3.py``, ``test_torch_cyclic_qr_eig.py`` and
-``test_torch_comm_model.py``.
+``test_torch_comm_model.py``; the dd route under the grid in
+``test_torch_cyclic_dd.py``.
 """
 import contextlib
 import dataclasses
@@ -462,47 +462,3 @@ def test_k1_count_of_the_reconstruction_at_nb_512():
         pk.enable(False)
     assert _nopiv_k1(mb) == 1
     assert routed == _k1_want("geqrf", 2, 2, N // mb, mb, 0)
-
-
-# ---------------------------------------------------------------------
-# the dd route under a grid (ROADMAP queue 1 item 11, step 2)
-# ---------------------------------------------------------------------
-
-DD_OPS = {
-    "potrf_U": lambda A, B: cyclic.potrf_cyclic(A, "U"),
-    "trsm": lambda A, B: cyclic.trsm_cyclic(A, B),
-    "potrs": lambda A, B: cyclic.potrs_cyclic(A, B),
-    "laswp": lambda A, B: cyclic.laswp_cyclic(B, torch.arange(16)),
-    "getrs": lambda A, B: cyclic.getrs_cyclic(A, torch.arange(16), B),
-    "gemm_cyclic": lambda A, B: cyclic.gemm_cyclic(A, B),
-    "gemm_ex": lambda A, B: port_gemm.gemm_ex(
-        1.0, A.to_tile(), A.to_tile(), 0.0, A.to_tile()),
-    "herk": lambda A, B: cyclic.herk_cyclic(A),
-    "trmm": lambda A, B: cyclic.trmm_cyclic(A, B),
-    "hemm": lambda A, B: cyclic.hemm_cyclic(A, B),
-    "her2k": lambda A, B: cyclic.her2k_cyclic(A, A),
-    "lauum": lambda A, B: cyclic.lauum_cyclic(A),
-    "trtri": lambda A, B: cyclic.trtri_cyclic(A),
-    "potri": lambda A, B: cyclic.potri_cyclic(A),
-    "geqrf": lambda A, B: cyclic.geqrf_cyclic(A),
-    "herbt": lambda A, B: cyclic.herbt_cyclic(A),
-    "heev": lambda A, B: cyclic.heev_cyclic(A),
-    "ge2gb": lambda A, B: cyclic.gebrd_ge2gb_cyclic(A),
-    "gesvd": lambda A, B: cyclic.gesvd_cyclic(A),
-}
-
-
-@pytest.mark.parametrize("op", sorted(DD_OPS))
-def test_cyclic_ops_raise_under_dd_gemm_always(op):
-    """Each op of the catalogue names the step that ports the dd route
-    under a grid, as potrf_cyclic and getrf_cyclic do."""
-    A = TileMatrix.from_dense(torch.eye(16, dtype=torch.float64) * 4, 4, 4)
-    B = TileMatrix.from_dense(torch.ones(16, 4, dtype=torch.float64), 4, 4)
-    with mesh.use_grid(mesh.make_mesh(2, 2, "cpu")):
-        Ac = cyclic.CyclicMatrix.from_tile(A, Dist(P=2, Q=2))
-        Bc = cyclic.CyclicMatrix.from_tile(B, Dist(P=2, Q=2))
-        with cfg.override_scope({"dd_gemm": "always"}):
-            with pytest.raises(NotImplementedError,
-                               match="dd route under a grid.*item 11, "
-                                     "step 2"):
-                DD_OPS[op](Ac, Bc)

@@ -155,9 +155,7 @@ def test_perfdiff_self_compare_of_a_port_report(runs, case):
     ("--dot", "item 15"),
     ("--dot=g.dot", "item 15"), ("--dagcheck", "item 15"),
     ("--spmdcheck", "item 15"), ("--hlocheck", "item 15"),
-    ("--memcheck", "item 15"), ("--autotune", "item 9b"),
-    ("--abft", "item 13"), ("--inject=nan@gemm", "item 13"),
-    ("--max-retries=3", "item 13"), ("--run-timeout=5", "item 13")])
+    ("--memcheck", "item 15"), ("--autotune", "item 9b")])
 def test_deferred_flags_name_their_roadmap_item(flag, item, capsys):
     with pytest.raises(SystemExit) as ei:
         main(["testing_spotrf", "-N", "64", "-t", "16", "--device", "cpu",

@@ -172,18 +172,23 @@ def test_dd_qr_drivers_route_k2_on_the_cpu(argv, kind, k2_per_run, capsys):
                                         {"panel.kernel": kind})
 
 
-def test_dd_lu_and_qr_drivers_name_what_is_missing(capsys):
-    """Under dd_gemm=always the f64 LU and QR drivers run (the cases of
-    test_dd_drivers_route_k2_on_the_cpu); what the dd LU route still
-    lacks is a process grid, and its driver says so, naming ROADMAP
-    item 11."""
+def test_dd_lu_drivers_run_on_one_device_and_on_a_2x2_grid(capsys):
+    """Under dd_gemm=always the f64 LU drivers run on one device (the
+    cases of test_dd_drivers_route_k2_on_the_cpu) and on a 2x2 grid: the
+    distributed panel's every per-rank product and solve takes the limb
+    route, chip_smoke's ``cyclic_k2_launches`` a factorization (KT = 4;
+    warm-up and timed run), and -x passes."""
+    import chip_smoke as cs
+    grid = ["-N", "64", "-t", "16", "-p", "2", "-q", "2", "--device", "cpu"]
     with cfg.override_scope({"dd_gemm": "always"}):
         assert main(["testing_dgetrf", "-N", "64", "-t", "32", "-x",
                      "--device", "cpu"]) == 0
-        with pytest.raises(NotImplementedError,
-                           match="dd route under a grid.*item 11"):
-            main(["testing_dgetrf_ptgpanel", "-N", "64", "-t", "16", "-p",
-                  "2", "-q", "2", "--device", "cpu"])
+        before = pdd.ROUTED
+        assert main(["testing_dgetrf_ptgpanel"] + grid) == 0
+        assert pdd.ROUTED - before == 2 * cs.cyclic_k2_launches(
+            "getrf", 2, 2, 4)
+        assert main(["testing_dgetrf_ptgpanel", "-x"] + grid) == 0
+    assert "FAILED" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("prog", ["testing_sgetrf_ptgpanel",
@@ -246,7 +251,7 @@ def test_bad_invocations(capsys):
     with pytest.raises(SystemExit) as e:
         common.parse_arguments(["-N", "8", "--mtx", "2"])
     assert e.value.code == 2
-    assert main(["testing_sgetrf_nopiv", "-N", "8"]) == 2   # not ported
+    assert main(["testing_sgetrf_bogus", "-N", "8"]) == 2   # no such driver
     assert main(["testing_spotrf", "--device", "cpu"]) == 2
     with pytest.raises(SystemExit, match="invalid grid"):
         main(["testing_spotrf", "-N", "8", "-p", "0", "--device", "cpu"])
@@ -448,7 +453,7 @@ def test_dd_inverse_drivers_route_k2(prog, want, capsys):
 def test_registry_has_38_drivers_and_check_inv_parses():
     from dplasma_tpu.drivers import testers as ref_testers
     from dplasma_tpu_torch.drivers import testers
-    assert len(testers.DRIVERS) == 65   # 38 at PR 11, 65 with the DTD drivers
+    assert len(testers.DRIVERS) == 66   # all of the reference's drivers
     assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
     for argv in (["-N", "8", "-X"], ["-N", "8", "--check_inv"],
                  ["-N", "8", "-xX"]):

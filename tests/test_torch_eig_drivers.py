@@ -6,8 +6,7 @@ exit codes and -x verdicts; each run of ``heev`` (``auto`` is the
 dense solver: no kernel), ``hetrd``, ``hbrdt``, ``gebrd`` and ``gesvd``
 routes the steps its schedules count through KW and each tridiagonal
 through KT (on the CPU a route is not a CUDA launch); the registry holds
-59 drivers, the reference's 66 less the six ``*_dtd`` drivers and
-``getrf_nopiv``."""
+all 66 of the reference's drivers."""
 import contextlib
 import io
 
@@ -106,9 +105,7 @@ def test_timed_runs_route_the_counted_steps(argv, kw, kt):
     assert tridiag.ROUTED == runs * kt
 
 
-def test_registry_holds_65_of_the_references_66():
-    missing = set(ref_testers.DRIVERS) - set(testers.DRIVERS)
-    assert set(testers.DRIVERS) <= set(ref_testers.DRIVERS)
-    assert len(testers.DRIVERS) == 65 and len(ref_testers.DRIVERS) == 66
-    assert missing == {"getrf_nopiv"}
+def test_registry_holds_all_66_of_the_references():
+    assert set(testers.DRIVERS) == set(ref_testers.DRIVERS)
+    assert len(testers.DRIVERS) == 66
     assert all(a in testers.DRIVERS for a in NEW)
