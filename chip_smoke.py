@@ -102,7 +102,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``torch.equal`` to the same call under ``lu.agg_depth=1``; direct
    ``geqrf`` calls at nb=1024 on the chain and tree panels with their K2
    and K1 counts and the -x checks; small factorizations against numpy
-   float64; three factorizations under ``torch.profiler``;
+   float64; three factorizations under ``torch.profiler`` at N=4096;
 12. the mixed-precision IR solvers (``ir.precision`` int8, bf16, f32 and
    f32x2): ``testing_dposv_ir -N 8192 -t 512 -K 4 -x``, ``testing_dgesv_ir
    -N 8192 -t 256 -K 4 -x`` (K3 panels) and ``testing_dgels_ir -M 8192 -N
@@ -195,7 +195,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tridiagonal eigenvalues by bisection on a shared tree, one launch a
    call) and KW (the SBR sweeps with b <= 128, one persistent launch a
    sweep): KT against its plain version on the (d, e) of an shetrd at
-   N=8192 (also cast to f64) and a dhetrd at N=4096 (the plain version
+   N=8192 (also cast to f64) and a dhetrd at N=2048 (the plain version
    on the host over a sample of indices) and on edge cases (n = 1 and
    2, e = 0, Wilkinson's W₂₁⁺, a Jordan–Wielandt zero diagonal),
    ``torch.equal`` and within 2·eps·t_norm, ascending, timed beside its
@@ -205,11 +205,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    same, and their top K (the values gesvd asks KT for) launched alone,
    timed and held ``torch.equal`` to the full launch; KW replayed over
    every sweep it takes of one shetrd and one sgebrd (herm 64, 16, 4;
-   bidiag 127, 31, 7) at N=8192 and of c, d and z at 4096, and of the
+   bidiag 127, 31, 7) at N=8192 and of c, d and z at 2048, and of the
    Hermitian ladder of an shbrdt (herm 127, 31, 7) at N=8192, on random
    storage of that geometry, one launch a step, the plain version
    running the same step on the same input at the first, the last and
-   every 97th step (every window slot within KW_COND eps kappa of the
+   every 389th step (every window slot within KW_COND eps kappa of the
    reference step; f64/c128 within 1e-11; f32/c64 a median distance to
    the step in twice the precision at most 4× the plain version's),
    then each sweep in one launch on the same input, timed and held
@@ -262,7 +262,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with -x beside ``testing_spotrf``; ``potrf_lapack`` on a
    Fortran-ordered f32 buffer at N=16384 (INFO 0, ``check_potrf``, the
    strict upper triangle untouched, INFO > 0 on a matrix that is not
-   SPD); every ``pltmg`` type and ``latms`` at 4096 in s and z against
+   SPD); every ``pltmg`` type and ``latms`` at 2048 in s and z against
    the port's CPU result (bitwise for the hash and integer types, else
    within ``MG_TOL``; latms by its singular values); ``map_tiles`` and
    ``factor_info`` on the spotrf factor at 8192.
@@ -369,6 +369,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``--abft`` with K1's launch made to fail raises, K1 still on.
    (e) ``tracecat`` on phase 19's spotrf DTPUPROF1 file, merged with
    its report's phase table.
+22. the serving layer (``dplasma_tpu_torch.serving``: the unbatched
+   sweeps under ``torch.func.vmap``, K1 and K2 launched once per site
+   for a batch), nb = 256, batches of 16, K1 on. (1) Batched K1: every
+   product of one batched posv and gesv dispatch at n = 512, 1024 and
+   2048, recorded through ``gemm_batched`` (its count equal to one
+   element's, ``serving_k1_want``, every launch batched), replayed per
+   product layout on random stacks: each element ``torch.equal`` to the
+   2-D launch of that element, the stack within ``TOL`` of
+   ``gemm_batched_reference``; timed beside a loop of 2-D launches, the
+   plain version, ``torch.bmm`` / ``baddbmm`` and the bound; also a
+   broadcast operand (batch stride 0) and an FFMA case. (2) Batched K2:
+   the residuals of one batched posv_ir and gesv_ir at n = 512 and 1024
+   (nrhs 4, 11 launches a dispatch, one a masked-loop residual),
+   replayed bitwise to the plain batched version and to each element's
+   2-D launch, timed beside a loop of 2-D launches and the int8 bound.
+   (3) ``SolverService`` (``max_wait_ms`` 5): 128 f32 posv/gesv requests
+   with n drawn from 384..2048 and nrhs 1..4, then 32 f64 posv_ir /
+   gesv_ir requests (n 512..1024, ``ir.precision=f32``), then the f32
+   traffic again on the warm cache: every future resolves and passes the
+   service's gate, every IR request converges, each X within ``SV_TOL``
+   of the port's unbatched solve of the same request; solves/s, p50/p99
+   latency, the cache's hit rate and build seconds; one full dispatch of
+   each op at bucket 1024 with its counts zeroed just before and read
+   just after: K1 launches equal to one element's derived count, K2 one
+   a masked-loop residual, every launch batched; one batch of 4 under
+   ``nan@serving:1:1``: the struck request heals on its ladder (retry),
+   its batch-mates resolve from the batch. (4) ``servebench`` (history
+   and report in a temporary directory) at sizes 384..2048 over the four
+   ops with an injected pass (a request remediated, none failed), then a
+   short ``--soak --chaos`` whose conservation audit balances.
 
 Phase 2 also holds K5 (the ring transfers) against its plain versions,
 bitwise: n in {2, 3, 4} ranks, every root, 1 and 4 chunks, f32 and
@@ -399,6 +429,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import faulthandler
 import functools
 import json
 import math
@@ -424,6 +455,7 @@ N_DD, NB_DD = 8192, 512   # bench.py's dpotrf_f64equiv size (:18, :499)
 # bench.py's dgetrf_f64equiv / dgeqrf_f64equiv size (:508-513, :644-647)
 N_DDF, NB_DDF = 8192, 1024
 NB_DDK3 = 256             # the dd getrf whose f32 seeds all pass K3's gate
+N_DDF_PROF = N_DDF // 2   # the profiled dd getrf / geqrf (phase 11)
 GRID = (2, 2)             # the distributed paths' P x Q virtual mesh
 N_GT, NB_GT = 8192, 512   # testing_sgetrf_ptgpanel -N 8192 -t 512 -p 2 -q 2
 N_PC, NB_PC = 16384, 1024  # potrf_cyclic at the spotrf ladder's size
@@ -438,6 +470,9 @@ N_LAD, NB_LAD = 4096, 512
 DD_TOL = 1e-11      # dd factor vs a float64 host Cholesky, max|ΔL|/max|L|
 K3_REPEATS = 100    # back-to-back K3 launches, each bitwise checked
 K2_REPEATS = 1000   # back-to-back split K2 launches, each bitwise checked
+# the run's own deadline, seconds: past it the stacks go to stderr and it
+# exits non-zero (the whole run must end within 1200 s, the build included)
+WATCHDOG_S = 1180
 # K4 against its plain version: max|Δpacked|/max|packed| and max|Δtau|
 # (the two sum in other orders); each panel's Q must pass the QR checks
 K4_TOL = 1e-4
@@ -1029,7 +1064,7 @@ def k3_case(torch, plu, a):
     mabs = float((packed - want).abs().max())
     rel = mabs / max(float(want.abs().max()), 1e-30)
     k_ms = time_ms(torch, lambda: plu.lu_panel(a))
-    p_ms = time_ms(torch, lambda: plu.lu_panel_reference(a))
+    p_ms = time_ms(torch, lambda: plu.lu_panel_reference(a), reps=1)
     l_ms = time_ms(torch, lambda: with_cusolver(
         torch, torch.linalg.lu_factor_ex, a))
     return perm_eq, mabs, rel, k_ms, p_ms, l_ms
@@ -1176,7 +1211,8 @@ def k4_case(torch, pqr, a):
             "qr_residual": qr_res, "orth_residual": orth_res,
             "ms": time_ms(torch, lambda: pqr.geqrt_panel_packed(a)),
             "plain_ms": time_ms(torch,
-                                lambda: pqr.geqrt_panel_reference(a)),
+                                lambda: pqr.geqrt_panel_reference(a),
+                                reps=1),
             "library_ms": time_ms(torch, lambda: with_cusolver(
                 torch, torch.geqrf, a))}
 
@@ -1840,8 +1876,9 @@ def _profile(torch, record, key, label, run):
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the host's op events cost the dd
+    # routes' many small ops more than the run itself, and slow the call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2411,20 +2448,23 @@ def phase_dd_lu_qr(torch, pk, plu, pdd, record):
 
 
 def phase_dd_lu_qr_profile(torch, record):
-    """One dd LU (N_DDF at NB_DDF, cuSOLVER seeds, and at NB_DDK3 with K3
+    """One dd LU (at NB_DDF, cuSOLVER seeds, and at NB_DDK3 with K3
     seeds) and one dd QR factorization (tree panels) under
-    torch.profiler: K2 in each, no cuBLAS int8 GEMM."""
+    torch.profiler, at half phase 11's N (N_DDF_PROF): K2 in each, no
+    cuBLAS int8 GEMM. The profiler's post-processing of the dd routes'
+    many small kernels took most of the section at N_DDF (phase 18
+    profiles its geqrf_cyclic at half size for the same reason)."""
     from dplasma_tpu_torch.ops import generators, lu, qr
     from dplasma_tpu_torch.utils import config as cfg
     for key, nb, kind, fn in (
             ("dgetrf_dd_profile", NB_DDF, "chain", lu.getrf_1d),
             ("dgetrf_dd_k3_profile", NB_DDK3, "pallas", lu.getrf_1d),
             ("dgeqrf_dd_profile", NB_DDF, "tree", qr.geqrf)):
-        A = generators.plrnt(N_DDF, N_DDF, nb, nb, seed=3872,
-                             dtype=torch.float64)
+        n = N_DDF_PROF
+        A = generators.plrnt(n, n, nb, nb, seed=3872, dtype=torch.float64)
         with cfg.override_scope({"dd_gemm": "always",
                                  "panel.kernel": kind}):
-            _profile(torch, record, key, f"N={N_DDF} nb={nb} dd {kind}",
+            _profile(torch, record, key, f"N={n} nb={nb} dd {kind}",
                      lambda: fn(A))
         prof = record[key]
         if prof["busy_ms"] is None:
@@ -3991,7 +4031,8 @@ def phase_hqr_ldl(torch, pk, pdd, dd, record):
 # gebrd, gesvd) with kernels KT (tridiagonal bisection) and KW (the SBR
 # sweeps with b <= 128, one launch a sweep)
 N_EIG, NB_EIG = 8192, 256
-N_EIG_SMALL = 4096       # KW's d, c and z replays, the dhetrd KT case
+N_EIG_SMALL = 2048       # KW's d, c and z replays, the dhetrd KT case
+N_EIG_RECT = 4096        # the short side of the rectangular sgesvd runs
 # the d, c, z and dd drivers: cut from 4096 to keep the script well
 # inside its time limit on a slow host (it took 908 s of 1200 at 4096)
 N_EIG_DRIVERS = 2048
@@ -4000,7 +4041,7 @@ N_EIG_ROUTES = 512       # both routes of every narrow sweep on real data
 # launches each), so N=512's 126480 rotations took 107 s in this phase
 # (PERF.md §6): cut to N=128 (7812 rotations) for the script's time
 N_CHASE, B_CHASE = 128, 32
-KW_EVERY = 97            # the replay holds KW at t = 0, T - 1 and t % 97 == 0
+KW_EVERY = 389          # the replay holds KW at t = 0, T - 1 and t % 389 == 0
 KW_TOL64 = 1e-11         # KW vs plain in f64 / c128, max|Δ| / max|plain|
 # every held window slot: max|KW − reference| over its strips at most
 # KW_COND · eps · κ · max|reference|, κ the condition of its QR block. A
@@ -4369,7 +4410,7 @@ def phase_kt(torch, tridiag, eig, generators, record):
     """KT against its plain version on the (d, e) of one s hetrd at
     N=8192 (the kernel line's shape, heev 2stage's), the same cast to
     f64 (timed beside eigvalsh at 8192 in f64) and one d hetrd at
-    N=4096, the plain version on the host over a sample of indices (on
+    N=N_EIG_SMALL, the plain version on the host over a sample of indices (on
     the card over every index the s case took 24.9 s, cut for the
     script's time), and on edge cases, ``torch.equal`` and within
     2·eps·t_norm, its results ascending; timed beside
@@ -5189,7 +5230,7 @@ def phase_eig(torch, pk, pdd, record):
     # the drivers, each one timed run: the schedules of its shape are
     # built just before it (what its warm-up run would build), so no
     # timed run builds one
-    n, t, ns, nd = (str(N_EIG), str(NB_EIG), str(N_EIG_SMALL),
+    n, t, ns, nd = (str(N_EIG), str(NB_EIG), str(N_EIG_RECT),
                     str(N_EIG_DRIVERS))
     f32 = torch.float32
     dts = {"s": f32, "d": torch.float64, "c": torch.complex64,
@@ -5209,9 +5250,9 @@ def phase_eig(torch, pk, pdd, record):
         (["testing_sgebrd_ge2gb", "-N", n, "-t", t, "-x"] + once, {},
          ("gebrd_ge2gb", N_EIG, N_EIG, f32)),
         (["testing_sgesvd", "-M", n, "-N", ns, "-t", t, "-x"] + once, {},
-         ("gesvd", N_EIG, N_EIG_SMALL, f32)),
+         ("gesvd", N_EIG, N_EIG_RECT, f32)),
         (["testing_sgesvd", "-M", ns, "-N", n, "-t", t, "-x"] + once, {},
-         ("gesvd", N_EIG_SMALL, N_EIG, f32))]
+         ("gesvd", N_EIG_RECT, N_EIG, f32))]
     for p in ("d", "c", "z"):
         runs += [
             ([f"testing_{p}hetrd", "-N", nd, "-t", t] + once, {},
@@ -5407,11 +5448,11 @@ STREAM_INFO = {"DPLASMA:GEMM:GPU:B": 8, "DPLASMA:GEMM:GPU:C": 8,
                "DPLASMA:GEMM:GPU:D": 4}
 N_DTD, NB_DTD, N_DTD_QR, N_DTD_UNTIED = 8192, 512, 4096, 2048
 N_LAPACK, NB_LAPACK = 16384, 512
-N_MG, NB_MG = 4096, 512
+N_MG, NB_MG = 2048, 512
 # card vs CPU for the closed forms that are not exact: the two devices'
 # arccos, cos, sin and pow may differ by an ulp, which chebvand's
-# cos(i·arccos p) multiplies by i < 4096 (i·u·pi: 7.7e-4 in f32, 1.4e-12
-# in f64)
+# cos(i·arccos p) multiplies by i < N_MG (i·u·pi at 4096: 7.7e-4 in f32,
+# 1.4e-12 in f64)
 MG_TOL = {"float32": 2e-3, "complex128": 1e-11}
 # the pltmg types whose values come from the hash or from integers
 MG_EXACT = ("random", "hadamard", "moler", "riemann", "minij", "invhess",
@@ -7477,6 +7518,586 @@ def phase_dd_grid_resilience(torch, pk, pdd, dd, record):
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase 22: the serving layer
+# ---------------------------------------------------------------------
+
+NB_SV = 256                  # the serving tile (K1's gate: every product)
+SV_BATCH = 16                # serving.max_batch; the replayed stacks
+SV_K1_SIZES = (512, 1024, 2048)   # buckets whose K1 products are replayed
+SV_K2_SIZES = (512, 1024)         # buckets whose IR residuals are replayed
+SV_NRHS = 4
+SV_REQ, SV_REQ_IR = 128, 32  # the f32 posv/gesv and f64 IR traffic
+SV_N, SV_N_IR = (384, 2048), (512, 1024)
+SV_SEED = 2222
+SV_DEV = "cuda"              # a rehearsal on the CPU sets "cpu"
+SV_TOL = {"float32": 1e-4, "float64": 1e-10}  # X vs the unbatched solve
+SV_BENCH = ["--sizes", "384,640,1024,1536,2048", "--nb", str(NB_SV),
+            "--max-batch", str(SV_BATCH), "--ops",
+            "posv,gesv,posv_ir,gesv_ir", "--requests", "48", "--reps", "1",
+            "--k1"]
+SV_SOAK = ["--sizes", "384,640", "--nb", str(NB_SV), "--max-batch",
+           str(SV_BATCH), "--ops", "posv,gesv", "--requests", "16",
+           "--reps", "1", "--k1", "--soak", "--soak-seconds", "2",
+           "--chaos", "nan@serving:0.3:2,delay@serving:0.2,off",
+           "--mca", "serving.max_queue=12", "--mca", "chaos.delay_ms=2"]
+
+
+def _sv_sync(torch):
+    if SV_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def serving_k1_want(op, n, nb, max_iters=10):
+    """K1 launches of one batched dispatch at bucket ``n`` (f32 products,
+    every one eligible at nb = 256): one element's count, the factor's
+    2·nt − 3 products (lookahead 1) and two blocked trsm sweeps of
+    nt − 1 products per solve (the right-hand side padded to a tile);
+    the IR ops (f32 rung) solve max_iters + 1 times on the masked
+    loop."""
+    nt = -(-n // nb)
+    if nt < 2:
+        return 0
+    solves = max_iters + 1 if op.endswith("_ir") else 1
+    return 2 * nt - 3 + solves * 2 * (nt - 1)
+
+
+def _strided_like(torch, spec, gen, kind):
+    """A tensor of ``spec`` (shape, strides, dtype) with random contents
+    in a buffer just large enough for the strides."""
+    shape, stride, dtype = spec
+    size = 1 + sum((s - 1) * st for s, st in zip(shape, stride) if s > 0)
+    if kind == "digits":
+        buf = torch.randint(-127, 128, (size,), generator=gen,
+                            device=SV_DEV, dtype=torch.int8)
+    elif kind == "scale":
+        buf = torch.exp2(torch.randint(-6, 7, (size,), generator=gen,
+                                       device=SV_DEV).double())
+    else:
+        buf = torch.randn(size, generator=gen, device=SV_DEV,
+                          dtype=torch.float64).to(dtype)
+    return buf.as_strided(shape, stride)
+
+
+def _spec(x):
+    return None if x is None else (tuple(x.shape), tuple(x.stride()),
+                                   x.dtype)
+
+
+def record_calls(mod, name, run, spec_of):
+    """Run ``run()`` with ``mod.name`` wrapped; returns the run's result
+    and {spec: count} of the calls it made."""
+    seen = {}
+    orig = getattr(mod, name)
+
+    def rec(*args, **kw):
+        key = spec_of(*args, **kw)
+        seen[key] = seen.get(key, 0) + 1
+        return orig(*args, **kw)
+
+    setattr(mod, name, rec)
+    try:
+        out = run()
+    finally:
+        setattr(mod, name, orig)
+    return out, seen
+
+
+def batched_k1_case(torch, pk, label, spec, gen, count=1):
+    """One batched K1 product replayed on random operands of the path's
+    layout: every element ``torch.equal`` to its 2-D launch, the stack
+    within the 2-D tolerance of the plain version; times of the batched
+    launch, a loop of 2-D launches, the plain version, ``torch.bmm`` (or
+    ``baddbmm``) and the bound."""
+    (sa, sb, sc), (alpha, beta) = spec
+    a = _strided_like(torch, sa, gen, "f")
+    b = _strided_like(torch, sb, gen, "f")
+    c = None if sc is None else _strided_like(torch, sc, gen, "f")
+    B, M, K = a.shape
+    N = b.shape[2]
+    p = pk.plan_batched(M, N, K, a.dtype, a.stride(), b.stride(),
+                        a.data_ptr(), b.data_ptr(),
+                        pk._sms(a.device) if a.is_cuda else pk.H100_SMS)
+    n0 = pk.BATCHED_LAUNCHES
+    got = pk.gemm_batched(a, b, c, alpha=alpha, beta=beta)
+    _sv_sync(torch)
+    check(pk.BATCHED_LAUNCHES == n0 + 1, f"[k1b] {label}: not one launch")
+    for i in range(B):
+        one = pk.gemm(a[i], b[i], None if c is None else c[i], alpha=alpha,
+                      beta=beta)
+        check(torch.equal(got[i], one),
+              f"[k1b] {label}: element {i} differs from its 2-D launch")
+    ref = pk.gemm_batched_reference(a, b, c, alpha=alpha, beta=beta)
+    mabs = (got.double() - ref.double()).abs().max().item()
+    err = mabs / max(ref.double().abs().max().item(), 1e-30)
+    check(err <= TOL[str(a.dtype).split(".")[-1]],
+          f"[k1b] {label}: rel err {err:.3e} against the plain version")
+
+    def loop():
+        for i in range(B):
+            pk.gemm(a[i], b[i], None if c is None else c[i], alpha=alpha,
+                    beta=beta)
+
+    def lib():
+        if c is None:
+            return torch.bmm(a, b) if alpha == 1.0 else alpha * torch.bmm(
+                a, b)
+        return torch.baddbmm(c, a, b, beta=beta, alpha=alpha)
+
+    ms = time_ms(torch, lambda: pk.gemm_batched(a, b, c, alpha=alpha,
+                                                beta=beta))
+    loop_ms = time_ms(torch, loop)
+    plain_ms = time_ms(torch, lambda: pk.gemm_batched_reference(
+        a, b, c, alpha=alpha, beta=beta))
+    lib_ms = time_ms(torch, lib)
+    ops = 2.0 * B * M * N * K
+    nbytes = a.element_size() * (
+        (B if a.stride(0) else 1) * M * K + (B if b.stride(0) else 1) * K * N
+        + B * M * N * (2 if c is not None else 1))
+    peak = TF32_FLOPS / 3 if p.kernel == "wgmma" else FP32_FLOPS
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_S
+    bound = 1e3 * max(t_ops, t_bytes)
+    log(f"[k1b] {label}: ({B}x{M}x{K}) @ ({B}x{K}x{N}) {a.dtype} "
+        f"c={'yes' if c is not None else 'no'} b_batch_stride={b.stride(0)}"
+        f" plan {p.kernel} splits={p.splits} (x{count} a dispatch): batched"
+        f" {ms:.4f} ms, 2-D loop {loop_ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" {'bmm' if c is None else 'baddbmm'} {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+        f"), rel err {err:.2e}; {B} elements torch.equal to 2-D launches")
+    return {"label": label, "shape": [B, M, K, N], "kernel": p.kernel,
+            "splits": p.splits, "count": count, "ms": ms, "loop_ms": loop_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": mabs, "rel_err": err}
+
+
+def batched_k2_case(torch, pdd, label, spec, gen, count=1):
+    """One batched K2 limb product replayed on random digits of the
+    path's layout: bitwise to the plain batched version and every element
+    to its 2-D launch; times of the batched launch, a loop of 2-D
+    launches, the plain version and the int8 bound."""
+    sal, sbl, sbase, ssa, ssb, w = spec
+    al = _strided_like(torch, sal, gen, "digits")
+    bl = _strided_like(torch, sbl, gen, "digits")
+    base = None if sbase is None else _strided_like(torch, sbase, gen, "f")
+    sa = None if ssa is None else _strided_like(torch, ssa, gen, "scale")
+    sb = None if ssb is None else _strided_like(torch, ssb, gen, "scale")
+    B, nl, M, K = al.shape
+    N = bl.shape[2]
+    n0 = pdd.BATCHED_LAUNCHES
+    got = pdd.limb_product_base_batched(al, bl, base, sa, sb, w)
+    _sv_sync(torch)
+    check(pdd.BATCHED_LAUNCHES == n0 + 1, f"[k2b] {label}: not one launch")
+    sae = None if sa is None else sa.expand(B, *sa.shape[1:])
+    sbe = None if sb is None else sb.expand(B, *sb.shape[1:])
+    ref = pdd.limb_product_base_batched_reference(al, bl, base, sae, sbe, w)
+    check(torch.equal(got, ref),
+          f"[k2b] {label}: not bitwise the plain version "
+          f"(max {(got - ref).abs().max().item():.3e})")
+
+    def one(i):
+        return pdd.limb_product_base(
+            al[i], bl[i], None if base is None else base[i],
+            None if sa is None else sae[i], None if sb is None else sbe[i],
+            w)
+
+    for i in range(B):
+        check(torch.equal(got[i], one(i)),
+              f"[k2b] {label}: element {i} differs from its 2-D launch")
+
+    def loop():
+        for i in range(B):
+            one(i)
+
+    ms = time_ms(torch, lambda: pdd.limb_product_base_batched(
+        al, bl, base, sa, sb, w))
+    loop_ms = time_ms(torch, loop)
+    plain_ms = time_ms(torch, lambda: pdd.limb_product_base_batched_reference(
+        al, bl, base, sae, sbe, w), reps=1)
+    ops = 2.0 * B * M * N * K * nl * (nl + 1) / 2
+    nbytes = ((B if al.stride(0) else 1) * nl * M * K
+              + (B if bl.stride(0) else 1) * nl * N * K
+              + 8 * B * M * N * (2 if base is not None else 1)
+              + 8 * B * (M + N))
+    t_ops, t_bytes = ops / INT8_OPS, nbytes / HBM_BYTES_S
+    bound = 1e3 * max(t_ops, t_bytes)
+    log(f"[k2b] {label}: B={B} nl={nl} M={M} N={N} K={K} "
+        f"(x{count} a dispatch): batched {ms:.4f} ms, 2-D loop "
+        f"{loop_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}); bitwise to "
+        f"the plain version and to {B} 2-D launches")
+    return {"label": label, "shape": [B, nl, M, N, K], "count": count,
+            "ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": 0.0}
+
+
+def _sv_operands(torch, gen, op, n, nrhs, dtype):
+    """One request on the host, made on the card from ``gen``: SPD (G Gᵀ/n
+    + I) for posv, G/√n + 2I for gesv (both well conditioned)."""
+    g = torch.randn(n, n, generator=gen, device=SV_DEV, dtype=torch.float64)
+    if op.startswith("posv"):
+        a = g @ g.T / n + torch.eye(n, device=SV_DEV, dtype=torch.float64)
+    else:
+        a = g / math.sqrt(n) + 2 * torch.eye(n, device=SV_DEV,
+                                             dtype=torch.float64)
+    b = torch.randn(n, nrhs, generator=gen, device=SV_DEV,
+                    dtype=torch.float64)
+    return a.to(dtype).cpu().numpy(), b.to(dtype).cpu().numpy()
+
+
+def serving_traffic(torch, pk, pdd, svc, reqs, solve_one, tag):
+    """Submit ``reqs`` [(op, a, b)] as fast as they come, then flush and
+    gather: every future resolves, passes the service's gate, and its X
+    is within SV_TOL of the unbatched solve of the same request.
+    Returns the counts of the window and the numbers."""
+    import numpy as np
+    pk.reset_counts()
+    pdd.reset_counts()
+    t0 = time.perf_counter()
+    futs = [svc.submit(op, a, b) for op, a, b in reqs]
+    svc.flush()
+    xs = [f.result(600.0) for f in futs]
+    _sv_sync(torch)
+    wall = time.perf_counter() - t0
+    counts = {"k1": pk.LAUNCHES, "k1_batched": pk.BATCHED_LAUNCHES,
+              "k2": pdd.LAUNCHES, "k2_batched": pdd.BATCHED_LAUNCHES}
+    worst = 0.0
+    for (op, a, b), f, x in zip(reqs, futs, xs):
+        check(f.meta.get("ok") and "resilience" not in f.meta,
+              f"[{tag}] request {f.request_id} ({op} n={a.shape[0]}): "
+              f"{f.meta}")
+        if op.endswith("_ir"):
+            check(f.meta["refine"]["converged"],
+                  f"[{tag}] request {f.request_id} did not converge")
+        u = solve_one(op, torch.from_numpy(a).to(SV_DEV),
+                      torch.from_numpy(b).to(SV_DEV), NB_SV).cpu().numpy()
+        err = float(np.abs(x - u).max() / max(np.abs(u).max(), 1e-30))
+        worst = max(worst, err)
+        check(err <= SV_TOL[a.dtype.name],
+              f"[{tag}] request {f.request_id} ({op} n={a.shape[0]}): X "
+              f"{err:.3e} from the unbatched solve")
+    lats = sorted(f.meta["latency_s"] for f in futs)
+    out = {"requests": len(reqs), "wall_s": wall,
+           "solves_per_s": len(reqs) / wall,
+           "p50_ms": 1e3 * lats[len(lats) // 2],
+           "p99_ms": 1e3 * lats[min(len(lats) - 1,
+                                    round(0.99 * (len(lats) - 1)))],
+           "max_rel_vs_unbatched": worst, "launches": counts}
+    return out
+
+
+def dispatch_counts(torch, pk, pdd, svc, op, n, gen, dtype):
+    """K1 and K2 launches of ONE full batched dispatch (SV_BATCH
+    requests at bucket ``n``): a first full batch builds the cache entry
+    (its build run launches the kernels too), then the counts are zeroed
+    just before the second batch's last submit, which dispatches it, and
+    read just after."""
+    reqs = [(op, *_sv_operands(torch, gen, op, n, SV_NRHS, dtype))
+            for _ in range(SV_BATCH)]
+    for f in [svc.submit(o, a, b) for o, a, b in reqs]:
+        f.result(600.0)
+    futs = [svc.submit(o, a, b) for o, a, b in reqs[:-1]]
+    pk.reset_counts()
+    pdd.reset_counts()
+    futs.append(svc.submit(*reqs[-1]))     # the 16th dispatches the batch
+    svc.flush()
+    for f in futs:
+        f.result(600.0)
+    _sv_sync(torch)
+    got = {"k1": pk.LAUNCHES, "k1_batched": pk.BATCHED_LAUNCHES,
+           "k2": pdd.LAUNCHES, "k2_batched": pdd.BATCHED_LAUNCHES}
+    check(all(f.meta.get("batch") == SV_BATCH for f in futs),
+          f"[sv-dispatch] {op} n={n}: not one batch of {SV_BATCH}")
+    return got
+
+
+def phase_serving(torch, pk, pdd, record):
+    """Phase 22, the serving layer: the batched K1 and K2 forms on the
+    serving shapes, SolverService at serving width, servebench."""
+    import tempfile
+
+    import numpy as np
+
+    from dplasma_tpu_torch.kernels import pallas_kernels
+    from dplasma_tpu_torch.resilience import inject
+    from dplasma_tpu_torch.serving import SolverService, batched
+    from dplasma_tpu_torch.tools import servebench
+    from dplasma_tpu_torch.utils import config as cfg
+
+    t_phase = time.perf_counter()
+    secs = {}
+    pk.enable(True)
+    gen = torch.Generator(device=SV_DEV).manual_seed(SV_SEED)
+    out = {"k1_cases": [], "k2_cases": []}
+
+    # 1. batched K1: the products of one batched posv and gesv dispatch
+    # at each bucket, recorded through the wrapper, replayed per layout
+    t0 = time.perf_counter()
+
+    def k1_spec(a, b, c=None, *, alpha=1.0, beta=1.0):
+        return ((_spec(a), _spec(b), _spec(None if beta == 0.0 else c)),
+                (float(alpha), float(beta)))
+
+    for n in SV_K1_SIZES:
+        for op in ("posv", "gesv"):
+            A = torch.stack([torch.from_numpy(_sv_operands(
+                torch, gen, op, n, SV_NRHS, torch.float32)[0]).to(SV_DEV)
+                for _ in range(SV_BATCH)])
+            Bs = torch.randn(SV_BATCH, n, SV_NRHS, generator=gen,
+                             device=SV_DEV)
+            pk.reset_counts()
+            _, seen = record_calls(
+                pallas_kernels, "gemm_batched",
+                lambda: batched.solve_batched(op, A, Bs, NB_SV), k1_spec)
+            want = serving_k1_want(op, n, NB_SV)
+            check(pk.BATCHED_LAUNCHES == want == pk.LAUNCHES
+                  == sum(seen.values()),
+                  f"[k1b] {op} n={n}: {pk.BATCHED_LAUNCHES} batched of "
+                  f"{pk.LAUNCHES} K1 launches (want {want})")
+            # one replay per product shape and element layout (the batch
+            # strides of the path's views differ, not the kernel's work)
+            layouts = {}
+            for spec, cnt in seen.items():
+                (sa, sb, sc), ab = spec
+                lay = (sa[0], sa[1][1:], sb[0], sb[1][1:], sc is None, ab)
+                first, tot = layouts.get(lay, (spec, 0))
+                layouts[lay] = (first, tot + cnt)
+            for spec, cnt in layouts.values():
+                (sa, sb, sc), _ = spec
+                lab = (f"{op} n={n} {sa[0][1]}x{sa[0][2]}x{sb[0][2]}"
+                       f"{' c' if sc else ''}")
+                out["k1_cases"].append(batched_k1_case(
+                    torch, pk, lab, spec, gen, cnt))
+    # a broadcast operand (batch stride 0) and an FFMA case (a row stride
+    # of 777 floats: no TMA)
+    f32 = torch.float32
+    out["k1_cases"].append(batched_k1_case(
+        torch, pk, "broadcast B", (
+            (((SV_BATCH, 512, 256), (512 * 256, 256, 1), f32),
+             ((SV_BATCH, 256, 512), (0, 512, 1), f32), None), (1.0, 0.0)),
+        gen))
+    out["k1_cases"].append(batched_k1_case(
+        torch, pk, "ffma ragged", (
+            (((SV_BATCH, 300, 777), (300 * 777, 777, 1), f32),
+             ((SV_BATCH, 777, 260), (777 * 260, 260, 1), f32),
+             ((SV_BATCH, 300, 260), (300 * 260, 260, 1), f32)),
+            (1.0, -1.0)), gen))
+    check(out["k1_cases"][-1]["kernel"] == "ffma", "the FFMA case took "
+          "the tensor cores")
+    secs["k1"] = time.perf_counter() - t0
+
+    # 2. batched K2: the residuals of one batched posv_ir / gesv_ir
+    t0 = time.perf_counter()
+
+    def k2_spec(al, bl, base, sa, sb, w):
+        return (_spec(al), _spec(bl), _spec(base), _spec(sa), _spec(sb),
+                int(w))
+
+    with cfg.override_scope({"ir.precision": "f32"}):
+        for n in SV_K2_SIZES:
+            for op in ("posv_ir", "gesv_ir"):
+                A = torch.stack([torch.from_numpy(_sv_operands(
+                    torch, gen, op, n, SV_NRHS, torch.float64)[0]).to(SV_DEV)
+                    for _ in range(SV_BATCH)])
+                Bs = torch.randn(SV_BATCH, n, SV_NRHS, generator=gen,
+                                 device=SV_DEV, dtype=torch.float64)
+                pdd.reset_counts()
+                (_, info), seen = record_calls(
+                    pdd, "limb_product_base_batched",
+                    lambda: batched.solve_batched(op, A, Bs, NB_SV),
+                    k2_spec)
+                check(bool(info["converged"].all()),
+                      f"[k2b] {op} n={n}: not every element converged")
+                want = 11
+                check(pdd.BATCHED_LAUNCHES == want == pdd.LAUNCHES,
+                      f"[k2b] {op} n={n}: {pdd.BATCHED_LAUNCHES} batched "
+                      f"of {pdd.LAUNCHES} K2 launches (want {want})")
+                for spec, cnt in seen.items():
+                    out["k2_cases"].append(batched_k2_case(
+                        torch, pdd, f"{op} n={n} residual", spec, gen, cnt))
+    secs["k2"] = time.perf_counter() - t0
+
+    # 3. SolverService at serving width
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SV_SEED)
+    with cfg.override_scope({"ir.precision": "f32"}):
+        svc = SolverService(nb=NB_SV, max_batch=SV_BATCH, device=SV_DEV)
+        reqs = []
+        for i in range(SV_REQ):
+            op = ("posv", "gesv")[i % 2]
+            n = int(rng.integers(SV_N[0], SV_N[1] + 1))
+            nrhs = int(rng.integers(1, SV_NRHS + 1))
+            reqs.append((op, *_sv_operands(torch, gen, op, n, nrhs,
+                                           torch.float32)))
+        reqs_ir = []
+        for i in range(SV_REQ_IR):
+            op = ("posv_ir", "gesv_ir")[i % 2]
+            n = int(rng.integers(SV_N_IR[0], SV_N_IR[1] + 1))
+            nrhs = int(rng.integers(1, SV_NRHS + 1))
+            reqs_ir.append((op, *_sv_operands(torch, gen, op, n, nrhs,
+                                              torch.float64)))
+        gen_s = time.perf_counter() - t0
+        cold = serving_traffic(torch, pk, pdd, svc, reqs,
+                               servebench.solve_one, "sv-f32")
+        cold_ir = serving_traffic(torch, pk, pdd, svc, reqs_ir,
+                                  servebench.solve_one, "sv-ir")
+        stats = svc.cache.stats()
+        warm = serving_traffic(torch, pk, pdd, svc, reqs,
+                               servebench.solve_one, "sv-f32-warm")
+        per_dispatch = {}
+        for op, dt in (("posv", torch.float32), ("gesv", torch.float32),
+                       ("posv_ir", torch.float64),
+                       ("gesv_ir", torch.float64)):
+            n = 1024
+            got = dispatch_counts(torch, pk, pdd, svc, op, n, gen, dt)
+            want1 = serving_k1_want(op, n, NB_SV)
+            want2 = 11 if op.endswith("_ir") else 0
+            check(got["k1"] == got["k1_batched"] == want1
+                  and got["k2"] == got["k2_batched"] == want2,
+                  f"[sv-dispatch] {op} n={n}: {got} (want K1 {want1}, K2 "
+                  f"{want2}, every launch batched)")
+            per_dispatch[op] = dict(got, want_k1=want1, want_k2=want2)
+            log(f"[sv-dispatch] {op} bucket n={n} batch {SV_BATCH}: K1 "
+                f"{got['k1']} launches (one element's count {want1}), K2 "
+                f"{got['k2']} (one a masked-loop residual: {want2})")
+        # the per-request serving tap: the struck request heals on its
+        # ladder, its batch-mates resolve from the batch
+        reqs4 = [("posv", *_sv_operands(torch, gen, "posv", 1024, 2,
+                                         torch.float32)) for _ in range(4)]
+        inject.arm(inject.parse_plan("nan@serving:1:1"))
+        try:
+            futs = [svc.submit(*r) for r in reqs4]
+            svc.flush()
+            [f.result(600.0) for f in futs]
+        finally:
+            faults = inject.disarm()
+        healed = [f for f in futs if "resilience" in f.meta]
+        check(len(faults) == 1 and len(healed) == 1
+              and healed[0].meta["resilience"]["outcome"] == "remediated"
+              and healed[0].meta["resilience"]["winner"] == "posv"
+              and all(f.meta.get("ok") for f in futs)
+              and all(f.meta["batched"] and f.meta["batch"] == 4
+                      for f in futs),
+              f"[sv-inject] {[f.meta for f in futs]}")
+        rung = [a["action"] for a in
+                healed[0].meta["resilience"]["attempts"]]
+        log(f"[sv-inject] nan@serving:1:1 struck request "
+            f"{healed[0].request_id}: healed on rungs {rung}; "
+            f"{len(futs) - 1} batch-mates resolved from the batch")
+        summ = svc.summary()
+        svc.close()
+    secs["service"] = time.perf_counter() - t0
+    out["service"] = {"f32_cold": cold, "ir_cold": cold_ir,
+                      "f32_warm": warm, "cache_after_cold": stats,
+                      "per_dispatch": per_dispatch, "summary": summ,
+                      "generation_s": gen_s, "inject_rungs": rung}
+    for tag, r in (("f32 cold", cold), ("ir cold", cold_ir),
+                   ("f32 warm", warm)):
+        log(f"[sv] {tag}: {r['requests']} requests in {r['wall_s']:.3f} s "
+            f"= {r['solves_per_s']:.1f} solves/s, p50 {r['p50_ms']:.2f} ms,"
+            f" p99 {r['p99_ms']:.2f} ms, max |X - X_unbatched|/max|X| "
+            f"{r['max_rel_vs_unbatched']:.2e}, launches {r['launches']}")
+    log(f"[sv] cache after the cold passes: {stats}")
+    log(f"[sv] service summary: hit rate {summ['cache']['hit_rate']}, "
+        f"build {summ['cache']['compile_s']:.2f} s, mean batch "
+        f"{summ['mean_batch']}")
+
+    # 4. servebench on the card, history and report in a temp dir
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = {}
+        for tag, argv in (("bench", SV_BENCH + ["--inject",
+                                                "nan@serving:1:1"]),
+                          ("soak", SV_SOAK)):
+            rep = os.path.join(tmp, f"{tag}.json")
+            pk.reset_counts()
+            pdd.reset_counts()
+            rc = servebench.main(argv + [
+                "--report", rep, "--history",
+                os.path.join(tmp, "history.jsonl"), "--seed",
+                str(SV_SEED)])
+            check(rc == 0, f"[servebench] {tag} exited {rc}")
+            with open(rep) as f:
+                doc = json.load(f)
+            sv = doc["serving"]
+            sv = sv[-1] if isinstance(sv, list) else sv
+            bench[tag] = {k: sv.get(k) for k in (
+                "solves_per_s", "loop_solves_per_s", "speedup_vs_loop",
+                "measured_latency_s", "trace_overhead_frac",
+                "admission_overhead_frac", "remediated", "failed",
+                "injected_faults", "cache", "device")}
+            bench[tag]["launches"] = {"k1": pk.LAUNCHES,
+                                      "k1_batched": pk.BATCHED_LAUNCHES,
+                                      "k2": pdd.LAUNCHES,
+                                      "k2_batched": pdd.BATCHED_LAUNCHES}
+            check(sv["failed"] == 0, f"[servebench] {tag}: {sv['failed']} "
+                                     f"requests failed")
+            if tag == "bench":
+                check(sv["injected_faults"] >= 1 and sv["remediated"] >= 1,
+                      f"[servebench] inject: {sv['injected_faults']} faults"
+                      f", {sv['remediated']} remediated")
+            else:
+                audit = doc["admission"]["audit"]
+                bench[tag]["audit"] = audit
+                check(audit["balanced"] and audit["lost"] == 0
+                      and audit["hung"] == 0
+                      and audit["submitted"] == audit["admitted"]
+                      + audit["shed"],
+                      f"[servebench] soak audit {audit}")
+            lat = sv["measured_latency_s"]
+            log(f"[servebench] {tag}: {sv['solves_per_s']:.1f} solves/s "
+                f"batched vs {sv['loop_solves_per_s']:.1f} one at a time "
+                f"(x{sv['speedup_vs_loop']:.2f}), p50 "
+                f"{1e3 * lat['p50']:.2f} ms, p99 {1e3 * lat['p99']:.2f} ms, "
+                f"trace overhead {sv['trace_overhead_frac']}, admission "
+                f"overhead {sv['admission_overhead_frac']}, remediated "
+                f"{sv['remediated']}, launches {bench[tag]['launches']}"
+                + (f", audit {bench[tag]['audit']}" if tag == "soak"
+                   else ""))
+    out["servebench"] = bench
+    secs["servebench"] = time.perf_counter() - t0
+    pk.enable(True)
+    secs["total"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"[phase22] section seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    record["serving"] = out
+    launches = {"k1": {}, "k2": {}}
+    for tag, r in (("serving_f32", cold), ("serving_ir", cold_ir),
+                   ("serving_f32_warm", warm)):
+        launches["k1"][tag] = r["launches"]["k1_batched"]
+        launches["k2"][tag] = r["launches"]["k2_batched"]
+    for op, d in per_dispatch.items():
+        launches["k1"][f"serving_dispatch_{op}"] = d["k1_batched"]
+        launches["k2"][f"serving_dispatch_{op}"] = d["k2_batched"]
+    for tag, d in bench.items():
+        launches["k1"][f"servebench_{tag}"] = d["launches"]["k1_batched"]
+        launches["k2"][f"servebench_{tag}"] = d["launches"]["k2_batched"]
+    out["launches"] = launches
+    return out
+
+
+def batched_entry(name, source, line, cases, launches):
+    """A kernels-line entry of a batched form: times summed over one
+    dispatch of each replayed case (each case's time times its count a
+    dispatch), launches from the phase's main-path runs."""
+    keys = ("ms", "plain_ms", "bound_ms", "loop_ms")
+    tot = {k: sum(c[k] * c["count"] for c in cases) for k in keys}
+    lib = [c["library_ms"] for c in cases]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": line, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **tot, "bound_by": ("operations" if all(
+                c["bound_by"] == "operations" for c in cases) else "bytes"),
+            "library_ms": (None if any(x is None for x in lib)
+                           else sum(x * c["count"]
+                                    for x, c in zip(lib, cases))),
+            "cases": cases}
+
+
 def kt_entry(eigr):
     main_case = eigr["kt"]["cases"][f"shetrd_{N_EIG}"]
     return {"name": "kt_tridiag_bisect", "route": "cuda",
@@ -7545,50 +8166,63 @@ def main() -> int:
     from dplasma_tpu_torch.kernels import pallas_ring as pring
 
     t_start = time.perf_counter()
-    record = {"device": torch.cuda.get_device_name(0)}
+    record = {"device": torch.cuda.get_device_name(0), "phase_s": {}}
+    # past WATCHDOG_S every thread's stack goes to stderr and the run
+    # exits non-zero, so a run that would overrun its limit shows where
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        s = record["phase_s"][phase.__name__] = time.perf_counter() - t
+        log(f"[time] {phase.__name__}: {s:.1f} s, "
+            f"{time.perf_counter() - t_start:.1f} s into the run")
+        return out
+
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {record['device']}")
-    phase_build(record)
-    k1tot, nprod, k1cyc = phase_k1(torch, pk, record)
-    k1luqr = phase_k1_lu_qr(torch, pk, record)
-    k3tot, npan = phase_k3(torch, plu, record)
-    k4tot, nqpan = phase_k4(torch, pqr, record)
-    k2tot, nk2 = phase_k2(torch, dd, pdd, record)
-    k2luqr = phase_k2_lu_qr(torch, dd, pdd, pk, record)
-    k2ir = phase_k2_ir(torch, dd, pdd, pk, record)
-    phase_int_mm_layouts(torch, record)
-    k5tot = phase_k5(torch, pring, record)
-    k1_spotrf = phase_spotrf(torch, pk, record)
-    k1_sgetrf, k3_sgetrf = phase_sgetrf(torch, pk, plu, record)
-    phase_sgetrf_profile(torch, pk, record)
-    k1_sgeqrf, k4_sgeqrf = phase_sgeqrf(torch, pk, plu, pqr, record)
-    phase_sgeqrf_profile(torch, pk, record)
-    phase_more_drivers(torch, pk, record)
-    k2_dpotrf = phase_dpotrf_dd(torch, pk, pdd, record)
-    phase_dpotrf_dd_profile(torch, record)
-    k2_dgemm = phase_dd_drivers(torch, pk, pdd, record)
-    _, k5b_gt, k5s_gt, k1_gt = phase_getrf_ptgpanel(torch, pk, pring,
-                                                    record)
-    k5b_pc, k1_pc = phase_potrf_cyclic(torch, pk, pring, record)
-    ddf = phase_dd_lu_qr(torch, pk, plu, pdd, record)
-    phase_dd_lu_qr_profile(torch, record)
-    ir = phase_ir(torch, pk, pdd, record)
-    phase_ir_profile(torch, pk, record)
-    k1inv, k2inv, k1inv_by, k2inv_by = phase_blas3_inverse(torch, pk, pdd,
-                                                           dd, record)
-    k1cx, k2cx, k1cx_by, k2cx_by = phase_complex_lu_family(torch, pk, pdd,
-                                                           dd, record)
-    k1hq, k2hq, k1hq_by, k2hq_by = phase_hqr_ldl(torch, pk, pdd, dd, record)
-    eigr, k1eig = phase_eig(torch, pk, pdd, record)
-    _, k1lm, k1lm_by, k3lm_by = phase_lowmem_catalogue(torch, pk, plu,
-                                                       record)
-    _, k1cy, k1cy_by, k5b_qc, eig18 = phase_cyclic_catalogue(
-        torch, pk, pring, record)
-    inst = phase_instruments(torch, pk, plu, pqr, pdd, pring, record)
-    live = phase_live_instruments(
-        torch, pk, pring, record,
-        os.path.join(HERE, "build", "phase19", "peaks.json"))
-    p21 = phase_dd_grid_resilience(torch, pk, pdd, dd, record)
+    timed(phase_build, record)
+    k1tot, nprod, k1cyc = timed(phase_k1, torch, pk, record)
+    k1luqr = timed(phase_k1_lu_qr, torch, pk, record)
+    k3tot, npan = timed(phase_k3, torch, plu, record)
+    k4tot, nqpan = timed(phase_k4, torch, pqr, record)
+    k2tot, nk2 = timed(phase_k2, torch, dd, pdd, record)
+    k2luqr = timed(phase_k2_lu_qr, torch, dd, pdd, pk, record)
+    k2ir = timed(phase_k2_ir, torch, dd, pdd, pk, record)
+    timed(phase_int_mm_layouts, torch, record)
+    k5tot = timed(phase_k5, torch, pring, record)
+    k1_spotrf = timed(phase_spotrf, torch, pk, record)
+    k1_sgetrf, k3_sgetrf = timed(phase_sgetrf, torch, pk, plu, record)
+    timed(phase_sgetrf_profile, torch, pk, record)
+    k1_sgeqrf, k4_sgeqrf = timed(phase_sgeqrf, torch, pk, plu, pqr, record)
+    timed(phase_sgeqrf_profile, torch, pk, record)
+    timed(phase_more_drivers, torch, pk, record)
+    k2_dpotrf = timed(phase_dpotrf_dd, torch, pk, pdd, record)
+    timed(phase_dpotrf_dd_profile, torch, record)
+    k2_dgemm = timed(phase_dd_drivers, torch, pk, pdd, record)
+    _, k5b_gt, k5s_gt, k1_gt = timed(phase_getrf_ptgpanel, torch, pk,
+                                     pring, record)
+    k5b_pc, k1_pc = timed(phase_potrf_cyclic, torch, pk, pring, record)
+    ddf = timed(phase_dd_lu_qr, torch, pk, plu, pdd, record)
+    timed(phase_dd_lu_qr_profile, torch, record)
+    ir = timed(phase_ir, torch, pk, pdd, record)
+    timed(phase_ir_profile, torch, pk, record)
+    k1inv, k2inv, k1inv_by, k2inv_by = timed(phase_blas3_inverse, torch,
+                                             pk, pdd, dd, record)
+    k1cx, k2cx, k1cx_by, k2cx_by = timed(phase_complex_lu_family, torch,
+                                         pk, pdd, dd, record)
+    k1hq, k2hq, k1hq_by, k2hq_by = timed(phase_hqr_ldl, torch, pk, pdd, dd,
+                                         record)
+    eigr, k1eig = timed(phase_eig, torch, pk, pdd, record)
+    _, k1lm, k1lm_by, k3lm_by = timed(phase_lowmem_catalogue, torch, pk,
+                                      plu, record)
+    _, k1cy, k1cy_by, k5b_qc, eig18 = timed(phase_cyclic_catalogue, torch,
+                                            pk, pring, record)
+    inst = timed(phase_instruments, torch, pk, plu, pqr, pdd, pring, record)
+    live = timed(phase_live_instruments, torch, pk, pring, record,
+                 os.path.join(HERE, "build", "phase19", "peaks.json"))
+    p21 = timed(phase_dd_grid_resilience, torch, pk, pdd, dd, record)
+    p22 = timed(phase_serving, torch, pk, pdd, record)
     for k in ("kw", "kt"):
         eigr[f"{k}_launches"] += eig18[k]
     eigr["kw_steps"] += eig18["kw_steps"]
@@ -7725,7 +8359,15 @@ def main() -> int:
          "bound_by": qr_bound_ms(N_QR, NB_QR)[1],
          "library_ms": k4tot["library_ms"]},
         k5_entry("bcast", 321), k5_entry("shift", 357),
-        kt_entry(eigr), kw_entry(eigr)]}
+        kt_entry(eigr), kw_entry(eigr),
+        batched_entry("k1_gemm_batched",
+                      "dplasma_tpu_torch/kernels/csrc/gemm.cu",
+                      "dplasma_tpu/kernels/pallas_kernels.py:139",
+                      p22["k1_cases"], p22["launches"]["k1"]),
+        batched_entry("k2_limb_gemm_batched",
+                      "dplasma_tpu_torch/kernels/csrc/recombine.cu",
+                      "dplasma_tpu/kernels/pallas_dd.py:83",
+                      p22["k2_cases"], p22["launches"]["k2"])]}
     record.update(kernels)
     record["wall_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -7864,8 +8506,20 @@ def main() -> int:
         f"dpotrf_dd_abft the plain and --abft dd dpotrf timed runs; K1's "
         f"spotrf_abft_<case> every run of every attempt of the --abft "
         f"--inject=bitflip spotrf runs (default, overflow, silent; the "
-        f"primary on the {N_MAIN + NB_MAIN}-row bordered matrix)")
+        f"primary on the {N_MAIN + NB_MAIN}-row bordered matrix); phase "
+        f"22: k1_gemm_batched / k2_limb_gemm_batched are the batched "
+        f"launches of the serving layer (stacks of {SV_BATCH}, nb="
+        f"{NB_SV}): ms, plain_ms, loop_ms (a loop of 2-D launches), "
+        f"library_ms (K1: torch.bmm or baddbmm; K2: none) and bound_ms "
+        f"sum one batched dispatch's products at each bucket (K1: posv and "
+        f"gesv at {SV_K1_SIZES}, plus a broadcast and an FFMA case; K2: "
+        f"posv_ir and gesv_ir residuals at {SV_K2_SIZES}), each replayed "
+        f"layout timed once times its count a dispatch; launches_by_path "
+        f"count the batched launches of the SolverService traffic (cold "
+        f"f32, cold IR, warm f32), of one full dispatch per op and of the "
+        f"servebench runs")
     log(f"[note] chip_smoke took {record['wall_s']:.1f} s")
+    faulthandler.cancel_dump_traceback_later()
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

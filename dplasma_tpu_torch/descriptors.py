@@ -133,9 +133,9 @@ class TileMatrix:
         d = TileDesc(M, N, mb, nb, dist)
         if (d.Mp, d.Np) == (M, N):
             return TileMatrix(a.clone(), d)
-        data = torch.zeros((d.Mp, d.Np), dtype=a.dtype, device=a.device)
-        data[:M, :N] = a
-        return TileMatrix(data, d)
+        # out of place, so a batched ``a`` (torch.func.vmap) pads too
+        return TileMatrix(
+            torch.nn.functional.pad(a, (0, d.Np - N, 0, d.Mp - M)), d)
 
     @staticmethod
     def from_reference(data: np.ndarray, desc: dict,

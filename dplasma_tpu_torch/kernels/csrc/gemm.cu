@@ -45,6 +45,16 @@
 // 128x128 tile, 128x16x128 steps staged in shared memory, 8x8 micro-tile
 // per thread, full f32.
 //
+// A batched launch (one launch for a stack of products, the serving
+// layer's torch.func.vmap over whole problems) runs the same kernels over
+// a leading batch axis: each operand has a batch stride (0 broadcasts one
+// matrix to every element), the element comes from the grid (FFMA: z;
+// tensor cores: z = element * splits + split) and the tensor-core kernel
+// reads rank-3 TMA maps, batch outermost with a box of 1. Each element's
+// plan (tile, splits) is its 2-D launch's, and split-K workspace and tile
+// counters are per element, so every element of a batched launch is
+// bitwise its 2-D launch.
+//
 // What bounds it on this card: operations. The main-path products have
 // hundreds of flops per byte; 3xTF32 does three tensor-core passes at
 // 495 TFLOP/s (~165 effective), the FFMA kernel runs at most at 67.
@@ -90,7 +100,14 @@ k1_gemm_kernel(int M, int N, int K,
                const T* __restrict__ B, int64_t sbk, int64_t sbn,
                const T* __restrict__ C, int64_t scm, int64_t scn,
                T* __restrict__ O, int64_t som, int64_t son,
-               float alpha, float beta) {
+               float alpha, float beta, int64_t sab, int64_t sbb,
+               int64_t scb, int64_t sob) {
+  // the batch element (z is 0 for a 2-D launch)
+  const int64_t z = blockIdx.z;
+  A += z * sab;
+  B += z * sbb;
+  if (HAS_C) C += z * scb;
+  O += z * sob;
   // k-major tiles: As[k][m], Bs[k][n]
   __shared__ __align__(16) float As[BK][BM + PAD];
   __shared__ __align__(16) float Bs[BK][BN + PAD];
@@ -191,8 +208,10 @@ cudaError_t launch(int has_c, int M, int N, int K,
                    const void* B, int64_t sbk, int64_t sbn,
                    const void* C, int64_t scm, int64_t scn,
                    void* O, int64_t som, int64_t son,
-                   float alpha, float beta, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                   float alpha, float beta, int batch, int64_t sab,
+                   int64_t sbb, int64_t scb, int64_t sob,
+                   cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   const bool a_kfast = (sak == 1);
   const bool b_nfast = (sbn == 1) || (sbk != 1);
   const T* a = static_cast<const T*>(A);
@@ -202,11 +221,11 @@ cudaError_t launch(int has_c, int M, int N, int K,
   if (has_c)
     launch_layout<T, true>(a_kfast, b_nfast, grid, stream, M, N, K, a, sam,
                            sak, b, sbk, sbn, c, scm, scn, o, som, son, alpha,
-                           beta);
+                           beta, sab, sbb, scb, sob);
   else
     launch_layout<T, false>(a_kfast, b_nfast, grid, stream, M, N, K, a, sam,
                             sak, b, sbk, sbn, c, scm, scn, o, som, son,
-                            alpha, beta);
+                            alpha, beta, sab, sbb, scb, sob);
   return cudaGetLastError();
 }
 
@@ -258,6 +277,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(saddr(dst)),
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(saddr(bar))
+      : "memory");
+}
+
+// One 3-D TMA box (a 2-D box of batch element z) into shared memory.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* tm,
+                                          int c0, int c1, int z,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(z),
+      "r"(saddr(bar))
       : "memory");
 }
 
@@ -367,11 +398,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// One block per (output tile, K split). Warps 0-7 (two warpgroups) split
-// the staged tiles and run wgmma, one 64-row half of the tile each; warp 8
-// keeps STAGES TMA loads in flight. A_K / B_K: the operand is K-major in
-// memory (A row-major; B a b.T view), else M/N-major.
-template <typename T, bool A_K, bool B_K>
+// One block per (output tile, K split) of one batch element. Warps 0-7
+// (two warpgroups) split the staged tiles and run wgmma, one 64-row half
+// of the tile each; warp 8 keeps STAGES TMA loads in flight. A_K / B_K:
+// the operand is K-major in memory (A row-major; B a b.T view), else
+// M/N-major. BATCHED: z = element * nsplit + split, rank-3 maps (a_bat /
+// b_bat 0 for a broadcast operand), C and O offset by their batch strides,
+// workspace and counters per element.
+template <typename T, bool A_K, bool B_K, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
 k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
                      const __grid_constant__ CUtensorMap tmB, int M, int N,
@@ -379,7 +413,8 @@ k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
                      const T* __restrict__ C, long long scm, long long scn,
                      T* __restrict__ O, long long som, long long son,
                      float alpha, float beta, float* __restrict__ ws,
-                     int* __restrict__ counters) {
+                     int* __restrict__ counters, int nsplit, int a_bat,
+                     int b_bat, long long scb, long long sob) {
   using Q = Cfg<T>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -390,7 +425,13 @@ k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
 
   const int t = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int split = blockIdx.z, splits = gridDim.z;
+  const int splits = BATCHED ? nsplit : gridDim.z;
+  const int elem = BATCHED ? blockIdx.z / nsplit : 0;
+  const int split = BATCHED ? blockIdx.z % nsplit : blockIdx.z;
+  if (BATCHED) {
+    if (has_c) C += elem * scb;
+    O += elem * sob;
+  }
   const int ktiles = (K + Q::BK - 1) / Q::BK;
   const int kt0 = split * kt_per;
   const int nk = max(0, min(ktiles, kt0 + kt_per) - kt0);
@@ -418,8 +459,15 @@ k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
         if (u > 0) dtt_cluster::mbar_wait(&empty[s], (u - 1) & 1);
         dtt_cluster::mbar_expect(&full[s], 2 * TILE);
         const int k = (kt0 + i) * Q::BK;
-        tma_load(raw_a(s), &tmA, A_K ? k : m0, A_K ? m0 : k, &full[s]);
-        tma_load(raw_b(s), &tmB, B_K ? k : n0, B_K ? n0 : k, &full[s]);
+        if (BATCHED) {
+          tma_load3(raw_a(s), &tmA, A_K ? k : m0, A_K ? m0 : k, elem * a_bat,
+                    &full[s]);
+          tma_load3(raw_b(s), &tmB, B_K ? k : n0, B_K ? n0 : k, elem * b_bat,
+                    &full[s]);
+        } else {
+          tma_load(raw_a(s), &tmA, A_K ? k : m0, A_K ? m0 : k, &full[s]);
+          tma_load(raw_b(s), &tmB, B_K ? k : n0, B_K ? n0 : k, &full[s]);
+        }
       }
     }
     return;
@@ -488,13 +536,15 @@ k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     // tile's counter; the last split to arrive sums all in split order
     const int tiles = gridDim.x * gridDim.y;
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    float* mine = ws + ((size_t)split * tiles + tile) * (64 * CONSUMERS);
+    float* mine =
+        ws + ((size_t)(elem * splits + split) * tiles + tile) * (64 * CONSUMERS);
 #pragma unroll
     for (int v = 0; v < 64; ++v) mine[v * CONSUMERS + t] = acc[v];
     __threadfence();
     consumers_sync();
     if (t == 0) {
-      cuda::atomic_ref<int, cuda::thread_scope_device> cnt(counters[tile]);
+      cuda::atomic_ref<int, cuda::thread_scope_device> cnt(
+          counters[elem * tiles + tile]);
       const int old = cnt.fetch_add(1, cuda::memory_order_acq_rel);
       *s_last = (old == splits - 1);
       if (old == splits - 1) cnt.store(0, cuda::memory_order_relaxed);
@@ -502,7 +552,8 @@ k1_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     consumers_sync();
     if (!*s_last) return;
     __threadfence();
-    const float* base = ws + (size_t)tile * (64 * CONSUMERS);
+    const float* base =
+        ws + ((size_t)elem * splits * tiles + tile) * (64 * CONSUMERS);
 #pragma unroll
     for (int v = 0; v < 64; ++v) acc[v] = __ldcg(base + v * CONSUMERS + t);
     for (int z = 1; z < splits; ++z) {
@@ -551,9 +602,13 @@ EncodeTiled encode_tiled() {
 // The tensor map of one operand (rows x cols, element strides s0, s1),
 // boxes of 128 rows of the M/N axis by BK along K. `kmajor`: the operand's
 // K axis has unit stride. Out-of-range elements of a box read as zero.
+// With nbatch > 0 the map is rank 3: a batch axis outermost (stride
+// sbatch elements, a box of 1); a broadcast operand (sbatch = 0) is one
+// element of a batch of 1.
 template <typename T>
 int make_map(CUtensorMap* tm, const void* p, long long rows, long long cols,
-             long long s0, long long s1, bool k_is_cols, bool kmajor) {
+             long long s0, long long s1, bool k_is_cols, bool kmajor,
+             long long nbatch = 0, long long sbatch = 0) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorSymbolNotFound;
   // the axis with unit stride goes first (TMA's innermost dimension)
@@ -568,30 +623,37 @@ int make_map(CUtensorMap* tm, const void* p, long long rows, long long cols,
   if ((reinterpret_cast<uintptr_t>(p) & 15) || (ldb & 15) || ldb <= 0 ||
       ldb >= (1ll << 40))
     return (int)cudaErrorInvalidValue;
-  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t strides[1] = {(cuuint64_t)ldb};
-  cuuint32_t box[2] = {
+  const long long bb = sbatch * (long long)sizeof(T);
+  if (nbatch > 0 && (bb < 0 || (bb & 15) || bb >= (1ll << 40)))
+    return (int)cudaErrorInvalidValue;
+  cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                        (cuuint64_t)(bb ? nbatch : 1)};
+  cuuint64_t strides[2] = {(cuuint64_t)ldb,
+                           (cuuint64_t)(bb ? bb : ldb * outer)};
+  cuuint32_t box[3] = {
       (cuuint32_t)(inner_is_k ? Cfg<T>::BK : BM),
-      (cuuint32_t)(inner_is_k ? BM : Cfg<T>::BK)};
-  cuuint32_t estr[2] = {1, 1};
+      (cuuint32_t)(inner_is_k ? BM : Cfg<T>::BK), 1};
+  cuuint32_t estr[3] = {1, 1, 1};
   CUresult r = enc(tm,
                    sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   2, const_cast<void*>(p), dims, strides, box, estr,
+                   nbatch > 0 ? 3 : 2, const_cast<void*>(p), dims, strides,
+                   box, estr,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <typename T, bool A_K, bool B_K>
+template <typename T, bool A_K, bool B_K, bool BATCHED>
 int launch_one(const CUtensorMap& ta, const CUtensorMap& tb, dim3 grid,
                cudaStream_t s, int M, int N, int K, int kt_per, int has_c,
                const T* c, long long scm, long long scn, T* o,
                long long som, long long son, float alpha, float beta,
-               float* ws, int* counters) {
+               float* ws, int* counters, int nsplit, int a_bat, int b_bat,
+               long long scb, long long sob) {
   static bool configured = false;
-  auto kern = k1_gemm_wgmma_kernel<T, A_K, B_K>;
+  auto kern = k1_gemm_wgmma_kernel<T, A_K, B_K, BATCHED>;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<T>::SMEM);
@@ -600,7 +662,8 @@ int launch_one(const CUtensorMap& ta, const CUtensorMap& tb, dim3 grid,
   }
   kern<<<grid, THREADS, Cfg<T>::SMEM, s>>>(ta, tb, M, N, K, kt_per, has_c, c,
                                           scm, scn, o, som, son, alpha, beta,
-                                          ws, counters);
+                                          ws, counters, nsplit, a_bat, b_bat,
+                                          scb, sob);
   return (int)cudaGetLastError();
 }
 
@@ -610,22 +673,33 @@ int launch(int has_c, int M, int N, int K, const void* A, long long sam,
            const void* C, long long scm, long long scn, void* O,
            long long som, long long son, float alpha, float beta, int splits,
            int kt_per, int a_k, int b_k, float* ws, int* counters,
-           cudaStream_t s) {
+           int batch, long long sab, long long sbb, long long scb,
+           long long sob, cudaStream_t s) {
   CUtensorMap ta, tb;
-  int e = make_map<T>(&ta, A, M, K, sam, sak, true, a_k);
-  if (!e) e = make_map<T>(&tb, B, K, N, sbk, sbn, false, b_k);
+  const long long nb3 = batch > 1 ? batch : 0;   // rank-3 maps if batched
+  int e = make_map<T>(&ta, A, M, K, sam, sak, true, a_k, nb3, sab);
+  if (!e) e = make_map<T>(&tb, B, K, N, sbk, sbn, false, b_k, nb3, sbb);
   if (e) return e;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM,
+                  batch > 1 ? batch * splits : splits);
   const T* c = static_cast<const T*>(C);
   T* o = static_cast<T*>(O);
-#define K1_LAUNCH(AK, BKM)                                                 \
-  return launch_one<T, AK, BKM>(ta, tb, grid, s, M, N, K, kt_per, has_c, c, \
-                                scm, scn, o, som, son, alpha, beta, ws,     \
-                                counters)
-  if (a_k && b_k) K1_LAUNCH(true, true);
-  if (a_k) K1_LAUNCH(true, false);
-  if (b_k) K1_LAUNCH(false, true);
-  K1_LAUNCH(false, false);
+  const int a_bat = sab != 0, b_bat = sbb != 0;
+#define K1_LAUNCH(AK, BKM, BAT)                                             \
+  return launch_one<T, AK, BKM, BAT>(ta, tb, grid, s, M, N, K, kt_per, has_c, \
+                                     c, scm, scn, o, som, son, alpha, beta,  \
+                                     ws, counters, splits, a_bat, b_bat, scb, \
+                                     sob)
+  if (batch > 1) {
+    if (a_k && b_k) K1_LAUNCH(true, true, true);
+    if (a_k) K1_LAUNCH(true, false, true);
+    if (b_k) K1_LAUNCH(false, true, true);
+    K1_LAUNCH(false, false, true);
+  }
+  if (a_k && b_k) K1_LAUNCH(true, true, false);
+  if (a_k) K1_LAUNCH(true, false, false);
+  if (b_k) K1_LAUNCH(false, true, false);
+  K1_LAUNCH(false, false, false);
 #undef K1_LAUNCH
 }
 
@@ -641,7 +715,9 @@ int launch(int has_c, int M, int N, int K, const void* A, long long sam,
 // be this build's), the split count and its K tiles per split, and
 // whether each operand is K-major in memory; ws (splits * tiles * 16384
 // floats) and counters (one int per output tile, zero on entry, left
-// zero) are used when splits > 1.
+// zero) are used when splits > 1. batch (>= 1) elements are computed in
+// the one launch, each operand advanced by its batch stride (elements; 0
+// broadcasts one matrix); ws and counters then hold batch times as much.
 struct K1Args {
   int dtype, has_c, M, N, K;
   const void* A;
@@ -657,12 +733,15 @@ struct K1Args {
   void* ws;
   void* counters;
   void* stream;
+  int batch;
+  long long sab, sbb, scb, sob;
 };
 
 // Plain C entry point, bound with ctypes. Returns 0 once launched (or
 // when there is nothing to do), else a cudaError_t.
 extern "C" int dtt_k1_gemm(const K1Args* p) {
   if (p->M <= 0 || p->N <= 0) return 0;
+  if (p->batch < 1 || p->batch > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(p->stream);
   if (p->kernel == 0) {
     if ((p->M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -670,12 +749,13 @@ extern "C" int dtt_k1_gemm(const K1Args* p) {
       return (int)launch<float>(p->has_c, p->M, p->N, p->K, p->A, p->sam,
                                 p->sak, p->B, p->sbk, p->sbn, p->C, p->scm,
                                 p->scn, p->O, p->som, p->son, p->alpha,
-                                p->beta, s);
+                                p->beta, p->batch, p->sab, p->sbb, p->scb,
+                                p->sob, s);
     if (p->dtype == 1)
       return (int)launch<__nv_bfloat16>(
           p->has_c, p->M, p->N, p->K, p->A, p->sam, p->sak, p->B, p->sbk,
           p->sbn, p->C, p->scm, p->scn, p->O, p->som, p->son, p->alpha,
-          p->beta, s);
+          p->beta, p->batch, p->sab, p->sbb, p->scb, p->sob, s);
     return (int)cudaErrorInvalidValue;
   }
   const int want_bk = p->dtype == 0 ? wg::Cfg<float>::BK
@@ -683,7 +763,8 @@ extern "C" int dtt_k1_gemm(const K1Args* p) {
   if (p->kernel != 1 || p->bm != wg::BM || p->bn != wg::BN ||
       p->bk != want_bk || p->splits < 1 || p->kt_per < 1 || p->K < 1 ||
       (p->splits > 1 && (!p->ws || !p->counters)) ||
-      (p->M + wg::BM - 1) / wg::BM > 65535 || p->splits > 65535)
+      (p->M + wg::BM - 1) / wg::BM > 65535 ||
+      (long long)p->splits * p->batch > 65535)
     return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(p->ws);
   int* cnt = static_cast<int*>(p->counters);
@@ -691,11 +772,13 @@ extern "C" int dtt_k1_gemm(const K1Args* p) {
     return wg::launch<float>(p->has_c, p->M, p->N, p->K, p->A, p->sam,
                              p->sak, p->B, p->sbk, p->sbn, p->C, p->scm,
                              p->scn, p->O, p->som, p->son, p->alpha, p->beta,
-                             p->splits, p->kt_per, p->a_k, p->b_k, w, cnt, s);
+                             p->splits, p->kt_per, p->a_k, p->b_k, w, cnt,
+                             p->batch, p->sab, p->sbb, p->scb, p->sob, s);
   if (p->dtype == 1)
     return wg::launch<__nv_bfloat16>(
         p->has_c, p->M, p->N, p->K, p->A, p->sam, p->sak, p->B, p->sbk,
         p->sbn, p->C, p->scm, p->scn, p->O, p->som, p->son, p->alpha,
-        p->beta, p->splits, p->kt_per, p->a_k, p->b_k, w, cnt, s);
+        p->beta, p->splits, p->kt_per, p->a_k, p->b_k, w, cnt, p->batch,
+        p->sab, p->sbb, p->scb, p->sob, s);
   return (int)cudaErrorInvalidValue;
 }

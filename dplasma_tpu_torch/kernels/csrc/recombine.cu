@@ -45,6 +45,15 @@
 //   workspace, resets the counter and runs the f64 epilogue. Integer
 //   addition is associative, so every arrival order gives the same bits.
 //
+// A batched launch (the serving layer's torch.func.vmap over whole
+// problems: one launch for the residual of every element of a batch) runs
+// the same kernel over a leading batch axis: rank-4 TMA maps (batch
+// outermost, a box of 1; a broadcast operand is a batch of one), the
+// element from the grid (z = element * splits + split), base, scales and
+// output advanced by their batch strides, workspace and tile counters per
+// element. The integer sums and the epilogue are the 2-D launch's, so
+// every element is bitwise its 2-D launch.
+//
 // What bounds it on this card: operations. nl(nl+1)/2 pair products of
 // 2*M*N*K int8 operations each, against the 1979 TOP/s dense int8 peak;
 // the limb planes are read once per output tile row or column.
@@ -102,6 +111,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(saddr(dst)),
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(k), "r"(row), "r"(0),
+      "r"(saddr(bar))
+      : "memory");
+}
+
+// One 4-D TMA box (K, rows, limb planes, batch element z).
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* tm,
+                                          int k, int row, int z,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(k), "r"(row), "r"(0), "r"(z),
       "r"(saddr(bar))
       : "memory");
 }
@@ -169,7 +190,11 @@ __device__ __forceinline__ void store_frag(int* tile, const int* d, int t) {
   }
 }
 
-// One block per (64x64 output tile, K split); see the header.
+// One block per (64x64 output tile, K split) of one batch element; see
+// the header. BATCHED: z = element * nsplit + split, rank-4 maps (a_bat /
+// b_bat 0 for a broadcast operand), base / scales / out advanced by their
+// batch strides (elements; 0 broadcasts).
+template <bool BATCHED>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                     const __grid_constant__ CUtensorMap tmB, int nl, int w,
@@ -178,7 +203,9 @@ k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                     long long bs1, const double* __restrict__ sa,
                     long long sas, const double* __restrict__ sb,
                     long long sbs, double* __restrict__ out,
-                    int* __restrict__ ws, int* __restrict__ counters) {
+                    int* __restrict__ ws, int* __restrict__ counters,
+                    int nsplit, int a_bat, int b_bat, long long base_b,
+                    long long sa_b, long long sb_b, long long out_b) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) &
@@ -192,9 +219,17 @@ k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
 
   const int t = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int splits = gridDim.z;
+  const int splits = BATCHED ? nsplit : gridDim.z;
+  const int elem = BATCHED ? blockIdx.z / nsplit : 0;
+  const int kz = BATCHED ? blockIdx.z % nsplit : blockIdx.z;
+  if (BATCHED) {
+    if (base != nullptr) base += elem * base_b;
+    sa += elem * sa_b;
+    sb += elem * sb_b;
+    out += elem * out_b;
+  }
   const int ktiles = (K + BK - 1) / BK;
-  const int kt0 = blockIdx.z * kt_per;
+  const int kt0 = kz * kt_per;
   const int nk = max(0, min(ktiles, kt0 + kt_per) - kt0);
 
   if (t == 0) {
@@ -214,8 +249,13 @@ k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
         dtt_cluster::mbar_expect(&full[s], sbytes);
         uint8_t* st = smem + s * sbytes;
         const int k = (kt0 + i) * BK;
-        tma_load(st, &tmA, k, m0, &full[s]);
-        tma_load(st + nl * PLANE, &tmB, k, n0, &full[s]);
+        if (BATCHED) {
+          tma_load4(st, &tmA, k, m0, elem * a_bat, &full[s]);
+          tma_load4(st + nl * PLANE, &tmB, k, n0, elem * b_bat, &full[s]);
+        } else {
+          tma_load(st, &tmA, k, m0, &full[s]);
+          tma_load(st + nl * PLANE, &tmB, k, n0, &full[s]);
+        }
       }
     }
     return;
@@ -260,9 +300,10 @@ k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
   if (splits > 1) {
     // this split's partial sums into the tile's workspace, then the
     // tile's counter; the last split to arrive takes the totals
+    const int tiles = gridDim.x * gridDim.y;
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
     const int nel = nl * BM * BN;
-    int* wt = ws + (size_t)tile * nel;
+    int* wt = ws + ((size_t)elem * tiles + tile) * nel;
     for (int e = t; e < nel; e += consumers) {
       const int l = e / (BM * BN), rc = e % (BM * BN);
       const int v = lvl[(l * BM + rc / BN) * LDS + rc % BN];
@@ -271,7 +312,8 @@ k2_limb_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
     __threadfence();
     consumers_sync(consumers);
     if (t == 0) {
-      cuda::atomic_ref<int, cuda::thread_scope_device> cnt(counters[tile]);
+      cuda::atomic_ref<int, cuda::thread_scope_device> cnt(
+          counters[elem * tiles + tile]);
       const int old = cnt.fetch_add(1, cuda::memory_order_acq_rel);
       *s_last = (old == splits - 1);
       if (old == splits - 1) cnt.store(0, cuda::memory_order_relaxed);
@@ -335,19 +377,26 @@ EncodeTiled encode_tiled() {
 // The tensor map of one operand's limb planes: (nl, rows, K) int8, unit
 // stride along K, `row` and `plane` byte strides; boxes of 64 K bytes by
 // 64 rows by all nl planes, 64-byte swizzled. Out-of-range elements of a
-// box read as zero (adding nothing to an integer sum).
+// box read as zero (adding nothing to an integer sum). With nbatch > 0 the
+// map is rank 4, a batch axis outermost (byte stride `bstride`, a box of
+// 1; a broadcast operand, bstride 0, is a batch of one).
 int make_map(CUtensorMap* tm, const void* p, int nl, long long rows,
-             long long K, long long plane, long long row) {
+             long long K, long long plane, long long row,
+             long long nbatch = 0, long long bstride = 0) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorSymbolNotFound;
   if ((reinterpret_cast<uintptr_t>(p) & 15) || (row & 15) || (plane & 15) ||
-      row <= 0 || plane <= 0 || row >= (1ll << 40) || plane >= (1ll << 40))
+      row <= 0 || plane <= 0 || row >= (1ll << 40) || plane >= (1ll << 40) ||
+      (nbatch > 0 && (bstride < 0 || (bstride & 15) ||
+                      bstride >= (1ll << 40))))
     return (int)cudaErrorInvalidValue;
-  cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)nl};
-  cuuint64_t strides[2] = {(cuuint64_t)row, (cuuint64_t)plane};
-  cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)BM, (cuuint32_t)nl};
-  cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = enc(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+  cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)nl,
+                        (cuuint64_t)(bstride ? nbatch : 1)};
+  cuuint64_t strides[3] = {(cuuint64_t)row, (cuuint64_t)plane,
+                           (cuuint64_t)(bstride ? bstride : plane * nl)};
+  cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)BM, (cuuint32_t)nl, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = enc(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, nbatch > 0 ? 4 : 3,
                    const_cast<void*>(p), dims, strides, box, estr,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -365,7 +414,10 @@ int make_map(CUtensorMap* tm, const void* p, int nl, long long rows,
 // this build's), the stage count and shared memory (checked against this
 // build's), and the split count with its K steps per split; ws (tiles *
 // nl * 4096 int32) and counters (one int per output tile) are zero on
-// entry and left zero, used when splits > 1.
+// entry and left zero, used when splits > 1. batch (>= 1) elements are
+// computed in the one launch: a_batch / b_batch are the limb planes' batch
+// strides in bytes, base_b / sa_b / sb_b / out_b the others' in elements
+// (0 broadcasts); ws and counters then hold batch times as much.
 struct K2Args {
   int nl, w, M, N, K;
   const void* A;
@@ -383,6 +435,8 @@ struct K2Args {
   void* ws;
   void* counters;
   void* stream;
+  int batch;
+  long long a_batch, b_batch, base_b, sa_b, sb_b, out_b;
 };
 
 // Plain C entry point, bound with ctypes. Returns 0 once launched (or
@@ -395,34 +449,42 @@ extern "C" int dtt_k2_limb_gemm(const K2Args* p) {
       p->smem != smem_for(nl) || p->splits < 1 || p->kt_per < 1 ||
       !p->A || !p->B || !p->sa || !p->sb || !p->out ||
       (p->splits > 1 && (!p->ws || !p->counters)) ||
-      (p->M + BM - 1) / BM > 65535 || p->splits > 65535)
+      (p->M + BM - 1) / BM > 65535 || p->batch < 1 ||
+      (long long)p->splits * p->batch > 65535)
     return (int)cudaErrorInvalidValue;
   // the splits cover the K steps, none empty
   const long long ktiles = (p->K + BK - 1) / BK;
   if ((long long)p->splits * p->kt_per < ktiles ||
       (long long)(p->splits - 1) * p->kt_per >= ktiles)
     return (int)cudaErrorInvalidValue;
+  const bool batched = p->batch > 1;
+  const long long nb4 = batched ? p->batch : 0;   // rank-4 maps if batched
   CUtensorMap ta, tb;
-  int e = make_map(&ta, p->A, nl, p->M, p->K, p->a_plane, p->a_row);
-  if (!e) e = make_map(&tb, p->B, nl, p->N, p->K, p->b_plane, p->b_row);
+  int e = make_map(&ta, p->A, nl, p->M, p->K, p->a_plane, p->a_row, nb4,
+                   p->a_batch);
+  if (!e)
+    e = make_map(&tb, p->B, nl, p->N, p->K, p->b_plane, p->b_row, nb4,
+                 p->b_batch);
   if (e) return e;
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[2] = {false, false};
+  if (!configured[batched]) {
     cudaError_t r = cudaFuncSetAttribute(
-        k2_limb_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_LIMIT);
+        batched ? k2_limb_gemm_kernel<true> : k2_limb_gemm_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (r != cudaSuccess) return (int)r;
-    configured = true;
+    configured[batched] = true;
   }
-  const dim3 grid((p->N + BN - 1) / BN, (p->M + BM - 1) / BM, p->splits);
+  const dim3 grid((p->N + BN - 1) / BN, (p->M + BM - 1) / BM,
+                  batched ? p->batch * p->splits : p->splits);
   const int threads = (nl + 1) / 2 * 128 + 32;
-  k2_limb_gemm_kernel<<<grid, threads, p->smem,
-                        static_cast<cudaStream_t>(p->stream)>>>(
+  auto kern = batched ? k2_limb_gemm_kernel<true> : k2_limb_gemm_kernel<false>;
+  kern<<<grid, threads, p->smem, static_cast<cudaStream_t>(p->stream)>>>(
       ta, tb, nl, p->w, p->M, p->N, p->K, p->kt_per,
       static_cast<const double*>(p->base), p->bs0, p->bs1,
       static_cast<const double*>(p->sa), p->sas,
       static_cast<const double*>(p->sb), p->sbs,
       static_cast<double*>(p->out), static_cast<int*>(p->ws),
-      static_cast<int*>(p->counters));
+      static_cast<int*>(p->counters), p->splits, p->a_batch != 0,
+      p->b_batch != 0, p->base_b, p->sa_b, p->sb_b, p->out_b);
   return (int)cudaGetLastError();
 }

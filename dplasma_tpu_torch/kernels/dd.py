@@ -48,6 +48,7 @@ import math
 import torch
 
 from dplasma_tpu_torch.kernels import pallas_dd as _pdd
+from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 
 # Digit width for int8 limbs: |d| <= 2^7 - 1 = 127.
 W8 = 7
@@ -70,13 +71,44 @@ def _plan(K: int, bits: int):
 KC = _plan(2 ** 20, 53)[2]
 
 
+#: the 64-bit types :func:`_bitcast` reinterprets between
+_BITCAST = {0: torch.int64, 1: _F64}
+
+
+@torch.library.custom_op("dtt::bitcast", mutates_args=())
+def _bitcast_op(x: torch.Tensor, code: int) -> torch.Tensor:
+    return x.view(_BITCAST[code]).clone()
+
+
+@_bitcast_op.register_fake
+def _(x, code):
+    return torch.empty_like(x, dtype=_BITCAST[code])
+
+
+def _bitcast_vmap(info, in_dims, x, code):
+    return x.view(_BITCAST[code]).clone(), in_dims[0]
+
+
+torch.library.register_vmap("dtt::bitcast", _bitcast_vmap)
+
+
+def _bitcast(x, dtype):
+    """x's bits as ``dtype`` (int64 <-> float64): ``Tensor.view``, or,
+    for a functorch-batched ``x`` (``torch.func.vmap``, the serving
+    layer), a copy through the custom op ``dtt::bitcast``: some torch
+    versions have no batching rule for ``view.dtype``."""
+    if _pk.is_batched(x):
+        return torch.ops.dtt.bitcast(x, 0 if dtype == torch.int64 else 1)
+    return x.view(dtype)
+
+
 def _pow2_scale_bits(m):
     """2^(floor(log2 m) + 2), read from the f64 exponent field (so
     |x| <= scale/2 for |x| <= m), the exponent clamped inside the normal
     range: 0 and subnormals give 2^-1020, Inf and NaN 2^1023."""
-    b = torch.as_tensor(m).to(_F64).view(torch.int64)
+    b = _bitcast(torch.as_tensor(m).to(_F64), torch.int64)
     e = ((b >> 52) & 0x7FF).clamp(1, 0x7FC) + 2
-    return (e << 52).view(_F64)
+    return _bitcast(e << 52, _F64)
 
 
 def _split_fixed(x, scale, w: int, nl: int, out=None):
@@ -87,21 +119,35 @@ def _split_fixed(x, scale, w: int, nl: int, out=None):
     harmless because the exponent is masked and the sign read from bit
     63, and the shift counts are clipped to [0, 63] as in the
     reference. Writes the nl int8 limbs into ``out`` (nl, *x.shape), a
-    new tensor when None, and returns it."""
-    p = x.to(_F64).view(torch.int64)
+    new tensor when None, and returns it. A functorch-batched ``x``
+    (``torch.func.vmap``) cannot write into ``out``: its limbs are
+    stacked out of place instead, padded like ``out``'s rows, and that
+    tensor is returned."""
+    p = _bitcast(x.to(_F64), torch.int64)
     e_x = (p >> 52) & 0x7FF
     mant = torch.where(e_x > 0, (p & ((1 << 52) - 1)) | (1 << 52),
                        torch.zeros((), dtype=torch.int64, device=p.device))
     sgn = 1 - 2 * ((p >> 63) & 1)
-    e_s = (torch.as_tensor(scale).to(_F64).view(torch.int64) >> 52) & 0x7FF
+    e_s = (_bitcast(torch.as_tensor(scale).to(_F64), torch.int64) >> 52) \
+        & 0x7FF
     t0 = 52 - (e_x - e_s)           # bit offset of limb l's LSB: t0 - w(l+1)
     mask = 2 ** w - 1
+
+    def digits(l):
+        t = t0 - w * (l + 1)
+        return sgn * (((mant >> t.clamp(0, 63)) << (-t).clamp(0, 63)) & mask)
+
+    if _pk.is_batched(x):
+        limbs = torch.stack([digits(l) for l in range(nl)]).to(torch.int8)
+        if out is None:
+            return limbs
+        k = limbs.shape[-1]
+        return torch.nn.functional.pad(limbs, (0, out.stride(-2) - k))[
+            ..., :k]
     if out is None:
         out = torch.empty((nl, *x.shape), dtype=torch.int8, device=x.device)
     for l in range(nl):
-        t = t0 - w * (l + 1)
-        d = ((mant >> t.clamp(0, 63)) << (-t).clamp(0, 63)) & mask
-        out[l].copy_(sgn * d)
+        out[l].copy_(digits(l))
     return out
 
 
@@ -158,6 +204,12 @@ def _imm(a, b):
         return (x.shape == (rows, Kp) and x.stride(1) == 1
                 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0)
 
+    if _pk.is_batched(a) or _pk.is_batched(b):
+        # torch.func.vmap: padded out of place, and _int_mm per element
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
+        bt = torch.nn.functional.pad(b.T, (0, Kp - K, 0, Np - N))
+        out = torch._int_mm(a, bt.T)
+        return out if (Mp, Np) == (M, N) else out[:M, :N]
     if not k_major(a, Mp):
         ap = torch.zeros((Mp, Kp), dtype=torch.int8, device=a.device)
         ap[:M, :K] = a
@@ -228,10 +280,20 @@ def _limb_product_base(al, bl, base, sa, sb, K: int, w: int, nl: int,
     not ``off`` is one launch of K2 (:func:`pallas_dd.limb_product_base`).
     Every other product takes the plain route, the reference's
     ``_recombine_scale_base(_limb_levels(...))``, and on the card adds
-    one to ``pallas_dd.UNFUSED``."""
+    one to ``pallas_dd.UNFUSED``.
+
+    Functorch-batched planes (``torch.func.vmap``, the serving layer)
+    take K2 on any device, one batched launch (the plain batched version
+    on the CPU); the plain route cannot batch, so a batched product that
+    K2 does not take raises."""
     cuda = al.device.type == "cuda"
-    if cuda and K <= kc and _pdd.fused():
+    batched = _pk.is_batched(al)
+    if (cuda or batched) and K <= kc and _pdd.fused():
         return _pdd.limb_product_base(al, bl, base, sa, sb, w)
+    if batched:
+        raise NotImplementedError(
+            f"a batched limb product runs only as one K2 launch: K={K} "
+            f"must be <= {kc} and MCA dd_epilogue on")
     if cuda:
         _pdd.UNFUSED += 1
     levels = _limb_levels(list(al), [x.T for x in bl], K, w, nl, kc)

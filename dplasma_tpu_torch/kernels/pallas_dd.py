@@ -41,14 +41,26 @@ and the on-card comparison use. :func:`recombine_base` keeps the
 reference's name and level-tensor API for CPU tensors (the plain route's
 epilogue there). ``ROUTED`` counts calls of either entry point on any
 device, ``LAUNCHES`` the CUDA launches.
+
+The batched form (:func:`limb_product_base_batched`) is one launch for
+the limb products of a whole batch, the serving layer's residuals under
+``torch.func.vmap`` (the reference's ``pallas_call`` batching rule).
+:func:`limb_product_base` sees functorch-batched planes there, counts one
+``ROUTED`` call and goes through the custom op ``dtt::k2_limb_gemm``,
+whose vmap rule moves the batch axis to the front and makes one batched
+call (an unbatched operand broadcasts with batch stride 0). A plain
+tensor keeps the direct ctypes launch. Every element is bitwise its 2-D
+launch and the plain version; ``BATCHED_LAUNCHES`` counts the batched
+launches (also counted in ``LAUNCHES``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.utils import config as _cfg
 
 #: calls that took the K2 route (either entry point), on any device
@@ -57,6 +69,8 @@ ROUTED = 0
 LAUNCHES = 0
 #: limb products on the card that took the plain, unfused route
 UNFUSED = 0
+#: CUDA launches of K2 that covered a batch (counted in LAUNCHES too)
+BATCHED_LAUNCHES = 0
 
 # The kernel's tile (csrc/recombine.cu): 64×64 output, 64 bytes of K a
 # step, one 4 KB box per limb plane
@@ -80,10 +94,11 @@ _FNS: dict = {}
 
 
 def reset_counts() -> None:
-    global ROUTED, LAUNCHES, UNFUSED
+    global ROUTED, LAUNCHES, UNFUSED, BATCHED_LAUNCHES
     ROUTED = 0
     LAUNCHES = 0
     UNFUSED = 0
+    BATCHED_LAUNCHES = 0
 
 
 def fused() -> bool:
@@ -255,7 +270,11 @@ class _K2Args(ctypes.Structure):
                 ("smem", ctypes.c_int), ("splits", ctypes.c_int),
                 ("kt_per", ctypes.c_int),
                 ("ws", ctypes.c_void_p), ("counters", ctypes.c_void_p),
-                ("stream", ctypes.c_void_p)]
+                ("stream", ctypes.c_void_p), ("batch", ctypes.c_int),
+                ("a_batch", ctypes.c_longlong),
+                ("b_batch", ctypes.c_longlong),
+                ("base_b", ctypes.c_longlong), ("sa_b", ctypes.c_longlong),
+                ("sb_b", ctypes.c_longlong), ("out_b", ctypes.c_longlong)]
 
 
 def _kernel():
@@ -343,7 +362,7 @@ def _launch(al, bl, base, sa, sb, w: int):
             bs1=0 if base is None else base.stride(1),
             sas=sa.stride(0), sbs=sb.stride(1), bm=p.bm, bn=p.bn, bk=p.bk,
             stages=p.stages, smem=p.smem, splits=p.splits,
-            kt_per=p.kt_per)
+            kt_per=p.kt_per, batch=1)
         hit = _LAUNCH_ARGS[key] = (p, args)
     p, args = hit
     if p.a_copy:
@@ -411,6 +430,9 @@ def limb_product_base(al, bl, base, sa, sb, w: int):
     if len(devs) != 1:
         raise ValueError(f"K2 operands on different devices: {devs}")
     ROUTED += 1
+    if _pk.is_batched(al, bl, base, sa, sb):
+        # inside torch.func.vmap: one batched launch for the whole batch
+        return torch.ops.dtt.k2_limb_gemm(al, bl, base, sa, sb, w)
     if al.device.type == "cpu":
         return limb_product_base_reference(al, bl, base, sa, sb, w)
     if al.device.type != "cuda":
@@ -446,3 +468,171 @@ def recombine_base(lv, base, sa, sb, w: int):
                          "into the limb product (limb_product_base)")
     ROUTED += 1
     return recombine_base_reference(lv, base, sa, sb, w)
+
+
+# ---------------------------------------------------------------------
+# The batched form: one launch for the limb products of a batch
+# ---------------------------------------------------------------------
+
+def limb_product_base_batched_reference(al, bl, base, sa, sb, w: int):
+    """Plain PyTorch batched K2: :func:`limb_product_base_reference` of
+    each element of (B, nl, M, K) / (B, nl, N, K) stacks (``base`` (B, M,
+    N) or None, ``sa`` (B, M|1, 1), ``sb`` (B, 1, N|1) or both None),
+    stacked."""
+    return torch.stack([
+        limb_product_base_reference(
+            al[i], bl[i], None if base is None else base[i],
+            None if sa is None else sa[i], None if sb is None else sb[i], w)
+        for i in range(al.shape[0])])
+
+
+def _aligned_batched(x):
+    """(B, nl, R, K) planes copied once into a zero-padded buffer with a
+    16-byte row stride (a broadcast stack stays one element)."""
+    if x.stride(0) == 0:
+        return _aligned(x[0]).unsqueeze(0).expand(x.shape)
+    B, nl, R, K = x.shape
+    buf = torch.zeros((B, nl, R, -(-K // 16) * 16), dtype=torch.int8,
+                      device=x.device)
+    buf[..., :K] = x
+    return buf[..., :K]
+
+
+def _launch_batched(al, bl, base, sa, sb, w: int):
+    """One K2 launch over (B, nl, M, K) / (B, nl, N, K) stacks: each
+    element's 2-D plan, batch strides in the arguments, workspace and tile
+    counters per element."""
+    global LAUNCHES, BATCHED_LAUNCHES
+    dev = al.device
+    B, nl, M, K = al.shape
+    N = bl.shape[2]
+    out = torch.empty((B, M, N), dtype=torch.float64, device=dev)
+    if M == 0 or N == 0 or B == 0:
+        return out
+    if sa is None:
+        unit = _UNIT.get(dev.index)
+        if unit is None:
+            unit = _UNIT[dev.index] = torch.tensor(
+                [-1.0, 1.0], dtype=torch.float64, device=dev)
+        sa, sb = unit[0:1].view(1, 1, 1), unit[1:2].view(1, 1, 1)
+    sa = sa.expand(B, M, 1)
+    sb = sb.expand(B, 1, N)
+    ok = [_tma_ok(x.stride()[1:], x.data_ptr(), nl)
+          and x.stride(0) % 16 == 0 for x in (al, bl)]
+    if not ok[0]:
+        al = _aligned_batched(al)
+    if not ok[1]:
+        bl = _aligned_batched(bl)
+    pa, pb = al.data_ptr(), bl.data_ptr()
+    key = ("batched", al.shape, bl.shape, al.stride(), bl.stride(), pa % 16,
+           pb % 16, None if base is None else base.stride(), sa.stride(),
+           sb.stride(), w, dev)
+    hit = _LAUNCH_ARGS.get(key)
+    if hit is None:
+        p = plan(nl, M, N, K, al.stride()[1:], bl.stride()[1:], pa, pb,
+                 _sms(dev))
+        args = _K2Args(
+            nl=nl, w=w, M=M, N=N, K=K,
+            bs0=0 if base is None else base.stride(1),
+            bs1=0 if base is None else base.stride(2),
+            sas=sa.stride(1), sbs=sb.stride(2), bm=p.bm, bn=p.bn, bk=p.bk,
+            stages=p.stages, smem=p.smem, splits=p.splits,
+            kt_per=p.kt_per, batch=B, a_batch=al.stride(0),
+            b_batch=bl.stride(0),
+            base_b=0 if base is None else base.stride(0),
+            sa_b=sa.stride(0), sb_b=sb.stride(0), out_b=M * N)
+        hit = _LAUNCH_ARGS[key] = (p, args)
+    p, args = hit
+    args.a_plane, args.a_row = _tma_strides(al[0])
+    args.b_plane, args.b_row = _tma_strides(bl[0])
+    args.A, args.B = pa, pb
+    args.base = None if base is None else base.data_ptr()
+    args.sa, args.sb, args.out = sa.data_ptr(), sb.data_ptr(), out.data_ptr()
+    if p.splits > 1:
+        ws, cnt = _scratch(dev, B * p.tiles * nl * TILE_M * TILE_N,
+                           B * p.tiles)
+        args.ws, args.counters = ws.data_ptr(), cnt.data_ptr()
+    args.stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _kernel()(ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"K2 batched launch failed: cudaError {err} "
+                           f"(B={B} nl={nl} M={M} N={N} K={K} {p})")
+    LAUNCHES += 1
+    BATCHED_LAUNCHES += 1
+    return out
+
+
+def limb_product_base_batched(al, bl, base, sa, sb, w: int):
+    """:func:`limb_product_base` of every element of a batch in one
+    launch: ``al`` (B, nl, M, K) and ``bl`` (B, nl, N, K) int8 planes,
+    unit stride along K; ``base`` f64 (B, M, N) or None; ``sa`` / ``sb``
+    f64 broadcastable to (B, M, 1) / (B, 1, N), or both None with no base.
+    A batch stride of 0 broadcasts one element. On a CPU tensor the plain
+    :func:`limb_product_base_batched_reference`; on a CUDA tensor one
+    launch or a raise."""
+    if al.ndim != 4 or bl.ndim != 4 or al.dtype != torch.int8 or \
+            bl.dtype != torch.int8:
+        raise TypeError(f"batched K2 takes int8 (B, nl, M, K) and (B, nl, "
+                        f"N, K) limb planes, got {al.dtype} "
+                        f"{tuple(al.shape)} and {bl.dtype} "
+                        f"{tuple(bl.shape)}")
+    B, nl, M, K = al.shape
+    if bl.shape[0] != B or bl.shape[1] != nl or bl.shape[3] != K:
+        raise ValueError(f"batched K2 limb planes disagree: "
+                         f"{tuple(al.shape)} {tuple(bl.shape)}")
+    N = bl.shape[2]
+    if (sa is None) != (sb is None) or (sa is None and base is not None):
+        raise ValueError("K2 takes both scales, or neither and no base")
+    if base is not None and (base.dtype != torch.float64
+                             or tuple(base.shape) != (B, M, N)):
+        raise TypeError(f"batched K2 takes an f64 ({B}, {M}, {N}) base, "
+                        f"got {base.dtype} {tuple(base.shape)}")
+    for s, want in ((sa, (B, M, 1)), (sb, (B, 1, N))):
+        if s is not None and (s.dtype != torch.float64 or s.ndim != 3 or
+                              any(d not in (1, e)
+                                  for d, e in zip(s.shape, want))):
+            raise TypeError(f"batched K2 takes f64 scales broadcastable to "
+                            f"{want}, got {s.dtype} {tuple(s.shape)}")
+    if al.stride(3) != 1 or bl.stride(3) != 1:
+        raise ValueError("K2 takes limb planes with unit stride along K")
+    if K < 1 or K > max_depth(nl):
+        raise ValueError(f"K2 sums K in 1..{max_depth(nl)} exactly at "
+                         f"nl={nl}, got K={K} (chunk deeper products)")
+    if B > 65535:
+        raise ValueError(f"batched K2 takes at most 65535 elements, got {B}")
+    devs = {x.device for x in (al, bl, base, sa, sb) if x is not None}
+    if len(devs) != 1:
+        raise ValueError(f"K2 operands on different devices: {devs}")
+    if al.device.type == "cpu":
+        if sa is not None:
+            sa, sb = sa.expand(B, *sa.shape[1:]), sb.expand(B, *sb.shape[1:])
+        return limb_product_base_batched_reference(al, bl, base, sa, sb, w)
+    if al.device.type != "cuda":
+        raise ValueError(f"K2 runs on cuda (or cpu), not {al.device}")
+    return _launch_batched(al, bl, base, sa, sb, w)
+
+
+@torch.library.custom_op("dtt::k2_limb_gemm", mutates_args=())
+def _k2_op(al: torch.Tensor, bl: torch.Tensor, base: Optional[torch.Tensor],
+           sa: Optional[torch.Tensor], sb: Optional[torch.Tensor],
+           w: int) -> torch.Tensor:
+    """K2 as a custom op. Reached only from :func:`limb_product_base` on
+    batched planes; called outside vmap it is a batch of one."""
+    one = [None if x is None else x[None] for x in (base, sa, sb)]
+    return limb_product_base_batched(al[None], bl[None], *one, w)[0]
+
+
+@_k2_op.register_fake
+def _(al, bl, base, sa, sb, w):
+    return al.new_empty((al.shape[1], bl.shape[1]), dtype=torch.float64)
+
+
+def _k2_vmap(info, in_dims, al, bl, base, sa, sb, w):
+    """The vmap rule: the batch axis to the front, ONE batched launch."""
+    n = info.batch_size
+    args = [_pk.front(x, d, n) for x, d in zip((al, bl, base, sa, sb),
+                                                in_dims[:5])]
+    return limb_product_base_batched(*args, w), 0
+
+
+torch.library.register_vmap("dtt::k2_limb_gemm", _k2_vmap)

@@ -28,11 +28,24 @@ the wrapper launches a kernel or raises; only a CPU tensor takes
 on-card comparison use. ``ROUTED`` counts calls that took the K1 route
 on any device, ``LAUNCHES`` the CUDA launches of either kernel
 (``WGMMA_LAUNCHES`` + ``FFMA_LAUNCHES``).
+
+The batched form (:func:`gemm_batched`) is one launch for a stack of
+products: the serving layer runs the unbatched sweeps under
+``torch.func.vmap``, as the reference runs them under ``jax.vmap``
+(whose ``pallas_call`` batching rule makes one launch of the batch).
+:func:`gemm` sees a functorch-batched operand there, counts one
+``ROUTED`` call for the site and goes through the custom op
+``dtt::k1_gemm``, whose vmap rule moves the batch axis to the front and
+makes one :func:`gemm_batched` call (a broadcast operand gets batch
+stride 0). A plain 2-D tensor never takes that route: it keeps the
+direct ctypes launch. Each element of a batched launch runs its 2-D
+plan, so it is bitwise its 2-D launch; ``BATCHED_LAUNCHES`` counts the
+batched launches (also counted in ``LAUNCHES``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +61,8 @@ LAUNCHES = 0
 #: CUDA launches of the tensor-core kernel and of the FFMA kernel
 WGMMA_LAUNCHES = 0
 FFMA_LAUNCHES = 0
+#: CUDA launches of K1 that covered a batch (counted in LAUNCHES too)
+BATCHED_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS: dict = {}
@@ -72,8 +87,17 @@ def enabled() -> bool:
 
 
 def reset_counts() -> None:
-    global ROUTED, LAUNCHES, WGMMA_LAUNCHES, FFMA_LAUNCHES
+    global ROUTED, LAUNCHES, WGMMA_LAUNCHES, FFMA_LAUNCHES, BATCHED_LAUNCHES
     ROUTED = LAUNCHES = WGMMA_LAUNCHES = FFMA_LAUNCHES = 0
+    BATCHED_LAUNCHES = 0
+
+
+def is_batched(*xs) -> bool:
+    """Is any of these a functorch-batched tensor (inside
+    ``torch.func.vmap``)? Such a tensor has no storage of its own to
+    launch from: the kernels reach it through their custom ops."""
+    return any(isinstance(x, torch.Tensor)
+               and torch._C._functorch.is_batchedtensor(x) for x in xs)
 
 
 def eligible(a, b, c=None) -> bool:
@@ -124,6 +148,12 @@ def tf32_split(x: torch.Tensor):
     lo = torch.where(torch.isfinite(hi), tf32_rna(x - hi),
                      torch.zeros_like(x))
     return hi, lo
+
+
+def gemm_batched_reference(a, b, c=None, *, alpha=1.0, beta=1.0):
+    """Plain PyTorch batched K1: :func:`gemm_reference` on (B, M, K) @
+    (B, K, N) stacks, one ``torch.matmul`` at f32 accumulation."""
+    return gemm_reference(a, b, c, alpha=alpha, beta=beta)
 
 
 def gemm_3xtf32_reference(a, b):
@@ -218,6 +248,24 @@ def _sms(device) -> int:
     return n
 
 
+def plan_batched(M: int, N: int, K: int, dtype, a_strides, b_strides,
+                 a_ptr: int = 0, b_ptr: int = 0, sms: int = H100_SMS) -> Plan:
+    """The plan of a batched launch over (B, M, K) @ (B, K, N) stacks
+    with these element strides (batch first): each element's 2-D
+    :func:`plan` (so the element is bitwise its 2-D launch), the FFMA
+    kernel when a batch stride is not a multiple of 16 bytes (TMA's rank-3
+    rule; 0, a broadcast operand, is fine)."""
+    p = plan(M, N, K, dtype, a_strides[1:], b_strides[1:], a_ptr, b_ptr,
+             sms)
+    name = dtype if isinstance(dtype, str) else str(dtype).split(".")[-1]
+    esz = {"float32": 4, "bfloat16": 2}[name]
+    if p.kernel == "wgmma" and any((s * esz) % 16 for s in
+                                   (a_strides[0], b_strides[0])):
+        return Plan("ffma", 128, 128, 16, 1, -(-max(K, 1) // 16),
+                    a_strides[2] == 1, b_strides[1] == 1, p.tiles)
+    return p
+
+
 def plan_for(a, b) -> Plan:
     """:func:`plan` of ``a @ b`` as the wrapper computes it (the SM count
     of the tensors' card; an H100's for CPU tensors)."""
@@ -249,7 +297,9 @@ class _K1Args(ctypes.Structure):
                 ("splits", ctypes.c_int), ("kt_per", ctypes.c_int),
                 ("a_k", ctypes.c_int), ("b_k", ctypes.c_int),
                 ("ws", ctypes.c_void_p), ("counters", ctypes.c_void_p),
-                ("stream", ctypes.c_void_p)]
+                ("stream", ctypes.c_void_p), ("batch", ctypes.c_int),
+                ("sab", ctypes.c_longlong), ("sbb", ctypes.c_longlong),
+                ("scb", ctypes.c_longlong), ("sob", ctypes.c_longlong)]
 
 
 def _kernel():
@@ -303,7 +353,7 @@ def _launch(a, b, c, out, alpha, beta) -> None:
             scn=0 if c is None else c.stride(1), som=N, son=1,
             kernel=int(p.kernel == "wgmma"), bm=p.bm, bn=p.bn, bk=p.bk,
             splits=p.splits, kt_per=p.kt_per, a_k=int(p.a_kmajor),
-            b_k=int(p.b_kmajor))
+            b_k=int(p.b_kmajor), batch=1)
         if p.splits > 1:
             args.counters = _counters(dev, p.tiles).data_ptr()
         hit = _LAUNCH_ARGS[key] = (p, args)
@@ -363,6 +413,9 @@ def gemm(a, b, c=None, *, alpha=1.0, beta=1.0, bm=512, bn=512, bk=512,
     if len(devs) != 1:
         raise ValueError(f"K1 operands on different devices: {devs}")
     ROUTED += 1
+    if is_batched(a, b, c):
+        # inside torch.func.vmap: one batched launch for the whole batch
+        return torch.ops.dtt.k1_gemm(a, b, c, float(alpha), float(beta))
     if a.device.type == "cpu":
         return gemm_reference(a, b, c, alpha=alpha, beta=beta)
     if a.device.type != "cuda":
@@ -375,3 +428,147 @@ def gemm(a, b, c=None, *, alpha=1.0, beta=1.0, bm=512, bn=512, bk=512,
 def matmul(a, b, **kw):
     """A @ B via the C-free kernel variant (C never read)."""
     return gemm(a, b, None, alpha=kw.pop("alpha", 1.0), beta=0.0, **kw)
+
+
+# ---------------------------------------------------------------------
+# The batched form: one launch for a stack of products
+# ---------------------------------------------------------------------
+
+#: device index -> int32 per-tile counters of batched split-K launches
+#: (apart from the 2-D launches', whose cached arguments hold theirs)
+_BCOUNTERS: dict = {}
+
+
+def _batch_counters(device, n: int):
+    buf = _BCOUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _BCOUNTERS[device.index] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=device)
+    return buf
+
+
+def _launch_batched(a, b, c, out, alpha, beta) -> None:
+    """One K1 launch over (B, M, K) @ (B, K, N) stacks into ``out`` (B, M,
+    N): each element's 2-D plan, batch strides in the arguments,
+    workspace and tile counters per element."""
+    global LAUNCHES, WGMMA_LAUNCHES, FFMA_LAUNCHES, BATCHED_LAUNCHES
+    dev = a.device
+    B, M, K = a.shape
+    N = b.shape[2]
+    pa, pb = a.data_ptr(), b.data_ptr()
+    key = ("batched", a.shape, b.shape, a.stride(), b.stride(), a.dtype,
+           None if c is None else c.stride(), (pa | pb) % 16 == 0, dev)
+    hit = _LAUNCH_ARGS.get(key)
+    if hit is None:
+        p = plan_batched(M, N, K, a.dtype, a.stride(), b.stride(), pa, pb,
+                         _sms(dev))
+        args = _K1Args(
+            dtype=_DTYPES[a.dtype], has_c=int(c is not None), M=M, N=N, K=K,
+            sam=a.stride(1), sak=a.stride(2), sbk=b.stride(1),
+            sbn=b.stride(2), scm=0 if c is None else c.stride(1),
+            scn=0 if c is None else c.stride(2), som=N, son=1,
+            kernel=int(p.kernel == "wgmma"), bm=p.bm, bn=p.bn, bk=p.bk,
+            splits=p.splits, kt_per=p.kt_per, a_k=int(p.a_kmajor),
+            b_k=int(p.b_kmajor), batch=B, sab=a.stride(0), sbb=b.stride(0),
+            scb=0 if c is None else c.stride(0), sob=M * N)
+        hit = _LAUNCH_ARGS[key] = (p, args)
+    p, args = hit
+    if out.numel() == 0:
+        return
+    args.A, args.B, args.O = pa, pb, out.data_ptr()
+    args.C = None if c is None else c.data_ptr()
+    args.alpha, args.beta = alpha, beta
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty(B * p.splits * p.tiles * TILE_M * TILE_N,
+                         dtype=torch.float32, device=dev)
+        args.ws = ws.data_ptr()
+        # per call: the batched counters may grow, the 2-D ones never do
+        args.counters = _batch_counters(dev, B * p.tiles).data_ptr()
+    args.stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _kernel()(ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"K1 batched {p.kernel} launch failed: cudaError "
+                           f"{err} (shapes {tuple(a.shape)} "
+                           f"{tuple(b.shape)} {a.dtype} {p})")
+    LAUNCHES += 1
+    BATCHED_LAUNCHES += 1
+    if p.kernel == "wgmma":
+        WGMMA_LAUNCHES += 1
+    else:
+        FFMA_LAUNCHES += 1
+
+
+def gemm_batched(a, b, c=None, *, alpha=1.0, beta=1.0):
+    """C[i] = alpha * A[i] @ B[i] + beta * C[i] for every i, one launch.
+
+    A:(B,M,K) B:(B,K,N) C:(B,M,N), real f32/bf16, any strides; a batch
+    stride of 0 broadcasts one matrix to every element (the vmap rule
+    gives an unbatched operand so). On a CPU tensor the plain
+    :func:`gemm_batched_reference`; on a CUDA tensor one launch or a
+    raise."""
+    if beta == 0.0:
+        c = None
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"batched K1 takes 3-D stacks, got {a.shape} "
+                         f"{b.shape}")
+    B, M, K = a.shape
+    N = b.shape[2]
+    if b.shape[0] != B or b.shape[1] != K or (
+            c is not None and tuple(c.shape) != (B, M, N)):
+        raise ValueError(f"batched K1 shape mismatch: {tuple(a.shape)} "
+                         f"{tuple(b.shape)} "
+                         f"{None if c is None else tuple(c.shape)}")
+    if max(M, N, K) >= 2**31 or B > 65535:
+        raise ValueError(f"batched K1 sizes out of range: {B} {M} {N} {K}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or \
+            (c is not None and c.dtype != a.dtype):
+        raise TypeError(f"K1 takes f32 or bf16 operands of one dtype, got "
+                        f"{a.dtype} {b.dtype} "
+                        f"{None if c is None else c.dtype}")
+    devs = {a.device, b.device} | ({c.device} if c is not None else set())
+    if len(devs) != 1:
+        raise ValueError(f"K1 operands on different devices: {devs}")
+    if a.device.type == "cpu":
+        return gemm_batched_reference(a, b, c, alpha=alpha, beta=beta)
+    if a.device.type != "cuda":
+        raise ValueError(f"K1 runs on cuda (or cpu), not {a.device}")
+    out = torch.empty((B, M, N), dtype=a.dtype, device=a.device)
+    _launch_batched(a, b, c, out, float(alpha), float(beta))
+    return out
+
+
+def front(x, bdim, size: int):
+    """``x`` with its vmap batch axis first; an unbatched operand
+    broadcast over the batch (batch stride 0). None stays None."""
+    if x is None:
+        return None
+    if bdim is None:
+        return x.unsqueeze(0).expand(size, *x.shape)
+    return x.movedim(bdim, 0)
+
+
+@torch.library.custom_op("dtt::k1_gemm", mutates_args=())
+def _k1_op(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
+           alpha: float, beta: float) -> torch.Tensor:
+    """K1 as a custom op. Reached only from :func:`gemm` on a batched
+    operand; called outside vmap it is a batch of one."""
+    out = gemm_batched(a[None], b[None], None if c is None else c[None],
+                       alpha=alpha, beta=beta)
+    return out[0]
+
+
+@_k1_op.register_fake
+def _(a, b, c, alpha, beta):
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+def _k1_vmap(info, in_dims, a, b, c, alpha, beta):
+    """The vmap rule: the batch axis to the front, ONE batched launch."""
+    n = info.batch_size
+    return gemm_batched(front(a, in_dims[0], n), front(b, in_dims[1], n),
+                        front(c, in_dims[2], n), alpha=alpha,
+                        beta=beta), 0
+
+
+torch.library.register_vmap("dtt::k1_gemm", _k1_vmap)

@@ -37,6 +37,7 @@ import torch
 
 from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
+from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.observability import phases
 from dplasma_tpu_torch.utils import config as _cfg
 
@@ -121,7 +122,9 @@ def qgemm(a, b, tile: Optional[int] = None):
             p = p.to(_F32)
             p.mul_(sa[:, j].repeat_interleave(t)[:, None])
             p.mul_(sbt[:, j].repeat_interleave(t)[None, :])
-            _f(acc.add_(p))
+            # out of place under torch.func.vmap (the serving batch)
+            acc = acc + p if _pk.is_batched(p) else acc.add_(p)
+            _f(acc)
         del p
     return acc[:m, :n]
 

@@ -76,6 +76,8 @@ applies, 8 K3 and 24 + 256 = 280 K1 launches.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -86,6 +88,7 @@ from dplasma_tpu_torch.kernels import blas as k
 from dplasma_tpu_torch.kernels import dd as _dd
 from dplasma_tpu_torch.kernels import hostlink
 from dplasma_tpu_torch.kernels import householder as hh
+from dplasma_tpu_torch.kernels import pallas_kernels as _pk
 from dplasma_tpu_torch.kernels import pallas_lu
 from dplasma_tpu_torch.kernels import panels as _panels
 from dplasma_tpu_torch.kernels import quant as _quant
@@ -142,10 +145,11 @@ def _swaps_to_perm(swaps, m: int):
     *batch, kk = swaps.shape
     dev = swaps.device
     ident = torch.arange(m, device=dev)
-    t = ident.expand(*batch, kk, m).clone()
+    t = ident.expand(*batch, kk, m)
     j = torch.arange(kk, device=dev).expand(*batch, kk)[..., None]
-    t.scatter_(-1, j, swaps[..., None])          # t[i][i] = swaps[i]
-    t.scatter_(-1, swaps[..., None], j)          # t[i][swaps[i]] = i
+    # out of place, so batched swaps (torch.func.vmap) compose too
+    t = torch.scatter(t, -1, j, swaps[..., None])   # t[i][i] = swaps[i]
+    t = torch.scatter(t, -1, swaps[..., None], j)   # t[i][swaps[i]] = i
     while t.shape[-2] > 1:
         if t.shape[-2] % 2:
             t = torch.cat([t, ident.expand(*batch, 1, m)], dim=-2)
@@ -209,18 +213,25 @@ def getrf_nopiv(A: TileMatrix, lookahead=None) -> TileMatrix:
 
 # -- partial pivoting --------------------------------------------------
 
+#: serializes the switch of torch's process-global linalg backend in
+#: :func:`_lu_chain` (the serving layer factors from timer threads too)
+_LINALG_LOCK = threading.Lock()
+
+
 def _lu_chain(panel):
     """cuSOLVER's (LAPACK's on the CPU) pivoted LU of one panel, its
     1-based pivots turned into a perm on the device. cuSOLVER is asked
     for by name: torch's default choice for a tall panel takes MAGMA,
-    ~10x slower at 8192x256 on an H100 (PERF.md)."""
+    ~10x slower at 8192x256 on an H100 (PERF.md). The backend setting is
+    process-global, so its switch and the factorization hold a lock."""
     if panel.device.type == "cuda":
-        prev = torch.backends.cuda.preferred_linalg_library()
-        torch.backends.cuda.preferred_linalg_library("cusolver")
-        try:
-            lu, piv, _ = torch.linalg.lu_factor_ex(panel)
-        finally:
-            torch.backends.cuda.preferred_linalg_library(prev)
+        with _LINALG_LOCK:
+            prev = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            try:
+                lu, piv, _ = torch.linalg.lu_factor_ex(panel)
+            finally:
+                torch.backends.cuda.preferred_linalg_library(prev)
     else:
         lu, piv, _ = torch.linalg.lu_factor_ex(panel)
     return lu, _swaps_to_perm(piv.long() - 1, panel.shape[-2])
@@ -239,6 +250,12 @@ def _base_lu(panel, chunk: int | None = None, kind: str | None = None):
     m, ib = panel.shape
     if kind is None:
         kind = _panels.panel_kernel("lu")
+    if _pk.is_batched(panel) and (kind == "pallas" or (
+            (_cfg.mca_get("lu.pallas_panel") or "off").lower() == "on")):
+        raise NotImplementedError(
+            "K3 has no batched launch yet (ROADMAP queue 1: K3's batched "
+            "launch): a batched LU (the serving layer's gesv) takes "
+            "panel.kernel chain or rec, not pallas")
     if kind == "pallas":
         if pallas_lu.eligible(panel):
             return pallas_lu.lu_panel(panel)
@@ -285,7 +302,8 @@ def _lu_finish(packs, urows, step_ids, ids, Mp, KT, NT, bw):
     def reorder(kk):
         sids = step_ids[kk]
         wpos = torch.zeros(Mp, dtype=torch.int64, device=sids.device)
-        wpos[sids] = torch.arange(sids.shape[0], device=sids.device)
+        wpos = wpos.scatter(0, sids, torch.arange(sids.shape[0],
+                                                  device=sids.device))
         return wpos[final_ids[(kk + 1) * bw:]]
 
     full = _sweep.assemble_sweep(packs, urows, KT, NT, bw, reorder=reorder)

@@ -36,13 +36,19 @@ enabled), K3 (gesv_ir's panels under ``panel.kernel=pallas``) and K4
 factor's dtype; ``gels_ir`` refines least squares via semi-normal
 equations on the QR ``R`` factor (R^T R d = A^T r: no Q per iteration).
 
-Control flow is the reference's eager mode only: a host loop with an
-early exit on convergence, divergence detection (non-finite or stalled
-backward error) and escalation by running the full-precision route
-(``potrf`` + ``potrs``, ``getrf_ptgpanel`` + ``getrs``, ``qr.gels``:
-native FP64 under ``dd_gemm=auto``, the dd route under ``always``). The
-reference's traced masked loop (refine.py:235-264) exists for
-``jax.jit``, and the port has no jit. The analytic ``dag`` waits for
+Control flow has the reference's two modes. The default (``eager=True``)
+is its eager mode: a host loop with an early exit on convergence,
+divergence detection (non-finite or stalled backward error) and
+escalation by running the full-precision route (``potrf`` + ``potrs``,
+``getrf_ptgpanel`` + ``getrs``, ``qr.gels``: native FP64 under
+``dd_gemm=auto``, the dd route under ``always``). ``eager=False`` is its
+traced mode (refine.py:235-264): exactly ``max_iters`` masked steps and
+one last residual, work after convergence masked by ``torch.where`` and
+not skipped, no host read, the convergence mask, iteration count and
+history per batch element under ``torch.func.vmap``. The serving layer's
+batched IR selects it, with escalation off (``escalate=False``, as the
+reference's batched IR runs): each of its ``max_iters + 1`` residuals is
+one K2 launch for the whole batch. The analytic ``dag`` waits for
 ROADMAP queue 1 item 15. The solvers carry the reference's phase spans
 (``factor``, which encloses the inner factorization's own spans,
 ``solve``, ``residual``, ``correct``, ``escalate``), no-ops unless a
@@ -127,19 +133,25 @@ def _maxabs(x):
 # ---------------------------------------------------------------------
 
 def ir_solve(x, *, residual, correct, backward, escalate, tol: float,
-             max_iters: int):
+             max_iters: int, eager: bool = True):
     """The generic iterative-refinement engine: ``residual(x) -> r``
     (f64-equivalent), ``correct(r) -> d`` (working-precision solve, f64
     out), ``backward(r, x) -> scalar`` (normwise backward error),
     ``escalate() -> x`` (full-precision route; None disables).
 
-    A host loop with early exit and divergence detection (a non-finite
-    or non-contracting backward error ends it); when the budget runs out
-    right after a correction, that x gets its own verdict. Returns ``(x,
-    info)``: ``backward_errors`` (fixed length ``max_iters + 1``, padded
-    with the finite "no verdict" −1, which also records a non-finite
-    measurement), ``iterations`` (corrections applied), ``converged``,
-    ``escalated``; host tensors."""
+    Eager (the default): a host loop with early exit and divergence
+    detection (a non-finite or non-contracting backward error ends it);
+    when the budget runs out right after a correction, that x gets its
+    own verdict. ``eager=False``: :func:`_ir_masked`, the reference's
+    traced loop. Returns ``(x, info)``: ``backward_errors`` (fixed length
+    ``max_iters + 1``, padded with the finite "no verdict" −1, which also
+    records a non-finite measurement), ``iterations`` (corrections
+    applied), ``converged``, ``escalated``; host tensors in eager mode,
+    x's device in the masked one."""
+    if not eager:
+        return _ir_masked(x, residual=residual, correct=correct,
+                          backward=backward, escalate=escalate, tol=tol,
+                          max_iters=max_iters)
     bwds = []
     converged = False
     nsolves = 0
@@ -178,6 +190,44 @@ def ir_solve(x, *, residual, correct, backward, escalate, tol: float,
             "iterations": torch.tensor(nsolves, dtype=torch.int32),
             "converged": torch.tensor(converged),
             "escalated": torch.tensor(escalated)}
+    return x, info
+
+
+def _ir_masked(x, *, residual, correct, backward, escalate, tol: float,
+               max_iters: int):
+    """The reference's traced refinement loop (refine.py:235-264):
+    exactly ``max_iters`` masked steps, then the last correction's
+    verdict. Work after convergence is masked with ``torch.where``, not
+    skipped, and nothing is read on the host, so under
+    ``torch.func.vmap`` each element converges (and stops updating) on
+    its own. No divergence exit. ``escalate`` runs where the solve did
+    not converge (the reference's ``lax.cond``; its batched callers pass
+    None)."""
+    pad = torch.tensor(-1.0, dtype=x.dtype, device=x.device)
+    done = torch.tensor(False, device=x.device)
+    iters = torch.tensor(0, dtype=torch.int32, device=x.device)
+    hist = []
+    for _ in range(max_iters):
+        r = residual(x)
+        bwd = backward(r, x)
+        hist.append(torch.where(done | ~torch.isfinite(bwd), pad,
+                                bwd.to(x.dtype)))
+        newly = bwd <= tol
+        d = correct(r)
+        x = torch.where(done | newly, x, x + d)
+        iters = iters + (~(done | newly)).to(torch.int32)
+        done = done | newly
+    r = residual(x)
+    bwd = backward(r, x)
+    hist.append(torch.where(done | ~torch.isfinite(bwd), pad,
+                            bwd.to(x.dtype)))
+    done = done | (bwd <= tol)
+    if escalate is not None:
+        x = torch.where(done, x, escalate())
+    info = {"backward_errors": torch.stack(hist), "iterations": iters,
+            "converged": done,
+            "escalated": torch.tensor(escalate is not None,
+                                      device=x.device) & ~done}
     return x, info
 
 
@@ -261,14 +311,15 @@ def _with_guard(info, prec: str, guards):
 
 def posv_ir(A: TileMatrix, B: TileMatrix, uplo: str = "L", *,
             precision=None, max_iters=None, tol=None,
-            escalate: bool = True):
+            escalate: bool = True, eager: bool = True):
     """SPD solve A X = B by Cholesky in a low working precision +
     iterative refinement to f64-equivalent backward error.
 
     ``A`` stores the ``uplo`` triangle (posv contract); returns ``(X,
     info)`` with ``X`` f64 and ``info`` the refinement record
     (:func:`summarize` turns it into the run record's ``"refine"``
-    entry). ``escalate=False`` disables the full-precision fallback."""
+    entry). ``escalate=False`` disables the full-precision fallback;
+    ``eager=False`` runs the masked loop (:func:`ir_solve`)."""
     from dplasma_tpu_torch.ops import potrf as potrf_mod
     _require_f64(A, "posv_ir")
     prec, iters, tol_ = ir_params(precision, max_iters, tol)
@@ -307,15 +358,16 @@ def posv_ir(A: TileMatrix, B: TileMatrix, uplo: str = "L", *,
     x, info = ir_solve(
         x0, residual=residual, correct=solve_w, backward=backward,
         escalate=escalate_fn if escalate else None,
-        tol=tol_, max_iters=iters)
+        tol=tol_, max_iters=iters, eager=eager)
     return _tile(x, B), _with_guard(info, prec, guards)
 
 
 def gesv_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
-            max_iters=None, tol=None, escalate: bool = True):
+            max_iters=None, tol=None, escalate: bool = True,
+            eager: bool = True):
     """General solve A X = B by pivoted LU in a low working precision +
     iterative refinement to f64-equivalent backward error. Returns
-    ``(X, info)`` (see :func:`posv_ir`). The factor is
+    ``(X, info)`` (see :func:`posv_ir`, also for ``eager``). The factor is
     :func:`~dplasma_tpu_torch.ops.lu.getrf_ptgpanel` (the distributed
     panel under an active grid, else ``getrf_1d``); the f32x2 rung
     refines its L and U for the FIXED pivot order with one whole-matrix
@@ -365,7 +417,7 @@ def gesv_ir(A: TileMatrix, B: TileMatrix, *, precision=None,
     x, info = ir_solve(
         x0, residual=residual, correct=solve_w, backward=backward,
         escalate=escalate_fn if escalate else None,
-        tol=tol_, max_iters=iters)
+        tol=tol_, max_iters=iters, eager=eager)
     return _tile(x, B), _with_guard(info, prec, guards)
 
 

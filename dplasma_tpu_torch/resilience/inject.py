@@ -185,6 +185,11 @@ def disarm() -> List[dict]:
     return faults
 
 
+def armed() -> bool:
+    """Is a plan armed and not suppressed (a tap could fire)?"""
+    return _S.plan is not None and _S.suppress == 0
+
+
 def rearm() -> None:
     """Reset the armed plan's site counters and fault log without
     disarming; no-op when nothing is armed."""

@@ -1922,3 +1922,146 @@ def test_k1_launch_failure_under_abft_fails_the_run(card, k1_on,
         main(["testing_spotrf", "-N", "2048", "-t", "256", "-x", "--abft"])
     assert pk.enabled()
     assert cfg.mca_snapshot().get("panel.kernel") is None
+
+
+# ---------------------------------------------------------------------
+# The serving layer: K1 and K2 launched once for a batch
+# ---------------------------------------------------------------------
+
+def _stack(card, g, shape, stride=None):
+    x = torch.randn(*shape, generator=g, device=card)
+    return x if stride is None else x.as_strided(shape, stride)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "b_broadcast", "b_view",
+                                  "ffma", "split_k"])
+def test_k1_batched_elements_are_their_2d_launches(card, case):
+    """One batched K1 launch: each element ``torch.equal`` to the 2-D
+    launch of that element (a broadcast operand with batch stride 0, a
+    transposed B view, an operand only the FFMA kernel takes, a product
+    split over K inside the launch with per-element workspace and
+    counters), the stack within 1e-5 of the plain batched version, two
+    launches ``torch.equal``."""
+    g = torch.Generator(device=card).manual_seed(21)
+    B, M, K, N = 8, 512, 256, 384
+    c = None
+    if case == "b_broadcast":
+        b = _stack(card, g, (K, N)).expand(B, K, N)
+    elif case == "b_view":
+        b = _stack(card, g, (B, N, K)).mT
+    elif case == "ffma":
+        M, K, N = 300, 777, 260
+        b = _stack(card, g, (B, K, N))
+    elif case == "split_k":
+        M, K, N = 256, 4096, 256
+        b = _stack(card, g, (B, K, N))
+    else:
+        b = _stack(card, g, (B, K, N))
+        c = _stack(card, g, (B, M, N))
+    a = _stack(card, g, (B, M, K))
+    p = pk.plan_batched(M, N, K, a.dtype, a.stride(), b.stride(),
+                        a.data_ptr(), b.data_ptr(), pk._sms(a.device))
+    assert p.kernel == ("ffma" if case == "ffma" else "wgmma")
+    if case == "split_k":
+        assert p.splits > 1
+    n0 = pk.BATCHED_LAUNCHES
+    out = pk.gemm_batched(a, b, c, alpha=1.5, beta=-0.5)
+    assert pk.BATCHED_LAUNCHES == n0 + 1
+    for i in range(B):
+        assert torch.equal(out[i], pk.gemm(a[i], b[i], None if c is None
+                                           else c[i], alpha=1.5,
+                                           beta=-0.5)), i
+    assert torch.equal(out, pk.gemm_batched(a, b, c, alpha=1.5, beta=-0.5))
+    ref = pk.gemm_batched_reference(a, b, c, alpha=1.5, beta=-0.5)
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_k2_batched_is_bitwise_the_plain_version(card, broadcast):
+    """One batched K2 launch on IR-residual shapes (nl = 8, N = 4) and a
+    square product: bitwise the plain batched version and each element's
+    2-D launch; a broadcast operand (batch stride 0) too."""
+    g = torch.Generator(device=card).manual_seed(22)
+    for B, M, N, K in ((16, 1024, 4, 1024), (4, 300, 200, 777)):
+        al = torch.randint(-127, 128, (B, 8, M, K), generator=g,
+                           device=card, dtype=torch.int8)
+        bl = torch.randint(-127, 128, (1 if broadcast else B, 8, N, K),
+                           generator=g, device=card, dtype=torch.int8)
+        bl = bl.expand(B, 8, N, K)
+        base = torch.randn(B, M, N, generator=g, device=card,
+                           dtype=torch.float64)
+        sa = torch.exp2(torch.randint(-5, 5, (B, M, 1), generator=g,
+                                      device=card).double())
+        sb = torch.exp2(torch.randint(-5, 5, (1, 1, N), generator=g,
+                                      device=card).double())
+        n0 = pdd.BATCHED_LAUNCHES
+        out = pdd.limb_product_base_batched(al, bl, base, sa, sb, 7)
+        assert pdd.BATCHED_LAUNCHES == n0 + 1
+        ref = pdd.limb_product_base_batched_reference(
+            al, bl, base, sa, sb.expand(B, 1, N), 7)
+        assert torch.equal(out, ref)
+        for i in range(B):
+            assert torch.equal(out[i], pdd.limb_product_base(
+                al[i], bl[i], base[i], sa[i], sb[0], 7)), i
+
+
+@pytest.mark.parametrize("op", ["posv", "gesv", "posv_ir"])
+def test_batched_solve_launches_once_per_site(card, k1_on, op):
+    """A batched solve at n = 768, nb = 256 on the card: every K1 site
+    one batched launch (one element's count), every IR residual one K2
+    launch, no 2-D launch, the solutions those of the unbatched solves."""
+    from dplasma_tpu_torch.serving import batched
+    from dplasma_tpu_torch.tools import servebench
+    from dplasma_tpu_torch.utils import config as cfg
+    g = torch.Generator(device=card).manual_seed(23)
+    n, nb, B = 768, 256, 4
+    dt = torch.float64 if op.endswith("_ir") else torch.float32
+    a = torch.randn(B, n, n, generator=g, device=card, dtype=torch.float64)
+    eye = torch.eye(n, device=card, dtype=torch.float64)
+    A = (a @ a.mT / n + eye if op.startswith("posv")
+         else a / n ** 0.5 + 2 * eye).to(dt)
+    b = torch.randn(B, n, 3, generator=g, device=card, dtype=dt)
+    pk.reset_counts()
+    pdd.reset_counts()
+    with cfg.override_scope({"ir.precision": "f32"}):
+        X, _ = batched.solve_batched(op, A, b, nb)
+        torch.cuda.synchronize()
+        nt = n // nb
+        solves = 11 if op.endswith("_ir") else 1
+        want = 2 * nt - 3 + solves * 2 * (nt - 1)
+        assert pk.LAUNCHES == pk.BATCHED_LAUNCHES == want
+        assert pdd.LAUNCHES == pdd.BATCHED_LAUNCHES == (
+            11 if op.endswith("_ir") else 0)
+        for i in range(B):
+            u = servebench.solve_one(op, A[i], b[i], nb)
+            tol = 1e-10 if op.endswith("_ir") else 1e-4
+            assert _rel(X[i], u) <= tol
+
+
+def test_solver_service_on_the_card(card, k1_on):
+    """``SolverService`` on the card: ragged requests batch by bucket,
+    every future resolves and passes the gate, the struck request of a
+    ``nan@serving`` plan heals on its own ladder."""
+    import numpy as np
+
+    from dplasma_tpu_torch.resilience import inject
+    from dplasma_tpu_torch.serving import SolverService
+    rng = np.random.default_rng(24)
+    svc = SolverService(nb=256, max_batch=4, device=card)
+    reqs = []
+    for n in (384, 500, 512, 700, 768, 1000):
+        a = rng.standard_normal((n, n))
+        reqs.append(((a @ a.T / n + np.eye(n)).astype(np.float32),
+                     rng.standard_normal((n, 2)).astype(np.float32)))
+    with inject.active(inject.parse_plan("nan@serving:1:1")) as faults:
+        futs = [svc.submit("posv", a, b) for a, b in reqs]
+        svc.flush()
+        xs = [f.result(300.0) for f in futs]
+    assert len(faults) == 1
+    assert sum("resilience" in f.meta for f in futs) == 1
+    for (a, b), f, x in zip(reqs, futs, xs):
+        assert f.meta["ok"] and f.meta["batched"]
+        want = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+        assert np.abs(x - want).max() <= 1e-4 * np.abs(want).max()
+    assert svc.summary()["batches"] == 4     # buckets 384, 512, 768, 1024
+    svc.close()

@@ -59,7 +59,10 @@ def test_sweep_finds_the_package():
                 "observability/chrome.py", "observability/tracing.py",
                 "observability/telemetry.py", "observability/devprof.py",
                 "observability/trend.py", "analysis/hlo_names.py",
-                "analysis/spmdcheck.py", "tools/perfdiff.py"):
+                "analysis/spmdcheck.py", "tools/perfdiff.py",
+                "serving/__init__.py", "serving/admission.py",
+                "serving/batched.py", "serving/cache.py",
+                "serving/service.py", "tools/servebench.py"):
         assert f"dplasma_tpu_torch/{mod}" in names, mod
 
 
